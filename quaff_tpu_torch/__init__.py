@@ -6,13 +6,18 @@ Pallas kernel on a ported path becomes a kernel written by hand for
 Hopper (`csrc/`, built at first use by `kernels.py`).
 
 Ported so far: `quaff align` (cli.py -> aligner.py -> dp/fill_v2.py, whose
-banded Viterbi/Forward score fill is the CUDA kernel csrc/band_fill.cu).
+banded Viterbi score fill is the CUDA kernel csrc/band_fill.cu), and
+`quaff train` / `count` (cli.py -> trainer.py -> dp/estep.py, whose fused
+E-step is the CUDA kernels of csrc/estep.cu; dp/counts.py is the exact
+engine).
 
-The jax-free modules of `quaff_tpu` (alphabet, io.fastseq, model,
-envelope, formats.alignment, native, logger, cli's parsing helpers) are
-imported, not copied; the numpy pieces that live in modules importing JAX
-(dp.scores, dp.engine's PairBatch, dp.traceback, dp.debug) have jax-free
-copies under dp/.  Nothing here imports `jax`.
+The package stands alone: it imports nothing of `quaff_tpu` and no `jax`.
+It keeps its own copies of the jax-free modules it needs, under the JAX
+package's names (alphabet, io, model, envelope, formats, logger, memsize,
+checkpoint, cliargs for cli's argument helpers, and the bindings of
+native, whose library build.py compiles from native/*.cpp), and jax-free
+copies of the numpy pieces of modules that import JAX (dp.scores,
+dp.engine's PairBatch, dp.traceback, dp.debug).
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,9 @@
 Ported from quaff_tpu/aligner.py.  Every candidate pair is scored by K1
 (dp/fill_v2.scores_v2) on `config.device`: the CUDA kernel on a card, its
 plain PyTorch version on the CPU.  The winners are then refilled in
-float64 on the host (the native library, or dp/engine.dp_fill when it is
-not built) and walked back, so the text output is decided in float64
-exactly as in the JAX package; the float32 scores only choose the winners.
+float64 on the host by the port's native library and walked back, so the
+text output is decided in float64 exactly as in the JAX package; the
+float32 scores only choose the winners.
 
 Not ported here: the device mesh (-mesh), remote, qsub and ssh/EC2
 backends (the CLI refuses them), and the JAX package's TPU workarounds
@@ -17,7 +17,6 @@ VMEM-derived batch caps: chunks are sized from the card's memory).
 from __future__ import annotations
 
 import math
-import os
 import threading
 from dataclasses import dataclass
 from typing import IO, List, Optional
@@ -25,7 +24,7 @@ from typing import IO, List, Optional
 import numpy as np
 import torch
 
-from quaff_tpu.envelope import (
+from .envelope import (
     DEFAULT_BAND_SIZE,
     DEFAULT_KMER_LENGTH,
     DEFAULT_KMER_THRESHOLD,
@@ -34,18 +33,14 @@ from quaff_tpu.envelope import (
     make_envelope,
     pack_strips,
 )
-from quaff_tpu.formats.alignment import Alignment, AlignmentPrinter
-from quaff_tpu.io.fastseq import FastSeq, KmerIndex
-from quaff_tpu.logger import ProgressLogger, logger
-from quaff_tpu.model.params import QuaffNullParams, QuaffParams
-from quaff_tpu.native import (
-    align_fill_native,
-    align_path_available,
-    align_score_native,
-)
+from .formats.alignment import Alignment, AlignmentPrinter
+from .io.fastseq import FastSeq, KmerIndex
+from .logger import ProgressLogger, logger
+from .model.params import QuaffNullParams, QuaffParams
+from .native import align_fill_native, align_score_native
 
 from .device import resolve_device
-from .dp.engine import PairBatch, dp_fill, table_tensors, to_device
+from .dp.engine import PairBatch, to_device
 from .dp.fill_v2 import V2Tables, batch_max_prop, scores_v2
 from .dp.scores import ScoreTables
 from .dp.traceback import viterbi_path_traceback, viterbi_traceback
@@ -129,27 +124,6 @@ class QuaffAligner:
         self.device = resolve_device(config.device)
         self.tables = ScoreTables.from_params(params)
         self.v2tab = V2Tables.from_tables(self.tables, self.device)
-        # float64 tables for the host refill when the native library is
-        # missing
-        self._host_tables = table_tensors(self.tables, torch.float64, "cpu")
-
-    def _fill_winners(self, wbatch: PairBatch, threads=None,
-                      reuse_buffers: bool = False) -> dict:
-        """Float64 banded fill with matrices for a winner batch: the native
-        library, else the float64 engine on the host CPU (the JAX aligner
-        takes the same route)."""
-        res = align_fill_native(
-            wbatch, self.tables, mode="viterbi", local=self.config.local,
-            threads=threads, reuse_buffers=reuse_buffers,
-        )
-        if res is not None:
-            return res
-        res = dp_fill(
-            self._host_tables, to_device(wbatch, "cpu"), mode="viterbi",
-            local=self.config.local, return_matrices=True,
-            dtype=torch.float64,
-        )
-        return {k: v.numpy() for k, v in res.items()}
 
     def align_read(self, refs: List[FastSeq], y: FastSeq) -> List[Alignment]:
         """Align one read against all refs; returns the best alignment (or
@@ -187,7 +161,8 @@ class QuaffAligner:
         wbatch = PairBatch.build(
             [(refs[nx], y, envs[nx]) for nx in picks], self.tables
         )
-        res = self._fill_winners(wbatch)
+        res = align_fill_native(wbatch, self.tables, mode="viterbi",
+                                local=self.config.local)
         out: List[Alignment] = []
         for i, nx in enumerate(picks):
             score = float(res["score"][i])
@@ -339,71 +314,39 @@ class QuaffAligner:
             return v
 
         # one checkpointed native call per winner (fill + walk fused, no DP
-        # matrices); the matrix fill when the library is not built
-        use_path = align_path_available()
+        # matrices)
         T = max(1, self.config.threads)
 
         def fill_and_walk(chunk):
             """One worker unit: resolve each winner's best strip in float64
             and walk its traceback.  chunk: [(seq, ny, nx, strips)]."""
             out = []
-            if use_path:
-                for seq, ny, nx, strips in chunk:
-                    if len(strips) > 1:
-                        # matrix-free score fills pick the float64-best
-                        # strip (first strict max, like the matrix path)
-                        wb = PairBatch.build(
-                            [(refs[nx], reads[ny], s) for s in strips],
-                            self.tables,
-                        )
-                        sc = align_score_native(
-                            wb, self.tables, mode="viterbi",
-                            local=self.config.local, threads=1,
-                        )
-                        strip = strips[int(np.argmax(sc))]
-                    else:
-                        strip = strips[0]
-                    a = viterbi_path_traceback(
-                        refs[nx], reads[ny], strip, self.tables,
-                        local=self.config.local,
-                    )
-                    a.score -= null_ll(ny)
-                    out.append((seq, ny, a))
-                return out
-            entries = [
-                (refs[nx], reads[ny], s)
-                for _, ny, nx, ss in chunk
-                for s in ss
-            ]
-            # each pool worker fills its chunk serially (the pool is the
-            # parallelism) into its thread-local output arenas
-            res = self._fill_winners(
-                PairBatch.build(entries, self.tables),
-                threads=max(1, (os.cpu_count() or 1) // T),
-                reuse_buffers=True,
-            )
-            b = 0
             for seq, ny, nx, strips in chunk:
-                best_b = b
-                best_sc = float(res["score"][b])
-                for k in range(1, len(strips)):
-                    sc = float(res["score"][b + k])
-                    if sc > best_sc:
-                        best_b, best_sc = b + k, sc
-                a = viterbi_traceback(
-                    refs[nx], reads[ny], strips[best_b - b], self.tables,
-                    res["mat"][best_b], res["ins"][best_b],
-                    res["del"][best_b], best_sc,
+                if len(strips) > 1:
+                    # matrix-free score fills pick the float64-best strip
+                    # (the first strict maximum)
+                    wb = PairBatch.build(
+                        [(refs[nx], reads[ny], s) for s in strips],
+                        self.tables,
+                    )
+                    sc = align_score_native(
+                        wb, self.tables, mode="viterbi",
+                        local=self.config.local, threads=1,
+                    )
+                    strip = strips[int(np.argmax(sc))]
+                else:
+                    strip = strips[0]
+                a = viterbi_path_traceback(
+                    refs[nx], reads[ny], strip, self.tables,
                     local=self.config.local,
                 )
                 a.score -= null_ll(ny)
                 out.append((seq, ny, a))
-                b += len(strips)
             return out
 
-        # PairBatch.build pads every entry to the chunk max (rows, width),
-        # so the footprint cap tracks the PADDED element count; in-flight
-        # futures are windowed so at most T+1 chunks' matrices exist.
+        # a worker unit holds winners up to a padded DP area (strips x rows
+        # x width), so units carry similar work; in-flight futures are
+        # windowed to T+1 units.
         max_elems = 6_000_000
         pool = ThreadPoolExecutor(T)
         futures = deque()

@@ -1,16 +1,16 @@
 """quaff-compatible command line for the PyTorch port:
 
     python -m quaff_tpu_torch.cli align refs.fasta reads.fastq [options]
+    python -m quaff_tpu_torch.cli train refs.fasta reads.fastq [options]
+    python -m quaff_tpu_torch.cli count refs.fasta reads.fastq [options]
 
-Ported from quaff_tpu/cli.py.  The flag surface and its parsing are
-quaff_tpu.cli's own jax-free helpers; the output stream and null-model
-handling are written here because quaff_tpu's versions reach JAX through
-its multi-host module.  The device comes from $QUAFF_TORCH_DEVICE
-("cuda" by default, "cpu" for the plain PyTorch versions).
+Ported from quaff_tpu/cli.py.  The flag surface and its parsing are the
+port's copies of that module's helpers (cliargs.py).  The device comes from
+$QUAFF_TORCH_DEVICE ("cuda" by default, "cpu" for the plain PyTorch
+versions of the kernels).
 
-Only `align` is ported.  train, count, overlap and server, and align's
--mesh, multi-host, -remote (ssh), -qsubjobs, EC2 and -profile options,
-exit 1 with "not yet ported".
+overlap and server, and the -mesh, multi-host, -remote (ssh), -qsubjobs,
+EC2 and -profile options, exit 1 with "not yet ported".
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ from collections import deque
 from types import SimpleNamespace
 from typing import List, Optional
 
-from quaff_tpu.cli import (
+from .cliargs import (
     DEFAULT_REFSEQ_KMER_THRESHOLD,
     SeqListArgs,
     _load_params,
+    _need_arg,
     _parse_dp_config,
     _parse_model_files,
     _parse_printer,
@@ -35,7 +36,29 @@ PROG = "quaff-tpu-torch"
 VERSION = "0.1"
 NOT_PORTED = "not yet ported in quaff_tpu_torch"
 
-USAGE = f"""Usage: {PROG} align refs.fasta reads.fastq [options]
+USAGE = f"""Usage: {PROG} {{help,train,count,align}} [options]
+
+ {PROG} train refs.fasta reads.fastq  >params.json
+  (to fit a model to unaligned sequences, using EM/Forward-Backward; the
+   E-step runs on $QUAFF_TORCH_DEVICE, default cuda)
+
+   -maxiter <n>    Max number of EM iterations (default is 100)
+   -mininc <n>     EM convergence threshold as relative log-likelihood increase
+   -maxreadmb <n>  Use only the first n megabases of the read training set
+   -force          Force each read to match a refseq, i.e. disallow null model
+   -suborder <k>   Allow substitutions to depend on k-mer contexts
+   -gaporder <k>   Allow gap open probabilities to depend on k-mer contexts
+   -order <k>      Shorthand for '-suborder <k> -gaporder <k>'
+   -prior <file>, -saveprior <file>   Load/save prior pseudocounts
+   -saveparams <file>, -savecounts <file>, -savecountswithprior <file>
+   -checkpoint <dir>                  Save/resume the EM state
+
+ {PROG} count refs.fasta reads.fastq  >counts.json
+  (expected counts of one E-step: float64 on the host, the parity
+   artifact; -fast: the training E-step's own float32 route on
+   $QUAFF_TORCH_DEVICE)
+
+   -fast, -force, -savecounts <file>
 
  {PROG} align refs.fasta reads.fastq
   (to align FASTQ reads to FASTA reference sequences, using Viterbi;
@@ -46,17 +69,19 @@ USAGE = f"""Usage: {PROG} align refs.fasta reads.fastq [options]
    -noquals        Ignore read quality scores during alignment
    -savealign <file>               Stream alignments to file
    -format {{fasta,stockholm,sam,refseq}}
+
+General options:
    -params <file>  Load model parameters from file
    -ref <file>, -read <file>       Load additional sequences
    -fwdstrand      Do not include reverse-complemented sequences
-   -global         Force all of refseq to be aligned
+   -global         Force all of refseq to be aligned (align/train only)
    -null <file>, -savenull <file>  Load/save null model
    -kmatch <k>, -kmatchn <n>, -kmatchband <n>, -kmatchmb <M>,
    -kmatchmax, -kmatchoff          k-mer envelope options
    -threads <n>    Host threads for envelopes and winner tracebacks
    -v, -vv, -log <tag>, -nocolor   Logging
 
-train, count, overlap and server are {NOT_PORTED}.
+overlap and server are {NOT_PORTED}.
 """
 
 
@@ -64,7 +89,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = deque(argv)
     if not args:
-        sys.stderr.write(f"Usage: {PROG} {{help,align}} [options]\n")
+        sys.stderr.write(f"Usage: {PROG} {{help,train,count,align}} [options]\n")
         return 1
     command = args.popleft()
     if command in ("help", "-help", "--help", "-h"):
@@ -73,14 +98,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if command in ("version", "-version", "--version", "-V"):
         sys.stdout.write(f"{PROG} {VERSION}\n")
         return 0
-    if command in ("train", "count", "overlap", "server"):
+    if command in ("overlap", "server"):
         sys.stderr.write(f"{command}: {NOT_PORTED}\n")
         return 1
-    if command != "align":
+    commands = {"align": _cmd_align, "train": _cmd_train, "count": _cmd_count}
+    if command not in commands:
         sys.stderr.write(f"Unrecognized command: {command}\n")
         return 1
     try:
-        return _cmd_align(args, {})
+        return commands[command](args, {})
     except (ValueError, OSError, RuntimeError) as e:
         # the reference exits with failure status on any error
         # (t/quaff.cpp:321-323)
@@ -89,10 +115,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _parse_target():
-    """What quaff_tpu.cli._parse_dp_config writes into: the port's DPConfig
-    fields, plus the backend fields it fills from -remote, -qsub*, -ec2*,
-    -mesh and the multi-host flags (any other attribute it sets is only
-    bookkeeping for those backends)."""
+    """What _parse_dp_config writes into: the port's DPConfig fields, plus
+    the backend fields it fills from -remote, -qsub*, -ec2*, -mesh and the
+    multi-host flags (any other attribute it sets is only bookkeeping for
+    those backends)."""
     from dataclasses import asdict
 
     from .aligner import DPConfig
@@ -104,9 +130,14 @@ def _parse_target():
     )
 
 
-def _refuse_unported(parsed, state) -> None:
-    """Backends and options that quaff_tpu's align honours but this port
-    does not have yet: refuse them rather than ignore them."""
+def _config(parsed, state):
+    """The DPConfig of the parsed flags, after refusing the backends and
+    options this port does not have yet (rather than ignoring them)."""
+    from dataclasses import fields
+
+    from .aligner import DPConfig
+    from .device import resolve_device
+
     named = []
     if parsed.use_mesh:
         named.append("-mesh")
@@ -122,10 +153,13 @@ def _refuse_unported(parsed, state) -> None:
         named.append("-profile")
     if named:
         raise RuntimeError(f"{', '.join(named)}: {NOT_PORTED}")
+    config = DPConfig(**{f.name: getattr(parsed, f.name) for f in fields(DPConfig)})
+    resolve_device(config.device)  # fail before any work
+    return config
 
 
 def _load_null(state, reads):
-    from quaff_tpu.model.params import QuaffNullParams
+    from .model.params import QuaffNullParams
 
     fn = state.get("null_file")
     if fn:
@@ -141,12 +175,8 @@ def _load_null(state, reads):
 
 
 def _cmd_align(args: deque, state) -> int:
-    from dataclasses import fields
-
-    from quaff_tpu.formats.alignment import AlignmentPrinter
-
-    from .aligner import DPConfig, QuaffAligner
-    from .device import resolve_device
+    from .aligner import QuaffAligner
+    from .formats.alignment import AlignmentPrinter
 
     printer = AlignmentPrinter()
     refs_args = SeqListArgs("-ref", want_quals=False, want_revcomps=True)
@@ -172,9 +202,7 @@ def _cmd_align(args: deque, state) -> int:
             continue
         if not _parse_unknown(args, implicit, True):
             break
-    _refuse_unported(parsed, state)
-    config = DPConfig(**{f.name: getattr(parsed, f.name) for f in fields(DPConfig)})
-    resolve_device(config.device)  # fail before any work
+    config = _config(parsed, state)
 
     reads, _ = reads_args.load(check_duplicates=True)
     refs, _ = refs_args.load(check_duplicates=True)
@@ -188,6 +216,173 @@ def _cmd_align(args: deque, state) -> int:
     finally:
         if out is not sys.stdout:
             out.close()
+    return 0
+
+
+def _cmd_count(args: deque, state) -> int:
+    import torch
+
+    from .trainer import QuaffCounter
+
+    refs_args = SeqListArgs("-ref", want_quals=False, want_revcomps=True)
+    reads_args = SeqListArgs("-read", want_quals=True, want_revcomps=False)
+    parsed = _parse_target()
+    parsed.kmer_threshold = DEFAULT_REFSEQ_KMER_THRESHOLD
+    implicit = ["-ref", "-read"]
+    allow_null = True
+    save_counts = None
+    fast_counts = False
+    while args:
+        if args[0] == "-force":
+            allow_null = False
+            args.popleft()
+            continue
+        if args[0] == "-fast":
+            fast_counts = True
+            args.popleft()
+            continue
+        if args[0] == "-savecounts":
+            save_counts = _need_arg(args, args[0])
+            continue
+        if (
+            _parse_verbosity(args, state)
+            or _parse_dp_config(args, parsed)
+            or _parse_model_files(args, state)
+            or refs_args.parse(args)
+            or reads_args.parse(args)
+        ):
+            continue
+        if not _parse_unknown(args, implicit, True):
+            break
+    config = _config(parsed, state)
+
+    reads, _ = reads_args.load()
+    refs, _ = refs_args.load()
+    params = _load_params(state)
+    null = _load_null(state, reads)
+    if fast_counts:
+        # `count -fast`: the E-step that `train` runs, at its precision
+        # (the fused float32 kernels on a card, the float32 engine on the
+        # CPU); within 5e-3 + 5e-3*|count| of the parity artifact
+        counter = QuaffCounter(params, null, config, use_null_model=allow_null,
+                               dtype=torch.float32)
+    else:
+        # plain `count` is the float64 parity artifact, computed by the
+        # exact engine on the host CPU whatever the device, as the JAX
+        # package computes it (quaff_tpu/cli.py:991-1011); off the card
+        # the counter never takes the fused kernels
+        config.device = "cpu"
+        counter = QuaffCounter(params, null, config, use_null_model=allow_null,
+                               dtype=torch.float64)
+    counts, _, _ = counter.get_counts(refs, reads)
+    if save_counts:
+        with open(save_counts, "w") as f:
+            counts.write_json(f)
+            f.write("\n")
+    else:
+        counts.write_json(sys.stdout)
+    return 0
+
+
+def _cmd_train(args: deque, state) -> int:
+    from .logger import logger
+    from .model.params import QuaffParamCounts, QuaffParams
+    from .trainer import QuaffTrainer
+
+    refs_args = SeqListArgs("-ref", want_quals=False, want_revcomps=True)
+    reads_args = SeqListArgs("-read", want_quals=True, want_revcomps=False)
+    parsed = _parse_target()
+    parsed.kmer_threshold = DEFAULT_REFSEQ_KMER_THRESHOLD
+    implicit = ["-ref", "-read"]
+    trainer = QuaffTrainer()
+    match_order, gap_order = 1, 0
+    order_specified = False
+    prior_file = None
+    save_prior = None
+    while args:
+        arg = args[0]
+        if arg == "-maxiter":
+            trainer.max_iterations = int(_need_arg(args, arg))
+            continue
+        if arg == "-mininc":
+            trainer.min_fractional_loglike_increment = float(_need_arg(args, arg))
+            continue
+        if arg == "-maxreadmb":
+            trainer.max_read_bases = int(0.5 + 1e6 * float(_need_arg(args, arg)))
+            continue
+        if arg == "-force":
+            trainer.allow_null_model = False
+            args.popleft()
+            continue
+        if arg == "-saveparams":
+            trainer.save_params_filename = _need_arg(args, arg)
+            continue
+        if arg == "-savecounts":
+            trainer.raw_counts_filename = _need_arg(args, arg)
+            continue
+        if arg == "-savecountswithprior":
+            trainer.counts_with_prior_filename = _need_arg(args, arg)
+            continue
+        if arg == "-checkpoint":
+            trainer.checkpoint_dir = _need_arg(args, arg)
+            continue
+        if arg == "-order":
+            k = int(_need_arg(args, arg))
+            match_order, gap_order = 1 + k, k
+            order_specified = True
+            continue
+        if arg == "-suborder":
+            match_order = 1 + int(_need_arg(args, arg))
+            order_specified = True
+            continue
+        if arg == "-gaporder":
+            gap_order = int(_need_arg(args, arg))
+            order_specified = True
+            continue
+        if arg == "-prior":
+            prior_file = _need_arg(args, arg)
+            continue
+        if arg == "-saveprior":
+            save_prior = _need_arg(args, arg)
+            continue
+        if (
+            _parse_verbosity(args, state)
+            or _parse_dp_config(args, parsed)
+            or _parse_model_files(args, state)
+            or refs_args.parse(args)
+            or reads_args.parse(args)
+        ):
+            continue
+        if not _parse_unknown(args, implicit, True):
+            break
+    config = _config(parsed, state)
+
+    reads, _ = reads_args.load()
+    refs, _ = refs_args.load()
+    null = _load_null(state, reads)
+    params_file = state.get("params_file")
+    if prior_file:
+        with open(prior_file) as f:
+            prior = QuaffParamCounts.from_json(f.read())
+    else:
+        # prior from the null model (requirePriorOrUseNullModel,
+        # t/quaff.cpp:490-515: initCounts(9, 9, 5, 1, &null))
+        if params_file and not order_specified:
+            with open(params_file) as f:
+                seed_probe = QuaffParams.from_json(f.read())
+            match_order = seed_probe.match_kmer_len
+            gap_order = seed_probe.indel_kmer_len
+        prior = QuaffParamCounts.zero(match_order, gap_order)
+        prior.init_counts(9, 9, 5, 1, null)
+    if save_prior:
+        with open(save_prior, "w") as f:
+            prior.write_json(f)
+            f.write("\n")
+    params = _load_params(state, prior=prior)
+    new_params = trainer.fit(refs, reads, params, null, prior, config,
+                             log=lambda msg: logger.log(1, msg))
+    if not trainer.save_params_filename:
+        new_params.write_json(sys.stdout)
     return 0
 
 

@@ -14,8 +14,10 @@ pieces out of reach of a jax-free process):
 dp_fill is the port's float64 parity engine: in float64 Viterbi its delete
 recurrence runs strictly lane by lane, like the reference's C++ loop
 (qmodel.cpp:1546-1547), so scores and matrices equal the JAX engine's bit
-for bit.  The aligner uses it to refill winners on the host when the
-native library is missing; device scoring goes through dp/fill_v2.py.
+for bit.  No command runs it: the aligner refills winners with the
+native library, and device scoring goes through dp/fill_v2.py.  It is the
+independent float64 yardstick that K1's plain version and the JAX engine
+are held against.
 
 Band coordinates: the state for read row j is a vector over a contiguous
 range of diagonals d = i - j (lane w holds diagonal d_lo + w), so
@@ -33,8 +35,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from quaff_tpu.envelope import Envelope
-from quaff_tpu.io.fastseq import FastSeq
+from ..envelope import Envelope
+from ..io.fastseq import FastSeq
 
 from .scores import ScoreTables
 
@@ -149,7 +151,7 @@ class PairBatch:
         strip keeps its +-1 non-member halo, which blocks the in-row
         recursions at the seams.  Only dp/fill_v2.py reads this layout
         (the seg_* descriptors); dp_fill must use build()."""
-        from quaff_tpu.envelope import pack_strips
+        from ..envelope import pack_strips
 
         segs_per_pair = [pack_strips(e, max_segs) for _, _, e in pairs]
 

@@ -169,9 +169,19 @@ def _lse2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
                         tables: V2Tables, mode: str = "viterbi",
-                        local: bool = True, max_prop=None) -> torch.Tensor:
+                        local: bool = True, max_prop=None,
+                        rows=None, offsets=None) -> torch.Tensor:
     """The plain PyTorch version of K1 on the packed layout: returns the
-    raw [B + B*S] float32 pair scores and strip maxima."""
+    raw [B + B*S] float32 pair scores and strip maxima.
+
+    With `rows` ([3, B, Ly, W] float32) and `offsets` ([B, Ly] float64),
+    K2's store, the Forward fill is kept scaled: after each row its largest
+    cell is subtracted from the row's cells and added to the pair's
+    float64 offset, every row's match, insert and delete cells are stored
+    relative to that row's offset, and the pair scores come back absolute.
+    A float32 fill of unscaled log-probabilities drifts: at -2e4 nats a
+    float32 step is 2e-3 and small log-add-exp terms round away, enough
+    over the 6604-row c8f30 read to move its printed log-likelihood."""
     viterbi = mode == "viterbi"
     combine = torch.maximum if viterbi else _lse2
     neg = NEG_INF
@@ -198,6 +208,7 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     ins = mat.clone()
     dele = mat.clone()
     out = mat.clone()
+    off = torch.zeros(B, dtype=torch.float64, device=dev)
     for j in range(1, Ly + 1):
         mk, q, yt, ik_cur = keys[:, j - 1].long().unbind(1)
         if tables.n_ik != 1:
@@ -244,6 +255,18 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
             end_ok &= idx == x_len - 1
         out = combine(out, torch.where(end_ok, mat_c + m2e, neg))
 
+        if rows is not None:
+            top = torch.maximum(torch.maximum(mat_c, ins_c), del_c).amax(1)
+            shift = torch.where(top > neg / 2, top, 0.0)[:, None]
+            mat_c = torch.where(valid, mat_c - shift, neg)
+            ins_c = torch.where(valid, ins_c - shift, neg)
+            del_c = torch.where(valid, del_c - shift, neg)
+            out = torch.where(out > neg / 2, out - shift, neg)
+            off = off + shift[:, 0].double()
+            offsets[:, j - 1] = off
+            rows[0, :, j - 1] = mat_c
+            rows[1, :, j - 1] = ins_c
+            rows[2, :, j - 1] = del_c
         mat, ins, dele = mat_c, ins_c, del_c
         ik_prev = ik_cur
 
@@ -258,7 +281,36 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
         safe = torch.where(torch.isfinite(m), m, 0.0)
         score = safe + torch.log(torch.exp(out - safe[:, None]).sum(dim=1))
         score = torch.where(torch.isfinite(m), score, float("-inf"))
+        if rows is not None:
+            score = torch.where(score > neg / 2, (off + score.double()).float(),
+                                score)
     return torch.cat([score, segmax.reshape(-1)])
+
+
+def check_tensors(name, tensors, dev):
+    """What a kernel takes: each {key: (tensor, dtype, shape or None)} must
+    be a contiguous tensor of that dtype and shape on `dev`."""
+    for key, (t, dt, shape) in tensors.items():
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {key} must be a contiguous {dt} tensor on {dev} "
+                f"(got {t.dtype} on {t.device})"
+            )
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+
+
+def table_specs(tables: V2Tables) -> dict:
+    """check_tensors specs of the score tables."""
+    return {
+        "match": (tables.match, torch.float32, None),
+        "match_noq": (tables.match_noq, torch.float32, None),
+        "insert": (tables.insert, torch.float32, None),
+        "insert_noq": (tables.insert_noq, torch.float32, None),
+        "ik": (tables.ik, torch.float32, (tables.n_ik, 4)),
+        "trans": (tables.trans, torch.float32, (4,)),
+    }
 
 
 def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
@@ -283,29 +335,15 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
     S = seg_start.shape[1]
     Ly = keys.shape[1]
     Lx = x_tok.shape[1]
-    tensors = {
+    check_tensors("band_fill", {
         "x_tok": (x_tok, torch.int8, (B, Lx)),
         "keys": (keys, torch.int32, (B, Ly, 4)),
         "meta": (meta, torch.int32, (B, 4)),
         "doff": (doff, torch.int32, (B, W)),
         "seg_start": (seg_start, torch.int32, (B, S)),
         "seg_width": (seg_width, torch.int32, (B, S)),
-        "match": (tables.match, torch.float32, None),
-        "match_noq": (tables.match_noq, torch.float32, None),
-        "insert": (tables.insert, torch.float32, None),
-        "insert_noq": (tables.insert_noq, torch.float32, None),
-        "ik": (tables.ik, torch.float32, (tables.n_ik, 4)),
-        "trans": (tables.trans, torch.float32, (4,)),
-    }
-    for name, (t, dt, shape) in tensors.items():
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(
-                f"band_fill: {name} must be a contiguous {dt} tensor on "
-                f"{dev} (got {t.dtype} on {t.device})"
-            )
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"band_fill: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
+        **table_specs(tables),
+    }, dev)
     Km, Q = tables.match.shape[1], tables.match.shape[2]
     out = torch.empty(B + B * S, dtype=torch.float32, device=dev)
     if B == 0:

@@ -13,9 +13,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from quaff_tpu.alphabet import ALPHABET_SIZE, QUAL_SCORE_RANGE
-from quaff_tpu.model.negbinom import log_negative_binomial_array
-from quaff_tpu.model.params import QuaffParams
+from ..alphabet import ALPHABET_SIZE, QUAL_SCORE_RANGE
+from ..model.negbinom import log_negative_binomial_array
+from ..model.params import QuaffParams
 
 
 @dataclass

@@ -10,11 +10,11 @@ import io
 import numpy as np
 import pytest
 
-from quaff_tpu.formats.alignment import AlignmentPrinter, OutputFormat
-from quaff_tpu.io.fastseq import FastSeq, read_fast_seqs
-from quaff_tpu.model.params import QuaffNullParams, default_params
 from quaff_tpu_torch.aligner import DPConfig, QuaffAligner
 from quaff_tpu_torch.cli import main
+from quaff_tpu_torch.formats.alignment import AlignmentPrinter, OutputFormat
+from quaff_tpu_torch.io.fastseq import FastSeq, read_fast_seqs
+from quaff_tpu_torch.model.params import QuaffNullParams, default_params
 
 
 @pytest.fixture(autouse=True)
@@ -119,7 +119,7 @@ def test_cli_align_goldens(data_dir, files, extra, golden):
 def test_dpmatrix_log_dump(data_dir, capsys):
     """`-log dpmatrix` dumps the winner's float64 band to stderr, byte for
     byte as the reference does."""
-    from quaff_tpu.logger import logger
+    from quaff_tpu_torch.logger import logger
 
     rc, out = _run([
         "align", str(data_dir / "dpm_ref.fasta"), str(data_dir / "dpm_read.fastq"),
@@ -132,24 +132,26 @@ def test_dpmatrix_log_dump(data_dir, capsys):
     assert err == (data_dir / "dpm-align-dpmatrix.oracle.txt").read_text()
 
 
-def test_align_without_native_library(data_dir, monkeypatch):
-    """With libquaffio missing, winners are refilled by the port's float64
-    engine and walked in Python: still the golden, byte for byte."""
-    import quaff_tpu.native as natmod
+def test_failed_host_build_raises(tmp_path, monkeypatch):
+    """The winners' float64 refill has one route, the port's libquaffio: a
+    build that fails raises with the compiler's output, and no caller gets
+    a missing library to route around."""
+    from quaff_tpu_torch import native
 
-    monkeypatch.setattr(natmod, "get_lib", lambda auto_build=False: None)
-    rc, out = _run([
-        "align", str(data_dir / "synth12-genome.fasta"),
-        str(data_dir / "synth12.fastq"), "-kmatchn", "10", "-nothreshold",
-    ])
-    assert rc == 0
-    assert out == (data_dir / "synth12-align.oracle.stk").read_text()
+    for name in native.SOURCES:
+        (tmp_path / name).write_text("#error quaff broken source\n")
+    monkeypatch.setattr(native, "NATIVE_SRC", tmp_path)
+    monkeypatch.setattr(native, "_LIB", None)
+    with pytest.raises(RuntimeError, match="quaff broken source"):
+        native.get_lib()
+    assert not native.library_path().exists()
 
 
-def _repeat_region_inputs():
+def _repeat_region_inputs(FastSeq=FastSeq):
     """tests/test_multiread.py's repeated-region reads: envelopes split
     into strips, the degraded second copy is dropped by the near-best
-    strip filter for some reads, two refs compete."""
+    strip filter for some reads, two refs compete.  FastSeq: the class of
+    the side that gets them."""
     rng = np.random.default_rng(11)
     core = "".join("acgt"[t] for t in rng.integers(0, 4, 120))
     spacer = "".join("acgt"[t] for t in rng.integers(0, 4, 200))
@@ -175,18 +177,25 @@ def _repeat_region_inputs():
 
 @pytest.mark.parametrize("print_all", [False, True])
 def test_matches_jax_aligner_on_repeats(print_all):
+    from quaff_tpu import formats as jax_formats
+    from quaff_tpu import model as jax_model
     from quaff_tpu.aligner import DPConfig as JaxDPConfig
     from quaff_tpu.aligner import QuaffAligner as JaxQuaffAligner
+    from quaff_tpu.io.fastseq import FastSeq as JaxFastSeq
+
+    jrefs, jreads = _repeat_region_inputs(JaxFastSeq)
+    jprinter = jax_formats.alignment.AlignmentPrinter()
+    jprinter.log_odds_threshold = float("-inf")
+    ref = io.StringIO()
+    JaxQuaffAligner(
+        jax_model.default_params(), jax_model.QuaffNullParams.fit(jreads),
+        JaxDPConfig(kmer_threshold=5, threads=2), print_all=print_all,
+    ).align_all(ref, jrefs, jreads, jprinter)
 
     refs, reads = _repeat_region_inputs()
     null = QuaffNullParams.fit(reads)
     printer = AlignmentPrinter()
     printer.log_odds_threshold = float("-inf")
-    ref = io.StringIO()
-    JaxQuaffAligner(
-        default_params(), null, JaxDPConfig(kmer_threshold=5, threads=2),
-        print_all=print_all,
-    ).align_all(ref, refs, reads, printer)
     port = QuaffAligner(
         default_params(), null, DPConfig(kmer_threshold=5, threads=2),
         print_all=print_all,
@@ -207,19 +216,30 @@ def test_lane_cap_guard_keeps_alignments(monkeypatch):
     """A pair whose packed band exceeds the lane cap is re-banded with the
     memory-fitted walk; the winning path lies in the true seed cluster, so
     the text equals the JAX aligner's, which scores the unfitted band."""
+    from quaff_tpu import formats as jax_formats
+    from quaff_tpu import model as jax_model
     from quaff_tpu.aligner import DPConfig as JaxDPConfig
     from quaff_tpu.aligner import QuaffAligner as JaxQuaffAligner
+    from quaff_tpu.io.fastseq import FastSeq as JaxFastSeq
     import quaff_tpu_torch.aligner as amod
     from test_long_band import _scattered_workload
 
-    ref, read = _scattered_workload(np.random.default_rng(11))
-    reads = [read, FastSeq(name="read2", seq=read.seq[40:], qual=read.qual[40:])]
+    jref, jread = _scattered_workload(np.random.default_rng(11))
+    jreads = [jread, JaxFastSeq(name="read2", seq=jread.seq[40:],
+                                qual=jread.qual[40:])]
+    jprinter = jax_formats.alignment.AlignmentPrinter()
+    jprinter.log_odds_threshold = float("-inf")
+    want = io.StringIO()
+    JaxQuaffAligner(jax_model.default_params(),
+                    jax_model.QuaffNullParams.fit(jreads),
+                    JaxDPConfig(kmer_threshold=10)
+                    ).align_all(want, [jref], jreads, jprinter)
+
+    ref = FastSeq(name=jref.name, seq=jref.seq, qual=jref.qual)
+    reads = [FastSeq(name=y.name, seq=y.seq, qual=y.qual) for y in jreads]
     null = QuaffNullParams.fit(reads)
     printer = AlignmentPrinter()
     printer.log_odds_threshold = float("-inf")
-    want = io.StringIO()
-    JaxQuaffAligner(default_params(), null, JaxDPConfig(kmer_threshold=10)
-                    ).align_all(want, [ref], reads, printer)
 
     refits = []
     fit = amod.fit_envelope_lanes

@@ -1,0 +1,148 @@
+"""K2 and K3 in the port (quaff_tpu_torch/dp/estep.py), through their plain
+PyTorch versions, against the JAX package's Pallas E-step run in interpret
+mode on the same pairs (each side builds its own lane-packed batch; the
+port's tables are fed the JAX arrays).
+
+Tolerances, the JAX kernels' own (tests/test_pallas_counts.py): forward
+scores and y_ll rtol 1e-5 / atol 1e-3; counts rtol 3e-3 / atol 5e-3.
+The CUDA kernels run only on the card: tests/test_torch_kernel_cuda.py and
+chip_smoke.py hold them against these plain versions there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from quaff_tpu.dp.engine import PairBatch as JaxPairBatch
+from quaff_tpu.dp.engine import device_batch, device_tables
+from quaff_tpu.dp.pallas_counts import estep_fused_multi as jax_fused_multi
+from quaff_tpu.dp.pallas_counts import estep_kernel as jax_estep_kernel
+from quaff_tpu.dp.pallas_v2 import V2Tables as JaxV2Tables
+from quaff_tpu.dp.scores import ScoreTables as JaxScoreTables
+from quaff_tpu.model.params import default_params as jax_default_params
+from quaff_tpu_torch.dp import estep, fill_v2
+from quaff_tpu_torch.dp.engine import PairBatch, to_device
+from quaff_tpu_torch.dp.scores import ScoreTables
+from test_pallas_counts import _pairs
+from test_torch_counts import _gap1_params
+from test_torch_engine import port_pairs, port_params
+
+FWD = dict(rtol=1e-5, atol=1e-3)
+COUNTS = dict(rtol=3e-3, atol=5e-3)
+
+
+def _sides(jax_params, jax_pairs):
+    """(JAX tables, JAX V2 tables, JAX device batch, port V2 tables fed the
+    JAX arrays, port batch on the CPU)."""
+    jt = JaxScoreTables.from_params(jax_params)
+    tt = ScoreTables.from_params(port_params(jax_params))
+    v2 = fill_v2.tables_from_reference(
+        {k: np.asarray(v) for k, v in device_tables(jt).items()})
+    bdev = device_batch(JaxPairBatch.build_packed(jax_pairs, jt))
+    pb = to_device(PairBatch.build_packed(port_pairs(jax_pairs), tt), "cpu")
+    return jt, JaxV2Tables(jt), bdev, v2, pb
+
+
+def _counts_close(got, ref):
+    assert set(got) == set(ref)
+    for k in ref:
+        a = np.asarray(ref[k], np.float64)
+        assert got[k].shape == a.shape, k
+        np.testing.assert_allclose(got[k], a, err_msg=k, **COUNTS)
+
+
+@pytest.mark.parametrize("gap_order", [0, 1])
+def test_fused_multi_matches_interpret_kernel(gap_order):
+    """Pairs of two reads in one batch: per-group y_ll, pair weights
+    exp(fwd - y_ll[gid]) and the batch's summed counts."""
+    rng = np.random.default_rng(31)
+    pairs = _pairs(rng, 6)
+    jp = jax_default_params() if gap_order == 0 else _gap1_params(pairs)
+    jt, jv2, bdev, v2, pb = _sides(jp, pairs)
+    gid = np.array([0, 0, 0, 1, 1, 1], np.int32)
+    fwd0 = estep.estep_fused_multi(v2, pb, gid, np.array([-np.inf] * 2))[0]
+    null_lls = np.array([fwd0[:3].max(), fwd0[3:].max() - 1.0])
+    jf, jy, jc = jax_fused_multi(jt, jv2, bdev, gid, null_lls, interpret=True)
+    before = estep.fwd_store.launches, estep.bwd_counts.launches
+    f, y, c = estep.estep_fused_multi(v2, pb, gid, null_lls)
+    assert (estep.fwd_store.launches, estep.bwd_counts.launches) == before
+    np.testing.assert_allclose(f, np.asarray(jf), **FWD)
+    np.testing.assert_allclose(y, np.asarray(jy), **FWD)
+    _counts_close(c, jc)
+    assert v2.n_ik == (1 if gap_order == 0 else 4)
+
+
+def test_fused_single_read_and_caller_weights():
+    """estep_fused (one read group) and estep_kernel (weights and
+    normalisers from the caller) against their JAX counterparts."""
+    from quaff_tpu.dp.pallas_counts import estep_fused as jax_fused
+
+    rng = np.random.default_rng(11)
+    pairs = _pairs(rng, 4)
+    jt, jv2, bdev, v2, pb = _sides(jax_default_params(), pairs)
+    jf, jy, jc = jax_fused(jt, jv2, bdev, -300.0, interpret=True)
+    f, y, c = estep.estep_fused(v2, pb, -300.0)
+    np.testing.assert_allclose(f, np.asarray(jf), **FWD)
+    np.testing.assert_allclose(y, np.asarray(jy).reshape(-1), **FWD)
+    _counts_close(c, jc)
+
+    weights = np.array([1.0, 0.5, 2.0, 0.25])
+    jf, jc = jax_estep_kernel(jt, jv2, bdev, weights, np.asarray(jf),
+                              interpret=True)
+    f, c = estep.estep_kernel(v2, pb, weights, f)
+    np.testing.assert_allclose(f, np.asarray(jf), **FWD)
+    _counts_close(c, jc)
+    # each pair's back-start posterior exp(back - fwd) is 1
+    np.testing.assert_allclose(c["back_start_post"], 1.0, rtol=5e-3)
+
+
+def test_scaled_fill_keeps_the_forward_fill():
+    """K2's plain version keeps the Forward fill scaled: each stored row's
+    largest cell is 0, its offset carries the rest, and the pair scores
+    agree with K1's unscaled Forward fill."""
+    rng = np.random.default_rng(5)
+    tt = ScoreTables.from_params(port_params(jax_default_params()))
+    v2 = fill_v2.V2Tables.from_tables(tt)
+    inp = fill_v2.kernel_inputs(
+        to_device(PairBatch.build_packed(port_pairs(_pairs(rng, 3)), tt), "cpu"))
+    B, W = inp["doff"].shape
+    Ly = inp["keys"].shape[1]
+    plain = torch.full((3, B, Ly, W), fill_v2.NEG_INF)
+    offsets = torch.zeros((B, Ly), dtype=torch.float64)
+    ref = fill_v2.band_fill_reference(**inp, tables=v2, mode="forward",
+                                      rows=plain, offsets=offsets)
+    unscaled = fill_v2.band_fill_reference(**inp, tables=v2, mode="forward")
+    np.testing.assert_allclose(ref[:B], unscaled[:B], **FWD)
+    fwd, rows, offs = estep.fwd_store(**inp, tables=v2)
+    assert torch.equal(fwd, ref[:B]) and torch.equal(offs, offsets)
+    live = rows > fill_v2.NEG_INF / 2
+    top = torch.where(live, rows, float("-inf")).amax(dim=(0, 3))  # [B, Ly]
+    ylen = inp["meta"][:, 1]
+    for b in range(B):
+        assert bool((top[b, : ylen[b]] == 0).all())
+        assert float(offs[b, ylen[b] - 1]) < -50.0
+
+
+def test_wrappers_route_by_device():
+    """CPU tensors take the plain versions; a device without a kernel
+    raises instead of falling back."""
+    rng = np.random.default_rng(7)
+    tt = ScoreTables.from_params(port_params(jax_default_params()))
+    v2 = fill_v2.V2Tables.from_tables(tt)
+    inp = fill_v2.kernel_inputs(
+        to_device(PairBatch.build_packed(port_pairs(_pairs(rng, 2)), tt), "cpu"))
+    fwd, rows, offs = estep.fwd_store(**inp, tables=v2)
+    wrow = torch.stack([torch.ones_like(fwd), fwd]).contiguous()
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow,
+            rows, offs)
+    part, sc = estep.bwd_counts(*base)
+    assert part.shape == (2, estep.table_size(v2)) and sc.shape == (5, 2)
+    torch.testing.assert_close(estep.estep_reduce(part), part.sum(0))
+    meta = {k: v.to("meta") for k, v in inp.items()}
+    with pytest.raises(RuntimeError, match="no kernel"):
+        estep.fwd_store(**meta, tables=v2)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        estep.bwd_counts(*(t.to("meta") for t in base[:4]), v2,
+                         *(t.to("meta") for t in base[5:]))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        estep.estep_reduce(part.to("meta"))

@@ -28,8 +28,10 @@ from quaff_tpu.model.params import QuaffParams, default_params
 from quaff_tpu_torch.dp import fill_v2
 from quaff_tpu_torch.dp.engine import PairBatch, dp_fill, table_tensors, to_device
 from quaff_tpu_torch.dp.scores import ScoreTables
+from quaff_tpu_torch.envelope import pack_strips as port_pack_strips
 from test_pallas_v2 import _random_pairs
 from test_strips import _synthetic_multistrip
+from test_torch_engine import port_pairs, port_params
 
 RTOL, ATOL = 1e-5, 1e-3
 
@@ -43,10 +45,12 @@ def _close(got, ref):
 
 
 def _tables(params):
-    """(JAX tables, port tables, port V2Tables fed the JAX arrays)."""
+    """(JAX tables, port tables, port V2Tables fed the JAX arrays) of the
+    JAX package's params; the port's tables come from its own params."""
     jt = JaxScoreTables.from_params(params)
     arrays = {k: np.asarray(v) for k, v in device_tables(jt).items()}
-    return jt, ScoreTables.from_params(params), fill_v2.tables_from_reference(arrays)
+    return (jt, ScoreTables.from_params(port_params(params)),
+            fill_v2.tables_from_reference(arrays))
 
 
 def _order2_gap1_params():
@@ -88,7 +92,7 @@ def test_packed_matches_interpret_kernel(mode, local):
         JaxV2Tables(jt), device_batch(JaxPairBatch.build_packed(pairs, jt)),
         mode=mode, local=local, interpret=True, return_segments=segs,
     ))
-    pb = PairBatch.build_packed(pairs, tt)
+    pb = PairBatch.build_packed(port_pairs(pairs), tt)
     got = fill_v2.scores_v2(
         v2, to_device(pb, "cpu"), mode=mode, local=local,
         return_segments=segs, max_prop=fill_v2.batch_max_prop(pb),
@@ -114,8 +118,8 @@ def test_window_matches_f32_engine(mode, local):
         mode=mode, local=local, return_matrices=False, dtype=jnp.float32,
     )["score"])
     got = fill_v2.scores_v2(
-        v2, to_device(PairBatch.build(pairs, tt), "cpu"), mode=mode,
-        local=local,
+        v2, to_device(PairBatch.build(port_pairs(pairs), tt), "cpu"),
+        mode=mode, local=local,
     )
     _close(got, ref)
 
@@ -132,7 +136,7 @@ def test_kmer_contexts_and_noqual(params, with_qual, data_dir):
     assert v2.n_ik == 4
     pairs = _random_pairs(rng, 3, with_qual=with_qual)
     got = fill_v2.scores_v2(
-        v2, to_device(PairBatch.build_packed(pairs, tt), "cpu"),
+        v2, to_device(PairBatch.build_packed(port_pairs(pairs), tt), "cpu"),
         mode="viterbi", local=True,
     )
     ref_kernel = np.asarray(scores_v2_traceable(
@@ -154,7 +158,7 @@ def test_segment_scores_match_strip_fills():
     max over strips, and absent strips are -inf."""
     rng = np.random.default_rng(27)
     _, tt, v2 = _tables(default_params())
-    pairs = _synthetic_multistrip(rng, 4)
+    pairs = port_pairs(_synthetic_multistrip(rng, 4))
     pb = PairBatch.build_packed(pairs, tt)
     scores, segmax = fill_v2.scores_v2(
         v2, to_device(pb, "cpu"), mode="viterbi", local=True,
@@ -162,7 +166,7 @@ def test_segment_scores_match_strip_fills():
     )
     tabs = table_tensors(tt)
     for b, (x, y, env) in enumerate(pairs):
-        strips = pack_strips(env, 3)
+        strips = port_pack_strips(env, 3)
         per_strip = dp_fill(
             tabs, to_device(PairBatch.build([(x, y, s) for s in strips], tt), "cpu"),
             mode="viterbi", local=True,
@@ -177,7 +181,7 @@ def test_max_prop_does_not_change_scores():
     score: halo lanes already stop the chain at strip seams."""
     rng = np.random.default_rng(29)
     _, tt, v2 = _tables(default_params())
-    pb = PairBatch.build_packed(_synthetic_multistrip(rng, 4), tt)
+    pb = PairBatch.build_packed(port_pairs(_synthetic_multistrip(rng, 4)), tt)
     mp = fill_v2.batch_max_prop(pb)
     assert mp is not None and mp < pb.member.shape[1]
     for mode in ("viterbi", "forward"):
@@ -202,9 +206,8 @@ def test_band_fill_routes_by_device():
     with no kernel raises instead of falling back."""
     rng = np.random.default_rng(5)
     _, tt, v2 = _tables(default_params())
-    inp = fill_v2.kernel_inputs(
-        to_device(PairBatch.build_packed(_random_pairs(rng, 2), tt), "cpu")
-    )
+    inp = fill_v2.kernel_inputs(to_device(
+        PairBatch.build_packed(port_pairs(_random_pairs(rng, 2)), tt), "cpu"))
     before = fill_v2.band_fill.launches
     out = fill_v2.band_fill(**inp, tables=v2)
     assert fill_v2.band_fill.launches == before
