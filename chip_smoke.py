@@ -7,9 +7,9 @@ It builds everything from the checkout and runs its phases in order; any
 failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
-  1  build the kernels (quaff_tpu_torch/csrc/*.cu, one nvcc per source,
-     sm_90a) and the host library libquaffio (native/*.cpp, one g++ per
-     source), both at once
+  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1, K2, K3, the count
+     reduction and K4; one nvcc per source, sm_90a) and the host library
+     libquaffio (native/*.cpp, one g++ per source), both at once
   2  K1 against its plain PyTorch version on the card: c8f30 against itself
      lane-packed at B=2048 (the align configuration), plus forward, global,
      no-quality, gap-order-1 and a band wider than shared memory; median
@@ -18,23 +18,44 @@ failure exits non-zero before the final line is printed.
      W~134 Ly=300 at gap order 0 and 1, global mode, a band wider than
      shared memory, and the c8f30 self pair; two runs must give
      bit-identical count tables
+  2c K4 against its plain version: 64 overlapping pairs of 2-10 kb reads,
+     lane-packed (up to 3 strips), at gap order 0 and 1, each batch with
+     both strands and reads with and without qualities; the plain version
+     on 8 of them (per strand, the two multi-strip pairs of reads with
+     qualities and the two of reads without that have the fewest rows);
+     times, in-envelope cells/s, the bound
   3  the port's `align` CLI on cuda, byte for byte against four goldens,
      with K1 launched in each run
   3b `train` on c8f30 (2 EM iterations) through K2/K3 against the golden
      log-likelihoods and c8f30-train2.oracle.json; `count -fast` on
      synth12 against the float64 parity count
-  4  align at a size users run: a seeded 200 kb genome and 1024 reads of
+  3c the port's `overlap` CLI on cuda, byte for byte against five goldens,
+     with K4's launches (K4 must run on the multi-pair ones)
+  4  align at a size users run: a seeded 200 kb genome and 512 reads of
      2-10 kb (12% substitutions and indels, half reverse strand, with
      qualities) through the CLI on cuda; reads/s and K1 launches; the first
      32 reads again on the CPU (plain version) must give the same text
-  5  train at a size users run: 256 such reads, `train -maxiter 2` through
+  5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches, peak
      device memory; the log-likelihood must rise; `count -fast` on the
      first 16 reads against the parity count; then K2/K3 and the reduction
      on the run's largest chunk against their plain versions
+  6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
+     genome (phase 4's recipe), all-vs-all with reverse complements (6048
+     pairs) through the CLI on cuda; wall, pairs/s, K4 launches, where the
+     host time goes and the device's busy share; the first 32 reads' text
+     must equal the port's sequential float64 route (no kernel pruning) on
+     the same reads, and the first 8 reads' run on the CPU (plain K4, in a
+     process of its own beside the reference) the GPU's; then K4 on the
+     run's largest chunk against its plain version (its first 128 pairs)
 
-Each path (phase 4 for K1, phase 5 for K2, K3 and the reduction) runs with
-the launch counts set to 0 just before it and read just after.
+Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
+well inside its time limit.  Each plain version's comparison run is also
+one of its timed runs.
+
+Each path (phase 4 for K1, phase 5 for K2, K3 and the reduction, phase 6
+for K4) runs with the launch counts set to 0 just before it and read just
+after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -56,6 +77,17 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 RTOL, ATOL = 1e-5, 1e-3  # K1's parity tolerance (tests/test_pallas_v2.py)
+# K4 against its plain version: both are float32 over up to 10^4 rows, and
+# on phase-2c pairs the float32 plain version was measured up to 0.026 off a
+# float64 run of itself (on a CPU), so the two may differ by ~0.05; 0.05 is
+# also the JAX package's K4 tolerance against its float64 fill
+# (tests/test_pallas_overlap.py:86), and under the pipeline's 0.25-nat strip
+# and 1-nat pair slacks
+OV_RTOL, OV_ATOL = 1e-5, 0.05
+# phase 6 holds the text of the first N_REF reads' all-vs-all against the
+# sequential float64 route: all 64 reads took 276.6 s on an H100 host, over
+# the 120 s this phase may spend on it
+N_REF = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -110,7 +142,7 @@ def phase1_build():
         t_host = ex.submit(timed, native.get_lib)
         t_cuda, t_host = t_cuda.result(), t_host.result()
     how = "built" if kernels.build_log is not None else "reused"
-    log(f"phase 1: kernel library (K1, K2, K3, reduce) {how} in {t_cuda:.1f} s "
+    log(f"phase 1: kernel library (K1, K2, K3, reduce, K4) {how} in {t_cuda:.1f} s "
         f"({kernels.library_path().relative_to(ROOT)})")
     for line in (kernels.build_log or "").splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
@@ -147,7 +179,7 @@ def _synthetic_pairs(rng, n, with_qual=True):
     return pairs
 
 
-def _compare(got, ref):
+def _compare(got, ref, rtol=RTOL, atol=ATOL):
     """max |kernel - plain| over finite entries; fails outside tolerance."""
     import torch
 
@@ -159,29 +191,35 @@ def _compare(got, ref):
     fin = torch.isfinite(r)
     check(bool(fin.any()), "no finite score to compare")
     err = (g[fin] - r[fin]).abs()
-    bad = err > ATOL + RTOL * r[fin].abs()
+    bad = err > atol + rtol * r[fin].abs()
     check(not bool(bad.any()),
-          f"kernel vs plain outside rtol {RTOL} / atol {ATOL}: max abs err "
+          f"kernel vs plain outside rtol {rtol} / atol {atol}: max abs err "
           f"{float(err.max()):.3g}")
     return float(err.max())
 
 
-def _time(fn, variants):
-    """Median seconds of fn(v) over distinct inputs, by CUDA events around
-    each call (a plain version's host-side launch gaps count too)."""
+def _timed(fn, v):
+    """(fn(v), its seconds) by CUDA events around the call (a plain
+    version's host-side launch gaps count too)."""
     import torch
 
-    times = []
-    for v in variants:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn(v)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    return statistics.median(times)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    res = fn(v)
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end) / 1e3
+
+
+def _times(fn, variants):
+    return [_timed(fn, v)[1] for v in variants]
+
+
+def _time(fn, variants):
+    """Median seconds of fn(v) over distinct inputs."""
+    return statistics.median(_times(fn, variants))
 
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at its 700 W limit): float32
@@ -274,8 +312,7 @@ def run_case(name, pb, tables, mode, local, card, n_runs=3):
                                            mode=mode, local=local, max_prop=mp)
 
     got = kern(inp["keys"])
-    torch.cuda.synchronize()
-    ref = plain(inp["keys"])
+    ref, t_ref = _timed(plain, inp["keys"])
     err = _compare(got, ref)
     # distinct inputs per timed run: one quality value changed per variant
     variants = []
@@ -285,7 +322,9 @@ def run_case(name, pb, tables, mode, local, card, n_runs=3):
         variants.append(k)
     kern(variants[0])  # warm
     ms = _time(kern, variants[1:]) * 1e3
-    plain_ms = _time(plain, variants[1:]) * 1e3
+    # the plain version: the comparison's run and n_runs - 1 more
+    plain_ms = statistics.median(
+        [t_ref] + _times(plain, variants[1:n_runs])) * 1e3
     B, W = inp["doff"].shape
     cells = _cells(inp)
     bound_ms, bound_by = _bound(
@@ -459,7 +498,7 @@ def _workload(tmp, seed=1, genome_len=200_000, n_reads=1024,
     return gpath, rpath, head, genome, origins
 
 
-def phase4_workload(card, n_reads=1024, genome_len=200_000, n_check=32):
+def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
     from quaff_tpu_torch.dp import fill_v2
     from quaff_tpu_torch.io.fastseq import read_fast_seqs
     from quaff_tpu_torch.model.params import QuaffNullParams
@@ -554,8 +593,9 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
                                          local=local, max_prop=mp)
 
     fwd, rows, offs = k2(inp["keys"])
-    torch.cuda.synchronize()
-    err_f = _compare(fwd, p2(inp["keys"])[0])
+    ref2, t_p2 = _timed(p2, inp["keys"])
+    err_f = _compare(fwd, ref2[0])
+    del ref2
     fin = fwd > fill_v2.NEG_INF / 2
     wrow = torch.stack([fin.float(), torch.where(fin, fwd, 0.0)]).contiguous()
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
@@ -569,8 +609,7 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
 
     part, sc = k3(wrow)
     tab = estep.estep_reduce(part)
-    torch.cuda.synchronize()
-    part_p, sc_p = p3(wrow)
+    (part_p, sc_p), t_p3 = _timed(p3, wrow)
     err_c = _compare_counts(torch.cat([part.ravel(), sc.ravel()]),
                             torch.cat([part_p.ravel(), sc_p.ravel()]))
     del part_p, sc_p
@@ -596,8 +635,11 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
     wv = [(wrow * torch.tensor([[1.0 + 1e-3 * i], [1.0]], device=wrow.device)
            ).contiguous() for i in range(n_runs)]
     k2(variants[0])  # warm
-    t = {"fwd_store": (_time(k2, variants[1:]), _time(p2, variants[1:1 + n_plain])),
-         "bwd_counts": (_time(k3, wv), _time(p3, wv[:n_plain]))}
+    # the plain versions: the comparison's run and n_plain - 1 more
+    t = {"fwd_store": (_time(k2, variants[1:]), statistics.median(
+             [t_p2] + _times(p2, variants[1:n_plain]))),
+         "bwd_counts": (_time(k3, wv), statistics.median(
+             [t_p3] + _times(p3, wv[:n_plain - 1])))}
     t_red = _time(estep.estep_reduce, [part] * n_runs)
     t_lib = _time(lambda p: torch.sum(p, dim=0), [part] * n_runs)
 
@@ -733,11 +775,44 @@ def _estep_launches():
 
 
 def _reset_launches():
-    from quaff_tpu_torch.dp import estep, fill_v2
+    from quaff_tpu_torch.dp import estep, fill_v2, ov_fill
 
     fill_v2.band_fill.launches = 0
+    ov_fill.ov_fill.launches = 0
     for k in ("fwd_store", "bwd_counts", "estep_reduce"):
         getattr(estep, k).launches = 0
+
+
+def _timing(spent, owner, name, key, static=False):
+    """Times each call of owner.name into spent[key] (host seconds, fenced
+    by torch.cuda.synchronize before and after); returns what restores
+    it."""
+    import torch
+
+    fn = vars(owner)[name]
+    raw = fn.__func__ if static else fn
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = raw(*a, **k)
+        torch.cuda.synchronize()
+        spent.setdefault(key, []).append(time.perf_counter() - t0)
+        return res
+
+    setattr(owner, name, classmethod(wrapper) if static else wrapper)
+    return owner, name, fn
+
+
+def _device_busy(prof):
+    """Device seconds by kernel name from a torch.profiler run."""
+    device = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            device[e.key] = t / 1e6
+    return device
 
 
 def _loglikes(err):
@@ -784,7 +859,7 @@ def phase3b_train_goldens(card):
 # ---------------------------------------------------------------- phase 5
 
 
-def phase5_train(card, n_reads=256, genome_len=200_000, n_check=16):
+def phase5_train(card, n_reads=128, genome_len=200_000, n_check=16):
     """`train -maxiter 2` on a size users run, through the CLI on the card;
     returns the main path's launches and its largest E-step chunk."""
     import torch
@@ -816,20 +891,7 @@ def phase5_train(card, n_reads=256, genome_len=200_000, n_check=16):
             return orig_multi(v2tab, batch, gid, null_lls, local, max_prop)
 
         def timing(owner, name, key, static=False):
-            """Times each call of owner.name; returns what restores it."""
-            fn = vars(owner)[name]
-            raw = fn.__func__ if static else fn
-
-            def wrapper(*a, **k):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = raw(*a, **k)
-                torch.cuda.synchronize()
-                spent.setdefault(key, []).append(time.perf_counter() - t0)
-                return res
-
-            setattr(owner, name, classmethod(wrapper) if static else wrapper)
-            return owner, name, fn
+            return _timing(spent, owner, name, key, static)
 
         estep.estep_fused_multi = recording
         patched = [
@@ -857,12 +919,7 @@ def phase5_train(card, n_reads=256, genome_len=200_000, n_check=16):
                 setattr(owner, name, fn)
             estep.estep_fused_multi = orig_multi
         estep_s = spent["E-step"]
-        device = {}
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-            if t > 0:
-                device[e.key] = t / 1e6
+        device = _device_busy(prof)
         busy = sum(device.values())
         top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
         from quaff_tpu_torch.logger import logger
@@ -921,6 +978,399 @@ def phase5_train(card, n_reads=256, genome_len=200_000, n_check=16):
     return launches, biggest
 
 
+# ---------------------------------------------------------------- phase 2c
+
+# float32 operations per in-envelope cell that K4's function needs, counted
+# from the cell update of csrc/ov_fill.cu (a log-add-exp counts 6: max,
+# subtract, abs, exp, log1p, add): the emission 24, match 6, insert 10,
+# the delete recurrence 10 (as a sequential chain would do it: the
+# kernel's scan composes triples on top), the end 1; gap order > 0 adds
+# the per-cell m2m and m2d, 2 more (K1's 13 count no scan either)
+OV_OPS_PER_CELL = {5: 51, 7: 53}
+
+
+def _ov_windows(inp):
+    """Per pair and lane of a K4 batch, the live rows [lo, hi] of its
+    in-envelope cells (numpy int64 [B, W], hi < lo where there are none)."""
+    import numpy as np
+
+    from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL
+
+    d = inp["doff"].cpu().numpy().astype(np.int64)
+    meta = inp["meta"].cpu().numpy().astype(np.int64)
+    xlen, ylen, joff, nrows = (meta[:, k : k + 1] for k in (2, 3, 4, 5))
+    lo = np.maximum(joff + 1, 1 - d)
+    hi = np.minimum(np.minimum(joff + nrows, ylen), xlen - d)
+    hi = np.where(d != D_SENTINEL, hi, lo - 1)
+    return d, lo, hi
+
+
+def _ov_cells(inp):
+    _, lo, hi = _ov_windows(inp)
+    return int((hi - lo + 1).clip(min=0).sum())
+
+
+def _ov_bytes(inp):
+    """Bytes K4 must move for a batch, each input read once: the bank
+    values its cells read (each (bank row, position) once: x values at
+    i - 1 of every in-envelope cell, y values of every live row), the
+    per-pair inputs, the transitions and the output."""
+    import numpy as np
+
+    d, lo, hi = _ov_windows(inp)
+    meta = inp["meta"].cpu().numpy().astype(np.int64)
+    NR, C, L = inp["bank"].shape
+    used = np.zeros((NR, L + 1), np.int32)  # +1/-1 marks of touched spans
+    for b in range(d.shape[0]):
+        ok = hi[b] >= lo[b]
+        if not ok.any():
+            continue
+        starts = d[b][ok] + lo[b][ok] - 1
+        ends = d[b][ok] + hi[b][ok] - 1
+        order = np.argsort(starts)
+        starts, ends = starts[order], np.maximum.accumulate(ends[order])
+        new = np.concatenate([[True], starts[1:] > ends[:-1] + 1])
+        s0 = starts[new]
+        e0 = np.append(ends[np.nonzero(new)[0][1:] - 1], ends[-1])
+        np.add.at(used[meta[b, 0]], s0, 1)
+        np.add.at(used[meta[b, 0]], e0 + 1, -1)
+        y0, y1 = meta[b, 4], min(meta[b, 4] + meta[b, 5], meta[b, 3])
+        used[meta[b, 1], y0] += 1
+        used[meta[b, 1], y1] -= 1
+    touched = int((np.cumsum(used, axis=1)[:, :L] > 0).sum())
+    B, S = inp["seg_start"].shape
+    return (4 * C * touched
+            + _nbytes(inp["meta"], inp["doff"], inp["seg_start"],
+                      inp["seg_width"], inp["ins_xy"], inp["trans"])
+            + 4 * (B + B * S))
+
+
+def _ov_subset(inp, n):
+    """The first n pairs of a K4 batch (the bank stays whole)."""
+    return {k: (v if k in ("bank", "trans") else v[:n].contiguous())
+            for k, v in inp.items()}
+
+
+def ov_case(name, inp, card, n_plain=None, n_runs=3):
+    """K4 and its plain version on one batch (the plain version on its
+    first n_plain pairs, timed once): agreement, times, cells/s, bound."""
+    import torch
+
+    from quaff_tpu_torch.dp import ov_fill
+
+    B, W = inp["doff"].shape
+    sub = inp if n_plain is None or n_plain >= B else _ov_subset(inp, n_plain)
+    Bs = sub["doff"].shape[0]
+    got = ov_fill.ov_fill(**sub)
+    ref, t_ref = _timed(lambda v: ov_fill.ov_fill_reference(**v), sub)
+    plain_ms = t_ref * 1e3
+    err = _compare(got, ref, OV_RTOL, OV_ATOL)
+    fin = torch.isfinite(ref[:Bs])
+    check(bool(fin.all()), f"{name}: a pair has no finite overlap score")
+
+    def variants(batch):
+        # distinct inputs per timed run: the delete-extend log moved
+        out = []
+        for i in range(n_runs + 1):
+            v = dict(batch)
+            v["trans"] = (batch["trans"] + torch.tensor(
+                [0.0] * 8 + [1e-4 * (i + 1)], device="cuda")).contiguous()
+            out.append(v)
+        return out
+
+    def kern(v):
+        return ov_fill.ov_fill(**v)
+
+    res = {}
+    for tag, batch in (("all", inp), ("sub", sub)):
+        vs = variants(batch)
+        kern(vs[0])  # warm
+        ms = _time(kern, vs[1:]) * 1e3
+        cells = _ov_cells(batch)
+        C = batch["bank"].shape[1]
+        bound_ms, bound_by = _bound(_ov_bytes(batch),
+                                    OV_OPS_PER_CELL[C] * cells)
+        res[tag] = {"ms": ms, "cells": cells, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+        if batch is sub and sub is inp:
+            res["sub"] = res["all"]
+            break
+    a, s_ = res["all"], res["sub"]
+    log(f"phase 2c: {name}: B={B} W={W} rows<={int(inp['meta'][:, 5].max())} "
+        f"C={inp['bank'].shape[1]}: max abs err {err:.3g} ({Bs} pairs); K4 "
+        f"{a['ms']:.3f} ms (median of {n_runs}), {a['cells']} in-envelope "
+        f"cells, {a['cells'] / (a['ms'] / 1e3):.4g} cells/s, bound "
+        f"{a['bound_ms']:.4f} ms ({a['bound_by']}) [{card}]")
+    if sub is not inp:
+        log(f"phase 2c: {name}, first {Bs} pairs: K4 {s_['ms']:.3f} ms, "
+            f"plain {plain_ms:.3f} ms (once), {s_['cells']} cells, bound "
+            f"{s_['bound_ms']:.4f} ms ({s_['bound_by']}) [{card}]")
+    else:
+        log(f"phase 2c: {name}: plain {plain_ms:.3f} ms (once) [{card}]")
+    return {"max_abs_err": err, "ms": s_["ms"], "plain_ms": plain_ms,
+            "bound_ms": s_["bound_ms"], "bound_by": s_["bound_by"],
+            "library_ms": None, "full": a}
+
+
+def _overlap_aligner(params, null, threads=1):
+    from quaff_tpu_torch.aligner import DPConfig
+    from quaff_tpu_torch.overlap import QuaffOverlapAligner
+
+    return QuaffOverlapAligner(params, null,
+                               DPConfig(device="cuda", threads=threads))
+
+
+def phase2c_overlap_kernel(card):
+    """K4 against its plain version, at gap order 0 and 1: per case 64
+    overlapping pairs of 2-10 kb reads, half of them reverse strand, every
+    other read without qualities (a batch mixes both strands and both
+    kinds of reads: the bank's rows carry them)."""
+    import numpy as np
+
+    from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.io.fastseq import FastSeq, add_revcomps, read_fast_seqs
+    from quaff_tpu_torch.model.params import (QuaffNullParams, QuaffParams,
+                                              default_params)
+
+    with tempfile.TemporaryDirectory() as d:
+        _, rpath, _, _, _ = _workload(pathlib.Path(d), seed=4, n_reads=40,
+                                      genome_len=30_000, n_head=1)
+        reads = [r if i % 2 == 0 else FastSeq(name=r.name, seq=r.seq)
+                 for i, r in enumerate(read_fast_seqs(str(rpath)))]
+    seqs = add_revcomps(reads)
+    null = QuaffNullParams.fit(reads)
+    gap1 = QuaffParams.from_json((DATA / "params-gaporder1.json").read_text())
+    for name, params in (("gap order 0", default_params()),
+                         ("gap order 1", gap1)):
+        aligner = _overlap_aligner(params, null)
+        built = [t for t in aligner._pair_jobs(
+            seqs, list(aligner.enumerate_pairs(seqs, len(reads)))) if not t[2]]
+        # overlapping pairs first (multi-strip, most member lanes), 32 of
+        # each strand
+        built.sort(key=lambda t: (-int((t[1][3][0] > 0).sum()),
+                                  -int(t[1][0][0].sum())))
+        chunk = ([j for j, _, _ in built if not j[2]][:32]
+                 + [j for j, _, _ in built if j[2]][:32])
+        packed = {(j[0], j[1]): desc for j, desc, _ in built}
+
+        # the plain version's pairs (its row loop takes ~5 ms a row, so
+        # all 64 would be ~45 s): for each strand, the two multi-strip
+        # pairs of reads with qualities and the two of reads without that
+        # have the fewest live rows; they lead the chunk
+        def kind(j):
+            return j[2], seqs[j[0]].has_qual(), seqs[j[1]].has_qual()
+
+        sub = []
+        for key in [(yc, q, q) for yc in (False, True) for q in (True, False)]:
+            sub += sorted((j for j in chunk if kind(j) == key
+                           and np.count_nonzero(packed[j[:2]][3][0]) > 1),
+                          key=lambda j: int(packed[j[:2]][5][0]))[:2]
+        check(len({kind(j) for j in sub}) == 4,
+              f"{name}: the plain version's pairs miss a strand or kind")
+        chunk = sub + [j for j in chunk if all(j is not k for k in sub)]
+        _, batch = next(aligner._kernel_batches(seqs, [chunk], packed))
+        inp = ov_fill.prepare(ov_fill.ov_tables(aligner._tables(False), "cuda"),
+                              batch)
+        check(len(chunk) == 64, f"{name}: {len(chunk)} pairs, not 64")
+        ov_case(f"{name}, both strands, with and without qualities", inp,
+                card, n_plain=len(sub))
+
+
+# ---------------------------------------------------------------- phase 3c
+
+
+def phase3c_overlap_goldens():
+    from quaff_tpu_torch.dp import ov_fill
+
+    copy = DATA / "copy-of-c8f30.fastq"
+    runs = [
+        ("synth12", ["synth12.fastq", "-kmatchn", "10", "-nothreshold"],
+         "synth12-overlap.oracle.stk", True),
+        ("synth12 gap order 1", ["synth12.fastq", "-params",
+                                 "params-gaporder1.json", "-kmatchn", "10",
+                                 "-nothreshold"],
+         "synth12-overlap-gap1.oracle.stk", True),
+        ("c8f30 revcomp", ["c8f30.fastq.gz", str(copy), "-kmatchmb", "10"],
+         "c8f30-overlap-revcomp.oracle.txt", True),
+        ("c8f30 noqual", ["c8f30.fastq.gz", str(copy), "-kmatchmb", "10",
+                          "-fwdstrand", "-noquals"],
+         "c8f30-overlap-noqual.oracle.txt", False),
+        ("c8f30 self", ["c8f30.fastq.gz", str(copy), "-kmatchmb", "10",
+                        "-fwdstrand"], "c8f30-self-overlap.json", False),
+    ]
+    for name, args, golden, multi in runs:
+        argv = ["overlap"] + [str(DATA / a) if (DATA / a).exists() else a
+                              for a in args]
+        before = ov_fill.ov_fill.launches
+        t0 = time.perf_counter()
+        out = _cli(argv, "cuda")
+        dt = time.perf_counter() - t0
+        n = ov_fill.ov_fill.launches - before
+        check(out == (DATA / golden).read_text(),
+              f"overlap {name}: output differs from {golden}")
+        check(n > 0 or not multi, f"overlap {name}: K4 was not launched")
+        log(f"phase 3c: overlap {name}: byte-identical to {golden}; {n} K4 "
+            f"launches{'' if multi else ' (one pair: the float64 route)'}; "
+            f"{dt:.2f} s")
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
+                   n_ref=N_REF):
+    """`overlap` at a size users run, through the CLI on the card; returns
+    K4's launches and the inputs of its largest chunk (most in-envelope
+    cells)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quaff_tpu_torch import overlap as overlap_mod
+    from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.formats.alignment import AlignmentPrinter
+    from quaff_tpu_torch.io.fastseq import add_revcomps, read_fast_seqs
+    from quaff_tpu_torch.model.params import QuaffNullParams, default_params
+    from quaff_tpu_torch.overlap import QuaffOverlapAligner
+
+    threads = str(os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        _, rpath, head, _, _ = _workload(tmp, seed=21, n_reads=n_reads,
+                                         genome_len=genome_len, n_head=n_check)
+        reads = read_fast_seqs(str(rpath))
+        null = tmp / "null.json"
+        with open(null, "w") as f:
+            QuaffNullParams.fit(reads).write_json(f)
+        n_pairs = sum(2 * n_reads - 1 - nx for nx in range(n_reads - 1))
+
+        spent: dict = {}
+        chunks = []
+        orig_prepare = ov_fill.prepare
+
+        def recording(tabs, batch):
+            inp = orig_prepare(tabs, batch)
+            chunks.append(inp)
+            return inp
+
+        orig_pw = QuaffOverlapAligner._path_worker
+
+        def path_worker(self, *a, **k):
+            work = orig_pw(self, *a, **k)
+
+            def timed(items):
+                t0 = time.perf_counter()
+                res = work(items)
+                spent.setdefault("exact pass (pool thread-seconds)",
+                                 []).append(time.perf_counter() - t0)
+                return res
+
+            timed.items = work.items
+            return timed
+
+        ov_fill.prepare = recording
+        QuaffOverlapAligner._path_worker = path_worker
+        patched = [
+            _timing(spent, QuaffOverlapAligner, "_pair_jobs", "envelopes"),
+            _timing(spent, QuaffOverlapAligner, "_bank", "sequence bank"),
+            _timing(spent, ov_fill, "prepare", "K4 prep"),
+            _timing(spent, overlap_mod, "overlap_scores",
+                    "K4 prep + kernel + chunk upload"),
+            _timing(spent, QuaffOverlapAligner, "_render_path", "render"),
+            _timing(spent, AlignmentPrinter, "write_alignment", "write"),
+        ]
+        argv = ["overlap", str(rpath), "-threads", threads, "-null", str(null)]
+        try:
+            _reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = _cli(argv, "cuda")
+                wall = time.perf_counter() - t0
+            launches = ov_fill.ov_fill.launches
+        finally:
+            for owner, name, fn in reversed(patched):
+                setattr(owner, name, fn)
+            QuaffOverlapAligner._path_worker = orig_pw
+            ov_fill.prepare = orig_prepare
+        check(launches > 0, "the overlap path launched no K4")
+        # the largest chunk: the most in-envelope cells
+        biggest = max(chunks, key=_ov_cells)
+        n_aln = out.count("#=GF Score")
+        check(n_aln > 0, "phase 6 reported no overlap")
+        device = _device_busy(prof)
+        busy = sum(device.values())
+        top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+        log(f"phase 6: overlap {n_reads} reads (2-10 kb, {genome_len} bp "
+            f"genome), all-vs-all with reverse complements: {n_pairs} pairs "
+            f"in {wall:.2f} s wall on cuda, {n_pairs / wall:.2f} pairs/s, "
+            f"{n_aln} overlaps reported, {launches} K4 launches in chunks of "
+            f"{[tuple(c['doff'].shape) for c in chunks]} (pairs, lanes) "
+            f"[{card}]")
+        log("phase 6: where the time goes (host seconds, fenced by "
+            "synchronize): " + "; ".join(
+                f"{k} {sum(v):.3f} s in {len(v)} calls"
+                for k, v in spent.items()))
+        log(f"phase 6: torch.profiler: device busy {busy:.3f} s of "
+            f"{wall:.3f} s wall ({100 * busy / wall:.2f}%); top: "
+            + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in top)
+            + f" [{card}]")
+
+        # the first n_check reads on the CPU (plain K4), in a process of its
+        # own that runs while this one holds the float64 reference
+        cpu_run = subprocess.Popen(
+            [sys.executable, "-m", "quaff_tpu_torch.cli", "overlap", str(head),
+             "-threads", threads, "-null", str(null)],
+            cwd=ROOT, env=dict(os.environ, QUAFF_TORCH_DEVICE="cpu"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_cpu = time.perf_counter()
+        try:
+            # the port's sequential float64 route on the same reads,
+            # in-process: per pair one bounding-band fill with matrices, no
+            # kernel pruning
+            rpath_ref = tmp / f"reads{n_ref}.fastq"
+            lines = rpath.read_text().splitlines()
+            rpath_ref.write_text("\n".join(lines[: 4 * n_ref]) + "\n")
+            out_ref_run = (out if n_ref == n_reads else _cli(
+                ["overlap", str(rpath_ref), "-threads", threads, "-null",
+                 str(null)], "cuda"))
+            with open(null) as f:
+                null_model = QuaffNullParams.from_json(f.read())
+            aligner = _overlap_aligner(default_params(), null_model,
+                                       threads=int(threads))
+            seqs = add_revcomps(reads[:n_ref])
+            buf = io.StringIO()
+            printer = AlignmentPrinter()
+            t0 = time.perf_counter()
+            printer.write_header(buf, seqs, group_by_query=False)
+            aligner._align_all_sequential(
+                buf, seqs, list(aligner.enumerate_pairs(seqs, n_ref)), printer)
+            t_ref = time.perf_counter() - t0
+            check(buf.getvalue() == out_ref_run,
+                  f"phase 6: the first {n_ref} reads' text differs from the "
+                  "sequential float64 route's")
+            log(f"phase 6: the first {n_ref} reads ({out_ref_run.count('#=GF Score')} "
+                f"overlaps): byte-identical to the sequential float64 route "
+                f"({t_ref:.1f} s in-process)")
+            gpu = _cli(["overlap", str(head), "-threads", threads, "-null",
+                        str(null)], "cuda")
+            cpu, cpu_err = cpu_run.communicate(timeout=900)
+        finally:
+            if cpu_run.poll() is None:
+                cpu_run.kill()
+                cpu_run.wait()
+        check(cpu_run.returncode == 0,
+              f"phase 6: the CPU run exited {cpu_run.returncode}: "
+              f"{cpu_err[-2000:]}")
+        check(gpu == cpu and gpu.count("#=GF Score") > 0,
+              f"phase 6: first {n_check} reads: CPU (plain K4) text differs "
+              "from the GPU's")
+        log(f"phase 6: first {n_check} reads on the CPU (plain K4, its own "
+            f"process beside the reference): byte-identical to the GPU run, "
+            f"{gpu.count('#=GF Score')} overlaps "
+            f"({time.perf_counter() - t_cpu:.1f} s)")
+    return launches, biggest
+
+
 def main() -> int:
     if not (ROOT / "quaff_tpu_torch").is_dir():
         sys.stderr.write("chip_smoke.py: run it from a checkout of the "
@@ -938,14 +1388,20 @@ def main() -> int:
     phase1_build()
     k1 = phase2_kernel(card)
     phase2b_estep(card)
+    phase2c_overlap_kernel(card)
     phase3_goldens()
     phase3b_train_goldens(card)
+    phase3c_overlap_goldens()
     k1_launches = phase4_workload(card)
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
     # chunk, against their plain versions (timed once: minutes otherwise)
     estep_k = estep_case(f"phase-5 chunk", chunk["batch"], chunk["v2"],
                          chunk["local"], card, n_plain=1)
+    k4_launches, k4_chunk = phase6_overlap(card)
+    # K4 at the overlap path's largest chunk; its plain version on the
+    # chunk's first 128 pairs (a whole chunk is minutes)
+    k4 = ov_case("phase-6 chunk", k4_chunk, card, n_plain=128)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = [dict(name="band_fill", route="cuda",
                     source="quaff_tpu_torch/csrc/band_fill.cu",
@@ -961,6 +1417,13 @@ def main() -> int:
                             source="quaff_tpu_torch/csrc/estep.cu",
                             replaces=rep_at, launches=launches[name],
                             **estep_k[name]))
+    kernels.append(dict(name="ov_fill", route="cuda",
+                        source="quaff_tpu_torch/csrc/ov_fill.cu",
+                        replaces="quaff_tpu/dp/pallas_overlap.py:221",
+                        launches=k4_launches,
+                        **{k: k4[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "library_ms")}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

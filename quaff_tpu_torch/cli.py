@@ -3,14 +3,15 @@
     python -m quaff_tpu_torch.cli align refs.fasta reads.fastq [options]
     python -m quaff_tpu_torch.cli train refs.fasta reads.fastq [options]
     python -m quaff_tpu_torch.cli count refs.fasta reads.fastq [options]
+    python -m quaff_tpu_torch.cli overlap reads.fastq [options]
 
 Ported from quaff_tpu/cli.py.  The flag surface and its parsing are the
 port's copies of that module's helpers (cliargs.py).  The device comes from
 $QUAFF_TORCH_DEVICE ("cuda" by default, "cpu" for the plain PyTorch
 versions of the kernels).
 
-overlap and server, and the -mesh, multi-host, -remote (ssh), -qsubjobs,
-EC2 and -profile options, exit 1 with "not yet ported".
+server, and the -mesh, multi-host, -remote (ssh), -qsubjobs, EC2 and
+-profile options, exit 1 with "not yet ported".
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ PROG = "quaff-tpu-torch"
 VERSION = "0.1"
 NOT_PORTED = "not yet ported in quaff_tpu_torch"
 
-USAGE = f"""Usage: {PROG} {{help,train,count,align}} [options]
+USAGE = f"""Usage: {PROG} {{help,train,count,align,overlap}} [options]
 
  {PROG} train refs.fasta reads.fastq  >params.json
   (to fit a model to unaligned sequences, using EM/Forward-Backward; the
@@ -70,6 +71,15 @@ USAGE = f"""Usage: {PROG} {{help,train,count,align}} [options]
    -savealign <file>               Stream alignments to file
    -format {{fasta,stockholm,sam,refseq}}
 
+ {PROG} overlap reads.fastq
+  (to detect overlaps between reads, using Viterbi; every ordered pair,
+   reverse complements included, is scored on $QUAFF_TORCH_DEVICE, and
+   the reported ones are filled and traced back in float64 on the host)
+
+   -threshold <n>, -nothreshold    Log-odds score threshold
+   -noquals        Ignore read quality scores
+   -savealign <file>, -format {{fasta,stockholm,sam,refseq}}
+
 General options:
    -params <file>  Load model parameters from file
    -ref <file>, -read <file>       Load additional sequences
@@ -81,7 +91,7 @@ General options:
    -threads <n>    Host threads for envelopes and winner tracebacks
    -v, -vv, -log <tag>, -nocolor   Logging
 
-overlap and server are {NOT_PORTED}.
+server is {NOT_PORTED}.
 """
 
 
@@ -89,7 +99,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = deque(argv)
     if not args:
-        sys.stderr.write(f"Usage: {PROG} {{help,train,count,align}} [options]\n")
+        sys.stderr.write(f"Usage: {PROG} {{help,train,count,align,overlap}} "
+                         "[options]\n")
         return 1
     command = args.popleft()
     if command in ("help", "-help", "--help", "-h"):
@@ -98,10 +109,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if command in ("version", "-version", "--version", "-V"):
         sys.stdout.write(f"{PROG} {VERSION}\n")
         return 0
-    if command in ("overlap", "server"):
+    if command == "server":
         sys.stderr.write(f"{command}: {NOT_PORTED}\n")
         return 1
-    commands = {"align": _cmd_align, "train": _cmd_train, "count": _cmd_count}
+    commands = {"align": _cmd_align, "train": _cmd_train, "count": _cmd_count,
+                "overlap": _cmd_overlap}
     if command not in commands:
         sys.stderr.write(f"Unrecognized command: {command}\n")
         return 1
@@ -214,6 +226,51 @@ def _cmd_align(args: deque, state) -> int:
     try:
         aligner.align_all(out, refs, reads, printer)
     finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+def _cmd_overlap(args: deque, state) -> int:
+    import torch
+
+    from .formats.alignment import AlignmentPrinter
+    from .overlap import QuaffOverlapAligner
+
+    printer = AlignmentPrinter()
+    reads_args = SeqListArgs("-read", want_quals=True, want_revcomps=True)
+    parsed = _parse_target()
+    implicit = ["-read"]
+    while args:
+        if (
+            _parse_verbosity(args, state)
+            or _parse_printer(args, printer, state)
+            or _parse_dp_config(args, parsed, general_only=True)
+            or _parse_model_files(args, state)
+            or reads_args.parse(args)
+            or reads_args.parse_noquals(args)
+        ):
+            continue
+        if not _parse_unknown(args, implicit, True):
+            break
+    config = _config(parsed, state)
+
+    seqs, n_originals = reads_args.load(check_duplicates=True)
+    params = _load_params(state)
+    null = _load_null(state, seqs)
+    aligner = QuaffOverlapAligner(params, null, config)
+    n_threads = torch.get_num_threads()
+    if aligner.device.type == "cpu":
+        # K4's plain version steps small [B, W] tensors row by row: more
+        # intra-op threads only add synchronisation, and beside the exact
+        # pass's pool they made each row ~100x slower
+        torch.set_num_threads(1)
+    fn = state.get("align_file")
+    out = open(fn, "w") if fn else sys.stdout
+    try:
+        aligner.align_all(out, seqs, n_originals, printer)
+    finally:
+        torch.set_num_threads(n_threads)
         if out is not sys.stdout:
             out.close()
     return 0

@@ -248,15 +248,14 @@ def table_tensors(tables: ScoreTables, dtype=torch.float64,
 
 
 def _shift_right(v: torch.Tensor, s: int, fill: float) -> torch.Tensor:
-    """out[:, w] = v[:, w - s], `fill` for w < s."""
-    pad = torch.full((v.shape[0], s), fill, dtype=v.dtype, device=v.device)
-    return torch.cat([pad, v[:, :-s]], dim=1)
+    """out[:, w] = v[:, w - s], `fill` for w < s (one pad: the plain
+    versions' row loops are launch-bound on a card)."""
+    return torch.nn.functional.pad(v[:, :-s], (s, 0), value=fill)
 
 
 def _shift_left(v: torch.Tensor, fill: float) -> torch.Tensor:
     """out[:, w] = v[:, w + 1], `fill` for the last lane."""
-    pad = torch.full((v.shape[0], 1), fill, dtype=v.dtype, device=v.device)
-    return torch.cat([v[:, 1:], pad], dim=1)
+    return torch.nn.functional.pad(v[:, 1:], (0, 1), value=fill)
 
 
 def doubling_scan(combine, c: torch.Tensor, b: torch.Tensor, reach: int,

@@ -93,11 +93,17 @@ def library() -> ctypes.CDLL:
             p, p, p, p,  # scratch, partial, d_sc, stream
         ]
         lib.quaff_estep_reduce.argtypes = [p, i, i, p, p]
+        lib.quaff_ov_fill.argtypes = [
+            p, i, i, p,  # bank, C, L, meta
+            p, i, p, p, i,  # doff, W, seg_start, seg_width, S
+            p, p, i, p, p,  # ins_xy, trans, B, out, stream
+        ]
         for fn in ("quaff_band_fill", "quaff_fwd_store", "quaff_bwd_counts",
-                   "quaff_estep_reduce"):
+                   "quaff_estep_reduce", "quaff_ov_fill"):
             getattr(lib, fn).restype = i
         for fn in ("quaff_band_fill_max_smem_lanes",
-                   "quaff_bwd_counts_max_smem_lanes"):
+                   "quaff_bwd_counts_max_smem_lanes",
+                   "quaff_ov_fill_max_smem_lanes"):
             getattr(lib, fn).argtypes = [i]
             getattr(lib, fn).restype = i
         lib.quaff_cuda_error_string.argtypes = [i]
@@ -107,8 +113,8 @@ def library() -> ctypes.CDLL:
 
 
 def max_smem_lanes(device_index: int, kernel: str = "band_fill") -> int:
-    """Widest band a kernel ("band_fill", which K2 shares, or
-    "bwd_counts") keeps in shared memory on this card."""
+    """Widest band a kernel ("band_fill", which K2 shares, "bwd_counts" or
+    "ov_fill") keeps in shared memory on this card."""
     key = (device_index, kernel)
     if key not in _smem_lanes:
         fn = getattr(library(), f"quaff_{kernel}_max_smem_lanes")

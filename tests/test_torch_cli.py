@@ -63,10 +63,10 @@ def test_cuda_without_a_card_exits_nonzero(data_dir, monkeypatch):
 
 @pytest.mark.parametrize("command", ["train", "count", "overlap", "server"])
 def test_unported_commands(command, data_dir, monkeypatch):
-    """overlap and server are refused; train and count are ported, and
-    refuse the distributed backends they do not have yet (-mesh here)."""
+    """server is refused; train, count and overlap are ported, and refuse
+    the distributed backends they do not have yet (-mesh here)."""
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
-    extra = ["-mesh"] if command in ("train", "count") else []
+    extra = ["-mesh"] if command != "server" else []
     rc, out, err = _run([command, str(data_dir / "tiny.fasta"),
                          str(data_dir / "tiny.fastq"), *extra])
     assert rc == 1
@@ -87,6 +87,25 @@ def test_unported_align_options(flags, data_dir, monkeypatch):
     assert rc == 1
     assert NOT_PORTED in err
     assert out == ""
+
+
+@pytest.mark.parametrize(
+    "flags", [("-mesh",), ("-remote", "localhost:8000"), ("-qsubjobs", "2")])
+def test_unported_overlap_options(flags, data_dir, monkeypatch):
+    monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    rc, out, err = _run(["overlap", str(data_dir / "tiny.fastq"), *flags])
+    assert rc == 1
+    assert NOT_PORTED in err
+    assert out == ""
+
+
+def test_overlap_runs(data_dir, monkeypatch):
+    """`overlap` is a command of the port: the synth12 golden on the CPU."""
+    monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    rc, out, err = _run(["overlap", str(data_dir / "synth12.fastq"),
+                         "-kmatchn", "10", "-nothreshold"])
+    assert rc == 0, err
+    assert out == (data_dir / "synth12-overlap.oracle.stk").read_text()
 
 
 def test_savenull_and_null(data_dir, tmp_path, monkeypatch):
@@ -110,6 +129,6 @@ def test_savenull_and_null(data_dir, tmp_path, monkeypatch):
 
 def test_help_and_version():
     rc, out, _ = _run(["help"])
-    assert rc == 0 and "align" in out
+    assert rc == 0 and "align" in out and "overlap reads.fastq" in out
     rc, out, _ = _run(["version"])
     assert rc == 0 and out.startswith("quaff-tpu-torch")

@@ -48,9 +48,9 @@ def test_the_check_sees_an_import(tmp_path):
 
 
 def test_port_runs_load_no_jax(data_dir):
-    """Every port module imported (but __main__), then `align` and
-    `count -fast` on the CPU, in a fresh interpreter: no jax, no
-    quaff_tpu module, and no library loaded from the JAX package's
+    """Every port module imported (but __main__), then `align`,
+    `count -fast` and `overlap` on the CPU, in a fresh interpreter: no jax,
+    no quaff_tpu module, and no library loaded from the JAX package's
     directory."""
     code = f"""
 import importlib, pathlib, sys
@@ -66,6 +66,8 @@ rc = main(["align", d + "/synth12-genome.fasta", d + "/synth12.fastq",
            "-kmatchn", "10", "-nothreshold"])
 rc |= main(["count", d + "/synth12-genome.fasta", d + "/synth12.fastq",
             "-kmatchn", "10", "-fwdstrand", "-fast"])
+rc |= main(["overlap", d + "/synth12.fastq", "-kmatchn", "10",
+            "-nothreshold"])
 sys.stdout.flush()
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "jaxlib", "quaff_tpu")
@@ -84,5 +86,7 @@ sys.exit(rc)
     assert "LOADED=\n" in res.stderr
     assert "LIBS=\n" in res.stderr
     align = (data_dir / "synth12-align.oracle.stk").read_text()
+    overlap = (data_dir / "synth12-overlap.oracle.stk").read_text()
     assert res.stdout.startswith(align)
-    assert '"insert"' in res.stdout[len(align):]
+    assert res.stdout.endswith(overlap)
+    assert '"insert"' in res.stdout[len(align):-len(overlap)]

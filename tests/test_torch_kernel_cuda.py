@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu), and K2,
-K3 and the count reduction (csrc/estep.cu).  Needs an NVIDIA GPU and skips
+card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu), K2,
+K3 and the count reduction (csrc/estep.cu), and K4 (csrc/ov_fill.cu).  Needs an NVIDIA GPU and skips
 without one.  This file imports no JAX, so it also runs on a host that has
 none:
 
@@ -9,7 +9,10 @@ none:
 
 Tolerances, the TPU kernels' own: scores rtol 1e-5 / atol 1e-3 (the
 kernels sum their delete chains and Forward end reductions in another
-order); counts rtol 3e-3 / atol 5e-3 (tests/test_pallas_counts.py).
+order); counts rtol 3e-3 / atol 5e-3 (tests/test_pallas_counts.py);
+overlap scores rtol 1e-5 / atol 0.05 (K4 and its plain version sum float32
+cells in another order over thousands of rows; 0.05 is the JAX package's
+K4 tolerance against its float64 fill, tests/test_pallas_overlap.py).
 """
 
 import pathlib
@@ -154,3 +157,128 @@ def test_estep_kernels_match_plain(case):
     assert torch.equal(tab, estep.estep_reduce(part2))
     assert {k: getattr(estep, k).launches - v for k, v in n.items()} == {
         "fwd_store": 2, "bwd_counts": 2, "estep_reduce": 2}
+
+
+def bounding_band_desc(pairs):
+    """(member, seg_d_lo, seg_start, seg_width, j_off, n_rows) of one strip
+    per pair spanning its envelope's bounding band, every row live: the
+    layout of a bounding-band batch (PairBatch.build) in K4's strip form."""
+    from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL
+
+    B = len(pairs)
+    W = max(e.band_width for *_, e in pairs)
+    member = np.zeros((B, W), bool)
+    for b, (*_, env) in enumerate(pairs):
+        mask = env.member_mask()
+        member[b, : len(mask)] = mask
+    seg_d_lo = np.array([[e.band_lo] for *_, e in pairs], np.int32)
+    assert (seg_d_lo != D_SENTINEL).all()
+    return (member, seg_d_lo, np.zeros((B, 1), np.int32),
+            np.full((B, 1), W, np.int32), np.zeros(B, np.int32),
+            np.array([len(y.seq) for _, y, _ in pairs], np.int32))
+
+
+def overlap_bank_batch(pairs, tables, desc, device):
+    """K4's chunk input (dp/ov_fill.prepare's batch) for (x, y, envelope)
+    pairs on `device`: a sequence bank with one x row and one y row per
+    pair, made by bank_rows from each read's arrays as the overlap
+    pipeline makes its bank, and `desc`, the pairs' (member, seg_d_lo,
+    seg_start, seg_width, j_off, n_rows)."""
+    from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.overlap import _insert_score_sum, _y_strand_arrays
+
+    B = len(pairs)
+    L = max(max(len(x.seq), len(y.seq)) for x, y, _ in pairs)
+    tabs = ov_fill.ov_tables(tables, device)
+    rows, ins = [], []
+    for side in ("x", "y"):
+        arr = np.zeros((4, B, L), np.int32)  # tokens, k-mers, qualities
+        hq, lens, sums = np.zeros(B, bool), np.zeros(B, np.int32), []
+        for b, (x, y, _) in enumerate(pairs):
+            if side == "x":
+                tok = x.tokens()
+                q = x.qual_scores() if x.has_qual() else None
+                mk = x.kmers(tables.match_kmer_len)
+                ik = x.kmers(tables.indel_kmer_len)
+            else:
+                tok, mk, ik, q = _y_strand_arrays(y, tables)
+            n = len(tok)
+            arr[0, b, :n], arr[1, b, :n], arr[2, b, :n] = tok, mk, ik
+            if q is not None:
+                arr[3, b, :n], hq[b] = q, True
+            lens[b] = n
+            sums.append(_insert_score_sum(tables, tok, q))
+        t = torch.from_numpy(arr).to(device)
+        rows.append(ov_fill.bank_rows(
+            tabs, side, t[0], t[1], t[2], t[3], torch.from_numpy(hq).to(device),
+            torch.from_numpy(lens).to(device)))
+        ins.append(sums)
+    names = ("member", "seg_d_lo", "seg_start", "seg_width", "j_off", "n_rows")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in zip(names, desc)}
+    batch.update(
+        bank=torch.cat(rows).contiguous(),
+        x_row=torch.arange(B, device=device),
+        y_row=torch.arange(B, 2 * B, device=device),
+        x_len=torch.tensor([len(x.seq) for x, _, _ in pairs], device=device),
+        y_len=torch.tensor([len(y.seq) for _, y, _ in pairs], device=device),
+        x_insert_score=torch.tensor(ins[0], dtype=torch.float64, device=device),
+        y_insert_score=torch.tensor(ins[1], dtype=torch.float64, device=device),
+    )
+    return batch
+
+
+def _overlap_batch(case, rng):
+    """Lane-packed overlap pairs on distant diagonals (multi-strip
+    envelopes with a dead leading-row region), on the card."""
+    from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.dp.overlap import OverlapScoreTables
+
+    params = (QuaffParams.from_json((DATA / "params-gaporder1.json").read_text())
+              if case == "gaporder1" else default_params())
+    tables = OverlapScoreTables.from_params(params, case == "reverse")
+    base = "".join("acgt"[t] for t in rng.integers(0, 4, 3000))
+    pairs = []
+    for b in range(12):
+        xl, x0 = int(rng.integers(900, 1400)), int(rng.integers(0, 400))
+        yl, y0 = int(rng.integers(600, 900)), int(rng.integers(1000, 2000))
+        ys = list(base[y0 : y0 + yl])
+        for i in range(len(ys)):
+            if rng.random() < 0.08:
+                ys[i] = "ACGT"[int(rng.integers(0, 4))]
+
+        def qual(n):
+            if case == "noqual":
+                return ""
+            return "".join(chr(33 + int(q)) for q in rng.integers(3, 40, n))
+
+        x = FastSeq(name=f"x{b}", seq=base[x0 : x0 + xl], qual=qual(xl))
+        y = FastSeq(name=f"y{b}", seq="".join(ys), qual=qual(yl))
+        env = sparse_envelope(x, KmerIndex(y, 6), band_size=64,
+                              kmer_threshold=14)
+        pairs.append((x, y, env))
+    desc = ov_fill.packed_overlap_descriptors(
+        [e for *_, e in pairs], [len(x.seq) for x, _, _ in pairs],
+        [len(y.seq) for _, y, _ in pairs])
+    return ov_fill.prepare(ov_fill.ov_tables(tables, "cuda"),
+                           overlap_bank_batch(pairs, tables, desc, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["forward", "reverse", "noqual", "gaporder1"])
+def test_ov_fill_matches_plain(case):
+    """K4 against ov_fill_reference: pair scores and strip maxima."""
+    _need_card()
+    from quaff_tpu_torch.dp import ov_fill
+
+    inp = _overlap_batch(case, np.random.default_rng(43))
+    before = ov_fill.ov_fill.launches
+    got = ov_fill.ov_fill(**inp)
+    torch.cuda.synchronize()
+    assert ov_fill.ov_fill.launches == before + 1
+    ref = ov_fill.ov_fill_reference(**inp)
+    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    fin = np.isfinite(ref)
+    assert fin[: inp["meta"].shape[0]].all()
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=0.05)
