@@ -8,7 +8,8 @@ failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
   1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1, K2, K3, the count
-     reduction and K4; one nvcc per source, sm_90a) and the host library
+     reduction, K4 and the probes' chain kernel; one nvcc per source,
+     sm_90a) and the host library
      libquaffio (native/*.cpp, one g++ per source), both at once
   2  K1 against its plain PyTorch version on the card: c8f30 against itself
      lane-packed at B=2048 (the align configuration), plus forward, global,
@@ -24,6 +25,13 @@ failure exits non-zero before the final line is printed.
      on 8 of them (per strand, the two multi-strip pairs of reads with
      qualities and the two of reads without that have the fewest rows);
      times, in-envelope cells/s, the bound
+  2d the speed-of-light probes (quaff_tpu_torch/prof/, the chain kernel
+     csrc/sol_probe.cu): each of its five ops against its plain version at
+     [2048, 256] over 128 steps (add_max and roll_add bitwise, the lse
+     chains within rtol 1e-6 / atol 1e-5); then roofline_probe (add+max
+     and roll+add chains at [256, 256] and [2048, 256], K1's fill rate at
+     B = 512-4096, K1's cost per row) and sol_transcendental (the lse
+     chains in add_max steps, the element check) as a user runs them
   3  the port's `align` CLI on cuda, byte for byte against four goldens,
      with K1 launched in each run
   3b `train` on c8f30 (2 EM iterations) through K2/K3 against the golden
@@ -54,8 +62,8 @@ well inside its time limit.  Each plain version's comparison run is also
 one of its timed runs.
 
 Each path (phase 4 for K1, phase 5 for K2, K3 and the reduction, phase 6
-for K4) runs with the launch counts set to 0 just before it and read just
-after.
+for K4, the probes' run in phase 2d for the chain kernel) runs with the
+launch counts set to 0 just before it and read just after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -109,12 +117,9 @@ def log(msg=""):
 def phase0_card():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    card = smi[0].strip()
+    from quaff_tpu_torch.prof.chains import card_label
+
+    card = card_label()
     log(card)
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
@@ -142,7 +147,8 @@ def phase1_build():
         t_host = ex.submit(timed, native.get_lib)
         t_cuda, t_host = t_cuda.result(), t_host.result()
     how = "built" if kernels.build_log is not None else "reused"
-    log(f"phase 1: kernel library (K1, K2, K3, reduce, K4) {how} in {t_cuda:.1f} s "
+    log(f"phase 1: kernel library (K1, K2, K3, reduce, K4, P1/P2 chains) {how} "
+        f"in {t_cuda:.1f} s "
         f"({kernels.library_path().relative_to(ROOT)})")
     for line in (kernels.build_log or "").splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
@@ -1176,6 +1182,99 @@ def phase2c_overlap_kernel(card):
                 card, n_plain=len(sub))
 
 
+# ---------------------------------------------------------------- phase 2d
+
+# the probes' shape: K1's production batch, one thread a lane
+PROBE_B, PROBE_W = 2048, 256
+# the log-add-exp chains against their plain versions: expf and log1pf of
+# the card and PyTorch's kernels may differ by an ulp a step, over 128
+# steps, and the chain grows only like log(steps)
+LSE_RTOL, LSE_ATOL = 1e-6, 1e-5
+SOL_ENTRIES = (
+    ("sol_chain_add_max", ("add_max",), "tools/prof/roofline_probe.py:78"),
+    ("sol_chain_roll_add", ("roll_add",), "tools/prof/roofline_probe.py:78"),
+    ("sol_chain_lse", ("lse_guarded", "raw_lse", "raw_lse_log"),
+     "tools/prof/sol_transcendental.py:29"),
+)
+
+
+def phase2d_sol_probes(card):
+    """The probes' chain kernel against its plain version, each op at
+    [2048, 256] over GRID 2 x 64 steps; then both probes as a user runs them
+    (python -m quaff_tpu_torch.prof.roofline_probe, then
+    ...sol_transcendental), with the chain's launches counted; then the
+    plain chains at the probes' [2048, 256], GRID 512 x 64 steps, for the
+    kernels line."""
+    import torch
+
+    from quaff_tpu_torch.prof import chains, roofline_probe, sol_transcendental
+
+    t0 = time.perf_counter()
+    exact = ("add_max", "roll_add")
+    p1_in = roofline_probe.p1_inputs(PROBE_B, PROBE_W, "cuda")
+    p2_in = sol_transcendental.p2_inputs(PROBE_B, PROBE_W, "cuda")
+    err = {}
+    for op in chains.OPS:
+        a, b = p1_in if op in exact else p2_in
+        got = chains.chain(op, a, b, 2, 64)
+        ref = chains.chain_reference(op, a, b, 2, 64)
+        err[op] = float((got - ref).abs().max())
+        if op in exact:
+            check(torch.equal(got, ref),
+                  f"phase 2d: {op} chain is not bitwise equal to its plain "
+                  f"version (max abs err {err[op]:.3g})")
+        else:
+            check(bool(torch.allclose(got, ref, rtol=LSE_RTOL, atol=LSE_ATOL)),
+                  f"phase 2d: {op} chain outside rtol {LSE_RTOL} / atol "
+                  f"{LSE_ATOL} of its plain version: max abs err "
+                  f"{err[op]:.3g}")
+    log(f"phase 2d: chain kernel vs plain at [{PROBE_B},{PROBE_W}], GRID 2 x "
+        f"64 steps: add_max and roll_add bitwise equal; lse max abs err "
+        + ", ".join(f"{op} {err[op]:.3g}" for op in chains.OPS[2:])
+        + f" (rtol {LSE_RTOL} / atol {LSE_ATOL}) [{card}]")
+
+    def out(line):
+        log(f"phase 2d: {line}")
+
+    chains.chain.launches.clear()
+    p1 = roofline_probe.run(card, out)
+    add_max = {(r["B"], r["W"]): r["step_s"] for r in p1["chains"]
+               if r["op"] == "add_max"}
+    p2 = sol_transcendental.run(card, out, add_max_step=add_max)
+    launches = dict(chains.chain.launches)
+    check(all(launches.get(op, 0) > 0 for op in chains.OPS),
+          f"phase 2d: the probes did not launch every op: {launches}")
+    log(f"phase 2d: chain launches in the probes' run: {launches}")
+
+    # the kernels line: the kernel's time at [2048, 256], GRID 512 x 64
+    # steps from the probes' run, the plain version once on the same inputs
+    timed = {r["op"]: r for r in p1["chains"] + p2["costs"]
+             if (r["B"], r["W"]) == (PROBE_B, PROBE_W)}
+    entries = []
+    for name, ops, replaces in SOL_ENTRIES:
+        op = ops[0]
+        r = timed[op]
+        a, b = p1_in if op in exact else p2_in
+        steps = r["grid"] * r["iters"][0]
+        _, t_plain = _timed(lambda v: chains.chain_reference(
+            op, v, b, r["grid"], r["iters"][0]), a)
+        elems = PROBE_B * PROBE_W
+        bound_ms, bound_by = _bound(3 * 4 * elems,
+                                    chains.OPS_PER_ELEM[op] * elems * steps)
+        e = dict(name=name, route="cuda",
+                 source="quaff_tpu_torch/csrc/sol_probe.cu",
+                 replaces=replaces, launches=sum(launches[o] for o in ops),
+                 max_abs_err=max(err[o] for o in ops), ms=r["t_lo"] * 1e3,
+                 plain_ms=t_plain * 1e3, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=None)
+        entries.append(e)
+        log(f"phase 2d: {name} ({op}) at [{PROBE_B},{PROBE_W}], {steps} "
+            f"steps: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms "
+            f"(once), bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    log(f"phase 2d: {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 # ---------------------------------------------------------------- phase 3c
 
 
@@ -1389,6 +1488,7 @@ def main() -> int:
     k1 = phase2_kernel(card)
     phase2b_estep(card)
     phase2c_overlap_kernel(card)
+    probes = phase2d_sol_probes(card)
     phase3_goldens()
     phase3b_train_goldens(card)
     phase3c_overlap_goldens()
@@ -1424,6 +1524,7 @@ def main() -> int:
                         **{k: k4[k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by",
                                               "library_ms")}))
+    kernels += probes
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -28,40 +28,34 @@ _libm.lgamma.restype = ctypes.c_double
 _libm.lgamma.argtypes = [ctypes.c_double]
 _lgamma = _libm.lgamma
 
-# the native library carries C versions of the profile-likelihood
-# evaluations (native/negbinomnat.cpp) — BITWISE identical to the Python
-# loops below (same libm calls, same op order; pinned by test_negbinom),
-# ~100x faster.  Resolved lazily to avoid import cycles; Python is the
-# fallback when the library is not built.
+# The host library (native/negbinomnat.cpp) carries the profile-likelihood
+# evaluations; the Python loops below (*_plain) are their plain versions,
+# BITWISE identical (same libm calls, same op order; pinned by
+# tests/test_torch_negbinom.py) and ~100x slower, kept for the tests only.
+# The library is resolved at first use, so that importing this module
+# builds nothing; a library that cannot be built raises, as everywhere in
+# the port.
 _NB_NATIVE = None
-_NB_TRIED = False
 
 
-def _nb_native():
-    global _NB_NATIVE, _NB_TRIED
-    if _NB_TRIED:
-        return _NB_NATIVE
-    _NB_TRIED = True
-    try:
+def _nb_native() -> ctypes.CDLL:
+    global _NB_NATIVE
+    if _NB_NATIVE is None:
         from .. import native as _native
 
         lib = _native.get_lib()
-        if lib is not None and hasattr(lib, "qdp_lognb_freq"):
-            f64 = ctypes.c_double
-            f64p = ctypes.POINTER(ctypes.c_double)
-            i64 = ctypes.c_int64
-            lib.qdp_lognb_freq.restype = f64
-            lib.qdp_lognb_freq.argtypes = [f64p, i64, f64, f64]
-            lib.qdp_nb_deriv1.restype = f64
-            lib.qdp_nb_deriv1.argtypes = [f64p, i64, f64]
-            lib.qdp_nb_deriv2.restype = f64
-            lib.qdp_nb_deriv2.argtypes = [f64p, i64, f64]
-            if hasattr(lib, "qdp_lognb_row"):
-                lib.qdp_lognb_row.restype = None
-                lib.qdp_lognb_row.argtypes = [f64p, i64, f64, f64]
-            _NB_NATIVE = lib
-    except Exception:
-        _NB_NATIVE = None
+        f64 = ctypes.c_double
+        f64p = ctypes.POINTER(ctypes.c_double)
+        i64 = ctypes.c_int64
+        lib.qdp_lognb_freq.restype = f64
+        lib.qdp_lognb_freq.argtypes = [f64p, i64, f64, f64]
+        lib.qdp_nb_deriv1.restype = f64
+        lib.qdp_nb_deriv1.argtypes = [f64p, i64, f64]
+        lib.qdp_nb_deriv2.restype = f64
+        lib.qdp_nb_deriv2.argtypes = [f64p, i64, f64]
+        lib.qdp_lognb_row.restype = None
+        lib.qdp_lognb_row.argtypes = [f64p, i64, f64, f64]
+        _NB_NATIVE = lib
     return _NB_NATIVE
 
 
@@ -147,37 +141,18 @@ def log_negative_binomial(k: int, p_success: float, n_success: float) -> float:
 
 
 def log_negative_binomial_array(
-    k: np.ndarray, p_success, n_success
+    k: np.ndarray, p_success: float, n_success: float
 ) -> np.ndarray:
-    """Vectorised log NB over integer array k (broadcasting p, n);
-    bitwise identical per element to log_negative_binomial."""
-    k = np.asarray(k)
-    # fast path for the score-table shape — contiguous k = 0..n-1 with
-    # scalar (p, n): one native row call (qdp_lognb_row) instead of ~94
-    # ctypes round trips; matters at order 3 (96k entries per params)
-    if (
-        np.isscalar(p_success) or np.ndim(p_success) == 0
-    ) and k.ndim == 1 and len(k) > 0 and k[0] == 0 and np.array_equal(
-        k, np.arange(len(k))
-    ):
-        lib = _nb_native()
-        if lib is not None and hasattr(lib, "qdp_lognb_row"):
-            out = np.empty(len(k), dtype=np.float64)
-            lib.qdp_lognb_row(
-                out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-                len(k), float(p_success), float(n_success),
-            )
-            return out
-    p = np.broadcast_to(np.asarray(p_success, dtype=np.float64), k.shape)
-    n = np.broadcast_to(np.asarray(n_success, dtype=np.float64), k.shape)
-    out = np.empty(k.shape, dtype=np.float64)
-    flat = out.reshape(-1)
-    kf = k.reshape(-1)
-    pf = p.reshape(-1)
-    nf = n.reshape(-1)
-    for idx in range(flat.shape[0]):
-        flat[idx] = log_negative_binomial(float(kf[idx]), float(pf[idx]), float(nf[idx]))
-    return out
+    """log NB(k; p, n) over an array of non-negative integers k with scalar
+    (p, n): one native row call (qdp_lognb_row) for 0..max(k), each entry
+    bitwise identical to log_negative_binomial."""
+    k = np.asarray(k, dtype=np.int64)
+    out = np.empty(int(k.max(initial=-1)) + 1, dtype=np.float64)
+    _nb_native().qdp_lognb_row(
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        len(out), float(p_success), float(n_success),
+    )
+    return out[k]
 
 
 def log_negative_binomial_freq(k_freq: np.ndarray, p_success: float, n_success: float) -> float:
@@ -185,12 +160,16 @@ def log_negative_binomial_freq(k_freq: np.ndarray, p_success: float, n_success: 
     exactly as the reference loop does (negbinom.cpp:34-39) — including
     zero-frequency terms, whose 0*logNB products reproduce the reference's
     NaN semantics when logNB underflows to -inf."""
-    lib = _nb_native()
-    if lib is not None:
-        a, ptr = _as_f64_ptr(k_freq)
-        return float(
-            lib.qdp_lognb_freq(ptr, len(a), float(p_success), float(n_success))
-        )
+    a, ptr = _as_f64_ptr(k_freq)
+    return float(
+        _nb_native().qdp_lognb_freq(ptr, len(a), float(p_success),
+                                    float(n_success))
+    )
+
+
+def log_negative_binomial_freq_plain(k_freq: np.ndarray, p_success: float,
+                                     n_success: float) -> float:
+    """The plain version of log_negative_binomial_freq."""
     lp = 0.0
     for k in range(len(k_freq)):
         lp += float(k_freq[k]) * log_negative_binomial(k, p_success, n_success)
@@ -232,10 +211,12 @@ def _profile_loglike(n: float, k_freq: np.ndarray) -> float:
 
 
 def _deriv1(n: float, k_freq: np.ndarray) -> float:
-    lib = _nb_native()
-    if lib is not None:
-        a, ptr = _as_f64_ptr(k_freq)
-        return float(lib.qdp_nb_deriv1(ptr, len(a), float(n)))
+    a, ptr = _as_f64_ptr(k_freq)
+    return float(_nb_native().qdp_nb_deriv1(ptr, len(a), float(n)))
+
+
+def _deriv1_plain(n: float, k_freq: np.ndarray) -> float:
+    """The plain version of _deriv1."""
     freq_sum = 0.0
     k_sum = 0.0
     k_digamma_sum = 0.0
@@ -252,10 +233,12 @@ def _deriv1(n: float, k_freq: np.ndarray) -> float:
 
 
 def _deriv2(n: float, k_freq: np.ndarray) -> float:
-    lib = _nb_native()
-    if lib is not None:
-        a, ptr = _as_f64_ptr(k_freq)
-        return float(lib.qdp_nb_deriv2(ptr, len(a), float(n)))
+    a, ptr = _as_f64_ptr(k_freq)
+    return float(_nb_native().qdp_nb_deriv2(ptr, len(a), float(n)))
+
+
+def _deriv2_plain(n: float, k_freq: np.ndarray) -> float:
+    """The plain version of _deriv2."""
     freq_sum = 0.0
     k_trigamma_sum = 0.0
     for k in np.nonzero(k_freq)[0]:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu), K2,
-K3 and the count reduction (csrc/estep.cu), and K4 (csrc/ov_fill.cu).  Needs an NVIDIA GPU and skips
+K3 and the count reduction (csrc/estep.cu), K4 (csrc/ov_fill.cu) and the
+probes' chain kernel (csrc/sol_probe.cu).  Needs an NVIDIA GPU and skips
 without one.  This file imports no JAX, so it also runs on a host that has
 none:
 
@@ -282,3 +283,29 @@ def test_ov_fill_matches_plain(case):
     fin = np.isfinite(ref)
     assert fin[: inp["meta"].shape[0]].all()
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add_max", "roll_add", "lse_guarded",
+                                "raw_lse", "raw_lse_log"])
+def test_sol_chain_matches_plain(op):
+    """The probes' chain kernel (csrc/sol_probe.cu) against chain_reference
+    at 128 steps: add_max and roll_add bitwise (exact operations in the same
+    order), the log-add-exp chains within rtol 1e-6 / atol 1e-5 (expf and
+    log1pf of the card and PyTorch's kernels may differ by an ulp a step;
+    the chain grows only like log(steps))."""
+    _need_card()
+    from quaff_tpu_torch.prof import chains, roofline_probe, sol_transcendental
+
+    make = (roofline_probe.p1_inputs if op in ("add_max", "roll_add")
+            else sol_transcendental.p2_inputs)
+    a, b = make(64, 256, "cuda")
+    before = chains.chain.launches[op]
+    got = chains.chain(op, a, b, 2, 64)
+    torch.cuda.synchronize()
+    assert chains.chain.launches[op] == before + 1
+    ref = chains.chain_reference(op, a, b, 2, 64)
+    if op in ("add_max", "roll_add"):
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-5)
