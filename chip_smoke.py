@@ -7,18 +7,23 @@ It builds everything from the checkout and runs its phases in order; any
 failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
-  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1, K2, K3, the count
-     reduction, K4 and the probes' chain kernel; one nvcc per source,
-     sm_90a) and the host library
-     libquaffio (native/*.cpp, one g++ per source), both at once
+  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp and block
+     routes, K2, K3, the count reduction, K4 and the probes' chain kernel;
+     one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
+     and the host library libquaffio (native/*.cpp, one g++ per source),
+     both at once
   2  K1 against its plain PyTorch version on the card: c8f30 against itself
-     lane-packed at B=2048 (the align configuration), plus forward, global,
-     no-quality, gap-order-1 and a band wider than shared memory; median
-     times of both, in-envelope cells/s, the least time the card could take
+     lane-packed at B=2048 (the align configuration; the warp route), plus
+     forward, global (the block route), no-quality, gap-order-1 and a band
+     wider than shared memory (the block route); every launch must take
+     fill_route's route; median times of both, in-envelope cells/s, the
+     least time the card could take
   2b K2, K3 and the count reduction against their plain versions: B=64
      W~134 Ly=300 at gap order 0 and 1, global mode, a band wider than
-     shared memory, and the c8f30 self pair; two runs must give
-     bit-identical count tables
+     shared memory, and the c8f30 self pair; the reduction bit for bit;
+     two runs must give bit-identical count tables; the reduction and
+     torch.sum timed alike (device time from a CUDA graph of 100 calls,
+     the eager 100 back to back, one call with host launch)
   2c K4 against its plain version: 64 overlapping pairs of 2-10 kb reads,
      lane-packed (up to 3 strips), at gap order 0 and 1, each batch with
      both strands and reads with and without qualities; the plain version
@@ -41,8 +46,11 @@ failure exits non-zero before the final line is printed.
      with K4's launches (K4 must run on the multi-pair ones)
   4  align at a size users run: a seeded 200 kb genome and 512 reads of
      2-10 kb (12% substitutions and indels, half reverse strand, with
-     qualities) through the CLI on cuda; reads/s and K1 launches; the first
-     32 reads again on the CPU (plain version) must give the same text
+     qualities) through the CLI on cuda; reads/s, K1 launches by route and
+     width and each route's share of the in-envelope cells; the first 32
+     reads again on the CPU (plain version) must give the same text; then
+     the block route on the run's largest block-route chunk (if any)
+     against its plain version
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches, peak
      device memory; the log-likelihood must rise; `count -fast` on the
@@ -61,9 +69,10 @@ Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
 well inside its time limit.  Each plain version's comparison run is also
 one of its timed runs.
 
-Each path (phase 4 for K1, phase 5 for K2, K3 and the reduction, phase 6
-for K4, the probes' run in phase 2d for the chain kernel) runs with the
-launch counts set to 0 just before it and read just after.
+Each path (phase 4 for K1's two routes, phase 5 for K2, K3 and the
+reduction, phase 6 for K4, the probes' run in phase 2d for the chain
+kernel) runs with the launch counts set to 0 just before it and read just
+after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -147,12 +156,16 @@ def phase1_build():
         t_host = ex.submit(timed, native.get_lib)
         t_cuda, t_host = t_cuda.result(), t_host.result()
     how = "built" if kernels.build_log is not None else "reused"
-    log(f"phase 1: kernel library (K1, K2, K3, reduce, K4, P1/P2 chains) {how} "
-        f"in {t_cuda:.1f} s "
+    log(f"phase 1: kernel library (K1's warp and block routes, K2, K3, "
+        f"reduce, K4, P1/P2 chains) {how} in {t_cuda:.1f} s "
         f"({kernels.library_path().relative_to(ROOT)})")
-    for line in (kernels.build_log or "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    from quaff_tpu_torch.prof.kernel_sass import demangle, parse_ptxas
+
+    ptxas = parse_ptxas(kernels.build_log or "")
+    names = demangle(ptxas)
+    for fn, (regs, st, ld) in sorted(ptxas.items(), key=lambda kv: names[kv[0]]):
+        log(f"  ptxas: {names[fn]}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
     how = "built" if native.build_log is not None else "reused"
     log(f"phase 1: host libquaffio {how} from native/*.cpp in {t_host:.1f} s "
         f"({native.library_path().relative_to(ROOT)})")
@@ -223,6 +236,37 @@ def _times(fn, variants):
     return [_timed(fn, v)[1] for v in variants]
 
 
+def _back_to_back(fn, arg, n=100):
+    """(eager, graph) seconds a call of fn(arg) over n back-to-back calls
+    on the same input, after a warm call, by CUDA events around the n:
+    eager as the host enqueues them (the host's rate where a call takes it
+    longer to enqueue than the card to run), and the same n calls captured
+    in one CUDA graph and replayed, which leaves the device's own time."""
+    import torch
+
+    fn(arg)  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn(arg)
+    end.record()
+    torch.cuda.synchronize()
+    eager = start.elapsed_time(end) / 1e3 / n
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn(arg)
+    graph.replay()  # warm
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return eager, start.elapsed_time(end) / 1e3 / n
+
+
 def _time(fn, variants):
     """Median seconds of fn(v) over distinct inputs."""
     return statistics.median(_times(fn, variants))
@@ -245,18 +289,24 @@ def _bound(nbytes, ops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def _cells(inp):
-    """In-envelope cells of a kernel_inputs batch: for each lane, the rows
-    j = 1..ylen whose ref index doff + j - 1 lies in [0, xlen)."""
+def _cells_on_device(inp):
+    """In-envelope cells of a kernel_inputs batch, as a tensor on its
+    device (no wait): for each lane, the rows j = 1..ylen whose ref index
+    doff + j - 1 lies in [0, xlen)."""
     import torch
 
     from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL
 
     d = inp["doff"].long()
-    xlen, ylen = inp["meta"][:, 0:1].long(), inp["meta"][:, 1:2].long()
+    Ly = inp["keys"].shape[1]
+    xlen = inp["meta"][:, 0:1].long()
+    ylen = inp["meta"][:, 1:2].long().clamp(max=Ly)
     n = torch.minimum(ylen, xlen - d) - torch.clamp(1 - d, min=1) + 1
-    n = torch.where(inp["doff"] != D_SENTINEL, n.clamp(min=0), 0)
-    return int(n.sum())
+    return torch.where(inp["doff"] != D_SENTINEL, n.clamp(min=0), 0).sum()
+
+
+def _cells(inp):
+    return int(_cells_on_device(inp))
 
 
 def _ref_window(inp):
@@ -298,16 +348,38 @@ def _fill_in_bytes(inp, v2):
                       inp["seg_width"]) + _table_bytes(v2))
 
 
-def run_case(name, pb, tables, mode, local, card, n_runs=3):
+def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None):
     """K1 and its plain version on one batch: agreement and times."""
-    import torch
-
     from quaff_tpu_torch.dp import fill_v2
     from quaff_tpu_torch.dp.engine import to_device
 
     v2 = fill_v2.V2Tables.from_tables(tables, "cuda")
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
-    mp = fill_v2.batch_max_prop(pb)
+    return fill_case(f"phase 2: {name}", inp, v2, mode, local, card, n_runs,
+                     route, fill_v2.batch_max_prop(pb))
+
+
+ROUTE_COUNTS = ("launches", "warp_launches", "block_launches")
+
+
+def _route_counts():
+    from quaff_tpu_torch.dp import fill_v2
+
+    return {k: getattr(fill_v2.band_fill, k) for k in ROUTE_COUNTS}
+
+
+def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
+              mp=None, n_plain=None):
+    """K1 and its plain version on kernel_inputs `inp`: agreement, times,
+    and that every launch took fill_route's route (`route`, when given,
+    must be it)."""
+    from quaff_tpu_torch.dp import fill_v2
+
+    W = inp["doff"].shape[1]
+    want, lpt = fill_v2.fill_route(W)
+    check(route is None or want == route,
+          f"{name}: W={W} takes the {want} route, not the {route} route")
+    before = _route_counts()
 
     def kern(keys):
         return fill_v2.band_fill(**dict(inp, keys=keys), tables=v2, mode=mode,
@@ -328,19 +400,29 @@ def run_case(name, pb, tables, mode, local, card, n_runs=3):
         variants.append(k)
     kern(variants[0])  # warm
     ms = _time(kern, variants[1:]) * 1e3
-    # the plain version: the comparison's run and n_runs - 1 more
+    moved = {k: v - before[k] for k, v in _route_counts().items()}
+    check(moved == {"launches": n_runs + 2,
+                    "warp_launches": (n_runs + 2) * (want == "warp"),
+                    "block_launches": (n_runs + 2) * (want == "block")},
+          f"{name}: K1's launches by route {moved}, want all {n_runs + 2} "
+          f"on the {want} route")
+    # the plain version: the comparison's run and n_plain - 1 more
+    n_plain = n_runs if n_plain is None else n_plain
     plain_ms = statistics.median(
-        [t_ref] + _times(plain, variants[1:n_runs])) * 1e3
-    B, W = inp["doff"].shape
+        [t_ref] + _times(plain, variants[1:n_plain])) * 1e3
+    B = inp["doff"].shape[0]
     cells = _cells(inp)
     bound_ms, bound_by = _bound(
         _fill_in_bytes(inp, v2) + 4 * B * (1 + inp["seg_start"].shape[1]),
         OPS_PER_CELL[mode] * cells)
-    log(f"phase 2: {name}: B={B} W={W} Ly={inp['keys'].shape[1]} {mode} "
-        f"{'local' if local else 'global'}: max abs err {err:.3g}; "
-        f"K1 {ms:.3f} ms, plain {plain_ms:.3f} ms (median of {n_runs}); "
-        f"{cells} in-envelope cells, bound {bound_ms:.4f} ms ({bound_by}) "
-        f"[{card}]")
+    how = f"warp route, {lpt} lanes a thread" if want == "warp" else \
+        "block route"
+    log(f"{name}: B={B} W={W} Ly={inp['keys'].shape[1]} {mode} "
+        f"{'local' if local else 'global'} ({how}): max abs err {err:.3g}; "
+        f"K1 {ms:.3f} ms (median of {n_runs}), plain {plain_ms:.3f} ms "
+        f"(median of {n_plain}); "
+        f"{cells} in-envelope cells, {cells / (ms / 1e3):.4g} cells/s, "
+        f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "cells": cells}
 
@@ -364,7 +446,8 @@ def phase2_kernel(card):
     env = make_envelope(x, KmerIndex(y, 6), kmer_threshold=14, cell_size=24)
     B = 2048
     pb = PairBatch.build_packed([(x, y, env)] * B, tables)
-    main = run_case("c8f30 packed", pb, tables, "viterbi", True, card)
+    main = run_case("c8f30 packed", pb, tables, "viterbi", True, card,
+                    route="warp")
     cells = main["cells"]
     log(f"phase 2: c8f30 packed: K1 {cells / (main['ms'] / 1e3):.4g} cells/s, "
         f"plain {cells / (main['plain_ms'] / 1e3):.4g} cells/s [{card}]")
@@ -374,7 +457,7 @@ def phase2_kernel(card):
     run_case("forward", PairBatch.build_packed(pairs, tables), tables,
              "forward", True, card)
     # global paths need the whole ref in the band: full envelopes (W above
-    # 1024 lanes, so each thread of the kernel owns two lanes)
+    # 1024 lanes: the block route, each thread owning two lanes)
     run_case("global", PairBatch.build(
         [(xg, yg, full_envelope(len(xg.seq), len(yg.seq)))
          for xg, yg, _ in pairs[:16]], tables), tables, "viterbi", False, card)
@@ -399,9 +482,9 @@ def phase2_kernel(card):
                      full_envelope(len(xs), 400)))
     wpb = PairBatch.build(wide, tables)
     check(wpb.member.shape[1] > limit, "wide case fits shared memory")
-    run_case(f"wide (W > {limit} smem lanes)", wpb, tables, "viterbi", True,
-             card)
-    return main
+    wide_res = run_case(f"wide (W > {limit} smem lanes)", wpb, tables,
+                        "viterbi", True, card, route="block")
+    return main, wide_res
 
 
 # ---------------------------------------------------------------- phase 3
@@ -524,18 +607,53 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
             QuaffNullParams.fit(read_fast_seqs(str(rpath))).write_json(f)
         argv = ["align", str(gpath), str(rpath), "-threads", threads,
                 "-null", str(null)]
-        fill_v2.band_fill.launches = 0
-        t0 = time.perf_counter()
-        out = _cli(argv, "cuda")
-        wall = time.perf_counter() - t0
-        launches = fill_v2.band_fill.launches
-        check(launches > 0, "the main path launched no K1")
+        # each K1 launch's route, width and in-envelope cells; the inputs
+        # of the largest block-route chunk are kept for its timed run
+        orig = fill_v2.band_fill
+        calls, widest = [], {}
+
+        def recording(**kw):
+            res = orig(**kw)
+            B, W = kw["doff"].shape
+            route = fill_v2.fill_route(W)[0]
+            calls.append((route, W, B, _cells_on_device(kw)))
+            size = B * W * kw["keys"].shape[1]
+            if route == "block" and size > widest.get("size", 0):
+                widest.update(size=size, kw=kw)
+            return res
+
+        # band_fill adds its launches to the counts of the module's
+        # `band_fill`, which is `recording` while it is installed
+        for k in ROUTE_COUNTS:
+            setattr(recording, k, 0)
+        fill_v2.band_fill = recording
+        try:
+            t0 = time.perf_counter()
+            out = _cli(argv, "cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            fill_v2.band_fill = orig
+        counts = {k: getattr(recording, k) for k in ROUTE_COUNTS}
+        check(counts["launches"] > 0, "the main path launched no K1")
         n_aligned = out.count("#=GF Score")
         check(n_aligned >= 0.9 * n_reads,
               f"only {n_aligned} of {n_reads} reads aligned")
         log(f"phase 4: align on cuda: {wall:.2f} s wall, "
             f"{n_reads / wall:.2f} reads/s, {n_aligned} alignments, "
-            f"{launches} K1 launches [{card}]")
+            f"{counts['launches']} K1 launches [{card}]")
+        cells = {r: sum(int(c) for rr, _, _, c in calls if rr == r)
+                 for r in ("warp", "block")}
+        total = max(sum(cells.values()), 1)
+        for r in ("warp", "block"):
+            ws = sorted(W for rr, W, _, _ in calls if rr == r)
+            check(len(ws) == counts[f"{r}_launches"],
+                  f"phase 4: {len(ws)} {r}-route chunks but "
+                  f"{counts[f'{r}_launches']} {r}-route launches")
+            log(f"phase 4: K1 {r} route: {len(ws)} launches at W {ws}, "
+                f"{cells[r]} in-envelope cells "
+                f"({100 * cells[r] / total:.2f}% of the run's)")
+        log("phase 4: K1 launches (route, W, B): "
+            + ", ".join(f"({r}, {W}, {B})" for r, W, B, _ in calls))
         t0 = time.perf_counter()
         cpu = _cli(["align", str(gpath), str(head), "-threads", threads,
                     "-null", str(null)], "cpu")
@@ -546,7 +664,7 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
               "the GPU run's")
         log(f"phase 4: first {n_check} reads on the CPU (plain version): "
             f"byte-identical to the GPU run ({time.perf_counter() - t0:.1f} s)")
-    return launches
+    return counts, widest.get("kw")
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -619,7 +737,11 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
     err_c = _compare_counts(torch.cat([part.ravel(), sc.ravel()]),
                             torch.cat([part_p.ravel(), sc_p.ravel()]))
     del part_p, sc_p
-    err_r = _compare_counts(tab, estep.estep_reduce_reference(part))
+    tab_p, t_red_p = _timed(estep.estep_reduce_reference, part)
+    err_r = float((tab - tab_p).abs().max())
+    check(torch.equal(tab, tab_p), f"{name}: the count reduction differs "
+          f"from its plain version (max abs err {err_r:.3g}), not bit for bit")
+    del tab_p
     # each finite pair's back-start posterior exp(back - fwd) is 1 in exact
     # arithmetic (rtol 5e-3, tests/test_pallas_counts.py)
     bsp = sc[4][fin].double().cpu()
@@ -646,8 +768,14 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
              [t_p2] + _times(p2, variants[1:n_plain]))),
          "bwd_counts": (_time(k3, wv), statistics.median(
              [t_p3] + _times(p3, wv[:n_plain - 1])))}
-    t_red = _time(estep.estep_reduce, [part] * n_runs)
-    t_lib = _time(lambda p: torch.sum(p, dim=0), [part] * n_runs)
+    # the reduction and torch.sum, timed alike: device time (a graph of
+    # 100 back-to-back calls), the eager 100, one call with host launch
+    red = {}
+    for k, fn in (("kernel", estep.estep_reduce),
+                  ("torch.sum", lambda p: torch.sum(p, dim=0))):
+        eager, dev = _back_to_back(fn, part)
+        red[k] = {"device": dev, "eager": eager,
+                  "host": _time(fn, [part] * n_runs)}
 
     cells = _cells(inp)
     n_rows = int(inp["meta"][:, 1].clamp(max=Ly).sum())
@@ -673,21 +801,31 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
                   "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                   "library_ms": None}
     out["estep_reduce"] = {
-        "max_abs_err": err_r, "ms": t_red * 1e3, "plain_ms": t_lib * 1e3,
-        "bound_ms": bounds["estep_reduce"][0],
-        "bound_by": bounds["estep_reduce"][1], "library_ms": t_lib * 1e3}
+        "max_abs_err": err_r, "ms": red["kernel"]["device"] * 1e3,
+        "plain_ms": t_red_p * 1e3, "bound_ms": bounds["estep_reduce"][0],
+        "bound_by": bounds["estep_reduce"][1],
+        "library_ms": red["torch.sum"]["device"] * 1e3}
     log(f"phase 2b: {name}: B={B} W={W} Ly={Ly} "
         f"{'local' if local else 'global'}, {cells} in-envelope cells; "
-        f"max abs err fwd {err_f:.3g}, counts {err_c:.3g}, reduce {err_r:.3g}; "
+        f"max abs err fwd {err_f:.3g}, counts {err_c:.3g}; reduce bitwise "
+        f"equal to its plain version; "
         f"back-start posterior within {float((bsp - 1).abs().max()):.3g} of 1; "
         f"tables bit-identical over two runs [{card}]")
-    for k, v in out.items():
-        lib = ("" if v["library_ms"] is None
-               else f", torch.sum {v['library_ms']:.4f} ms")
+    for k in ("fwd_store", "bwd_counts"):
+        v = out[k]
         log(f"phase 2b: {name}: {k} {v['ms']:.3f} ms (median of {n_runs}), "
-            f"plain {v['plain_ms']:.3f} ms (median of "
-            f"{n_plain if k != 'estep_reduce' else n_runs}){lib}, bound "
+            f"plain {v['plain_ms']:.3f} ms (median of {n_plain}), bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}) [{card}]")
+    log(f"phase 2b: {name}: estep_reduce [{B}, {E}]: device time (graph of "
+        f"100) {red['kernel']['device'] * 1e3:.4f} ms vs torch.sum "
+        f"{red['torch.sum']['device'] * 1e3:.4f} ms; eager 100 back to back "
+        f"{red['kernel']['eager'] * 1e3:.4f} vs "
+        f"{red['torch.sum']['eager'] * 1e3:.4f} ms; with host launch "
+        f"(median of {n_runs}) {red['kernel']['host'] * 1e3:.4f} vs "
+        f"{red['torch.sum']['host'] * 1e3:.4f} ms; plain "
+        f"{t_red_p * 1e3:.3f} ms (once); bound "
+        f"{out['estep_reduce']['bound_ms']:.4f} ms "
+        f"({out['estep_reduce']['bound_by']}) [{card}]")
     return out
 
 
@@ -1485,14 +1623,24 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase0_card()
     phase1_build()
-    k1 = phase2_kernel(card)
+    k1, k1_wide = phase2_kernel(card)
     phase2b_estep(card)
     phase2c_overlap_kernel(card)
     probes = phase2d_sol_probes(card)
     phase3_goldens()
     phase3b_train_goldens(card)
     phase3c_overlap_goldens()
-    k1_launches = phase4_workload(card)
+    k1_counts, k1_chunk = phase4_workload(card)
+    if k1_chunk is not None:
+        # the block route at the align path's largest block-route chunk;
+        # its plain version once (tens of seconds)
+        inp = {k: k1_chunk[k] for k in ("x_tok", "keys", "meta", "doff",
+                                        "seg_start", "seg_width")}
+        k1_wide = fill_case("phase 4: the largest block-route chunk", inp,
+                            k1_chunk["tables"], k1_chunk["mode"],
+                            k1_chunk["local"], card, route="block",
+                            mp=k1_chunk["max_prop"], n_plain=1)
+        del inp, k1_chunk
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
     # chunk, against their plain versions (timed once: minutes otherwise)
@@ -1503,12 +1651,17 @@ def main() -> int:
     # chunk's first 128 pairs (a whole chunk is minutes)
     k4 = ov_case("phase-6 chunk", k4_chunk, card, n_plain=128)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [dict(name="band_fill", route="cuda",
-                    source="quaff_tpu_torch/csrc/band_fill.cu",
+                    source="quaff_tpu_torch/csrc/band_fill_warp.cuh",
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
-                    launches=k1_launches, library_ms=None,
-                    **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by")})]
+                    launches=k1_counts["warp_launches"], library_ms=None,
+                    **{k: k1[k] for k in k1_keys}),
+               dict(name="band_fill_block", route="cuda",
+                    source="quaff_tpu_torch/csrc/band_fill.cuh",
+                    replaces="quaff_tpu/dp/pallas_v2.py:491",
+                    launches=k1_counts["block_launches"], library_ms=None,
+                    **{k: k1_wide[k] for k in k1_keys})]
     replaces = {"fwd_store": "quaff_tpu/dp/pallas_counts.py:507",
                 "bwd_counts": "quaff_tpu/dp/pallas_counts.py:561",
                 "estep_reduce": "quaff_tpu/dp/pallas_counts.py:561"}

@@ -7,22 +7,28 @@
 // quaff_tpu_torch/dp/fill_v2.py::band_fill_reference; the input layout is
 // described there (kernel_inputs).
 //
-// The kernel, band_fill_kernel<VIT, STORE>, and its design notes live in
-// band_fill.cuh, shared with K2 (estep.cu); this file is K1's launch,
-// <VIT, false>.
+// Two routes, picked by dp/fill_v2.fill_route from the band's width W:
 //
-// What bounds it: three block barriers and a dependent chain of global
-// loads (row keys, then table entries) per row, not bandwidth or FLOPs:
-// a pair of Ly rows and W lanes moves about 16*Ly + W*Ly bytes.  Many
-// blocks per SM hide the latency; each block stops at its own read length.
+//   warp route   W <= 32 * 16: band_fill_warp_kernel<VIT, LPT>
+//                (band_fill_warp.cuh), one warp per pair, the band row in
+//                registers, LPT lanes a thread (the smallest of 1, 2, 4, 8,
+//                16 with 32 * LPT >= W), no block barrier in the row loop;
+//   block route  wider bands: band_fill_kernel<VIT, false> (band_fill.cuh,
+//                shared with K2 in estep.cu), one block per pair, the band
+//                row in shared memory or, past its size, global scratch.
+//
+// What bounds them: neither bytes nor FLOPs (a pair of Ly rows and W lanes
+// moves about 16*Ly + W*Ly bytes); the warp route issues ~50 instructions
+// a lane and row, the block route waits on three block barriers and a
+// dependent chain of global loads (row keys, then table entries) each row.
 
-#include "band_fill.cuh"
+#include "band_fill_warp.cuh"
 
 extern "C" {
 
-// Launches K1 on `stream`; returns the cudaError_t of the launch.  Does not
-// synchronise and allocates nothing: scratch is null (row state in shared
-// memory) or B*6*W floats of global memory.
+// Launches K1's block route on `stream`; returns the cudaError_t of the
+// launch.  Does not synchronise and allocates nothing: scratch is null (row
+// state in shared memory) or B*6*W floats of global memory.
 int quaff_band_fill(const void* x_tok, int Lx, const void* keys, int Ly,
                     const void* meta, const void* doff, int W,
                     const void* seg_start, const void* seg_width, int S,
@@ -57,6 +63,42 @@ int quaff_band_fill(const void* x_tok, int Lx, const void* keys, int Ly,
                                           S, ma, mn, in, inn, Km, Q, ikt,
                                           n_ik, tr, B, local, scr, o, nullptr,
                                           nullptr, st);
+  return (int)e;
+}
+
+// Launches K1's warp route on `stream` (W <= 32 * lpt, lpt one of 1, 2, 4,
+// 8, 16); returns the cudaError_t of the launch.  Same inputs and output as
+// quaff_band_fill, no scratch.
+int quaff_band_fill_warp(const void* x_tok, int Lx, const void* keys, int Ly,
+                         const void* meta, const void* doff, int W,
+                         const void* seg_start, const void* seg_width, int S,
+                         const void* match, const void* match_noq,
+                         const void* insert, const void* insert_noq, int Km,
+                         int Q, const void* ik, int n_ik, const void* trans,
+                         int B, int viterbi, int local, int lpt, void* out,
+                         void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > 32 * lpt || S < 1 || S > kMaxSegs || n_ik < 1 || Lx < 1)
+    return (int)cudaErrorInvalidValue;
+  const FillTables tb{static_cast<const float*>(match),
+                      static_cast<const float*>(match_noq),
+                      static_cast<const float*>(insert),
+                      static_cast<const float*>(insert_noq),
+                      static_cast<const float*>(ik), Km, Q, n_ik};
+  const auto* xt = static_cast<const int8_t*>(x_tok);
+  const auto* k4 = static_cast<const int4*>(keys);
+  const auto* m4 = static_cast<const int4*>(meta);
+  const auto* dof = static_cast<const int*>(doff);
+  const auto* s0 = static_cast<const int*>(seg_start);
+  const auto* sw = static_cast<const int*>(seg_width);
+  const auto* tr = static_cast<const float*>(trans);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      viterbi ? launch_warp_lpt<true>(lpt, xt, Lx, k4, Ly, m4, dof, W, s0, sw,
+                                      S, tb, tr, B, local, o, st)
+              : launch_warp_lpt<false>(lpt, xt, Lx, k4, Ly, m4, dof, W, s0,
+                                       sw, S, tb, tr, B, local, o, st);
   return (int)e;
 }
 

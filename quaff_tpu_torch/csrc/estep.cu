@@ -44,9 +44,9 @@
 // Deterministic counts: each pair accumulates into its own slice of a
 // [B][E] partial table in global memory, each entry always by the same
 // thread, in row order; the reduce kernel then sums the B slices of every
-// entry in pair order.  No float atomics, so two runs on the same inputs
-// give bit-identical tables (an order-3 match table, ~385 KB, would not
-// fit shared memory anyway).  E = 4*Km*Q (match, symbol-major) + 4*Q
+// entry in one fixed order (estep_reduce_kernel below).  No float atomics,
+// so two runs on the same inputs give bit-identical tables (an order-3
+// match table, ~385 KB, would not fit shared memory anyway).  E = 4*Km*Q (match, symbol-major) + 4*Q
 // (insert) + 4*n_ik (m2m, m2i, m2d, m2e per indel context).
 //
 // What bounds K3: like K1, the per-row barriers (the reverse scan's two,
@@ -328,16 +328,56 @@ __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
   }
 }
 
-// out[e] = sum over b of partial[b][e], in pair order
-__global__ void estep_reduce_kernel(const float* __restrict__ partial, int B,
-                                    int E, float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
+// The count reduction out[e] = sum over b of partial[b][e] (K3's cross-pair
+// sum), in one fixed order that dp/estep.estep_reduce_reference repeats
+// step by step, so the two agree bit for bit and every run repeats:
+//
+//   1. a block owns 32 consecutive columns (a warp reads 128 contiguous
+//      bytes of a row) and has kRedWarps = 8 warps;
+//   2. warp g sums rows g, g+8, g+16, ... in increasing order, from 0.f, in
+//      float32 (16 independent loads in flight, added in row order);
+//   3. the 8 partial columns combine by one fixed pairwise tree,
+//      ((0+1)+(2+3))+((4+5)+(6+7)).
+//
+// Float32 adds are correctly rounded and nvcc does not reassociate them
+// without fast-math, so the order is the arithmetic.  What bounds it: the
+// [B][E] read (bytes), but at the phase-5 chunk's [256][1884] that is 1.9
+// MB, under a microsecond at the card's rate, so the launch and the memory
+// latency of each warp's row loads set its time; the 8 warps a column tile
+// keep 128 loads of a column in flight at once.
+constexpr int kRedWarps = 8;
+constexpr int kRedUnroll = 16;
+
+__global__ void __launch_bounds__(kRedWarps * 32) estep_reduce_kernel(
+    const float* __restrict__ partial, int B, int E, float* __restrict__ out) {
+  __shared__ float acc[kRedWarps][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
   float s = 0.f;
-#pragma unroll 8
-  for (int b = 0; b < B; ++b) s += __ldg(partial + (size_t)b * E + e);
-  out[e] = s;
+  if (e < E) {
+    const float* p = partial + e;
+    int b = g;
+    for (; b + (kRedUnroll - 1) * kRedWarps < B; b += kRedUnroll * kRedWarps) {
+      float v[kRedUnroll];
+#pragma unroll
+      for (int u = 0; u < kRedUnroll; ++u)
+        v[u] = __ldg(p + (size_t)(b + u * kRedWarps) * E);
+#pragma unroll
+      for (int u = 0; u < kRedUnroll; ++u) s += v[u];
+    }
+    for (; b < B; b += kRedWarps) s += __ldg(p + (size_t)b * E);
+  }
+  acc[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && e < E) {
+    const float a01 = acc[0][lane] + acc[1][lane];
+    const float a23 = acc[2][lane] + acc[3][lane];
+    const float a45 = acc[4][lane] + acc[5][lane];
+    const float a67 = acc[6][lane] + acc[7][lane];
+    out[e] = (a01 + a23) + (a45 + a67);
+  }
 }
+static_assert(kRedWarps == 8, "the combining tree above is written for 8");
 
 constexpr int kBwdStaticBytes = (3 * 32 + 32 * 16 + 16) * (int)sizeof(float);
 
@@ -410,12 +450,12 @@ int quaff_bwd_counts(const void* x_tok, int Lx, const void* keys, int Ly,
   return (int)cudaGetLastError();
 }
 
-// Launches the fixed-order reduction out[E] = sum_b partial[b][E].
+// Launches the fixed-order reduction out[E] = sum_b partial[b][E]: one
+// block of kRedWarps warps per 32 columns.
 int quaff_estep_reduce(const void* partial, int B, int E, void* out,
                        void* stream) {
   if (E <= 0) return 0;
-  const int threads = 128;
-  estep_reduce_kernel<<<(E + threads - 1) / threads, threads, 0,
+  estep_reduce_kernel<<<(E + 31) / 32, kRedWarps * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(partial), B, E, static_cast<float*>(out));
   return (int)cudaGetLastError();

@@ -13,7 +13,8 @@ Ported from quaff_tpu/dp/pallas_counts.py:
                                        with posterior-weighted counts,
                                        per-pair tables [B, E] and d_sc [5, B]
   estep_reduce / estep_reduce_reference  the fixed-order sum of K3's
-                                       per-pair tables over pairs
+                                       per-pair tables over pairs (the
+                                       two agree bit for bit)
   estep_fused_multi, estep_fused,      the entries (_estep_fused_core's
   estep_kernel                         glue in plain torch: it is not a
                                        Pallas kernel)
@@ -341,13 +342,31 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
 bwd_counts.launches = 0
 
 
+# warps of the count reduction's column tile (csrc/estep.cu kRedWarps)
+REDUCE_WARPS = 8
+
+
 def estep_reduce_reference(partial):
-    """The plain version of the count reduction: [B, E] -> [E]."""
-    return partial.sum(dim=0)
+    """The plain version of the count reduction, [B, E] float32 -> [E], in
+    the kernel's order step by step (csrc/estep.cu): row group r adds rows
+    r*G .. r*G+G-1 to a [G, E] accumulator (rows past B add nothing), then
+    the G partial sums combine by the tree ((0+1)+(2+3))+((4+5)+(6+7)).
+    Each step is a float32 add of the same operands as the card's, so the
+    two agree bit for bit."""
+    B, E = partial.shape
+    acc = torch.zeros((REDUCE_WARPS, E), dtype=partial.dtype,
+                      device=partial.device)
+    for r in range(0, B, REDUCE_WARPS):
+        rows = partial[r : r + REDUCE_WARPS]
+        acc[: rows.shape[0]] += rows
+    while acc.shape[0] > 1:
+        acc = acc[0::2] + acc[1::2]
+    return acc[0]
 
 
 def estep_reduce(partial):
-    """Sum K3's per-pair tables over pairs, in pair order on the card."""
+    """Sum K3's per-pair tables over pairs, in estep_reduce_reference's
+    fixed order, on the card."""
     dev = partial.device
     if dev.type == "cpu":
         return estep_reduce_reference(partial)

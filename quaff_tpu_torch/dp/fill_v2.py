@@ -9,8 +9,10 @@ score plus the end maximum of each lane-packed strip:
 
   band_fill_reference   the plain version: a Python row loop over [B, W]
                         float32 tensors, mirroring _one_row step by step
-  band_fill             the wrapper: csrc/band_fill.cu on a CUDA tensor,
-                        the plain version on a CPU tensor
+  band_fill             the wrapper: csrc/band_fill.cu on a CUDA tensor
+                        (the warp route for bands of up to 32 * 16 lanes,
+                        the block route for wider ones: fill_route), the
+                        plain version on a CPU tensor
   scores_v2             prep + band_fill + the -inf mapping
                         (scores_v2_device / scores_v2_traceable)
 
@@ -45,6 +47,19 @@ from .scores import ScoreTables
 NEG_INF = float(np.finfo(np.float32).min)
 # diagonal of lanes outside every strip: beyond any x index, so never valid
 D_SENTINEL = 1 << 24
+# lanes a thread of K1's warp route (the instantiations of
+# csrc/band_fill_warp.cuh); a warp covers 32 * lpt lanes
+WARP_LPTS = (1, 2, 4, 8, 16)
+
+
+def fill_route(W: int) -> tuple:
+    """K1's route for a band of W lanes: ("warp", lpt) with the smallest
+    lpt of WARP_LPTS whose warp covers the band (32 * lpt >= W), else
+    ("block", 0): one block per pair, for bands wider than 32 * 16."""
+    for lpt in WARP_LPTS:
+        if 32 * lpt >= W:
+            return "warp", lpt
+    return "block", 0
 
 
 class V2Tables:
@@ -316,12 +331,14 @@ def table_specs(tables: V2Tables) -> dict:
 def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
               tables: V2Tables, mode: str = "viterbi", local: bool = True,
               max_prop=None) -> torch.Tensor:
-    """K1 on the tensors' device: csrc/band_fill.cu for CUDA tensors (each
-    launch adds one to `band_fill.launches`), the plain version for CPU
-    tensors.  Same inputs and [B + B*S] float32 output for both.
+    """K1 on the tensors' device: csrc/band_fill.cu for CUDA tensors, on
+    the route fill_route picks from the band's width (each launch adds one
+    to `band_fill.launches` and to `warp_launches` or `block_launches`),
+    the plain version for CPU tensors.  Same inputs and [B + B*S] float32
+    output for all three.  A failed launch raises on either route.
 
-    max_prop bounds the plain version's shift-scan steps; the kernel's
-    delete scan is sequential inside a thread and a tree across threads,
+    max_prop bounds the plain version's shift-scan steps; the kernels'
+    delete scans are sequential inside a thread and a tree across threads,
     which covers the whole row at any reach."""
     dev = doff.device
     if dev.type == "cpu":
@@ -348,34 +365,46 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
     out = torch.empty(B + B * S, dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    route, lpt = fill_route(W)
     with torch.cuda.device(dev):
         lib = kernels.library()
-        smem_lanes = kernels.max_smem_lanes(dev.index or 0)
-        scratch = None
-        if W > smem_lanes:
-            # row state too wide for shared memory: a global scratch row
-            # set per pair (6 words per lane, see band_fill.cu)
-            scratch = torch.empty(B * 6 * W, dtype=torch.float32, device=dev)
-        err = lib.quaff_band_fill(
+        args = (
             x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
             doff.data_ptr(), W, seg_start.data_ptr(), seg_width.data_ptr(), S,
             tables.match.data_ptr(), tables.match_noq.data_ptr(),
             tables.insert.data_ptr(), tables.insert_noq.data_ptr(), Km, Q,
             tables.ik.data_ptr(), tables.n_ik, tables.trans.data_ptr(),
             B, int(mode == "viterbi"), int(bool(local)),
-            0 if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "warp":
+            err = lib.quaff_band_fill_warp(*args, lpt, out.data_ptr(), stream)
+        else:
+            scratch = None
+            if W > kernels.max_smem_lanes(dev.index or 0):
+                # row state too wide for shared memory: a global scratch
+                # row set per pair (6 words per lane, see band_fill.cuh)
+                scratch = torch.empty(B * 6 * W, dtype=torch.float32,
+                                      device=dev)
+            err = lib.quaff_band_fill(
+                *args, 0 if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
-            f"band_fill kernel launch failed: {kernels.error_string(err)} "
-            f"(B={B}, W={W}, Ly={Ly})"
+            f"band_fill kernel launch failed ({route} route): "
+            f"{kernels.error_string(err)} (B={B}, W={W}, Ly={Ly})"
         )
     band_fill.launches += 1
+    if route == "warp":
+        band_fill.warp_launches += 1
+    else:
+        band_fill.block_launches += 1
     return out
 
 
 band_fill.launches = 0
+band_fill.warp_launches = 0
+band_fill.block_launches = 0
 
 
 def scores_v2(v2tab: V2Tables, batch: dict, mode: str = "viterbi",

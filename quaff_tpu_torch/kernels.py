@@ -80,6 +80,10 @@ def library() -> ctypes.CDLL:
             i, i, i,  # B, viterbi, local
             p, p, p,  # scratch, out, stream
         ]
+        lib.quaff_band_fill_warp.argtypes = fill_args + [
+            i, i, i, i,  # B, viterbi, local, lpt
+            p, p,  # out, stream
+        ]
         lib.quaff_fwd_store.argtypes = fill_args + [
             i, i,  # B, local
             p, p, p, p, p,  # scratch, out, rows, offs, stream
@@ -102,7 +106,8 @@ def library() -> ctypes.CDLL:
             i, p, p, p, p,  # op, x0, a, b, out
             i, i, i, i, p,  # B, W, grid, iters, stream
         ]
-        for fn in ("quaff_band_fill", "quaff_fwd_store", "quaff_bwd_counts",
+        for fn in ("quaff_band_fill", "quaff_band_fill_warp",
+                   "quaff_fwd_store", "quaff_bwd_counts",
                    "quaff_estep_reduce", "quaff_ov_fill", "quaff_sol_chain"):
             getattr(lib, fn).restype = i
         for fn in ("quaff_band_fill_max_smem_lanes",

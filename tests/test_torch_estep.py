@@ -123,6 +123,42 @@ def test_scaled_fill_keeps_the_forward_fill():
         assert float(offs[b, ylen[b] - 1]) < -50.0
 
 
+def _reduce_emulated(part: np.ndarray) -> np.ndarray:
+    """The count reduction's order in numpy float32: rows b, b+G, b+2G, ...
+    into accumulator b % G, then ((0+1)+(2+3))+((4+5)+(6+7))."""
+    G = estep.REDUCE_WARPS
+    acc = np.zeros((G, part.shape[1]), np.float32)
+    for b in range(part.shape[0]):
+        acc[b % G] = acc[b % G] + part[b]
+    while len(acc) > 1:
+        acc = acc[0::2] + acc[1::2]
+    return acc[0]
+
+
+@pytest.mark.parametrize("E", [1, 31, 33, 1884])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 256, 257])
+def test_reduce_reference_order(B, E):
+    """The plain count reduction (the CUDA kernel's order step by step)
+    equals a numpy float32 emulation of that order bit for bit, ragged row
+    groups and column tiles included."""
+    rng = np.random.default_rng(B * 10007 + E)
+    part = (rng.random((B, E), dtype=np.float32)
+            * rng.choice([1e-3, 1.0, 1e3], (B, 1)).astype(np.float32))
+    got = estep.estep_reduce_reference(torch.from_numpy(part))
+    assert got.dtype == torch.float32 and got.shape == (E,)
+    np.testing.assert_array_equal(got.numpy(), _reduce_emulated(part))
+
+
+def test_reduce_reference_near_float64():
+    """The fixed order loses no more than float32 rounding: within 1e-6
+    relative of the float64 sum of nonnegative counts."""
+    rng = np.random.default_rng(11)
+    part = rng.random((257, 1884), dtype=np.float32)
+    got = estep.estep_reduce_reference(torch.from_numpy(part)).double()
+    want = torch.from_numpy(part.astype(np.float64).sum(0))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
 def test_wrappers_route_by_device():
     """CPU tensors take the plain versions; a device without a kernel
     raises instead of falling back."""

@@ -216,3 +216,27 @@ def test_band_fill_routes_by_device():
     meta_inp = {k: v.to("meta") for k, v in inp.items()}
     with pytest.raises(RuntimeError, match="no kernel"):
         fill_v2.band_fill(**meta_inp, tables=v2)
+
+
+@pytest.mark.parametrize("W, route", [
+    (1, ("warp", 1)), (32, ("warp", 1)), (33, ("warp", 2)),
+    (203, ("warp", 8)), (256, ("warp", 8)), (512, ("warp", 16)),
+    (513, ("block", 0)),
+])
+def test_fill_route_and_cpu_plain(W, route):
+    """K1's route is a pure function of the band's width: the warp route
+    with the smallest lanes-a-thread whose warp covers the band, up to
+    32 * 16 lanes, the block route past it.  A CPU tensor of any width
+    takes the plain version and moves no launch count."""
+    from test_torch_kernel_cuda import random_fill_inputs
+
+    assert fill_v2.fill_route(W) == route
+    assert 32 * fill_v2.WARP_LPTS[-1] == 512
+    _, tt, _ = _tables(default_params())
+    inp, v2 = random_fill_inputs(np.random.default_rng(W), tt, W, B=2,
+                                 Lx=60, Ly=24, device="cpu")
+    counts = ("launches", "warp_launches", "block_launches")
+    before = [getattr(fill_v2.band_fill, k) for k in counts]
+    out = fill_v2.band_fill(**inp, tables=v2)
+    assert [getattr(fill_v2.band_fill, k) for k in counts] == before
+    assert torch.equal(out, fill_v2.band_fill_reference(**inp, tables=v2))

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu), K2,
-K3 and the count reduction (csrc/estep.cu), K4 (csrc/ov_fill.cu) and the
-probes' chain kernel (csrc/sol_probe.cu).  Needs an NVIDIA GPU and skips
-without one.  This file imports no JAX, so it also runs on a host that has
-none:
+card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
+route at every lanes-a-thread instantiation and its block route), K2, K3
+and the count reduction (csrc/estep.cu; the reduction bit for bit), K4
+(csrc/ov_fill.cu) and the probes' chain kernel (csrc/sol_probe.cu).  Needs
+an NVIDIA GPU and skips without one.  This file imports no JAX, so it also
+runs on a host that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernel_cuda.py
@@ -118,12 +119,159 @@ def test_kernel_matches_plain(case):
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-3)
 
 
+def random_fill_inputs(rng, tt, W, *, B=8, Lx=300, Ly=120, local=True,
+                       qual=True, device="cuda"):
+    """K1's inputs (fill_v2.kernel_inputs's layout) for B random pairs on a
+    band of W lanes, with V2Tables of `tt`.  Local: 1-3 strips a pair at
+    random diagonals, a few sentinel lanes inside and between them, and
+    sentinel lanes after the last.  Global: one strip over every diagonal
+    of a ref and read that fit the band.  Read lengths vary below Ly; keys
+    are random; with qual, about half the pairs have qualities."""
+    from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL, V2Tables
+
+    v2 = V2Tables.from_tables(tt, device)
+    Km, Q = v2.match.shape[1], v2.match.shape[2]
+    S = 3
+    keys = np.stack([rng.integers(0, Km, (B, Ly)), rng.integers(0, Q, (B, Ly)),
+                     rng.integers(0, 4, (B, Ly)),
+                     rng.integers(0, v2.n_ik, (B, Ly))], axis=2)
+    meta = np.zeros((B, 4), np.int64)
+    doff = np.full((B, W), D_SENTINEL, np.int64)
+    seg_start = np.zeros((B, S), np.int64)
+    seg_width = np.zeros((B, S), np.int64)
+    for b in range(B):
+        if local:
+            ylen = int(rng.integers(Ly // 2, Ly + 1))
+            xlen = int(rng.integers(Lx // 2, Lx + 1))
+            start = 0
+            for k in range(int(rng.integers(1, S + 1))):
+                if start >= W:
+                    break
+                wk = int(rng.integers(1, max(1, (W - start) // 2) + 1))
+                d_lo = int(rng.integers(-(ylen - 1), xlen))
+                seg_start[b, k], seg_width[b, k] = start, wk
+                doff[b, start:start + wk] = d_lo + np.arange(wk)
+                holes = start + np.nonzero(rng.random(wk) < 0.05)[0]
+                doff[b, holes] = D_SENTINEL
+                start += wk + int(rng.integers(0, 3))
+        else:
+            ylen = int(rng.integers(max(1, min(Ly, W) // 2), min(Ly, W) + 1))
+            xlen = int(rng.integers(1, min(Lx, W - ylen + 1) + 1))
+            seg_width[b, 0] = xlen + ylen - 1
+            doff[b, :xlen + ylen - 1] = np.arange(-(ylen - 1), xlen)
+        meta[b, :3] = xlen, ylen, int(qual and rng.random() < 0.5)
+
+    def dev(a, dt=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(device)
+
+    inp = {"x_tok": dev(rng.integers(0, 4, (B, Lx)), torch.int8),
+           "keys": dev(keys), "meta": dev(meta), "doff": dev(doff),
+           "seg_start": dev(seg_start), "seg_width": dev(seg_width)}
+    return inp, v2
+
+
+# (mode, local, qualities, gap order) of each fill variant
+FILL_VARIANTS = {
+    "viterbi": ("viterbi", True, True, 0),
+    "forward": ("forward", True, True, 0),
+    "global": ("viterbi", False, True, 0),
+    "forward-global": ("forward", False, True, 0),
+    "noqual": ("viterbi", True, False, 0),
+    "gaporder1": ("viterbi", True, True, 1),
+}
+
+
+def _assert_scores_close(got, ref, n_pairs):
+    floor = fill_v2.NEG_INF / 2
+    got = torch.where(got <= floor, float("-inf"), got).double().cpu().numpy()
+    ref = torch.where(ref <= floor, float("-inf"), ref).double().cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    fin = np.isfinite(ref)
+    assert fin[:n_pairs].any()
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-3)
+
+
+def _variant_inputs(variant, W, seed):
+    mode, local, qual, gap = FILL_VARIANTS[variant]
+    tt = _tables("gaporder1" if gap else "packed")
+    inp, v2 = random_fill_inputs(np.random.default_rng(seed), tt, W,
+                                 local=local, qual=qual)
+    return inp, v2, mode, local
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FILL_VARIANTS))
+@pytest.mark.parametrize("W", [1, 31, 33, 100, 203, 512, 513])
+def test_fill_routes_match_plain(W, variant):
+    """K1 through the wrapper on random bands of W lanes: the warp route at
+    its smallest lanes-a-thread (W = 1 and 31: 1, 33: 2, 100: 4, 203: 8,
+    512: 16), the block route at 513, each against band_fill_reference."""
+    _need_card()
+    inp, v2, mode, local = _variant_inputs(variant, W, 41 + W)
+    route, _ = fill_v2.fill_route(W)
+    counts = ("launches", "warp_launches", "block_launches")
+    before = [getattr(fill_v2.band_fill, k) for k in counts]
+    got = fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local)
+    torch.cuda.synchronize()
+    moved = [getattr(fill_v2.band_fill, k) - n for k, n in zip(counts, before)]
+    assert moved == [1, int(route == "warp"), int(route == "block")]
+    ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode, local=local)
+    _assert_scores_close(got, ref, inp["doff"].shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FILL_VARIANTS))
+@pytest.mark.parametrize("lpt", fill_v2.WARP_LPTS)
+def test_warp_route_every_lanes_a_thread(lpt, variant):
+    """Each instantiation of the warp kernel on a 31-lane band (which every
+    lpt covers), launched through its C entry, against the plain version."""
+    _need_card()
+    from quaff_tpu_torch import kernels
+
+    inp, v2, mode, local = _variant_inputs(variant, 31, 7 * lpt)
+    B, W = inp["doff"].shape
+    S, Ly, Lx = inp["seg_start"].shape[1], inp["keys"].shape[1], \
+        inp["x_tok"].shape[1]
+    out = torch.empty(B + B * S, dtype=torch.float32, device="cuda")
+    err = kernels.library().quaff_band_fill_warp(
+        inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+        inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
+        inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(), S,
+        v2.match.data_ptr(), v2.match_noq.data_ptr(), v2.insert.data_ptr(),
+        v2.insert_noq.data_ptr(), v2.match.shape[1], v2.match.shape[2],
+        v2.ik.data_ptr(), v2.n_ik, v2.trans.data_ptr(), B,
+        int(mode == "viterbi"), int(local), lpt, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, kernels.error_string(err)
+    torch.cuda.synchronize()
+    ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode, local=local)
+    _assert_scores_close(out, ref, B)
+
+
+@pytest.mark.cuda
+def test_estep_reduce_bitwise():
+    """The count reduction equals its plain version (the same float32 adds
+    in the same order) bit for bit, and repeats bit for bit, at B=257
+    (a ragged last row group) and E=1884 (a ragged last column tile)."""
+    _need_card()
+    rng = np.random.default_rng(53)
+    part = torch.from_numpy(
+        rng.random((257, 1884), dtype=np.float32) * 10).cuda()
+    before = estep.estep_reduce.launches
+    tab = estep.estep_reduce(part)
+    torch.cuda.synchronize()
+    assert estep.estep_reduce.launches == before + 1
+    assert torch.equal(tab, estep.estep_reduce_reference(part))
+    assert torch.equal(tab, estep.estep_reduce(part))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["packed", "gaporder1", "global", "wide"])
 def test_estep_kernels_match_plain(case):
     """K2, K3 and the reduction against fwd_store_reference,
-    bwd_counts_reference and a plain sum, each on the same inputs; then
-    the whole E-step twice, with bit-identical count tables."""
+    bwd_counts_reference and estep_reduce_reference (bit for bit), each on
+    the same inputs; then the whole E-step twice, with bit-identical count
+    tables."""
     _need_card()
     rng = np.random.default_rng(37)
     tt = _tables(case)
@@ -147,10 +295,10 @@ def test_estep_kernels_match_plain(case):
     tab = estep.estep_reduce(part)
     torch.cuda.synchronize()
     part_p, sc_p = estep.bwd_counts_reference(*base, local=local)
-    for got, want in ((part, part_p), (sc, sc_p),
-                      (tab, estep.estep_reduce_reference(part))):
+    for got, want in ((part, part_p), (sc, sc_p)):
         np.testing.assert_allclose(got.double().cpu(), want.double().cpu(),
                                    rtol=3e-3, atol=5e-3)
+    assert torch.equal(tab, estep.estep_reduce_reference(part))
     assert float(tab.sum()) > 0
     fwd2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local)
     part2, sc2 = estep.bwd_counts(*base[:6], rows2, offs2, local=local)

@@ -159,3 +159,60 @@ def test_fill_parts_run_through_plain_k1(monkeypatch):
     assert list(by_width) == [pts[1]["W"]]
     assert by_width[pts[1]["W"]] == pytest.approx((2e-6, 1e-3))
     assert fill_v2.band_fill.launches == before
+
+
+SASS = """
+	code for sm_90a
+		Function : _Z4demoPf
+	.headerflags	@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   FADD R2, R0, R0 ;
+        /*0030*/                   STL [R1], R2 ;
+        /*0040*/                   ISETP.GE.AND P0, PT, R0, 0x4, PT ;
+        /*0050*/              @!P0 BRA 0x20 ;
+        /*0060*/                   FADD R4, R3, R3 ;
+        /*0070*/              @!P0 BRA 0x60 ;
+        /*0080*/                   EXIT ;
+.L_x_0:
+        /*0090*/              @P1 BRA `(.L_x_0) ;
+        /*00a0*/                   BRA 0x10 ;
+		Function : _Z5otherv
+        /*0000*/                   EXIT ;
+"""
+RES = """
+ Function _Z4demoPf:
+  REG:12 STACK:0 SHARED:128 LOCAL:0 CONSTANT[0]:364 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _Z5otherv:
+  REG:4 STACK:8 SHARED:0 LOCAL:16 CONSTANT[0]:352 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+PTXAS = """ptxas info    : Compiling entry function '_Z4demoPf' for 'sm_90a'
+ptxas info    : Function properties for _Z4demoPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers, used 0 barriers, 364 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 4 registers, used 0 barriers, 352 bytes cmem[0]
+"""
+
+
+def test_kernel_sass_parsers():
+    """kernel_sass reads cuobjdump's SASS (addresses and labels as branch
+    targets), its resource usage and ptxas's report: the longest loop is
+    the span of the backward branch at 0x50 to 0x20 (4 instructions, one
+    a local store); a forward branch and a one-instruction self-loop are
+    shorter, and the unpredicated jump back from 0xa0 is no loop."""
+    from quaff_tpu_torch.prof import kernel_sass
+
+    funcs = kernel_sass.parse_sass(SASS)
+    assert list(funcs) == ["_Z4demoPf", "_Z5otherv"]
+    demo = funcs["_Z4demoPf"]
+    assert len(demo) == 11
+    assert demo[5][2] == 0x20 and demo[9][2] == 0x90 and demo[10][2] == 0x10
+    assert kernel_sass.row_loop(demo) == (4, 1)
+    assert kernel_sass.row_loop(funcs["_Z5otherv"]) == (0, 0)
+    assert kernel_sass.parse_resources(RES) == {
+        "_Z4demoPf": (12, 0, 128, 0), "_Z5otherv": (4, 8, 0, 16)}
+    assert kernel_sass.parse_ptxas(PTXAS) == {
+        "_Z4demoPf": (12, 0, 0), "_Z5otherv": (4, 16, 12)}
