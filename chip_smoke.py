@@ -8,7 +8,8 @@ failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
   1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp and block
-     routes, K2, K3, the count reduction, K4 and the probes' chain kernel;
+     routes, K2, K3, the count reduction, K4's warp and block routes and
+     the probes' chain kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
      and the host library libquaffio (native/*.cpp, one g++ per source),
      both at once
@@ -29,7 +30,10 @@ failure exits non-zero before the final line is printed.
      both strands and reads with and without qualities; the plain version
      on 8 of them (per strand, the two multi-strip pairs of reads with
      qualities and the two of reads without that have the fewest rows);
-     times, in-envelope cells/s, the bound
+     times, in-envelope cells/s, the bound.  Per gap order two batches: the
+     64 widest pairs (the block route: their widest band is past the warp
+     route's cutover) and the 64 widest pairs that the warp route takes,
+     on the warp route and on the block route forced on the same inputs
   2d the speed-of-light probes (quaff_tpu_torch/prof/, the chain kernel
      csrc/sol_probe.cu): each of its five ops against its plain version at
      [2048, 256] over 128 steps (add_max and roll_add bitwise, the lse
@@ -53,17 +57,26 @@ failure exits non-zero before the final line is printed.
      against its plain version
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches, peak
-     device memory; the log-likelihood must rise; `count -fast` on the
-     first 16 reads against the parity count; then K2/K3 and the reduction
-     on the run's largest chunk against their plain versions
+     device memory; the log-likelihood must rise; `count -fast` on all 128
+     reads twice, the second time while a tensor holds most of the card's
+     free memory, byte for byte the same (the E-step's chunk plan reads no
+     free memory); `count -fast` on the first 16 reads against the parity
+     count; then K2/K3 and the reduction on the run's largest chunk
+     against their plain versions
   6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
      genome (phase 4's recipe), all-vs-all with reverse complements (6048
-     pairs) through the CLI on cuda; wall, pairs/s, K4 launches, where the
-     host time goes and the device's busy share; the first 32 reads' text
-     must equal the port's sequential float64 route (no kernel pruning) on
-     the same reads, and the first 8 reads' run on the CPU (plain K4, in a
-     process of its own beside the reference) the GPU's; then K4 on the
-     run's largest chunk against its plain version (its first 128 pairs)
+     pairs) through the CLI on cuda; wall, pairs/s, K4 launches by route
+     (each chunk on ov_route's route, the warp route launched) and each
+     route's share of the in-envelope cells, each chunk's (B, W, route,
+     device ms), where the host time goes and the device's busy share; the
+     first 32 reads' text must equal the port's sequential float64 route
+     (no kernel pruning) on the same reads, and the first 8 reads' run on
+     the CPU (plain K4, in a process of its own beside the reference) the
+     GPU's; then K4 on the run's largest chunk (the warp route, and the
+     block route forced on the same inputs) against its plain version (its
+     first 128 pairs), on the largest block-route chunk, and, where the run
+     has a chunk of 257-512 lanes, lanes-a-thread 16 against the block
+     route on it (the warp route's cutover)
 
 Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
 well inside its time limit.  Each plain version's comparison run is also
@@ -922,7 +935,8 @@ def _reset_launches():
     from quaff_tpu_torch.dp import estep, fill_v2, ov_fill
 
     fill_v2.band_fill.launches = 0
-    ov_fill.ov_fill.launches = 0
+    for k in OV_COUNTS:
+        setattr(ov_fill.ov_fill, k, 0)
     for k in ("fwd_store", "bwd_counts", "estep_reduce"):
         getattr(estep, k).launches = 0
 
@@ -946,6 +960,17 @@ def _timing(spent, owner, name, key, static=False):
 
     setattr(owner, name, classmethod(wrapper) if static else wrapper)
     return owner, name, fn
+
+
+def _kernel_events(prof, part):
+    """(name, device ms) of each kernel launch whose name holds `part`, in
+    launch order, from a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and part in e.name]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in evs]
 
 
 def _device_busy(prof):
@@ -1094,6 +1119,41 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=16):
             + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in top)
             + f" [{card}]")
 
+        # the E-step's chunk plan reads no free memory: count -fast on all
+        # the reads, then again while a tensor holds all but 8 GiB of the
+        # card's free memory (the run's chunk needs ~5.2 GB), byte for byte
+        plans = []
+        orig_plan = trainer.estep_chunk_plan
+
+        def plan_recording(*a, **k):
+            plans.append(orig_plan(*a, **k))
+            return plans[-1]
+
+        trainer.estep_chunk_plan = plan_recording
+        args = ["count", str(gpath), str(rpath), "-fast", "-threads", threads]
+        t0 = time.perf_counter()
+        try:
+            first = _cli(args, "cuda")
+            torch.cuda.empty_cache()
+            free0 = torch.cuda.mem_get_info()[0]
+            hold = torch.empty(max(free0 - (8 << 30), 0), dtype=torch.uint8,
+                               device="cuda")
+            free1 = torch.cuda.mem_get_info()[0]
+            second = _cli(args, "cuda")
+            del hold
+            torch.cuda.empty_cache()
+        finally:
+            trainer.estep_chunk_plan = orig_plan
+        check(first == second,
+              f"phase 5: count -fast with {free0 / 2**30:.1f} and then "
+              f"{free1 / 2**30:.1f} GiB free on the card: the outputs differ")
+        log(f"phase 5: count -fast on all {n_reads} reads with "
+            f"{free0 / 2**30:.1f} GiB and then {free1 / 2**30:.1f} GiB free "
+            f"on the card: byte-identical JSON; reads a chunk "
+            f"{[[len(c) for c in p[0]] for p in plans]}, oversize "
+            f"{[len(p[1]) for p in plans]} ({time.perf_counter() - t0:.1f} "
+            f"s) [{card}]")
+
         # count -fast against the float64 parity count, read by read, each
         # read against its source window of the genome (+-200 bp, on the
         # read's strand): the parity engine fills a pair's bounding band,
@@ -1189,71 +1249,103 @@ def _ov_bytes(inp):
             + 4 * (B + B * S))
 
 
-def _ov_subset(inp, n):
-    """The first n pairs of a K4 batch (the bank stays whole)."""
-    return {k: (v if k in ("bank", "trans") else v[:n].contiguous())
+def _ov_subset(inp, n, last=False):
+    """The first (or last) n pairs of a K4 batch (the bank stays whole)."""
+    cut = slice(-n, None) if last else slice(None, n)
+    return {k: (v if k in ("bank", "trans") else v[cut].contiguous())
             for k, v in inp.items()}
 
 
-def ov_case(name, inp, card, n_plain=None, n_runs=3):
+OV_COUNTS = ("launches", "warp_launches", "block_launches")
+
+
+def _ov_counts():
+    from quaff_tpu_torch.dp import ov_fill
+
+    return {k: getattr(ov_fill.ov_fill, k) for k in OV_COUNTS}
+
+
+def _ov_time(batch, route, n_runs=3):
+    """Median ms of K4 on `route` over n_runs distinct inputs (the
+    delete-extend log moved), after a warm run."""
+    import torch
+
+    from quaff_tpu_torch.dp import ov_fill
+
+    def kern(v):
+        return ov_fill.ov_fill(**v, route=route)
+
+    vs = [dict(batch, trans=(batch["trans"] + torch.tensor(
+        [0.0] * 8 + [1e-4 * (i + 1)], device="cuda")).contiguous())
+        for i in range(n_runs + 1)]
+    kern(vs[0])
+    return _time(kern, vs[1:]) * 1e3
+
+
+def ov_case(name, inp, card, n_plain=None, n_runs=3, routes=(None,),
+            last=False):
     """K4 and its plain version on one batch (the plain version on its
-    first n_plain pairs, timed once): agreement, times, cells/s, bound."""
+    first n_plain pairs, or its last with last=True, timed once): for each
+    of `routes` (None: ov_route's pick; else a route forced on the same
+    inputs) agreement, times, in-envelope cells/s and the bound, and that
+    every launch took that route.  Returns one dict per route."""
     import torch
 
     from quaff_tpu_torch.dp import ov_fill
 
     B, W = inp["doff"].shape
-    sub = inp if n_plain is None or n_plain >= B else _ov_subset(inp, n_plain)
+    sub = (inp if n_plain is None or n_plain >= B
+           else _ov_subset(inp, n_plain, last))
     Bs = sub["doff"].shape[0]
-    got = ov_fill.ov_fill(**sub)
     ref, t_ref = _timed(lambda v: ov_fill.ov_fill_reference(**v), sub)
     plain_ms = t_ref * 1e3
-    err = _compare(got, ref, OV_RTOL, OV_ATOL)
     fin = torch.isfinite(ref[:Bs])
     check(bool(fin.all()), f"{name}: a pair has no finite overlap score")
 
-    def variants(batch):
-        # distinct inputs per timed run: the delete-extend log moved
-        out = []
-        for i in range(n_runs + 1):
-            v = dict(batch)
-            v["trans"] = (batch["trans"] + torch.tensor(
-                [0.0] * 8 + [1e-4 * (i + 1)], device="cuda")).contiguous()
-            out.append(v)
-        return out
-
-    def kern(v):
-        return ov_fill.ov_fill(**v)
-
-    res = {}
+    shapes = {}
     for tag, batch in (("all", inp), ("sub", sub)):
-        vs = variants(batch)
-        kern(vs[0])  # warm
-        ms = _time(kern, vs[1:]) * 1e3
         cells = _ov_cells(batch)
         C = batch["bank"].shape[1]
         bound_ms, bound_by = _bound(_ov_bytes(batch),
                                     OV_OPS_PER_CELL[C] * cells)
-        res[tag] = {"ms": ms, "cells": cells, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
-        if batch is sub and sub is inp:
-            res["sub"] = res["all"]
-            break
-    a, s_ = res["all"], res["sub"]
-    log(f"phase 2c: {name}: B={B} W={W} rows<={int(inp['meta'][:, 5].max())} "
-        f"C={inp['bank'].shape[1]}: max abs err {err:.3g} ({Bs} pairs); K4 "
-        f"{a['ms']:.3f} ms (median of {n_runs}), {a['cells']} in-envelope "
-        f"cells, {a['cells'] / (a['ms'] / 1e3):.4g} cells/s, bound "
-        f"{a['bound_ms']:.4f} ms ({a['bound_by']}) [{card}]")
-    if sub is not inp:
-        log(f"phase 2c: {name}, first {Bs} pairs: K4 {s_['ms']:.3f} ms, "
-            f"plain {plain_ms:.3f} ms (once), {s_['cells']} cells, bound "
-            f"{s_['bound_ms']:.4f} ms ({s_['bound_by']}) [{card}]")
-    else:
-        log(f"phase 2c: {name}: plain {plain_ms:.3f} ms (once) [{card}]")
-    return {"max_abs_err": err, "ms": s_["ms"], "plain_ms": plain_ms,
-            "bound_ms": s_["bound_ms"], "bound_by": s_["bound_by"],
-            "library_ms": None, "full": a}
+        shapes[tag] = (batch, cells, bound_ms, bound_by)
+    which = f"last {Bs}" if last else f"first {Bs}"
+    out = []
+    for route in routes:
+        route = route or ov_fill.ov_route(W)
+        before = _ov_counts()
+
+        err = _compare(ov_fill.ov_fill(**sub, route=route), ref, OV_RTOL,
+                       OV_ATOL)
+        res = {}
+        for tag, (batch, cells, bound_ms, bound_by) in shapes.items():
+            res[tag] = {"ms": _ov_time(batch, route, n_runs), "cells": cells,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        moved = {k: v - before[k] for k, v in _ov_counts().items()}
+        n = moved["launches"]
+        check(n > 0 and moved[f"{route[0]}_launches"] == n,
+              f"{name}: K4's launches by route {moved}, want all {n} on "
+              f"the {route[0]} route")
+        a, s_ = res["all"], res["sub"]
+        how = (f"warp route, {route[1]} lanes a thread"
+               if route[0] == "warp" else "block route")
+        log(f"{name}: B={B} W={W} "
+            f"rows<={int(inp['meta'][:, 5].max())} C={inp['bank'].shape[1]} "
+            f"({how}): max abs err {err:.3g} ({Bs} pairs); K4 "
+            f"{a['ms']:.3f} ms (median of {n_runs}), {a['cells']} "
+            f"in-envelope cells, {a['cells'] / (a['ms'] / 1e3):.4g} cells/s, "
+            f"bound {a['bound_ms']:.4f} ms ({a['bound_by']}) [{card}]")
+        if sub is not inp:
+            log(f"{name}, {which} pairs ({how}): K4 "
+                f"{s_['ms']:.3f} ms, plain {plain_ms:.3f} ms (once), "
+                f"{s_['cells']} cells, bound {s_['bound_ms']:.4f} ms "
+                f"({s_['bound_by']}) [{card}]")
+        else:
+            log(f"{name}: plain {plain_ms:.3f} ms (once) [{card}]")
+        out.append({"max_abs_err": err, "ms": s_["ms"], "plain_ms": plain_ms,
+                    "bound_ms": s_["bound_ms"], "bound_by": s_["bound_by"],
+                    "library_ms": None, "full": a, "route": route})
+    return out
 
 
 def _overlap_aligner(params, null, threads=1):
@@ -1268,7 +1360,10 @@ def phase2c_overlap_kernel(card):
     """K4 against its plain version, at gap order 0 and 1: per case 64
     overlapping pairs of 2-10 kb reads, half of them reverse strand, every
     other read without qualities (a batch mixes both strands and both
-    kinds of reads: the bank's rows carry them)."""
+    kinds of reads: the bank's rows carry them).  Per gap order two
+    batches: the 64 widest pairs (their widest band, 7211 lanes, takes the
+    block route), and the 64 widest pairs the warp route takes, on the
+    warp route and on the block route forced on the same inputs."""
     import numpy as np
 
     from quaff_tpu_torch.dp import ov_fill
@@ -1289,35 +1384,55 @@ def phase2c_overlap_kernel(card):
         aligner = _overlap_aligner(params, null)
         built = [t for t in aligner._pair_jobs(
             seqs, list(aligner.enumerate_pairs(seqs, len(reads)))) if not t[2]]
-        # overlapping pairs first (multi-strip, most member lanes), 32 of
-        # each strand
+        # overlapping pairs first (multi-strip, most member lanes)
         built.sort(key=lambda t: (-int((t[1][3][0] > 0).sum()),
                                   -int(t[1][0][0].sum())))
-        chunk = ([j for j, _, _ in built if not j[2]][:32]
-                 + [j for j, _, _ in built if j[2]][:32])
         packed = {(j[0], j[1]): desc for j, desc, _ in built}
+        warp_max = ov_fill.OV_WARP_MAX_LANES
+        for which, fits in (("widest", lambda w: True),
+                            ("warp-route", lambda w: w <= warp_max)):
+            ok = [j for j, desc, _ in built if fits(desc[0].shape[1])]
+            top = ([j for j in ok if not j[2]][:32]
+                   + [j for j in ok if j[2]][:32])
 
-        # the plain version's pairs (its row loop takes ~5 ms a row, so
-        # all 64 would be ~45 s): for each strand, the two multi-strip
-        # pairs of reads with qualities and the two of reads without that
-        # have the fewest live rows; they lead the chunk
-        def kind(j):
-            return j[2], seqs[j[0]].has_qual(), seqs[j[1]].has_qual()
+            # the plain version's pairs (its row loop takes ~5 ms a row,
+            # so all 64 would be ~45 s): for each strand, the two pairs of
+            # reads with qualities and the two of reads without that have
+            # the fewest live rows, multi-strip pairs first, among the 64
+            # widest (the warp-route batch: among all it takes); they lead
+            # the chunk, the widest others fill it to 32 of each strand
+            def kind(j):
+                return j[2], seqs[j[0]].has_qual(), seqs[j[1]].has_qual()
 
-        sub = []
-        for key in [(yc, q, q) for yc in (False, True) for q in (True, False)]:
-            sub += sorted((j for j in chunk if kind(j) == key
-                           and np.count_nonzero(packed[j[:2]][3][0]) > 1),
-                          key=lambda j: int(packed[j[:2]][5][0]))[:2]
-        check(len({kind(j) for j in sub}) == 4,
-              f"{name}: the plain version's pairs miss a strand or kind")
-        chunk = sub + [j for j in chunk if all(j is not k for k in sub)]
-        _, batch = next(aligner._kernel_batches(seqs, [chunk], packed))
-        inp = ov_fill.prepare(ov_fill.ov_tables(aligner._tables(False), "cuda"),
-                              batch)
-        check(len(chunk) == 64, f"{name}: {len(chunk)} pairs, not 64")
-        ov_case(f"{name}, both strands, with and without qualities", inp,
-                card, n_plain=len(sub))
+            def fewest_rows(j):
+                return (np.count_nonzero(packed[j[:2]][3][0]) < 2,
+                        int(packed[j[:2]][5][0]))
+
+            pool = top if which == "widest" else ok
+            sub = []
+            for key in [(yc, q, q) for yc in (False, True)
+                        for q in (True, False)]:
+                sub += sorted((j for j in pool if kind(j) == key),
+                              key=fewest_rows)[:2]
+            check(len({kind(j) for j in sub}) == 4,
+                  f"{name}: the plain version's pairs miss a strand or kind")
+            chunk = list(sub)
+            for yc in (False, True):
+                n = 32 - sum(j[2] == yc for j in sub)
+                chunk += [j for j in ok if j[2] == yc
+                          and all(j is not k for k in sub)][:n]
+            _, batch = next(aligner._kernel_batches(seqs, [chunk], packed))
+            inp = ov_fill.prepare(
+                ov_fill.ov_tables(aligner._tables(False), "cuda"), batch)
+            check(len(chunk) == 64, f"{name}: {len(chunk)} pairs, not 64")
+            W = inp["doff"].shape[1]
+            route = ov_fill.ov_route(W)
+            check((route[0] == "warp") == (which == "warp-route"),
+                  f"{name}, {which} pairs: W={W} takes the {route} route")
+            routes = (None,) if route[0] == "block" else (None, ("block", None))
+            ov_case(f"phase 2c: {name}, {which} pairs, both strands, with "
+                    f"and without qualities", inp, card, n_plain=len(sub),
+                    routes=routes)
 
 
 # ---------------------------------------------------------------- phase 2d
@@ -1457,8 +1572,9 @@ def phase3c_overlap_goldens():
 def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
                    n_ref=N_REF):
     """`overlap` at a size users run, through the CLI on the card; returns
-    K4's launches and the inputs of its largest chunk (most in-envelope
-    cells)."""
+    K4's launches by route and the inputs of its largest chunk on each
+    route (most in-envelope cells) and of its largest chunk of 257-512
+    lanes (None where the run has none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1523,26 +1639,73 @@ def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
                 t0 = time.perf_counter()
                 out = _cli(argv, "cuda")
                 wall = time.perf_counter() - t0
-            launches = ov_fill.ov_fill.launches
+            launches = _ov_counts()
         finally:
             for owner, name, fn in reversed(patched):
                 setattr(owner, name, fn)
             QuaffOverlapAligner._path_worker = orig_pw
             ov_fill.prepare = orig_prepare
-        check(launches > 0, "the overlap path launched no K4")
-        # the largest chunk: the most in-envelope cells
-        biggest = max(chunks, key=_ov_cells)
+        check(launches["warp_launches"] > 0,
+              f"the overlap path launched no K4 on the warp route: {launches}")
+        # each chunk's route and device time: K4's launches in order
+        events = _kernel_events(prof, "ov_fill")
+        check(len(events) == len(chunks) == launches["launches"],
+              f"phase 6: {len(events)} K4 kernels traced, {len(chunks)} "
+              f"chunks, launches {launches}")
+        per_chunk, cells, dev_ms = [], {"warp": 0, "block": 0}, \
+            {"warp": 0.0, "block": 0.0}
+        for inp, (kname, ms) in zip(chunks, events):
+            B, W = inp["doff"].shape
+            route = ov_fill.ov_route(W)
+            check(("ov_fill_warp_kernel" in kname) == (route[0] == "warp"),
+                  f"phase 6: a chunk of W={W} ran {kname}, not ov_route's "
+                  f"{route}")
+            n = _ov_cells(inp)
+            cells[route[0]] += n
+            dev_ms[route[0]] += ms
+            per_chunk.append((B, W, route, ms, n))
+        check(launches["warp_launches"] == sum(
+            r[2][0] == "warp" for r in per_chunk),
+            f"phase 6: launches by route {launches} against the chunks' "
+            f"routes")
         n_aln = out.count("#=GF Score")
-        check(n_aln > 0, "phase 6 reported no overlap")
+        check(n_aln > 0, "phase 6: reported no overlap")
         device = _device_busy(prof)
         busy = sum(device.values())
         top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+        total = sum(cells.values())
         log(f"phase 6: overlap {n_reads} reads (2-10 kb, {genome_len} bp "
             f"genome), all-vs-all with reverse complements: {n_pairs} pairs "
             f"in {wall:.2f} s wall on cuda, {n_pairs / wall:.2f} pairs/s, "
-            f"{n_aln} overlaps reported, {launches} K4 launches in chunks of "
-            f"{[tuple(c['doff'].shape) for c in chunks]} (pairs, lanes) "
-            f"[{card}]")
+            f"{n_aln} overlaps reported, K4 launches {launches} [{card}]")
+        log("phase 6: K4 chunks (B, W, route, device ms, in-envelope "
+            "cells): " + "; ".join(
+                f"({B}, {W}, {r[0]}{'' if r[1] is None else ' ' + str(r[1])}"
+                f", {ms:.3f}, {n})" for B, W, r, ms, n in per_chunk)
+            + f" [{card}]")
+        # the block route forced on each warp-route chunk (median of 3,
+        # CUDA events), against the warp route timed alike
+        pairs = [(_ov_time(c, r[2]), _ov_time(c, ("block", None)), r)
+                 for c, r in zip(chunks, per_chunk) if r[2][0] == "warp"]
+        log("phase 6: warp-route chunks on both routes (B, W, lanes a "
+            "thread, warp ms, block ms): " + "; ".join(
+                f"({r[0]}, {r[1]}, {r[2][1]}, {w:.3f}, {b:.3f})"
+                for w, b, r in pairs)
+            + f"; all {len(pairs)}: {sum(w for w, _, _ in pairs):.3f} "
+            f"against {sum(b for _, b, _ in pairs):.3f} ms [{card}]")
+        log("phase 6: K4 by route: " + "; ".join(
+            f"{k} {launches[k + '_launches']} launches, {dev_ms[k]:.3f} ms "
+            f"device, {100 * cells[k] / max(total, 1):.2f}% of the "
+            f"{total} in-envelope cells" for k in ("warp", "block"))
+            + f" [{card}]")
+
+        def largest(pick):
+            cands = [c for c, r in zip(chunks, per_chunk) if pick(r)]
+            return max(cands, key=_ov_cells) if cands else None
+
+        biggest = {k: largest(lambda r, k=k: r[2][0] == k)
+                   for k in ("warp", "block")}
+        biggest["cutover"] = largest(lambda r: 256 < r[1] <= 512)
         log("phase 6: where the time goes (host seconds, fenced by "
             "synchronize): " + "; ".join(
                 f"{k} {sum(v):.3f} s in {len(v)} calls"
@@ -1646,10 +1809,37 @@ def main() -> int:
     # chunk, against their plain versions (timed once: minutes otherwise)
     estep_k = estep_case(f"phase-5 chunk", chunk["batch"], chunk["v2"],
                          chunk["local"], card, n_plain=1)
-    k4_launches, k4_chunk = phase6_overlap(card)
-    # K4 at the overlap path's largest chunk; its plain version on the
+    k4_launches, k4_chunks = phase6_overlap(card)
+    from quaff_tpu_torch.dp.ov_fill import OV_WARP_MAX_LANES
+
+    # K4 at the overlap path's largest warp-route chunk (the warp route;
+    # the block route forced on the same inputs), its plain version on the
     # chunk's first 128 pairs (a whole chunk is minutes)
-    k4 = ov_case("phase-6 chunk", k4_chunk, card, n_plain=128)
+    k4 = ov_case("phase 6: the largest warp-route chunk", k4_chunks["warp"],
+                 card, n_plain=128, routes=(None, ("block", None)))
+    log(f"phase 6: the largest warp-route chunk, first 128 pairs: warp route "
+        f"{k4[0]['ms']:.3f} ms, block route {k4[1]['ms']:.3f} ms "
+        f"({k4[1]['ms'] / k4[0]['ms']:.2f}x); whole chunk "
+        f"{k4[0]['full']['ms']:.3f} / {k4[1]['full']['ms']:.3f} ms [{card}]")
+    # the block route at the path's largest block-route chunk, its plain
+    # version on the chunk's last 4 pairs (the fewest rows)
+    k4_block = k4[1]
+    if k4_chunks["block"] is not None:
+        k4_block = ov_case("phase 6: the largest block-route chunk",
+                           k4_chunks["block"], card, n_plain=4, last=True)[0]
+    # the warp route's cutover: lanes-a-thread 16 against the block route
+    # on the same 257-512-lane chunk
+    if k4_chunks["cutover"] is not None:
+        lpt16, blk = ov_case("phase 6: the 257-512-lane chunk",
+                             k4_chunks["cutover"], card, n_plain=2, last=True,
+                             routes=(("warp", 16), ("block", None)))
+        log(f"phase 6: the warp route's cutover: at B="
+            f"{k4_chunks['cutover']['doff'].shape[0]} W="
+            f"{k4_chunks['cutover']['doff'].shape[1]}, 16 lanes a thread "
+            f"{lpt16['full']['ms']:.3f} ms against the block route's "
+            f"{blk['full']['ms']:.3f} ms ({blk['full']['ms'] / lpt16['full']['ms']:.2f}x); "
+            f"OV_WARP_MAX_LANES is {OV_WARP_MAX_LANES} [{card}]")
+    del k4_chunks
     log(f"total {time.perf_counter() - t_start:.1f} s")
     k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [dict(name="band_fill", route="cuda",
@@ -1670,13 +1860,16 @@ def main() -> int:
                             source="quaff_tpu_torch/csrc/estep.cu",
                             replaces=rep_at, launches=launches[name],
                             **estep_k[name]))
-    kernels.append(dict(name="ov_fill", route="cuda",
-                        source="quaff_tpu_torch/csrc/ov_fill.cu",
-                        replaces="quaff_tpu/dp/pallas_overlap.py:221",
-                        launches=k4_launches,
-                        **{k: k4[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                              "bound_ms", "bound_by",
-                                              "library_ms")}))
+    k4_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+    for name, source, n, res in (
+            ("ov_fill", "quaff_tpu_torch/csrc/ov_fill_warp.cuh",
+             k4_launches["warp_launches"], k4[0]),
+            ("ov_fill_block", "quaff_tpu_torch/csrc/ov_fill.cu",
+             k4_launches["block_launches"], k4_block)):
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces="quaff_tpu/dp/pallas_overlap.py:221",
+                            launches=n, **{k: res[k] for k in k4_keys}))
     kernels += probes
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

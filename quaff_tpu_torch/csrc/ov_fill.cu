@@ -23,64 +23,44 @@
 // scalars of `trans`.  Transitions are run-time data, never compile-time
 // constants: trained parameters recompile nothing.
 //
-// Design.  Pairs are independent, so one block fills one pair, and the TPU's
-// sequential row grid becomes a row loop inside the block that stops at the
-// pair's own live rows.  The lanes of the packed band are split into
-// contiguous runs, one run per thread, and the M/I/D row state lives in
-// shared memory (mat and ins double buffered, del single: it is read only
-// before the row's first barrier and written after it), with each lane's
-// diagonal and its end accumulator: 7 words a lane.  Each lane gathers its x
-// values straight from the bank at t (and t - 1 for stay_x(i-1)): neighbouring
-// lanes read neighbouring addresses, where the TPU kernel had to roll
-// windows.  The row's y values are one broadcast load each.  The delete
-// chain is a mixed max / log-sum-exp recurrence, scanned as affine-max maps
-// x -> max(lse(x + c, k), b) carried as triples (c, k, b): each thread
-// composes its lanes' triples in order, a warp-shuffle scan and a scan of the
-// warp totals give each thread the map of all lanes before it, and the
-// thread replays its lanes from that map applied to -inf.  The composition
-// is not commutative; its identity is (0, -inf, -inf).  Lanes outside the
-// envelope carry c = -inf, so no path crosses a strip seam.  At the end the
-// block reduces its end accumulators to the pair score (end + x and y
-// insert sums) and the per-strip maxima: no [B, W] array returns to device
-// memory.
+// Two routes, picked by dp/ov_fill.ov_route from the band's width W:
 //
-// What bounds it: per row, three block barriers and the two-level scan, plus
-// 7 (gap order 0) or 9 dependent loads of a lane's x values; with ~100
-// float32 operations a cell, not bandwidth (the bank is read once per lane
-// and row from L2) and not the FP32 rate.  Many blocks per SM hide the
-// barrier latency; each block stops at its own rows and its own lanes.
+//   warp route   W <= dp/ov_fill.OV_WARP_MAX_LANES (the measured cutover):
+//                ov_fill_warp_kernel<IK, LPT> (ov_fill_warp.cuh), one warp
+//                per pair, the band row in registers, the row's inputs and
+//                emission a row ahead, no block barrier in the row loop;
+//   block route  wider bands, up to OV_LANE_CAP: ov_fill_kernel below.
+//
+// The block route.  Pairs are independent, so one block fills one pair,
+// and the TPU's sequential row grid becomes a row loop inside the block
+// that stops at the pair's own live rows.  The lanes of the packed band
+// are split into contiguous runs, one run per thread, and the M/I/D row
+// state lives in shared memory (mat and ins double buffered, del single:
+// it is read only before the row's first barrier and written after it),
+// with each lane's diagonal and its end accumulator: 7 words a lane.  Each
+// lane gathers its x values straight from the bank at t (and t - 1 for
+// stay_x(i-1)): neighbouring lanes read neighbouring addresses, where the
+// TPU kernel had to roll windows.  The row's y values are one broadcast
+// load each.  The delete chain is scanned as affine-max maps x ->
+// max(lse(x + c, k), b) carried as triples (c, k, b) (ov_fill_warp.cuh):
+// each thread composes its lanes' triples in order, a warp-shuffle scan
+// and a scan of the warp totals give each thread the map of all lanes
+// before it, and the thread replays its lanes from that map applied to
+// -inf.  Lanes outside the envelope carry c = -inf, so no path crosses a
+// strip seam.  At the end the block reduces its end accumulators to the
+// pair score (end + x and y insert sums) and the per-strip maxima: no
+// [B, W] array returns to device memory.
+//
+// What bounds the block route: per row, three block barriers and the
+// two-level scan, plus 7 (gap order 0) or 9 dependent loads of a lane's x
+// values; with ~100 float32 operations a cell, not bandwidth (the bank is
+// read once per lane and row from L2) and not the FP32 rate.  Many blocks
+// per SM hide the barrier latency; each block stops at its own rows and
+// its own lanes.
 
-#include "band_fill.cuh"
+#include "ov_fill_warp.cuh"
 
 namespace {
-
-constexpr int kChIns = 4, kChOpen = 5, kChStay = 6;
-
-__device__ __forceinline__ float lse(float a, float b) { return comb<false>(a, b); }
-
-// (c, k, b) := (c, k, b) then (c2, k2, b2)
-__device__ __forceinline__ void compose(float& c, float& k, float& b, float c2,
-                                        float k2, float b2) {
-  b = fmaxf(lse(b + c2, k2), b2);
-  k = lse(k + c2, k2);
-  c = c + c2;
-}
-
-// inclusive scan of triples over a warp, in lane order
-__device__ __forceinline__ void warp_scan3(float& c, float& k, float& b, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    float co = __shfl_up_sync(kFull, c, off);
-    float ko = __shfl_up_sync(kFull, k, off);
-    float bo = __shfl_up_sync(kFull, b, off);
-    if (lane >= off) {
-      compose(co, ko, bo, c, k, b);  // the earlier lanes' map, then ours
-      c = co;
-      k = ko;
-      b = bo;
-    }
-  }
-}
 
 // The map of all lanes of the threads before this one (thread order),
 // applied to -inf: the delete value entering this thread's first lane.  Two
@@ -169,9 +149,13 @@ __global__ void __launch_bounds__(kMaxThreads) ov_fill_kernel(
   const int w0 = min(t * lanes_per_thread, wb);
   const int w1 = min(w0 + lanes_per_thread, wb);
 
+  // both buffers of mat and ins: lanes past the pair's extent are never
+  // written, and the lane before them reads them as its w + 1 neighbour
   for (int w = t; w < W; w += blockDim.x) {
     matp[w] = NEG;
+    matc[w] = NEG;
     insp[w] = NEG;
+    insc[w] = NEG;
     del[w] = NEG;
     endw[w] = NEG;
     dof[w] = doff[(size_t)pb * W + w];
@@ -289,9 +273,9 @@ constexpr int kStaticSmem = 4 * 32 * (int)sizeof(float);
 
 extern "C" {
 
-// Launches K4 on `stream`; returns the cudaError_t of the launch.  Does not
-// synchronise and allocates nothing.  meta is [B][8] int32 (two int4 per
-// pair), ins_xy [B][2] float32, out [B + B*S] float32.
+// Launches K4's block route on `stream`; returns the cudaError_t of the
+// launch.  Does not synchronise and allocates nothing.  meta is [B][8]
+// int32 (two int4 per pair), ins_xy [B][2] float32, out [B + B*S] float32.
 int quaff_ov_fill(const void* bank, int C, int L, const void* meta,
                   const void* doff, int W, const void* seg_start,
                   const void* seg_width, int S, const void* ins_xy,
@@ -314,6 +298,35 @@ int quaff_ov_fill(const void* bank, int C, int L, const void* meta,
       static_cast<const float2*>(ins_xy), static_cast<const float*>(trans), B,
       lanes_per_thread, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// Launches K4's warp route on `stream` (W <= 32 * lpt, lpt one of 1, 2, 4,
+// 8, 16); returns the cudaError_t of the launch.  Same inputs and output as
+// quaff_ov_fill.
+int quaff_ov_fill_warp(const void* bank, int C, int L, const void* meta,
+                       const void* doff, int W, const void* seg_start,
+                       const void* seg_width, int S, const void* ins_xy,
+                       const void* trans, int B, int lpt, void* out,
+                       void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > 32 * lpt || S < 1 || S > kMaxSegs || (C != 5 && C != 7) ||
+      L < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto* bk = static_cast<const float*>(bank);
+  const auto* m4 = static_cast<const int4*>(meta);
+  const auto* dof = static_cast<const int*>(doff);
+  const auto* s0 = static_cast<const int*>(seg_start);
+  const auto* sw = static_cast<const int*>(seg_width);
+  const auto* iv = static_cast<const float2*>(ins_xy);
+  const auto* tr = static_cast<const float*>(trans);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      C == 7 ? launch_ov_warp_lpt<true>(lpt, bk, L, m4, dof, W, s0, sw, S, iv,
+                                        tr, B, o, st)
+             : launch_ov_warp_lpt<false>(lpt, bk, L, m4, dof, W, s0, sw, S,
+                                         iv, tr, B, o, st);
+  return (int)e;
 }
 
 // Widest band whose row state (7 words a lane) fits a block's shared memory

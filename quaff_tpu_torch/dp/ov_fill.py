@@ -10,8 +10,10 @@ each pair's score plus the end maximum of each lane-packed strip:
   ov_fill_reference   the plain version: a Python row loop over [B, W]
                       float32 tensors, mirroring _ov_kernel step by step
                       (its doubling scan of the delete chain included)
-  ov_fill             the wrapper: csrc/ov_fill.cu on a CUDA tensor, the
-                      plain version on a CPU tensor
+  ov_fill             the wrapper: csrc/ov_fill.cu on a CUDA tensor (the
+                      warp route for bands of up to OV_WARP_MAX_LANES, the
+                      block route for wider ones: ov_route), the plain
+                      version on a CPU tensor
   overlap_scores      prep + ov_fill (overlap_scores_kernel)
 
 The pair emission of a cell is recomputed from its definition, which
@@ -49,7 +51,7 @@ import torch
 
 from ..alphabet import QUAL_SCORE_RANGE
 from .engine import _shift_left, _shift_right
-from .fill_v2 import D_SENTINEL, NEG_INF, _lse2, check_tensors
+from .fill_v2 import D_SENTINEL, NEG_INF, WARP_LPTS, _lse2, check_tensors
 
 MAX_SEGS = 3  # lane-packed strips per pair (more get merged)
 
@@ -59,6 +61,15 @@ MAX_SEGS = 3  # lane-packed strips per pair (more get merged)
 # not a query of the card, because it decides which envelopes are re-banded
 # and so the output text: the CPU and the card must agree.
 OV_LANE_CAP = 8192
+
+# Widest band K4's warp route takes (csrc/ov_fill_warp.cuh, one warp a
+# pair, 32 * lpt lanes for lpt in WARP_LPTS); wider bands take the block
+# route (csrc/ov_fill.cu).  256, not 512: on the same inputs, 16 lanes a
+# thread lost to the block route at 257-512 lanes (chip_smoke.py phase 6,
+# its 7-pair W=455 chunk: 52.1 against 48.0 ms), while 8 lanes a thread won
+# at 218 lanes (its 73-pair chunk: 27.7 against 42.3 ms; NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md).
+OV_WARP_MAX_LANES = 256
 
 # bank channels
 CH_INS = 4  # insX / insY
@@ -336,11 +347,34 @@ def ov_fill_reference(bank, meta, doff, seg_start, seg_width, ins_xy,
     return torch.cat([score, segmax.reshape(-1)])
 
 
-def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy,
-            trans) -> torch.Tensor:
-    """K4 on the tensors' device: csrc/ov_fill.cu for CUDA tensors (each
-    launch adds one to `ov_fill.launches`), the plain version for CPU
-    tensors.  Same inputs and [B + B*S] float32 output for both."""
+def ov_route(W: int) -> tuple:
+    """K4's route for a band of W lanes: ("warp", lpt) with the smallest
+    lpt of WARP_LPTS whose warp covers the band (32 * lpt >= W), up to
+    OV_WARP_MAX_LANES, else ("block", None): one block per pair."""
+    for lpt in WARP_LPTS:
+        if W <= 32 * lpt <= OV_WARP_MAX_LANES:
+            return "warp", lpt
+    return "block", None
+
+
+def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy, trans,
+            route=None) -> torch.Tensor:
+    """K4 on the tensors' device: csrc/ov_fill.cu for CUDA tensors, on the
+    route ov_route picks from the band's width (each launch adds one to
+    `ov_fill.launches` and to `warp_launches` or `block_launches`), the
+    plain version for CPU tensors.  Same inputs and [B + B*S] float32
+    output for all three.  A failed launch raises on either route.
+
+    route, ("warp", lpt) or ("block", None), launches that route instead,
+    for holding the two against each other on the same inputs; a warp of
+    32 * lpt lanes must cover the band."""
+    B, W = doff.shape
+    if route is None:
+        route = ov_route(W)
+    kind, lpt = route
+    if not (kind == "block" and lpt is None
+            or kind == "warp" and lpt in WARP_LPTS and W <= 32 * lpt):
+        raise ValueError(f"ov_fill: no route {route} for a band of {W} lanes")
     dev = doff.device
     if dev.type == "cpu":
         return ov_fill_reference(bank, meta, doff, seg_start, seg_width,
@@ -349,7 +383,6 @@ def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy,
         raise RuntimeError(f"ov_fill: no kernel for device {dev}")
     from .. import kernels
 
-    B, W = doff.shape
     S = seg_start.shape[1]
     NR, C, L = bank.shape
     check_tensors("ov_fill", {
@@ -368,29 +401,37 @@ def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy,
         return out
     with torch.cuda.device(dev):
         lib = kernels.library()
-        limit = kernels.max_smem_lanes(dev.index or 0, "ov_fill")
-        if W > limit:
-            raise ValueError(
-                f"ov_fill: a band of {W} lanes exceeds the {limit} lanes of "
-                f"row state a block keeps in shared memory (OV_LANE_CAP is "
-                f"{OV_LANE_CAP})"
-            )
-        err = lib.quaff_ov_fill(
-            bank.data_ptr(), C, L, meta.data_ptr(), doff.data_ptr(), W,
-            seg_start.data_ptr(), seg_width.data_ptr(), S, ins_xy.data_ptr(),
-            trans.data_ptr(), B, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        args = (bank.data_ptr(), C, L, meta.data_ptr(), doff.data_ptr(), W,
+                seg_start.data_ptr(), seg_width.data_ptr(), S,
+                ins_xy.data_ptr(), trans.data_ptr(), B)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "warp":
+            err = lib.quaff_ov_fill_warp(*args, lpt, out.data_ptr(), stream)
+        else:
+            limit = kernels.max_smem_lanes(dev.index or 0, "ov_fill")
+            if W > limit:
+                raise ValueError(
+                    f"ov_fill: a band of {W} lanes exceeds the {limit} lanes "
+                    f"of row state a block keeps in shared memory "
+                    f"(OV_LANE_CAP is {OV_LANE_CAP})"
+                )
+            err = lib.quaff_ov_fill(*args, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
-            f"ov_fill kernel launch failed: {kernels.error_string(err)} "
-            f"(B={B}, W={W}, L={L})"
+            f"ov_fill kernel launch failed ({kind} route): "
+            f"{kernels.error_string(err)} (B={B}, W={W}, L={L})"
         )
     ov_fill.launches += 1
+    if kind == "warp":
+        ov_fill.warp_launches += 1
+    else:
+        ov_fill.block_launches += 1
     return out
 
 
 ov_fill.launches = 0
+ov_fill.warp_launches = 0
+ov_fill.block_launches = 0
 
 
 def overlap_scores(tables, batch: dict) -> torch.Tensor:

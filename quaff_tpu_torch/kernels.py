@@ -102,13 +102,19 @@ def library() -> ctypes.CDLL:
             p, i, p, p, i,  # doff, W, seg_start, seg_width, S
             p, p, i, p, p,  # ins_xy, trans, B, out, stream
         ]
+        lib.quaff_ov_fill_warp.argtypes = [
+            p, i, i, p,  # bank, C, L, meta
+            p, i, p, p, i,  # doff, W, seg_start, seg_width, S
+            p, p, i, i, p, p,  # ins_xy, trans, B, lpt, out, stream
+        ]
         lib.quaff_sol_chain.argtypes = [
             i, p, p, p, p,  # op, x0, a, b, out
             i, i, i, i, p,  # B, W, grid, iters, stream
         ]
         for fn in ("quaff_band_fill", "quaff_band_fill_warp",
                    "quaff_fwd_store", "quaff_bwd_counts",
-                   "quaff_estep_reduce", "quaff_ov_fill", "quaff_sol_chain"):
+                   "quaff_estep_reduce", "quaff_ov_fill", "quaff_ov_fill_warp",
+                   "quaff_sol_chain"):
             getattr(lib, fn).restype = i
         for fn in ("quaff_band_fill_max_smem_lanes",
                    "quaff_bwd_counts_max_smem_lanes",

@@ -19,9 +19,9 @@ Two E-step routes, chosen as the JAX package chooses them:
 
 Not carried over: the TPU's cold-kernel CPU gate (_small_cpu_estep_gate,
 KERNEL_WARM), its VMEM/HBM batch caps, the power-of-two batch padding with
-a sentinel read group and the padding of W to 128.  A chunk is sized from
-the device's free memory instead; the JAX multi-host and remote counting
-branches are not ported.
+a sentinel read group and the padding of W to 128.  A chunk is sized by a
+fixed byte budget (ESTEP_CHUNK_BYTES, estep_chunk_plan); the JAX
+multi-host and remote counting branches are not ported.
 """
 
 from __future__ import annotations
@@ -67,10 +67,15 @@ FWDBACK_CELL_SIZE = 48
 # after that takes the exact engine.  The same cap as align's.
 ESTEP_LANE_CAP = 4096
 
-# Chunk budget of the fused E-step: this share of the card's free memory
-# (torch.cuda.mem_get_info), or CPU_ESTEP_BYTES on the host.
-ESTEP_MEMORY_SHARE = 0.5
-CPU_ESTEP_BYTES = 1 << 30
+# Chunk budget of the fused E-step, in device bytes (the reference's
+# _ESTEP_HBM_BYTES, quaff_tpu/trainer.py:41).  It is a constant, not a
+# share of the card's free memory, because it decides the output: which
+# reads share a chunk (and so which float32 count tables are summed
+# together) and which reads the kernels take at all.  Free memory changes
+# with whatever else holds the card and between EM iterations (the caching
+# allocator keeps the last chunk's blocks).  The phase-5 chunk of
+# chip_smoke.py (B=256, W=168, 9956 rows, ~5.2e9 bytes) fits it whole.
+ESTEP_CHUNK_BYTES = 6_000_000_000
 
 
 def _log_sum_exp(a: float, b: float) -> float:
@@ -106,6 +111,49 @@ def _ref_order(xy_loglike: np.ndarray, y_loglike: float) -> List[int]:
     order = sorted(range(len(xy_loglike)), key=lambda nx: -xy_loglike[nx])
     return [nx for nx in order
             if xy_loglike[nx] >= y_loglike - MAX_TRAINING_LOG_DELTA]
+
+
+def estep_chunk_plan(reads, pair_bytes, lane_cap=None, budget=None):
+    """The fused E-step's chunk plan: which reads the float32 kernels take,
+    and which of them share a launch.
+
+    `reads` holds one (ny, rows, width, x_lens) per read that has jobs: the
+    read's length, its widest packed band and the length of each job's
+    ref; pair_bytes(width, rows, x_len) is one pair's device bytes.  A read
+    goes to the exact engine (oversize) when its band is wider than
+    lane_cap or its pairs together need more than the budget
+    (ESTEP_CHUNK_BYTES unless given).  The rest form chunks of whole
+    reads, longest first, while a chunk's padded shape (its widest band,
+    its first read's rows, its longest ref) fits the budget; a read's
+    pairs stay in one chunk because the in-chunk weights normalise over
+    the read's refs.  Returns (chunks [[ny, ...]], oversize [ny]): a
+    function of its arguments alone."""
+    if budget is None:
+        budget = ESTEP_CHUNK_BYTES
+    kept, oversize = [], []
+    for ny, rows, width, x_lens in reads:
+        need = len(x_lens) * pair_bytes(width, rows, max(x_lens))
+        if (lane_cap is not None and width > lane_cap) or need > budget:
+            oversize.append(ny)
+        else:
+            kept.append((ny, rows, width, x_lens))
+    kept.sort(key=lambda e: -e[1])
+    chunks = []
+    i = 0
+    while i < len(kept):
+        rows = kept[i][1]
+        chunk, n, width, x_max = [], 0, 1, 1
+        while i < len(kept):
+            ny, _, wr, x_lens = kept[i]
+            w2, x2 = max(width, wr), max([x_max] + list(x_lens))
+            if chunk and (n + len(x_lens)) * pair_bytes(w2, rows, x2) > budget:
+                break
+            chunk.append(ny)
+            n += len(x_lens)
+            width, x_max = w2, x2
+            i += 1
+        chunks.append(chunk)
+    return chunks, oversize
 
 
 class QuaffCounter:
@@ -252,12 +300,6 @@ class QuaffCounter:
         plog.done()
         return total, loglike, new_orders
 
-    def _chunk_bytes(self) -> int:
-        if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            return int(free * ESTEP_MEMORY_SHARE)
-        return CPU_ESTEP_BYTES
-
     def _pair_bytes(self, width: int, rows: int, x_len: int) -> int:
         """Device bytes one pair takes in a fused E-step chunk: K2's three
         stored float32 rows per lane and row, K3's per-pair count table and
@@ -269,7 +311,7 @@ class QuaffCounter:
     def _get_counts_kernel_batched(self, refs, reads, sort_order, plog):
         """Cross-read fused E-step (quaff_tpu/trainer.py:396-603): the
         (read, ref) pairs of many reads go through estep_fused_multi in
-        chunks sized by device memory, the longest reads first; each read's
+        the chunks of estep_chunk_plan, the longest reads first; each read's
         log-likelihood and ref order are then rebuilt on the host in
         float64 as count_read does."""
         from .dp.estep import estep_fused_multi
@@ -278,11 +320,8 @@ class QuaffCounter:
         if self._v2tab is None:
             self._v2tab = V2Tables.from_tables(self.tables, self.device)
         null_lls = [self._null_ll(y) for y in reads]
-        budget = self._chunk_bytes()
-
-        # per read: its jobs (ny, nx, env) and packed width, or oversize
-        per_read = []  # (ny, width, jobs)
-        oversize = []
+        # per read: its jobs (ny, nx, env) and packed width
+        per_read = {}  # ny -> (width, jobs)
         for ny, y in enumerate(reads):
             if not sort_order[ny]:
                 continue
@@ -302,40 +341,22 @@ class QuaffCounter:
                     continue  # an empty envelope: forward score -inf
                 jobs.append((ny, nx, env))
                 width = max(width, wp)
-            if not jobs:
-                continue
-            Lx = max(len(refs[nx].seq) for _, nx, _ in jobs)
-            need = len(jobs) * self._pair_bytes(width, len(y.seq), Lx)
-            if (self.config.sparse and width > ESTEP_LANE_CAP) or need > budget:
-                # even the fitted band (or the read's pairs together) is too
-                # wide for a chunk: the exact engine takes the read
-                oversize.append(ny)
-            else:
-                per_read.append((ny, width, jobs))
+            if jobs:
+                per_read[ny] = (width, jobs)
+        chunk_reads, oversize = estep_chunk_plan(
+            [(ny, len(reads[ny].seq), w,
+              [len(refs[nx].seq) for _, nx, _ in js])
+             for ny, (w, js) in per_read.items()],
+            self._pair_bytes,
+            lane_cap=ESTEP_LANE_CAP if self.config.sparse else None)
 
-        # chunks: whole reads, longest first, while the chunk's padded
-        # shape (its widest band, its longest read) fits the budget; a
-        # read's pairs stay in one chunk because the in-chunk weights
-        # normalise over the read's refs
-        per_read.sort(key=lambda e: -len(reads[e[0]].seq))
-        n_jobs = sum(len(js) for _, _, js in per_read)
+        n_jobs = sum(len(per_read[ny][1]) for c in chunk_reads for ny in c)
         total = QuaffParamCounts.zero(mk, ik)
         xy_ll = {}
         n_done = 0
-        i = 0
-        while i < len(per_read):
-            rows = len(reads[per_read[i][0]].seq)
-            chunk, width, Lx = [], 1, 1
-            while i < len(per_read):
-                ny, wr, js = per_read[i]
-                w2 = max(width, wr)
-                lx2 = max([Lx] + [len(refs[nx].seq) for _, nx, _ in js])
-                if chunk and (len(chunk) + len(js)) * self._pair_bytes(
-                        w2, rows, lx2) > budget:
-                    break
-                chunk.extend(js)
-                width, Lx = w2, lx2
-                i += 1
+        for nys in chunk_reads:
+            chunk = [job for ny in nys for job in per_read[ny][1]]
+            width = max(per_read[ny][0] for ny in nys)
             group_of, gid, null_g = {}, [], []
             for ny, _, _ in chunk:
                 if ny not in group_of:

@@ -89,7 +89,7 @@ def _chunking_inputs():
 @pytest.mark.parametrize("budget", [None, 2 << 20])
 def test_batched_chunking_matches_exact(budget, monkeypatch):
     """The cross-read fused E-step (whole reads per chunk, longest first,
-    chunks cut by the memory budget) reproduces the exact per-read path's
+    chunks cut by the byte budget) reproduces the exact per-read path's
     totals, log-likelihood and ref orders.  A small budget cuts the reads
     into one chunk per read."""
     refs, reads = _chunking_inputs()
@@ -110,7 +110,7 @@ def test_batched_chunking_matches_exact(budget, monkeypatch):
 
     monkeypatch.setattr(estep, "estep_fused_multi", spy)
     if budget is not None:
-        monkeypatch.setattr(trainer, "CPU_ESTEP_BYTES", budget)
+        monkeypatch.setattr(trainer, "ESTEP_CHUNK_BYTES", budget)
     _route_to_kernel(monkeypatch)
     kern = trainer.QuaffCounter(default_params(), null, config)
     got_counts, got_ll, got_so = kern.get_counts(refs, reads, sort_order)
@@ -133,7 +133,7 @@ def test_oversize_reads_take_the_engine(monkeypatch):
     want = trainer.QuaffCounter(default_params(), null,
                                 DPConfig()).get_counts(refs, reads)
     _route_to_kernel(monkeypatch)
-    monkeypatch.setattr(trainer, "CPU_ESTEP_BYTES", 1 << 10)
+    monkeypatch.setattr(trainer, "ESTEP_CHUNK_BYTES", 1 << 10)
     engine_reads = []
     orig = trainer.QuaffCounter.count_read
 
@@ -149,4 +149,76 @@ def test_oversize_reads_take_the_engine(monkeypatch):
     a, b = io.StringIO(), io.StringIO()
     counts.write_json(a)
     want[0].write_json(b)
+    assert a.getvalue() == b.getvalue()
+
+
+def _pair_bytes(width, rows, x_len):
+    return 100 * width * rows + x_len
+
+
+def test_estep_chunk_plan():
+    """The chunk plan: a read wider than the lane cap, or whose pairs
+    together exceed the budget, goes to the exact engine; the rest form
+    chunks of whole reads, longest first, cut where the chunk's padded
+    shape (widest band, first read's rows, longest ref) would pass the
+    budget."""
+    reads = [(0, 50, 10, [100, 200]),     # 2 pairs of 50k + ref
+             (1, 80, 10, [100]),          # the longest read
+             (2, 60, 5000, [100]),        # wider than the lane cap
+             (3, 70, 20, [100] * 3),      # 3 x 140k: over the budget
+             (4, 40, 30, [300])]
+    chunks, oversize = trainer.estep_chunk_plan(
+        reads, _pair_bytes, lane_cap=4096, budget=400_000)
+    assert oversize == [2, 3]
+    # read 1 alone: 80 rows; + read 0 at (10 lanes, 80 rows): 3 pairs of
+    # 80.2k; + read 4 at 30 lanes: 4 x 240.3k > 400k, a new chunk
+    assert chunks == [[1, 0], [4]]
+    # at a large budget only the lane cap sends a read to the engine
+    assert trainer.estep_chunk_plan(reads, _pair_bytes, lane_cap=4096,
+                                    budget=10**9)[1] == [2]
+    assert trainer.estep_chunk_plan(reads, _pair_bytes, budget=10**9) == (
+        [[1, 3, 2, 0, 4]], [])
+    # a read alone in a chunk is never cut, whatever the budget
+    assert trainer.estep_chunk_plan(reads[:2], _pair_bytes, budget=1) == (
+        [], [0, 1])
+    assert trainer.estep_chunk_plan(reads[:2], _pair_bytes) == ([[1, 0]], [])
+
+
+@pytest.mark.parametrize("free", ["small", "large", "raises"])
+def test_chunk_plan_ignores_free_memory(free, monkeypatch):
+    """The fused E-step's chunk plan decides the output (which reads share
+    a chunk, which take the exact engine), so it must not follow the
+    card's free memory: with torch.cuda.mem_get_info reporting 1 MiB free,
+    80 GB free, or raising, get_counts makes the same chunks and the same
+    counts as with the default budget alone."""
+    import torch
+
+    refs, reads = _chunking_inputs()
+    null = QuaffNullParams.fit(reads)
+    _route_to_kernel(monkeypatch)
+    plans = []
+    orig = trainer.estep_chunk_plan
+
+    def spy(*a, **kw):
+        plans.append(orig(*a, **kw))
+        return plans[-1]
+
+    monkeypatch.setattr(trainer, "estep_chunk_plan", spy)
+    want = trainer.QuaffCounter(default_params(), null, DPConfig())
+    want_counts, want_ll, want_so = want.get_counts(refs, reads)
+
+    def mem_get_info(device=None):
+        if free == "raises":
+            raise RuntimeError("mem_get_info must not decide the chunk plan")
+        return (1 << 20 if free == "small" else 80 * 10**9, 80 * 10**9)
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    got = trainer.QuaffCounter(default_params(), null, DPConfig())
+    got_counts, got_ll, got_so = got.get_counts(refs, reads)
+    assert len(plans) == 2 and plans[0] == plans[1]
+    assert plans[0] == ([[1, 2, 0, 3]], [])
+    assert (got_ll, got_so) == (want_ll, want_so)
+    a, b = io.StringIO(), io.StringIO()
+    want_counts.write_json(a)
+    got_counts.write_json(b)
     assert a.getvalue() == b.getvalue()

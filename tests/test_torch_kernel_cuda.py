@@ -2,7 +2,8 @@
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
 route at every lanes-a-thread instantiation and its block route), K2, K3
 and the count reduction (csrc/estep.cu; the reduction bit for bit), K4
-(csrc/ov_fill.cu) and the probes' chain kernel (csrc/sol_probe.cu).  Needs
+(csrc/ov_fill.cu: its warp route at every lanes-a-thread instantiation and
+its block route) and the probes' chain kernel (csrc/sol_probe.cu).  Needs
 an NVIDIA GPU and skips without one.  This file imports no JAX, so it also
 runs on a host that has none:
 
@@ -413,24 +414,137 @@ def _overlap_batch(case, rng):
                            overlap_bank_batch(pairs, tables, desc, "cuda"))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["forward", "reverse", "noqual", "gaporder1"])
-def test_ov_fill_matches_plain(case):
-    """K4 against ov_fill_reference: pair scores and strip maxima."""
-    _need_card()
+def random_ov_inputs(rng, W, *, B=8, L=160, gap_order=0, device="cuda"):
+    """K4's inputs (dp/ov_fill.prepare's layout) for B random pairs on a
+    band of W lanes: a bank of B x rows then B y rows [2B, C, L] with
+    log-score-like values (match channels -inf, the others 0 past each
+    read's length, as bank_rows makes them), 1-3 strips a pair at random
+    diagonals with a few sentinel lanes inside and between them, sentinel
+    lanes after the last, the live-row window of
+    packed_overlap_descriptors, and the transitions of the shipped
+    parameters (gap order 0) or params-gaporder1.json."""
+    from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL
+    from quaff_tpu_torch.dp.overlap import OverlapScoreTables
+
+    params = (QuaffParams.from_json((DATA / "params-gaporder1.json").read_text())
+              if gap_order else default_params())
+    trans = ov_fill.ov_tables(OverlapScoreTables.from_params(params, False),
+                              device).trans
+    C, S = (7 if gap_order else 5), ov_fill.MAX_SEGS
+    lens = rng.integers(L // 2, L + 1, 2 * B)
+    bank = np.zeros((2 * B, C, L), np.float32)
+    bank[:, :4] = rng.uniform(-4.0, -0.2, (2 * B, 4, L))
+    bank[:, 4] = rng.uniform(-1.6, -1.2, (2 * B, L))
+    if gap_order:
+        bank[:, 5] = rng.uniform(-6.0, -3.0, (2 * B, L))
+        bank[:, 6] = rng.uniform(-0.6, -0.05, (2 * B, L))
+    past = np.arange(L)[None, :] >= lens[:, None]
+    for c in range(C):
+        bank[:, c][past] = -np.inf if c < 4 else 0.0
+    meta = np.zeros((B, 8), np.int64)
+    doff = np.full((B, W), D_SENTINEL, np.int64)
+    seg_start = np.zeros((B, S), np.int64)
+    seg_width = np.zeros((B, S), np.int64)
+    for b in range(B):
+        xlen, ylen = int(lens[b]), int(lens[B + b])
+        start = 0
+        for k in range(int(rng.integers(1, S + 1))):
+            if start >= W:
+                break
+            wk = int(rng.integers(1, max(1, (W - start) // 2) + 1))
+            if k == 0:
+                wk = max(wk, min(W, 8))
+            d_lo = int(rng.integers(-(ylen - 1), xlen))
+            seg_start[b, k], seg_width[b, k] = start, wk
+            doff[b, start:start + wk] = d_lo + np.arange(wk)
+            holes = start + np.nonzero(rng.random(wk) < 0.05)[0]
+            doff[b, holes] = D_SENTINEL
+            start += wk + int(rng.integers(0, 3))
+        live = doff[b][doff[b] != D_SENTINEL]
+        if live.size == 0:
+            doff[b, 0] = 0
+            live = doff[b, :1]
+        d1, d2 = int(live.min()), int(live.max())
+        j0 = max(1, 1 - d2)
+        rows = max(min(ylen, xlen - d1) - j0 + 1, 1)
+        meta[b, :6] = b, B + b, xlen, ylen, j0 - 1, rows
+    ins_xy = np.stack([-1.4 * lens[:B], -1.4 * lens[B:]], axis=1)
+
+    def dev(a, dt=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(device)
+
+    return {"bank": dev(bank, torch.float32), "meta": dev(meta),
+            "doff": dev(doff), "seg_start": dev(seg_start),
+            "seg_width": dev(seg_width),
+            "ins_xy": dev(ins_xy, torch.float32), "trans": trans}
+
+
+OV_COUNTS = ("launches", "warp_launches", "block_launches")
+
+
+def _ov_checked(inp, route=None):
+    """K4 through the wrapper on `inp` (on `route` when given, else
+    ov_route's), asserting that it launched once, on that route, and
+    agrees with ov_fill_reference within rtol 1e-5 / atol 0.05."""
     from quaff_tpu_torch.dp import ov_fill
 
-    inp = _overlap_batch(case, np.random.default_rng(43))
-    before = ov_fill.ov_fill.launches
-    got = ov_fill.ov_fill(**inp)
+    kind, _ = route or ov_fill.ov_route(inp["doff"].shape[1])
+    before = [getattr(ov_fill.ov_fill, k) for k in OV_COUNTS]
+    got = ov_fill.ov_fill(**inp, route=route)
     torch.cuda.synchronize()
-    assert ov_fill.ov_fill.launches == before + 1
+    moved = [getattr(ov_fill.ov_fill, k) - n
+             for k, n in zip(OV_COUNTS, before)]
+    assert moved == [1, int(kind == "warp"), int(kind == "block")]
     ref = ov_fill.ov_fill_reference(**inp)
     got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
     fin = np.isfinite(ref)
-    assert fin[: inp["meta"].shape[0]].all()
+    assert fin[: inp["meta"].shape[0]].any()
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=0.05)
+    return fin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["routed", "block"])
+@pytest.mark.parametrize("case", ["forward", "reverse", "noqual", "gaporder1"])
+def test_ov_fill_matches_plain(case, route):
+    """K4 against ov_fill_reference on lane-packed overlap pairs (W=70):
+    pair scores and strip maxima, on the route ov_route picks (the warp
+    route, 4 lanes a thread) and on the block route forced on the same
+    inputs."""
+    _need_card()
+    inp = _overlap_batch(case, np.random.default_rng(43))
+    fin = _ov_checked(inp, ("block", None) if route == "block" else None)
+    assert fin[: inp["meta"].shape[0]].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gap_order", [0, 1])
+@pytest.mark.parametrize("W", [1, 31, 33, 100, 203, 256, 257, 512, 513, 1100])
+def test_ov_fill_routes_match_plain(W, gap_order):
+    """K4 through the wrapper on random bands of W lanes: the warp route at
+    its smallest lanes-a-thread up to the cutover, the block route past it
+    (513 and 1100 lanes are always past it), each against the plain
+    version."""
+    _need_card()
+    _ov_checked(random_ov_inputs(np.random.default_rng(61 + W), W,
+                                 gap_order=gap_order))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gap0", "gap1"])
+@pytest.mark.parametrize("lpt", fill_v2.WARP_LPTS)
+def test_ov_warp_route_every_lanes_a_thread(lpt, case):
+    """Each instantiation of the warp kernel, forced on a 31-lane band
+    (which every lpt covers) and on the widest band it takes, against the
+    plain version; and the block route forced on the same inputs."""
+    _need_card()
+    for W in (31, 32 * lpt):
+        inp = random_ov_inputs(np.random.default_rng(7 * lpt + W), W,
+                               gap_order=int(case == "gap1"))
+        _ov_checked(inp, ("warp", lpt))
+        _ov_checked(inp, ("block", None))
 
 
 @pytest.mark.cuda

@@ -287,3 +287,40 @@ def test_ov_fill_routes_by_device():
     meta = {k: v.to("meta") for k, v in inp.items()}
     with pytest.raises(RuntimeError, match="no kernel"):
         ov_fill.ov_fill(**meta)
+
+
+@pytest.mark.parametrize("lpt", [1, 2, 4, 8, 16, None])
+def test_ov_route_table(lpt):
+    """K4's route is a pure function of the band's width: every width up to
+    OV_WARP_MAX_LANES takes the warp route with the smallest lanes-a-thread
+    whose warp (32 * lpt lanes) covers it (the widths 16*lpt+1 .. 32*lpt);
+    every wider band up to OV_LANE_CAP takes the block route (lpt None:
+    the widths past the cutover)."""
+    cut = ov_fill.OV_WARP_MAX_LANES
+    assert cut in (256, 512)
+    if lpt is None:
+        widths = range(cut + 1, ov_fill.OV_LANE_CAP + 1)
+    else:
+        widths = range(16 * lpt + 1 if lpt > 1 else 1, 32 * lpt + 1)
+    want = ("warp", lpt) if lpt is not None and 32 * lpt <= cut else \
+        ("block", None)
+    assert len(widths) > 0
+    assert all(ov_fill.ov_route(W) == want for W in widths)
+
+
+def test_ov_fill_forced_route_on_cpu():
+    """A route given to ov_fill must cover the band; on CPU tensors either
+    route runs the plain version and moves no launch count."""
+    from test_torch_kernel_cuda import random_ov_inputs
+
+    inp = random_ov_inputs(np.random.default_rng(3), 40, B=2, L=48,
+                           device="cpu")
+    ref = ov_fill.ov_fill_reference(**inp)
+    counts = ("launches", "warp_launches", "block_launches")
+    before = [getattr(ov_fill.ov_fill, k) for k in counts]
+    for route in (None, ("warp", 2), ("warp", 16), ("block", None)):
+        assert torch.equal(ov_fill.ov_fill(**inp, route=route), ref)
+    assert [getattr(ov_fill.ov_fill, k) for k in counts] == before
+    for bad in (("warp", 1), ("warp", 3), ("block", 4), ("tile", None)):
+        with pytest.raises(ValueError, match="no route"):
+            ov_fill.ov_fill(**inp, route=bad)
