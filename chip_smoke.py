@@ -20,11 +20,16 @@ failure exits non-zero before the final line is printed.
      fill_route's route; median times of both, in-envelope cells/s, the
      least time the card could take
   2b K2, K3 and the count reduction against their plain versions: B=64
-     W~134 Ly=300 at gap order 0 and 1, global mode, a band wider than
-     shared memory, and the c8f30 self pair; the reduction bit for bit;
-     two runs must give bit-identical count tables; the reduction and
-     torch.sum timed alike (device time from a CUDA graph of 100 calls,
-     the eager 100 back to back, one call with host launch)
+     W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
+     (the warp routes' cutover: lanes-a-thread 16 against the block
+     route), a band wider than shared memory, and the c8f30 self pair;
+     each of K2's and K3's routes (the warp route where 512 lanes cover the
+     band, the block route) forced on the same inputs, K3 on each route's
+     K2 store, each against the plain versions and repeated bit for bit,
+     timed (CUDA events, median of 3); the reduction bit for bit; two runs
+     must give bit-identical count tables; the reduction and torch.sum
+     timed alike (device time from a CUDA graph of 100 calls, the eager
+     100 back to back, one call with host launch)
   2c K4 against its plain version: 64 overlapping pairs of 2-10 kb reads,
      lane-packed (up to 3 strips), at gap order 0 and 1, each batch with
      both strands and reads with and without qualities; the plain version
@@ -45,7 +50,11 @@ failure exits non-zero before the final line is printed.
      with K1 launched in each run
   3b `train` on c8f30 (2 EM iterations) through K2/K3 against the golden
      log-likelihoods and c8f30-train2.oracle.json; `count -fast` on
-     synth12 against the float64 parity count
+     synth12 against the float64 parity count, with the default k-mer band
+     and with -kmatchband 600 (wider than any warp route: the K2/K3 block
+     routes' path); each chunk's routes, held to estep_route's; then
+     K2/K3 (the block routes) and the reduction on the -kmatchband 600
+     run's chunk against their plain versions
   3c the port's `overlap` CLI on cuda, byte for byte against five goldens,
      with K4's launches (K4 must run on the multi-pair ones)
   4  align at a size users run: a seeded 200 kb genome and 512 reads of
@@ -56,13 +65,15 @@ failure exits non-zero before the final line is printed.
      the block route on the run's largest block-route chunk (if any)
      against its plain version
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
-     the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches, peak
-     device memory; the log-likelihood must rise; `count -fast` on all 128
-     reads twice, the second time while a tensor holds most of the card's
-     free memory, byte for byte the same (the E-step's chunk plan reads no
-     free memory); `count -fast` on the first 16 reads against the parity
-     count; then K2/K3 and the reduction on the run's largest chunk
-     against their plain versions
+     the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches by
+     route, each chunk's (B, W, routes, K2 and K3 device ms) from the
+     profiler's kernel names, peak device memory; the log-likelihood must
+     rise; `count -fast` on all 128 reads twice, the second time while a
+     tensor holds most of the card's free memory, byte for byte the same
+     (the E-step's chunk plan reads no free memory); `count -fast` on the
+     first 16 reads against the parity count; then K2/K3 (both routes
+     forced) and the reduction on the run's largest chunk against their
+     plain versions
   6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
      genome (phase 4's recipe), all-vs-all with reverse complements (6048
      pairs) through the CLI on cuda; wall, pairs/s, K4 launches by route
@@ -82,10 +93,10 @@ Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
 well inside its time limit.  Each plain version's comparison run is also
 one of its timed runs.
 
-Each path (phase 4 for K1's two routes, phase 5 for K2, K3 and the
-reduction, phase 6 for K4, the probes' run in phase 2d for the chain
-kernel) runs with the launch counts set to 0 just before it and read just
-after.
+Each path (phase 4 for K1's two routes, phase 5 for K2's and K3's warp
+routes and the reduction, phase 3b's wide-band count -fast for their block
+routes, phase 6 for K4, the probes' run in phase 2d for the chain kernel)
+runs with the launch counts set to 0 just before it and read just after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -710,9 +721,25 @@ def _max_prop(bdev):
     return p if m > 0 else None
 
 
+ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: a warp and a block route
+
+
+def _estep_routes(W):
+    """The K2/K3 routes held against each other on a band of W lanes: the
+    warp route at estep.warp_lpt(W) where a warp covers W (up to 512
+    lanes), then the block route."""
+    from quaff_tpu_torch.dp.estep import warp_lpt
+
+    lpt = warp_lpt(W)
+    return [("block", 0)] if lpt is None else [("warp", lpt), ("block", 0)]
+
+
 def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
     """K2, K3 and the count reduction against their plain versions on one
-    batch: agreement, bitwise repeatability, times and bounds."""
+    batch, each of K2's and K3's routes forced on the same inputs (and K3
+    on each route's K2 store): agreement, the back-start posterior,
+    bitwise repeatability, times and bounds.  Returns, per kernel and
+    route kind, the kernels line's numbers."""
     import torch
 
     from quaff_tpu_torch.dp import estep, fill_v2
@@ -721,46 +748,74 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
     mp = _max_prop(bdev)
     B, W = inp["doff"].shape
     Ly = inp["keys"].shape[1]
+    routes = _estep_routes(W)
+    auto = {k: estep.estep_route(W, k) for k in ESTEP}
 
-    def k2(keys):
-        return estep.fwd_store(**dict(inp, keys=keys), tables=v2, local=local)
+    def k2(keys, route=None):
+        return estep.fwd_store(**dict(inp, keys=keys), tables=v2, local=local,
+                               route=route)
 
     def p2(keys):
         return estep.fwd_store_reference(**dict(inp, keys=keys), tables=v2,
                                          local=local, max_prop=mp)
 
-    fwd, rows, offs = k2(inp["keys"])
+    # K2 on each route, against the plain version, and again bit for bit
     ref2, t_p2 = _timed(p2, inp["keys"])
-    err_f = _compare(fwd, ref2[0])
+    stores, err_f = {}, {}
+    for r in routes:
+        stores[r[0]] = k2(inp["keys"], r)
+        err_f[r[0]] = _compare(stores[r[0]][0], ref2[0])
+        check(torch.equal(stores[r[0]][0], k2(inp["keys"], r)[0]),
+              f"{name}: two runs of K2's {r[0]} route differ")
     del ref2
+    fwd, rows, offs = stores[auto["fwd_store"][0]]
     fin = fwd > fill_v2.NEG_INF / 2
     wrow = torch.stack([fin.float(), torch.where(fin, fwd, 0.0)]).contiguous()
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
 
-    def k3(w):
-        return estep.bwd_counts(*base, w, rows, offs, local=local)
+    def k3(w, route=None, store=None):
+        st = (rows, offs) if store is None else store
+        return estep.bwd_counts(*base, w, *st, local=local, route=route)
 
     def p3(w):
         return estep.bwd_counts_reference(*base, w, rows, offs, local=local,
                                           max_prop=mp)
 
+    # K3 on each route, on each route's K2 store (the layout they share),
+    # against the plain version on estep_route's store: every pairing
+    (part_p, sc_p), t_p3 = _timed(p3, wrow)
+    want = torch.cat([part_p.ravel(), sc_p.ravel()])
+    del part_p, sc_p
+    err_c, bsp_err = {}, 0.0
+    for r3 in routes:
+        for r2 in routes:
+            part, sc = k3(wrow, r3, stores[r2[0]][1:])
+            err = _compare_counts(torch.cat([part.ravel(), sc.ravel()]), want)
+            err_c[r3[0]] = max(err_c.get(r3[0], 0.0), err)
+            # each finite pair's back-start posterior exp(back - fwd) is 1
+            # in exact arithmetic (rtol 5e-3, tests/test_pallas_counts.py)
+            bsp = sc[4][fin].double().cpu()
+            bsp_err = max(bsp_err, float((bsp - 1).abs().max()))
+            check(bool(((bsp - 1).abs() < 5e-3).all()),
+                  f"{name}: K3 {r3[0]} on K2 {r2[0]}: back-start posterior "
+                  f"off 1 by {float((bsp - 1).abs().max()):.3g}")
+            part2, sc2 = k3(wrow, r3, stores[r2[0]][1:])
+            check(torch.equal(part, part2) and torch.equal(sc, sc2),
+                  f"{name}: two runs of K3's {r3[0]} route differ")
+            del part, sc, part2, sc2
+    del want
+    for r in routes:
+        if r[0] != auto["fwd_store"][0]:
+            del stores[r[0]]
     part, sc = k3(wrow)
     tab = estep.estep_reduce(part)
-    (part_p, sc_p), t_p3 = _timed(p3, wrow)
-    err_c = _compare_counts(torch.cat([part.ravel(), sc.ravel()]),
-                            torch.cat([part_p.ravel(), sc_p.ravel()]))
-    del part_p, sc_p
     tab_p, t_red_p = _timed(estep.estep_reduce_reference, part)
     err_r = float((tab - tab_p).abs().max())
     check(torch.equal(tab, tab_p), f"{name}: the count reduction differs "
           f"from its plain version (max abs err {err_r:.3g}), not bit for bit")
     del tab_p
-    # each finite pair's back-start posterior exp(back - fwd) is 1 in exact
-    # arithmetic (rtol 5e-3, tests/test_pallas_counts.py)
-    bsp = sc[4][fin].double().cpu()
-    check(bool(((bsp - 1).abs() < 5e-3).all()),
-          f"{name}: back-start posterior off 1 by {float((bsp - 1).abs().max()):.3g}")
-    # the whole E-step again: the tables must repeat bit for bit
+    # the whole E-step again on estep_route's routes: the tables must
+    # repeat bit for bit
     fwd2, rows2, offs2 = k2(inp["keys"])
     part2, sc2 = estep.bwd_counts(*base, wrow, rows2, offs2, local=local)
     tab2 = estep.estep_reduce(part2)
@@ -775,12 +830,17 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
         variants.append(k)
     wv = [(wrow * torch.tensor([[1.0 + 1e-3 * i], [1.0]], device=wrow.device)
            ).contiguous() for i in range(n_runs)]
-    k2(variants[0])  # warm
-    # the plain versions: the comparison's run and n_plain - 1 more
-    t = {"fwd_store": (_time(k2, variants[1:]), statistics.median(
-             [t_p2] + _times(p2, variants[1:n_plain]))),
-         "bwd_counts": (_time(k3, wv), statistics.median(
-             [t_p3] + _times(p3, wv[:n_plain - 1])))}
+    # each route on the same inputs (CUDA events, median of n_runs), the
+    # plain versions: the comparison's run and n_plain - 1 more
+    t = {"fwd_store": {}, "bwd_counts": {}}
+    for r in routes:
+        k2(variants[0], r)  # warm
+        t["fwd_store"][r[0]] = _time(lambda k, r=r: k2(k, r), variants[1:])
+        t["bwd_counts"][r[0]] = _time(lambda w, r=r: k3(w, r), wv)
+    plain = {"fwd_store": statistics.median(
+                 [t_p2] + _times(p2, variants[1:n_plain])),
+             "bwd_counts": statistics.median(
+                 [t_p3] + _times(p3, wv[:n_plain - 1]))}
     # the reduction and torch.sum, timed alike: device time (a graph of
     # 100 back-to-back calls), the eager 100, one call with host launch
     red = {}
@@ -807,12 +867,12 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
                              OPS_PER_CELL["bwd_counts"] * cells),
         "estep_reduce": _bound(4 * B * E + 4 * E, B * E),
     }
-    out = {}
-    for k, err in (("fwd_store", err_f), ("bwd_counts", err_c)):
-        ms, plain = t[k][0] * 1e3, t[k][1] * 1e3
-        out[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                  "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-                  "library_ms": None}
+    errs = {"fwd_store": err_f, "bwd_counts": err_c}
+    out = {k: {r[0]: {"max_abs_err": errs[k][r[0]],
+                      "ms": t[k][r[0]] * 1e3, "plain_ms": plain[k] * 1e3,
+                      "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                      "library_ms": None, "route": r} for r in routes}
+           for k in ESTEP}
     out["estep_reduce"] = {
         "max_abs_err": err_r, "ms": red["kernel"]["device"] * 1e3,
         "plain_ms": t_red_p * 1e3, "bound_ms": bounds["estep_reduce"][0],
@@ -820,15 +880,22 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
         "library_ms": red["torch.sum"]["device"] * 1e3}
     log(f"phase 2b: {name}: B={B} W={W} Ly={Ly} "
         f"{'local' if local else 'global'}, {cells} in-envelope cells; "
-        f"max abs err fwd {err_f:.3g}, counts {err_c:.3g}; reduce bitwise "
-        f"equal to its plain version; "
-        f"back-start posterior within {float((bsp - 1).abs().max()):.3g} of 1; "
-        f"tables bit-identical over two runs [{card}]")
-    for k in ("fwd_store", "bwd_counts"):
+        f"estep_route: K2 {auto['fwd_store']}, K3 {auto['bwd_counts']}; max "
+        f"abs err fwd {max(err_f.values()):.3g}, counts "
+        f"{max(err_c.values()):.3g} (routes {[r[0] for r in routes]}, K3 on "
+        f"each route's K2 store); reduce bitwise equal to its plain version; "
+        f"back-start posterior within {bsp_err:.3g} of 1; tables "
+        f"bit-identical over two runs [{card}]")
+    for k in ESTEP:
         v = out[k]
-        log(f"phase 2b: {name}: {k} {v['ms']:.3f} ms (median of {n_runs}), "
-            f"plain {v['plain_ms']:.3f} ms (median of {n_plain}), bound "
-            f"{v['bound_ms']:.4f} ms ({v['bound_by']}) [{card}]")
+        times = ", ".join(
+            f"{r[0]}{'' if r[0] == 'block' else ' ' + str(r[1])} "
+            f"{v[r[0]]['ms']:.3f} ms" for r in routes)
+        ratio = (f" (block/warp {v['block']['ms'] / v['warp']['ms']:.2f}x)"
+                 if len(routes) == 2 else "")
+        log(f"phase 2b: {name}: {k} {times}{ratio} (median of {n_runs}, same "
+            f"inputs), plain {plain[k] * 1e3:.3f} ms (median of {n_plain}), "
+            f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}) [{card}]")
     log(f"phase 2b: {name}: estep_reduce [{B}, {E}]: device time (graph of "
         f"100) {red['kernel']['device'] * 1e3:.4f} ms vs torch.sum "
         f"{red['torch.sum']['device'] * 1e3:.4f} ms; eager 100 back to back "
@@ -842,11 +909,36 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
     return out
 
 
+def _cutover_pairs(rng, n, band=420):
+    """Reads of 600 bp in a ref with no repeat, enveloped with a k-mer band
+    of `band`: one strip a pair, 257-512 lanes wide (the warp routes'
+    lanes-a-thread 16)."""
+    from quaff_tpu_torch.envelope import sparse_envelope
+    from quaff_tpu_torch.io.fastseq import FastSeq, KmerIndex
+
+    pairs = []
+    for b in range(n):
+        core = "".join("ACGT"[t] for t in rng.integers(0, 4, 600))
+        spacer = "".join("ACGT"[t] for t in rng.integers(0, 4, 200))
+        ys = list(core)
+        for i in range(len(ys)):
+            if rng.random() < 0.06:
+                ys[i] = "ACGT"[int(rng.integers(0, 4))]
+        qual = "".join(chr(33 + int(q)) for q in rng.integers(3, 40, len(ys)))
+        x = FastSeq(name=f"x{b}", seq=spacer + core + spacer)
+        y = FastSeq(name=f"y{b}", seq="".join(ys), qual=qual)
+        pairs.append((x, y, sparse_envelope(x, KmerIndex(y, 6),
+                                            band_size=band,
+                                            kmer_threshold=10)))
+    return pairs
+
+
 def phase2b_estep(card):
     import numpy as np
     import torch
 
     from quaff_tpu_torch import kernels
+    from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.dp.engine import PairBatch, to_device
     from quaff_tpu_torch.dp.fill_v2 import V2Tables
     from quaff_tpu_torch.dp.scores import ScoreTables
@@ -868,6 +960,20 @@ def phase2b_estep(card):
     case("global", PairBatch.build(
         [(xg, yg, full_envelope(len(xg.seq), len(yg.seq)))
          for xg, yg, _ in pairs[:16]], tables), tables, False)
+    # the warp routes' cutover: lanes-a-thread 16 against the block route
+    # on the same 257-512-lane batch, for each kernel
+    cpb = PairBatch.build_packed(
+        _cutover_pairs(np.random.default_rng(9), 32), tables)
+    cW = cpb.member.shape[1]
+    check(256 < cW <= 512, f"the cutover case has {cW} lanes, not 257-512")
+    cut = case("cutover (257-512 lanes)", cpb, tables, True, n_plain=1)
+    log(f"phase 2b: the warp routes' cutover at B={cpb.member.shape[0]} "
+        f"W={cW}: " + "; ".join(
+            f"{k} lanes-a-thread 16 {cut[k]['warp']['ms']:.3f} ms against "
+            f"the block route's {cut[k]['block']['ms']:.3f} ms "
+            f"({cut[k]['block']['ms'] / cut[k]['warp']['ms']:.2f}x), "
+            f"ESTEP_WARP_MAX_LANES {estep.ESTEP_WARP_MAX_LANES[k]}"
+            for k in ESTEP) + f" [{card}]")
     # a band wider than K2's and K3's shared-memory row state: global scratch
     dev = torch.cuda.current_device()
     limit = max(kernels.max_smem_lanes(dev),
@@ -924,11 +1030,17 @@ def _json_close(mine, want, rtol, atol, skip=()):
     return bad
 
 
+ROUTE_COUNTS = ("launches", "warp_launches", "block_launches")
+
+
 def _estep_launches():
+    """The E-step wrappers' launch counts: K2's and K3's by route."""
     from quaff_tpu_torch.dp import estep
 
-    return {k: getattr(estep, k).launches
-            for k in ("fwd_store", "bwd_counts", "estep_reduce")}
+    out = {k: {c: getattr(getattr(estep, k), c) for c in ROUTE_COUNTS}
+           for k in ESTEP}
+    out["estep_reduce"] = {"launches": estep.estep_reduce.launches}
+    return out
 
 
 def _reset_launches():
@@ -937,8 +1049,47 @@ def _reset_launches():
     fill_v2.band_fill.launches = 0
     for k in OV_COUNTS:
         setattr(ov_fill.ov_fill, k, 0)
-    for k in ("fwd_store", "bwd_counts", "estep_reduce"):
-        getattr(estep, k).launches = 0
+    for k in ESTEP:
+        for c in ROUTE_COUNTS:
+            setattr(getattr(estep, k), c, 0)
+    estep.estep_reduce.launches = 0
+
+
+@contextlib.contextmanager
+def _estep_chunks():
+    """Records the width and pairs of each fused E-step chunk a run makes
+    (estep_fused_multi's batch): yields the list it fills."""
+    from quaff_tpu_torch.dp import estep
+
+    chunks, orig = [], estep.estep_fused_multi
+
+    def recording(v2tab, batch, gid, null_lls, local=True, max_prop=None):
+        chunks.append({"B": int(batch["member"].shape[0]),
+                       "W": int(batch["member"].shape[1]), "batch": batch,
+                       "v2": v2tab, "local": local})
+        return orig(v2tab, batch, gid, null_lls, local, max_prop)
+
+    estep.estep_fused_multi = recording
+    try:
+        yield chunks
+    finally:
+        estep.estep_fused_multi = orig
+
+
+def _check_routes(what, chunks, n):
+    """Each chunk's K2 and K3 took estep_route's route: the launch counts
+    by route n equal the chunks' routes.  Returns the routes by chunk."""
+    from quaff_tpu_torch.dp import estep
+
+    routes = [{k: estep.estep_route(c["W"], k) for k in ESTEP}
+              for c in chunks]
+    for k in ESTEP:
+        want = {r: sum(c[k][0] == r for c in routes)
+                for r in ("warp", "block")}
+        got = {r: n[k][f"{r}_launches"] for r in ("warp", "block")}
+        check(got == want, f"{what}: {k} launches by route {got}, the "
+              f"chunks' estep_route {want}")
+    return routes
 
 
 def _timing(spent, owner, name, key, static=False):
@@ -990,18 +1141,38 @@ def _loglikes(err):
     return [float(v) for v in re.findall(r"log-likelihood \(([^)]*)\)", err)]
 
 
+def _route_text(chunks, routes):
+    return "; ".join(
+        f"(B={c['B']}, W={c['W']}: K2 {r['fwd_store'][0]}"
+        f"{'' if r['fwd_store'][0] == 'block' else ' ' + str(r['fwd_store'][1])}"
+        f", K3 {r['bwd_counts'][0]}"
+        f"{'' if r['bwd_counts'][0] == 'block' else ' ' + str(r['bwd_counts'][1])})"
+        for c, r in zip(chunks, routes))
+
+
+def _route_name(route):
+    return route[0] if route[0] == "block" else f"{route[0]} {route[1]}"
+
+
 def phase3b_train_goldens(card):
+    """The train golden and count -fast through the CLI on the card, each
+    chunk's K2/K3 routes printed; then count -fast with a k-mer band wider
+    than any warp route, whose run is the block routes' path.  Returns
+    that run's launches and its E-step chunk."""
     from quaff_tpu_torch.logger import logger
 
     c8 = str(DATA / "c8f30.fastq.gz")
-    before = _estep_launches()
+    _reset_launches()
     t0 = time.perf_counter()
-    out, err = _cli(["train", c8, c8, "-kmatchmb", "10", "-fwdstrand",
-                     "-maxiter", "2", "-v"], "cuda", stderr=True)
+    with _estep_chunks() as chunks:
+        out, err = _cli(["train", c8, c8, "-kmatchmb", "10", "-fwdstrand",
+                         "-maxiter", "2", "-v"], "cuda", stderr=True)
     logger.verbosity = 0
     dt = time.perf_counter() - t0
-    n = {k: v - before[k] for k, v in _estep_launches().items()}
-    check(min(n.values()) > 0, f"c8f30 train: a kernel was not launched {n}")
+    n = _estep_launches()
+    check(min(v["launches"] for v in n.values()) > 0,
+          f"c8f30 train: a kernel was not launched {n}")
+    routes = _check_routes("c8f30 train", chunks, n)
     lls = re.findall(r"log-likelihood \(([^)]*)\)", err)
     check(lls[:2] == ["-22808.4", "-17564.7"],
           f"c8f30 train: log-likelihoods {lls}, want -22808.4, -17564.7")
@@ -1010,19 +1181,33 @@ def phase3b_train_goldens(card):
     check(not bad, f"c8f30 train vs c8f30-train2.oracle.json: {bad[:5]}")
     log(f"phase 3b: train c8f30 (2 EM iterations): log-likelihoods "
         f"{lls[0]}, {lls[1]} and params within 1e-4 + 2e-3*|want| of "
-        f"c8f30-train2.oracle.json; launches {n}; {dt:.2f} s [{card}]")
+        f"c8f30-train2.oracle.json; chunks {_route_text(chunks, routes)}; "
+        f"launches {n}; {dt:.2f} s [{card}]")
 
     args = [str(DATA / "synth12-genome.fasta"), str(DATA / "synth12.fastq"),
             "-kmatchn", "10", "-fwdstrand"]
-    before = _estep_launches()
-    fast = json.loads(_cli(["count", *args, "-fast"], "cuda"))
-    n = {k: v - before[k] for k, v in _estep_launches().items()}
-    check(min(n.values()) > 0, f"count -fast: a kernel was not launched {n}")
-    parity = json.loads(_cli(["count", *args], "cuda"))
-    bad = _json_close(fast, parity, 5e-3, 5e-3)
-    check(not bad, f"count -fast vs count: {bad[:5]}")
-    log(f"phase 3b: count -fast synth12 within 5e-3 + 5e-3*|count| of the "
-        f"float64 parity count; launches {n} [{card}]")
+    wide, wide_chunk = {}, None
+    for band in (None, 600):
+        extra = [] if band is None else ["-kmatchband", str(band)]
+        _reset_launches()
+        with _estep_chunks() as chunks:
+            fast = json.loads(_cli(["count", *args, *extra, "-fast"], "cuda"))
+        n = _estep_launches()
+        check(min(v["launches"] for v in n.values()) > 0,
+              f"count -fast: a kernel was not launched {n}")
+        routes = _check_routes(f"count -fast {extra}", chunks, n)
+        parity = json.loads(_cli(["count", *args, *extra], "cuda"))
+        bad = _json_close(fast, parity, 5e-3, 5e-3)
+        check(not bad, f"count -fast {extra} vs count: {bad[:5]}")
+        log(f"phase 3b: count -fast synth12{' ' + ' '.join(extra) if extra else ''} "
+            f"within 5e-3 + 5e-3*|count| of the float64 parity count; chunks "
+            f"{_route_text(chunks, routes)}; launches {n} [{card}]")
+        if band is not None:
+            check(all(n[k]["block_launches"] > 0 for k in ESTEP),
+                  f"count -fast -kmatchband {band}: no block-route launch {n}")
+            wide = n
+            wide_chunk = max(chunks, key=lambda c: c["B"] * c["W"])
+    return wide, wide_chunk
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1048,45 +1233,36 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=16):
         from quaff_tpu_torch.model.params import QuaffParamCounts
 
 
-        chunks, biggest = [], {}
         spent = {}  # host seconds per step of the path, device fenced
-        orig_multi = estep.estep_fused_multi
-
-        def recording(v2tab, batch, gid, null_lls, local=True, max_prop=None):
-            B = int(batch["member"].shape[0])
-            chunks.append(B)
-            if B > biggest.get("B", 0):
-                biggest.update(B=B, batch=batch, v2=v2tab, local=local)
-            return orig_multi(v2tab, batch, gid, null_lls, local, max_prop)
 
         def timing(owner, name, key, static=False):
             return _timing(spent, owner, name, key, static)
 
-        estep.estep_fused_multi = recording
-        patched = [
-            timing(trainer.QuaffCounter, "get_counts", "E-step"),
-            timing(trainer.QuaffCounter, "_envelopes", "envelopes"),
-            timing(engine.PairBatch, "build_packed", "batch layout",
-                   static=True),
-            timing(trainer, "to_device", "host-to-device"),
-            timing(estep, "estep_fused_multi", "fused E-step on the card"),
-            timing(QuaffParamCounts, "fit", "M-step"),
-        ]
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            _reset_launches()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                out, err = _cli(["train", str(gpath), str(rpath), "-maxiter",
-                                 "2", "-threads", threads, "-v"], "cuda",
-                                stderr=True)
-                wall = time.perf_counter() - t0
-            launches = _estep_launches()
-        finally:
-            for owner, name, fn in reversed(patched):
-                setattr(owner, name, fn)
-            estep.estep_fused_multi = orig_multi
+        with _estep_chunks() as chunks:
+            patched = [
+                timing(trainer.QuaffCounter, "get_counts", "E-step"),
+                timing(trainer.QuaffCounter, "_envelopes", "envelopes"),
+                timing(engine.PairBatch, "build_packed", "batch layout",
+                       static=True),
+                timing(trainer, "to_device", "host-to-device"),
+                timing(estep, "estep_fused_multi",
+                       "fused E-step on the card"),
+                timing(QuaffParamCounts, "fit", "M-step"),
+            ]
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                _reset_launches()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    out, err = _cli(["train", str(gpath), str(rpath),
+                                     "-maxiter", "2", "-threads", threads,
+                                     "-v"], "cuda", stderr=True)
+                    wall = time.perf_counter() - t0
+                launches = _estep_launches()
+            finally:
+                for owner, name, fn in reversed(patched):
+                    setattr(owner, name, fn)
         estep_s = spent["E-step"]
         device = _device_busy(prof)
         busy = sum(device.values())
@@ -1094,8 +1270,33 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=16):
         from quaff_tpu_torch.logger import logger
 
         logger.verbosity = 0
-        check(min(launches.values()) > 0,
+        check(min(v["launches"] for v in launches.values()) > 0,
               f"the train path missed a kernel: {launches}")
+        routes = _check_routes("phase 5", chunks, launches)
+        check(all(launches[k]["warp_launches"] > 0 for k in ESTEP),
+              f"the train path launched no K2 or K3 on the warp route: "
+              f"{launches}")
+        # each chunk's K2 and K3 device time, by the profiler's kernel names
+        from quaff_tpu_torch.prof.kernel_sass import kernel_of
+
+        evs = {k: [] for k in ESTEP}
+        for ename, ms in _kernel_events(prof, ""):
+            owner = kernel_of(ename)
+            if owner is not None and owner[0] in evs:
+                evs[owner[0]].append((owner[1], ms))
+        check(all(len(evs[k]) == len(chunks) for k in ESTEP),
+              f"phase 5: {[len(evs[k]) for k in ESTEP]} K2/K3 kernels "
+              f"traced for {len(chunks)} chunks")
+        for c, r, e2, e3 in zip(chunks, routes, evs["fwd_store"],
+                                evs["bwd_counts"]):
+            check(e2[0] == r["fwd_store"][0] and e3[0] == r["bwd_counts"][0],
+                  f"phase 5: a chunk of W={c['W']} ran K2 {e2[0]}, K3 "
+                  f"{e3[0]}, not estep_route's {r}")
+        dev_ms = {k: {"warp": 0.0, "block": 0.0} for k in ESTEP}
+        for k in ESTEP:
+            for route, ms in evs[k]:
+                dev_ms[k][route] += ms
+        biggest = max(chunks, key=lambda c: c["B"] * c["W"])
         lls = _loglikes(err)
         check(len(lls) == 2 and lls[1] > lls[0],
               f"log-likelihood did not rise over 2 EM iterations: {lls}")
@@ -1107,9 +1308,19 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=16):
             f"genome, 2 EM iterations on cuda: {wall:.2f} s wall "
             f"({wall / 2:.2f} s per EM iteration); E-step "
             f"{', '.join(f'{t:.2f}' for t in estep_s)} s; log-likelihoods "
-            f"{lls[0]:.6g} -> {lls[1]:.6g}; {sum(chunks)} pair fills in "
-            f"chunks of {chunks}; launches {launches}; peak device memory "
-            f"{peak:.2f} GiB [{card}]")
+            f"{lls[0]:.6g} -> {lls[1]:.6g}; {sum(c['B'] for c in chunks)} "
+            f"pair fills in chunks of {[c['B'] for c in chunks]}; launches "
+            f"{launches}; peak device memory {peak:.2f} GiB [{card}]")
+        log("phase 5: E-step chunks (B, W, K2 route, K2 device ms, K3 route, "
+            "K3 device ms): " + "; ".join(
+                f"({c['B']}, {c['W']}, {_route_name(r['fwd_store'])}, "
+                f"{e2[1]:.3f}, {_route_name(r['bwd_counts'])}, {e3[1]:.3f})"
+                for c, r, e2, e3 in zip(chunks, routes, evs["fwd_store"],
+                                        evs["bwd_counts"]))
+            + "; by route: " + "; ".join(
+                f"{k} warp {dev_ms[k]['warp']:.3f} ms, block "
+                f"{dev_ms[k]['block']:.3f} ms" for k in ESTEP)
+            + f" [{card}]")
         log("phase 5: where the time goes (host seconds, fenced by "
             "synchronize; summed over both iterations): "
             + "; ".join(f"{k} {sum(v):.3f} s in {len(v)} calls"
@@ -1791,7 +2002,14 @@ def main() -> int:
     phase2c_overlap_kernel(card)
     probes = phase2d_sol_probes(card)
     phase3_goldens()
-    phase3b_train_goldens(card)
+    block_launches, wide = phase3b_train_goldens(card)
+    # K2's and K3's block routes at the chunk of their path (count -fast
+    # -kmatchband 600), against their plain versions
+    estep_block = estep_case("phase 3b: the -kmatchband 600 chunk",
+                             wide["batch"], wide["v2"], wide["local"], card)
+    check(all(set(estep_block[k]) == {"block"} for k in ESTEP),
+          "the -kmatchband 600 chunk is narrow enough for a warp route")
+    del wide
     phase3c_overlap_goldens()
     k1_counts, k1_chunk = phase4_workload(card)
     if k1_chunk is not None:
@@ -1806,9 +2024,13 @@ def main() -> int:
         del inp, k1_chunk
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
-    # chunk, against their plain versions (timed once: minutes otherwise)
-    estep_k = estep_case(f"phase-5 chunk", chunk["batch"], chunk["v2"],
+    # chunk, against their plain versions (timed once: minutes otherwise),
+    # each of K2's and K3's routes forced on the same inputs
+    estep_k = estep_case("phase-5 chunk", chunk["batch"], chunk["v2"],
                          chunk["local"], card, n_plain=1)
+    check(all(set(estep_k[k]) == {"warp", "block"} for k in ESTEP),
+          "the phase-5 chunk is too wide for the warp routes")
+    del chunk
     k4_launches, k4_chunks = phase6_overlap(card)
     from quaff_tpu_torch.dp.ov_fill import OV_WARP_MAX_LANES
 
@@ -1852,14 +2074,30 @@ def main() -> int:
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
                     launches=k1_counts["block_launches"], library_ms=None,
                     **{k: k1_wide[k] for k in k1_keys})]
-    replaces = {"fwd_store": "quaff_tpu/dp/pallas_counts.py:507",
-                "bwd_counts": "quaff_tpu/dp/pallas_counts.py:561",
-                "estep_reduce": "quaff_tpu/dp/pallas_counts.py:561"}
-    for name, rep_at in replaces.items():
-        kernels.append(dict(name=name, route="cuda",
-                            source="quaff_tpu_torch/csrc/estep.cu",
-                            replaces=rep_at, launches=launches[name],
-                            **estep_k[name]))
+    # K2 and K3: the warp routes on phase 5's path (train), timed on its
+    # largest chunk; the block routes on phase 3b's count -fast with a
+    # band wider than any warp route, timed on that run's chunk
+    e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+    for name, rep_at, block_src in (
+            ("fwd_store", "quaff_tpu/dp/pallas_counts.py:507",
+             "quaff_tpu_torch/csrc/band_fill.cuh"),
+            ("bwd_counts", "quaff_tpu/dp/pallas_counts.py:561",
+             "quaff_tpu_torch/csrc/estep.cu")):
+        for suffix, source, n, kind, res in (
+                ("", "quaff_tpu_torch/csrc/estep_warp.cuh",
+                 launches[name]["warp_launches"], "warp", estep_k),
+                ("_block", block_src, block_launches[name]["block_launches"],
+                 "block", estep_block)):
+            check(n > 0, f"{name}'s {kind} route was not launched on its path")
+            kernels.append(dict(name=name + suffix, route="cuda",
+                                source=source, replaces=rep_at, launches=n,
+                                **{k: res[name][kind][k] for k in e_keys}))
+    kernels.append(dict(name="estep_reduce", route="cuda",
+                        source="quaff_tpu_torch/csrc/estep.cu",
+                        replaces="quaff_tpu/dp/pallas_counts.py:561",
+                        launches=launches["estep_reduce"]["launches"],
+                        **estep_k["estep_reduce"]))
     k4_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
     for name, source, n, res in (

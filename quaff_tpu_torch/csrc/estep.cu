@@ -7,14 +7,27 @@
 // PyTorch versions are quaff_tpu_torch/dp/estep.py::fwd_store_reference
 // and ::bwd_counts_reference; the input layout is fill_v2.kernel_inputs.
 //
-// K2 is K1's Forward fill with STORE set (band_fill.cuh): the fill is kept
-// scaled, and every row's M/I/D cells go to rows[3][B][Ly][W] relative to
-// the row's float64 offset offs[B][Ly], pair-major, so each block writes its
-// own contiguous runs.
+// Two routes each, picked by dp/estep.estep_route from the band's width W
+// (and each kernel's measured cutover):
 //
-// K3, one block per pair, walks rows ylen -> 1 carrying the backward
-// match/insert/delete state of the next row in shared memory (or a global
-// scratch row set for bands too wide for it), in band coordinates:
+//   warp route   fwd_store_warp_kernel<LPT> and
+//                bwd_counts_warp_kernel<LPT> (estep_warp.cuh): one
+//                warp per pair, the band row in registers, LPT lanes a
+//                thread, no block barrier in the row loop;
+//   block route  wider bands: K1's block fill with STORE set
+//                (band_fill_kernel<false, true>, band_fill.cuh) and
+//                bwd_counts_kernel below, one block per pair, the row in
+//                shared memory or, past its size, global scratch.
+//
+// Both routes keep one layout, so either route's K2 store feeds either
+// route's K3.  K2 keeps its fill scaled, and every row's M/I/D cells go to
+// rows[3][B][Ly][W] relative to the row's float64 offset offs[B][Ly],
+// pair-major, so each pair writes its own contiguous runs.
+//
+// K3's block route, one block per pair, walks rows ylen -> 1 carrying the
+// backward match/insert/delete state of the next row in shared memory (or
+// a global scratch row set for bands too wide for it), in band
+// coordinates:
 //
 //   bd[w] = lse(bd[w+1] + d2d, d2m + me'[w] + bm'[w])      (in-row, reverse)
 //   bm[w] = lse(end term, m2m + me'[w] + bm'[w],
@@ -29,33 +42,35 @@
 // context transitions.  The backward sweep is kept scaled like K2's fill:
 // after each row a block reduction finds its largest backward match or
 // insert cell, which is subtracted from the row and added to the pair's
-// float64 backward offset (unscaled, float32 backward scores drift over
-// a read of thousands of rows, and the back-start posterior
-// exp(back - fwd), 1 in exact arithmetic, with them).  A weight takes the relative forward and backward cells
-// plus the row constant (forward offset + backward offset - fwd_total),
-// formed in float64 once per row.  One block reduction per row gives a 15-float
-// vector: the row's match+insert mass (for the per-row renormalisation,
-// which cancels float32 forward/backward drift), the 4 per-symbol match
-// sums, the insert sum, m2m/m2i/m2d/m2e, i2i/i2m/d2d/d2m and the
-// back-start posterior.  All of a row's keys come from the read's row j,
-// so its contribution, scaled by w_pair / row mass, goes to 4 + 1 + 4
-// table entries.
+// float64 backward offset (unscaled, float32 backward scores drift over a
+// read of thousands of rows, and the back-start posterior exp(back - fwd),
+// 1 in exact arithmetic, with them).  A weight takes the relative forward
+// and backward cells plus the row constant (forward offset + backward
+// offset - fwd_total), formed in float64 once per row.  One block
+// reduction per row gives a 15-float vector: the row's match+insert mass
+// (for the per-row renormalisation, which cancels float32 forward/backward
+// drift), the 4 per-symbol match sums, the insert sum, m2m/m2i/m2d/m2e,
+// i2i/i2m/d2d/d2m and the back-start posterior.  All of a row's keys come
+// from the read's row j, so its contribution, scaled by w_pair / row mass,
+// goes to 4 + 1 + 4 table entries.
 //
 // Deterministic counts: each pair accumulates into its own slice of a
-// [B][E] partial table in global memory, each entry always by the same
-// thread, in row order; the reduce kernel then sums the B slices of every
-// entry in one fixed order (estep_reduce_kernel below).  No float atomics,
-// so two runs on the same inputs give bit-identical tables (an order-3
-// match table, ~385 KB, would not fit shared memory anyway).  E = 4*Km*Q (match, symbol-major) + 4*Q
-// (insert) + 4*n_ik (m2m, m2i, m2d, m2e per indel context).
+// [B][E] partial table, each entry always by the same thread, in row
+// order (the warp route keeps the slice in shared memory while it fits);
+// the reduce kernel then sums the B slices of every entry in one fixed
+// order (estep_reduce_kernel below).  No float atomics, so two runs on the
+// same inputs give bit-identical tables (an order-3 match table, ~385 KB,
+// would not fit shared memory anyway).  E = 4*Km*Q (match, symbol-major) +
+// 4*Q (insert) + 4*n_ik (m2m, m2i, m2d, m2e per indel context).
 //
-// What bounds K3: like K1, the per-row barriers (the reverse scan's two,
-// the reduction's two) and the dependent loads of the row keys, table
-// entries and stored rows; it reads the 12 bytes a cell K2 wrote (the
-// bytes bound), and a row's table update is one global read-modify-write
-// per entry, on the critical path of warp 0.
+// What bounds K3's block route: like K1's, the per-row barriers (the
+// reverse scan's two, the reduction's two) and the dependent loads of the
+// row keys, table entries and stored rows; it reads the 12 bytes a cell K2
+// wrote (the bytes bound), and a row's table update is one global
+// read-modify-write per entry, on the critical path of warp 0.  The warp
+// routes' bounds are at the top of estep_warp.cuh.
 
-#include "band_fill.cuh"
+#include "estep_warp.cuh"
 
 namespace {
 
@@ -385,8 +400,8 @@ constexpr int kBwdStaticBytes = (3 * 32 + 32 * 16 + 16) * (int)sizeof(float);
 
 extern "C" {
 
-// Launches K2 on `stream`: the scaled Forward fill of K1 with
-// rows[3][B][Ly][W] and their offsets offs[B][Ly] stored (rows past a
+// Launches K2's block route on `stream`: the scaled Forward fill of K1
+// with rows[3][B][Ly][W] and their offsets offs[B][Ly] stored (rows past a
 // pair's read length are left untouched).  out[b] is the pair's Forward
 // score (out is sized [B + B*S] as K1's; the strip slots are not written);
 // scratch is null or B*6*W floats.
@@ -413,9 +428,9 @@ int quaff_fwd_store(const void* x_tok, int Lx, const void* keys, int Ly,
       static_cast<cudaStream_t>(stream));
 }
 
-// Launches K3 on `stream`: partial[B][E] per-pair count tables and
-// d_sc[5][B] (i2i, i2m, d2d, d2m, back-start posterior per pair).
-// scratch is null (state in shared memory) or B*8*W floats.
+// Launches K3's block route on `stream`: partial[B][E] per-pair count
+// tables and d_sc[5][B] (i2i, i2m, d2d, d2m, back-start posterior per
+// pair).  scratch is null (state in shared memory) or B*8*W floats.
 int quaff_bwd_counts(const void* x_tok, int Lx, const void* keys, int Ly,
                      const void* meta, const void* doff, int W,
                      const void* match, const void* match_noq,
@@ -447,6 +462,90 @@ int quaff_bwd_counts(const void* x_tok, int Lx, const void* keys, int Ly,
       local, lanes_per_thread,
       static_cast<float*>(scratch), static_cast<float*>(partial),
       static_cast<float*>(d_sc));
+  return (int)cudaGetLastError();
+}
+
+// Launches K2's warp route on `stream` (W <= 32 * lpt, lpt one of 1, 2, 4,
+// 8, 16): the same outputs as quaff_fwd_store, no scratch.
+int quaff_fwd_store_warp(const void* x_tok, int Lx, const void* keys, int Ly,
+                         const void* meta, const void* doff, int W,
+                         const void* match, const void* match_noq,
+                         const void* insert, const void* insert_noq, int Km,
+                         int Q, const void* ik, int n_ik, const void* trans,
+                         int B, int local, int lpt, void* out, void* rows,
+                         void* offs, void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > 32 * lpt || n_ik < 1 || Lx < 1)
+    return (int)cudaErrorInvalidValue;
+  const FillTables tb{static_cast<const float*>(match),
+                      static_cast<const float*>(match_noq),
+                      static_cast<const float*>(insert),
+                      static_cast<const float*>(insert_noq),
+                      static_cast<const float*>(ik), Km, Q, n_ik};
+  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define QUAFF_FWD_STORE_CASE(L)                                              \
+  case L:                                                                    \
+    fwd_store_warp_kernel<L><<<blocks, kWarpsPerBlock * 32, 0, st>>>(        \
+        static_cast<const int8_t*>(x_tok), Lx,                               \
+        static_cast<const int4*>(keys), Ly, static_cast<const int4*>(meta),  \
+        static_cast<const int*>(doff), W, tb,                                \
+        static_cast<const float*>(trans), B, local,                          \
+        static_cast<float*>(out), static_cast<float*>(rows),                 \
+        static_cast<double*>(offs));                                         \
+    break;
+  switch (lpt) {
+    QUAFF_ESTEP_LPT(QUAFF_FWD_STORE_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QUAFF_FWD_STORE_CASE
+  return (int)cudaGetLastError();
+}
+
+// Launches K3's warp route on `stream` (W <= 32 * lpt, lpt one of 1, 2, 4,
+// 8, 16): the same outputs as quaff_bwd_counts, no scratch.  Each warp's
+// count table lives in shared memory while a block's fit kTableSmemBytes,
+// else in its row of partial.
+int quaff_bwd_counts_warp(const void* x_tok, int Lx, const void* keys,
+                          int Ly, const void* meta, const void* doff, int W,
+                          const void* match, const void* match_noq,
+                          const void* insert, const void* insert_noq, int Km,
+                          int Q, const void* ik, int n_ik, const void* trans,
+                          const void* wrow, const void* rows,
+                          const void* offs, int B, int local, int lpt,
+                          void* partial, void* d_sc, void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > 32 * lpt || n_ik < 1 || Lx < 1)
+    return (int)cudaErrorInvalidValue;
+  const FillTables tb{static_cast<const float*>(match),
+                      static_cast<const float*>(match_noq),
+                      static_cast<const float*>(insert),
+                      static_cast<const float*>(insert_noq),
+                      static_cast<const float*>(ik), Km, Q, n_ik};
+  const size_t E = (size_t)4 * Km * Q + 4 * Q + 4 * n_ik;
+  const size_t table_bytes = kWarpsPerBlock * E * sizeof(float);
+  const int smem_table = table_bytes <= (size_t)kTableSmemBytes;
+  const size_t smem = smem_table ? table_bytes : 0;
+  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const auto st = static_cast<cudaStream_t>(stream);
+#define QUAFF_BWD_COUNTS_CASE(L)                                             \
+  case L:                                                                    \
+    bwd_counts_warp_kernel<L><<<blocks, kWarpsPerBlock * 32, smem, st>>>(    \
+        static_cast<const int8_t*>(x_tok), Lx,                               \
+        static_cast<const int4*>(keys), Ly, static_cast<const int4*>(meta),  \
+        static_cast<const int*>(doff), W, tb,                                \
+        static_cast<const float*>(trans), static_cast<const float*>(wrow),   \
+        static_cast<const float*>(rows), static_cast<const double*>(offs),   \
+        B, local, smem_table, static_cast<float*>(partial),                  \
+        static_cast<float*>(d_sc));                                          \
+    break;
+  switch (lpt) {
+    QUAFF_ESTEP_LPT(QUAFF_BWD_COUNTS_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef QUAFF_BWD_COUNTS_CASE
   return (int)cudaGetLastError();
 }
 

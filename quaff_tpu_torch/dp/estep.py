@@ -19,12 +19,18 @@ Ported from quaff_tpu/dp/pallas_counts.py:
   estep_kernel                         glue in plain torch: it is not a
                                        Pallas kernel)
 
-Each wrapper runs its CUDA kernel (csrc/band_fill.cuh, csrc/estep.cu) on
-CUDA tensors, adding one to its `launches` count, and its plain version on
-CPU tensors; any other device raises.  All take fill_v2.kernel_inputs's
-layout.  Count tables are flat: E = 4*Km*Q match counts (symbol-major,
-then k-mer, then quality) + 4*Q insert counts (token, quality) + 4*Ki
-transition counts (m2m, m2i, m2d, m2e per indel context).
+Each wrapper runs its CUDA kernel (csrc/estep.cu) on CUDA tensors, adding
+one to its `launches` count, and its plain version on CPU tensors; any
+other device raises.  K2 and K3 have two routes each, picked by
+estep_route from the band's width: the warp route (csrc/estep_warp.cuh,
+one warp per pair) up to the kernel's measured cutover, the block route
+(K1's block fill with STORE in csrc/band_fill.cuh, bwd_counts_kernel in
+estep.cu) past it; `warp_launches` and `block_launches` count each.  Both
+routes keep one layout, so either route's K2 store feeds either route's
+K3.  All take fill_v2.kernel_inputs's layout.  Count tables are flat:
+E = 4*Km*Q match counts (symbol-major, then k-mer, then quality) + 4*Q
+insert counts (token, quality) + 4*Ki transition counts (m2m, m2i, m2d,
+m2e per indel context).
 
 The TPU's rolled token window, its `sold`/K_OLDTOK* channels and
 _prepare_bwd_extras, the one-hot MXU lookups and the padding of B and W
@@ -41,6 +47,7 @@ from .engine import _shift_left, _shift_right, doubling_scan
 from .fill_v2 import (
     D_SENTINEL,
     NEG_INF,
+    WARP_LPTS,
     V2Tables,
     _lse2,
     band_fill_reference,
@@ -49,6 +56,19 @@ from .fill_v2 import (
     table_specs,
 )
 
+# Widest band each kernel's warp route takes (csrc/estep_warp.cuh, one warp
+# a pair, 32 * lpt lanes for lpt in WARP_LPTS); wider bands take the block
+# route.  A function of the width alone, never of the card, so that the
+# route, and with it the float32 sums, follow from the input.  Measured by
+# chip_smoke.py phase 2b on its 257-512-lane batch (B=32, W=423), both
+# routes forced on the same inputs (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+# K2 at 16 lanes a thread 1.955 ms against its block route's 2.597, so
+# 512; K3 at 16 lanes a thread 3.239 against 4.003, but its 16-lane build
+# spills (~40/60 bytes, 11 local accesses in the row loop), so 256.  A
+# chunk of 257-512 lanes runs K2's warp route and K3's block route on one
+# stored-row layout.
+ESTEP_WARP_MAX_LANES = {"fwd_store": 512, "bwd_counts": 256}
+
 
 def table_size(tables: V2Tables) -> int:
     """E, the length of one flat count table for these tables."""
@@ -56,9 +76,48 @@ def table_size(tables: V2Tables) -> int:
     return 4 * Km * Q + 4 * Q + 4 * tables.n_ik
 
 
-def _raise_on(err, name, kernels, B, W, Ly):
+def warp_lpt(W: int):
+    """The warp routes' lanes a thread for a band of W lanes: the smallest
+    lpt of WARP_LPTS whose warp covers the band (32 * lpt >= W); None for a
+    band wider than any warp."""
+    return next((lpt for lpt in WARP_LPTS if W <= 32 * lpt), None)
+
+
+def estep_route(W: int, kernel: str) -> tuple:
+    """The route of K2 (kernel "fwd_store") or K3 ("bwd_counts") for a band
+    of W lanes: ("warp", warp_lpt(W)) up to ESTEP_WARP_MAX_LANES[kernel]
+    lanes, else ("block", 0): one block per pair."""
+    lpt = warp_lpt(W)
+    if lpt is not None and 32 * lpt <= ESTEP_WARP_MAX_LANES[kernel]:
+        return "warp", lpt
+    return "block", 0
+
+
+def _check_route(name, route, W):
+    """The route a wrapper takes: estep_route's, or one forced by the
+    caller (the card tests and chip_smoke.py hold the two against each
+    other), which must cover the band."""
+    if route is None:
+        return estep_route(W, name)
+    kind, lpt = route
+    if not (kind == "block" and lpt == 0
+            or kind == "warp" and lpt in WARP_LPTS and W <= 32 * lpt):
+        raise ValueError(f"{name}: no route {route} for a band of {W} lanes")
+    return route
+
+
+def _count(fn, kind):
+    fn.launches += 1
+    if kind == "warp":
+        fn.warp_launches += 1
+    else:
+        fn.block_launches += 1
+
+
+def _raise_on(err, name, kernels, B, W, Ly, kind=None):
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
+        on = "" if kind is None else f" ({kind} route)"
+        raise RuntimeError(f"{name} kernel launch failed{on}: "
                            f"{kernels.error_string(err)} (B={B}, W={W}, Ly={Ly})")
 
 
@@ -84,11 +143,15 @@ def fwd_store_reference(x_tok, keys, meta, doff, seg_start, seg_width,
 
 
 def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
-              tables: V2Tables, local: bool = True, max_prop=None):
+              tables: V2Tables, local: bool = True, max_prop=None,
+              route=None):
     """K2 on the tensors' device; same outputs as fwd_store_reference,
     except that rows and offsets past a pair's read length are left
-    unwritten on the card (K3 never reads them)."""
+    unwritten on the card (K3 never reads them).  On the card it takes
+    estep_route's route, or `route` (("warp", lpt) or ("block", 0)) where
+    given; a CPU tensor takes the plain version whatever the route."""
     dev = doff.device
+    kind, lpt = _check_route("fwd_store", route, doff.shape[1])
     if dev.type == "cpu":
         return fwd_store_reference(x_tok, keys, meta, doff, seg_start,
                                    seg_width, tables, local, max_prop)
@@ -114,28 +177,36 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
     offsets = torch.empty((B, Ly), dtype=torch.float64, device=dev)
     if B == 0:
         return out[:B], rows, offsets
+    tabs = (tables.match.data_ptr(), tables.match_noq.data_ptr(),
+            tables.insert.data_ptr(), tables.insert_noq.data_ptr(), Km, Q,
+            tables.ik.data_ptr(), tables.n_ik, tables.trans.data_ptr())
     with torch.cuda.device(dev):
         lib = kernels.library()
-        scratch = None
-        if W > kernels.max_smem_lanes(dev.index or 0):
-            scratch = torch.empty(B * 6 * W, dtype=torch.float32, device=dev)
-        err = lib.quaff_fwd_store(
-            x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
-            doff.data_ptr(), W, seg_start.data_ptr(), seg_width.data_ptr(), S,
-            tables.match.data_ptr(), tables.match_noq.data_ptr(),
-            tables.insert.data_ptr(), tables.insert_noq.data_ptr(), Km, Q,
-            tables.ik.data_ptr(), tables.n_ik, tables.trans.data_ptr(),
-            B, int(bool(local)),
-            0 if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(err, "fwd_store", kernels, B, W, Ly)
-    fwd_store.launches += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "warp":
+            err = lib.quaff_fwd_store_warp(
+                x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
+                doff.data_ptr(), W, *tabs, B, int(bool(local)), lpt,
+                out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
+        else:
+            scratch = None
+            if W > kernels.max_smem_lanes(dev.index or 0):
+                scratch = torch.empty(B * 6 * W, dtype=torch.float32,
+                                      device=dev)
+            err = lib.quaff_fwd_store(
+                x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
+                doff.data_ptr(), W, seg_start.data_ptr(),
+                seg_width.data_ptr(), S, *tabs, B, int(bool(local)),
+                0 if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
+    _raise_on(err, "fwd_store", kernels, B, W, Ly, kind)
+    _count(fwd_store, kind)
     return out[:B], rows, offsets
 
 
 fwd_store.launches = 0
+fwd_store.warp_launches = 0
+fwd_store.block_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -287,11 +358,13 @@ def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
 
 
 def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
-               offsets, local: bool = True, max_prop=None):
+               offsets, local: bool = True, max_prop=None, route=None):
     """K3 on the tensors' device; same outputs as bwd_counts_reference.
     On the card the per-pair tables are built without float atomics, so
-    repeated runs give bit-identical tables."""
+    repeated runs give bit-identical tables.  The route is chosen as
+    fwd_store's."""
     dev = doff.device
+    kind, lpt = _check_route("bwd_counts", route, doff.shape[1])
     if dev.type == "cpu":
         return bwd_counts_reference(x_tok, keys, meta, doff, tables, wrow,
                                     rows, offsets, local, max_prop)
@@ -317,29 +390,35 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
     d_sc = torch.empty((5, B), dtype=torch.float32, device=dev)
     if B == 0:
         return partial, d_sc
-    with torch.cuda.device(dev):
-        lib = kernels.library()
-        scratch = None
-        if W > kernels.max_smem_lanes(dev.index or 0, "bwd_counts"):
-            scratch = torch.empty(B * 8 * W, dtype=torch.float32, device=dev)
-        err = lib.quaff_bwd_counts(
-            x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
+    args = (x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
             doff.data_ptr(), W,
             tables.match.data_ptr(), tables.match_noq.data_ptr(),
             tables.insert.data_ptr(), tables.insert_noq.data_ptr(), Km, Q,
             tables.ik.data_ptr(), tables.n_ik, tables.trans.data_ptr(),
             wrow.data_ptr(), rows.data_ptr(), offsets.data_ptr(), B,
-            int(bool(local)),
-            0 if scratch is None else scratch.data_ptr(),
-            partial.data_ptr(), d_sc.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(err, "bwd_counts", kernels, B, W, Ly)
-    bwd_counts.launches += 1
+            int(bool(local)))
+    with torch.cuda.device(dev):
+        lib = kernels.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "warp":
+            err = lib.quaff_bwd_counts_warp(
+                *args, lpt, partial.data_ptr(), d_sc.data_ptr(), stream)
+        else:
+            scratch = None
+            if W > kernels.max_smem_lanes(dev.index or 0, "bwd_counts"):
+                scratch = torch.empty(B * 8 * W, dtype=torch.float32,
+                                      device=dev)
+            err = lib.quaff_bwd_counts(
+                *args, 0 if scratch is None else scratch.data_ptr(),
+                partial.data_ptr(), d_sc.data_ptr(), stream)
+    _raise_on(err, "bwd_counts", kernels, B, W, Ly, kind)
+    _count(bwd_counts, kind)
     return partial, d_sc
 
 
 bwd_counts.launches = 0
+bwd_counts.warp_launches = 0
+bwd_counts.block_launches = 0
 
 
 # warps of the count reduction's column tile (csrc/estep.cu kRedWarps)

@@ -88,6 +88,22 @@ def library() -> ctypes.CDLL:
             i, i,  # B, local
             p, p, p, p, p,  # scratch, out, rows, offs, stream
         ]
+        lib.quaff_fwd_store_warp.argtypes = [
+            p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
+            p, i,  # doff, W
+            p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
+            p, i, p,  # ik, n_ik, trans
+            i, i, i,  # B, local, lpt
+            p, p, p, p,  # out, rows, offs, stream
+        ]
+        lib.quaff_bwd_counts_warp.argtypes = [
+            p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
+            p, i,  # doff, W
+            p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
+            p, i, p,  # ik, n_ik, trans
+            p, p, p, i, i, i,  # wrow, rows, offs, B, local, lpt
+            p, p, p,  # partial, d_sc, stream
+        ]
         lib.quaff_bwd_counts.argtypes = [
             p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
             p, i,  # doff, W
@@ -113,6 +129,7 @@ def library() -> ctypes.CDLL:
         ]
         for fn in ("quaff_band_fill", "quaff_band_fill_warp",
                    "quaff_fwd_store", "quaff_bwd_counts",
+                   "quaff_fwd_store_warp", "quaff_bwd_counts_warp",
                    "quaff_estep_reduce", "quaff_ov_fill", "quaff_ov_fill_warp",
                    "quaff_sol_chain"):
             getattr(lib, fn).restype = i

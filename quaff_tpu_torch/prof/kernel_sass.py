@@ -6,6 +6,7 @@ profile where `ncu` does not run.
 
 builds the kernel library if needed (kernels.library), then prints, for
 every kernel whose name contains one of NAME_PART (default: every one),
+with the wrapper and route that launch it (kernel_of),
 
   - registers, stack and local memory a thread (cuobjdump -res-usage), and
     the spill stores and loads that ptxas reported when the build ran in
@@ -13,7 +14,9 @@ every kernel whose name contains one of NAME_PART (default: every one),
   - its SASS instructions (cuobjdump -sass) and those of its row loop:
     the longest span between a loop's back edge and its target, counted
     statically (an inner loop counts once, whatever its trip count), with
-    the local-memory loads and stores (spills) among them.
+    the local-memory loads and stores (spills) among them and the stall
+    cycles ptxas set between them (parse_stalls: a lower bound of the
+    loop's cycles for a warp alone on its scheduler).
 
 Needs the CUDA toolkit's cuobjdump (next to nvcc); runs no kernel.
 """
@@ -27,6 +30,8 @@ import subprocess
 import sys
 
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+# the line under an instruction that holds only its control word
+CONTROL = re.compile(r"^\s*/\* (0x[0-9a-f]{16}) \*/\s*$")
 LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
 TARGET = re.compile(r"\bBRA\b(?:\.\w+)*\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
@@ -35,6 +40,33 @@ RESOURCE = re.compile(r"Function\s+(\S+):\s*\n\s*REG:(\d+)\s+STACK:(\d+)\s+"
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+# The port's kernels by their __global__ function: (part of the demangled
+# name, (the wrapper that launches it, its route)), the first match wins.
+# K1 and K2 share band_fill_kernel: its STORE instantiation is K2's block
+# route.
+KERNEL_NAMES = (
+    ("band_fill_kernel<false, true>", ("fwd_store", "block")),
+    ("band_fill_kernel<", ("band_fill", "block")),
+    ("band_fill_warp_kernel<", ("band_fill", "warp")),
+    ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
+    ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),
+    ("bwd_counts_kernel", ("bwd_counts", "block")),
+    ("estep_reduce_kernel", ("estep_reduce", None)),
+    ("ov_fill_warp_kernel<", ("ov_fill", "warp")),
+    ("ov_fill_kernel", ("ov_fill", "block")),
+    ("sol_chain_kernel<", ("sol_chain", None)),
+)
+
+
+def kernel_of(name: str):
+    """(wrapper, route) of a kernel by its demangled name, as cuobjdump
+    through c++filt or torch.profiler print it (route None for kernels
+    with one); None for a kernel that is not the port's."""
+    for part, owner in KERNEL_NAMES:
+        if part in name:
+            return owner
+    return None
 
 
 def parse_sass(text: str) -> dict:
@@ -90,6 +122,45 @@ def row_loop(instrs) -> tuple:
             local = sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in body)
             best = max(best, (len(body), local))
     return best
+
+
+def loop_span(instrs):
+    """(first, last) address of the longest loop, as row_loop finds it
+    (None without a loop)."""
+    best, span = 0, None
+    for addr, ins, target in instrs:
+        if target is not None and target <= addr and ins.startswith("@"):
+            n = sum(1 for a, _, _ in instrs if target <= a <= addr)
+            if n > best:
+                best, span = n, (target, addr)
+    return span
+
+
+def parse_stalls(text: str) -> dict:
+    """{function: {address: stall cycles}} from the control word that
+    cuobjdump prints under each instruction: bits 41-44 hold the cycles
+    ptxas has the warp wait before its next instruction issues.  Their sum
+    over a loop is a static lower bound of the loop's cycles for one warp
+    alone on its scheduler (waits on variable-latency results, memory and
+    MUFU among them, come on top)."""
+    out, cur, last = {}, None, None
+    for line in text.splitlines():
+        m = FUNCTION.search(line)
+        if m:
+            cur, last = m.group(1), None
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = INSTR.search(line)
+        if m:
+            last = int(m.group(1), 16)
+            continue
+        m = CONTROL.match(line)
+        if m and last is not None:
+            out[cur][last] = (int(m.group(1), 16) >> 41) & 0xF
+            last = None
+    return out
 
 
 def parse_resources(text: str) -> dict:
@@ -153,6 +224,7 @@ def report(parts=()) -> list:
         check=True).stdout)
     ptxas = parse_ptxas(kernels.build_log or "")
     funcs = parse_sass(sass)
+    stalls = parse_stalls(sass)
     names = demangle(funcs)
     rows = []
     for mangled, instrs in funcs.items():
@@ -162,11 +234,16 @@ def report(parts=()) -> list:
         reg, stack, _, local = res.get(mangled, (None,) * 4)
         spill = ptxas.get(mangled)
         loop, loop_local = row_loop(instrs)
+        span = loop_span(instrs)
+        st = stalls.get(mangled, {})
+        loop_stalls = 0 if span is None else sum(
+            v for a, v in st.items() if span[0] <= a <= span[1])
         rows.append({"name": name, "registers": reg, "stack": stack,
                      "local": local,
                      "spill_bytes": None if spill is None else spill[1:],
                      "instructions": len(instrs), "row_loop": loop,
-                     "row_loop_local": loop_local})
+                     "row_loop_local": loop_local,
+                     "row_loop_stalls": loop_stalls})
     return sorted(rows, key=lambda r: r["name"])
 
 
@@ -179,11 +256,13 @@ def main(argv=None) -> int:
         spill = ("not rebuilt here" if r["spill_bytes"] is None
                  else f"{r['spill_bytes'][0]}/{r['spill_bytes'][1]} bytes "
                       "spill stores/loads")
-        print(f"[sass] {r['name']}: {r['registers']} registers, stack "
+        owner = kernel_of(r["name"])
+        of = "" if owner is None else f" ({' '.join(filter(None, owner))})"
+        print(f"[sass] {r['name']}{of}: {r['registers']} registers, stack "
               f"{r['stack']}, local {r['local']}, {spill}; "
               f"{r['instructions']} instructions, row loop "
               f"{r['row_loop']} ({r['row_loop_local']} local loads and "
-              f"stores) [{card}]")
+              f"stores, {r['row_loop_stalls']} stall cycles) [{card}]")
     return 0
 
 

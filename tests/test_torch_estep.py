@@ -9,6 +9,8 @@ The CUDA kernels run only on the card: tests/test_torch_kernel_cuda.py and
 chip_smoke.py hold them against these plain versions there.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -182,3 +184,117 @@ def test_wrappers_route_by_device():
                          *(t.to("meta") for t in base[5:]))
     with pytest.raises(RuntimeError, match="no kernel"):
         estep.estep_reduce(part.to("meta"))
+
+
+@pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
+@pytest.mark.parametrize("lpt", [1, 2, 4, 8, 16, None])
+def test_estep_route_table(kernel, lpt):
+    """K2's and K3's routes are a pure function of the band's width: every
+    width up to the kernel's ESTEP_WARP_MAX_LANES takes the warp route
+    with the smallest lanes-a-thread whose warp (32 * lpt lanes) covers it
+    (the widths 16*lpt+1 .. 32*lpt), every wider band the block route (lpt
+    None: the widths past the cutover)."""
+    cut = estep.ESTEP_WARP_MAX_LANES[kernel]
+    assert cut in (256, 512)
+    if lpt is None:
+        widths = range(cut + 1, cut + 4097)
+    else:
+        widths = range(16 * lpt + 1 if lpt > 1 else 1, 32 * lpt + 1)
+    want = ("warp", lpt) if lpt is not None and 32 * lpt <= cut else \
+        ("block", 0)
+    assert all(estep.estep_route(W, kernel) == want for W in widths)
+
+
+@pytest.mark.parametrize("W,lpt", [(1, 1), (32, 1), (33, 2), (64, 2),
+                                   (65, 4), (128, 4), (129, 8), (256, 8),
+                                   (257, 16), (512, 16), (513, None),
+                                   (12070, None)])
+def test_warp_lpt(W, lpt):
+    """The warp routes' lanes a thread: the smallest of 1/2/4/8/16 whose
+    warp covers the band, none past 512 lanes; estep_route takes it up to
+    each kernel's cutover."""
+    assert estep.warp_lpt(W) == lpt
+    for kernel, cut in estep.ESTEP_WARP_MAX_LANES.items():
+        want = ("warp", lpt) if W <= cut else ("block", 0)
+        assert estep.estep_route(W, kernel) == want
+
+
+def test_estep_card_variants_cover_both_table_homes():
+    """K3's warp route keeps a pair's count table in shared memory while a
+    block's kWarpsPerBlock tables fit kTableSmemBytes, else in partial
+    itself: the card tests' variants take both (sub2's -suborder 2 table
+    is past the limit, the order-1 tables within it)."""
+    import re
+
+    from quaff_tpu_torch import kernels
+    from test_torch_kernel_cuda import ESTEP_VARIANTS, _tables
+
+    csrc = pathlib.Path(kernels.__file__).parent / "csrc"
+    warps = int(re.search(r"kWarpsPerBlock = (\d+);", (
+        csrc / "band_fill_warp.cuh").read_text()).group(1))
+    limit = 1024 * int(re.search(r"kTableSmemBytes = (\d+) \* 1024;", (
+        csrc / "estep_warp.cuh").read_text()).group(1))
+    in_smem = {name: warps * 4 * estep.table_size(fill_v2.V2Tables.from_tables(
+                   _tables(case), "cpu")) <= limit
+               for name, (_, case) in ESTEP_VARIANTS.items()}
+    assert in_smem == {"local": True, "local-gap1": True, "global": True,
+                       "global-gap1": True, "local-sub2": False}
+
+
+def test_estep_forced_route_on_cpu():
+    """A route given to fwd_store or bwd_counts must cover the band; on CPU
+    tensors every route runs the plain version and moves no launch
+    count."""
+    from test_torch_kernel_cuda import _tables, random_fill_inputs
+
+    inp, v2 = random_fill_inputs(np.random.default_rng(3), _tables("packed"),
+                                 40, B=2, Lx=60, Ly=24, device="cpu")
+    fwd, rows, offs = estep.fwd_store_reference(**inp, tables=v2)
+    wrow = torch.stack([torch.ones_like(fwd), torch.where(
+        fwd > fill_v2.NEG_INF / 2, fwd, 0.0)]).contiguous()
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow,
+            rows, offs)
+    part, sc = estep.bwd_counts_reference(*base)
+    counts = ("launches", "warp_launches", "block_launches")
+    before = {f: [getattr(getattr(estep, f), k) for k in counts]
+              for f in ("fwd_store", "bwd_counts")}
+    for route in (None, ("warp", 2), ("warp", 16), ("block", 0)):
+        got = estep.fwd_store(**inp, tables=v2, route=route)
+        assert all(torch.equal(a, b) for a, b in zip(got, (fwd, rows, offs)))
+        got = estep.bwd_counts(*base, route=route)
+        assert torch.equal(got[0], part) and torch.equal(got[1], sc)
+    assert before == {f: [getattr(getattr(estep, f), k) for k in counts]
+                      for f in ("fwd_store", "bwd_counts")}
+    for bad in (("warp", 1), ("warp", 3), ("block", None), ("block", 8),
+                ("tile", 0)):
+        with pytest.raises(ValueError, match="no route"):
+            estep.fwd_store(**inp, tables=v2, route=bad)
+        with pytest.raises(ValueError, match="no route"):
+            estep.bwd_counts(*base, route=bad)
+
+
+def test_chip_smoke_route_helpers():
+    """chip_smoke.py's E-step route helpers, pure functions of the width:
+    the routes it holds against each other (the warp route where 512
+    lanes cover the band, then the block route), and the check that a
+    run's launch counts by route match its chunks' estep_route (a 423-lane
+    chunk runs K2's warp route and K3's block route)."""
+    import chip_smoke
+
+    assert chip_smoke._estep_routes(3) == [("warp", 1), ("block", 0)]
+    assert chip_smoke._estep_routes(168) == [("warp", 8), ("block", 0)]
+    assert chip_smoke._estep_routes(512) == [("warp", 16), ("block", 0)]
+    assert chip_smoke._estep_routes(513) == [("block", 0)]
+    chunks = [{"B": 4, "W": 168}, {"B": 2, "W": 423}]
+    n = {"fwd_store": {"warp_launches": 2, "block_launches": 0},
+         "bwd_counts": {"warp_launches": 1, "block_launches": 1}}
+    routes = chip_smoke._check_routes("a run", chunks, n)
+    assert routes == [
+        {"fwd_store": ("warp", 8), "bwd_counts": ("warp", 8)},
+        {"fwd_store": ("warp", 16), "bwd_counts": ("block", 0)}]
+    assert chip_smoke._route_text(chunks, routes) == (
+        "(B=4, W=168: K2 warp 8, K3 warp 8); "
+        "(B=2, W=423: K2 warp 16, K3 block)")
+    n["bwd_counts"] = {"warp_launches": 2, "block_launches": 0}
+    with pytest.raises(chip_smoke.SmokeFailure, match="bwd_counts"):
+        chip_smoke._check_routes("a run", chunks, n)

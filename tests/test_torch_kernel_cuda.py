@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
-route at every lanes-a-thread instantiation and its block route), K2, K3
-and the count reduction (csrc/estep.cu; the reduction bit for bit), K4
+route at every lanes-a-thread instantiation and its block route), K2 and
+K3 (csrc/estep.cu: their warp routes at every lanes-a-thread
+instantiation, their block routes, and each pairing of the two), the count
+reduction (bit for bit), K4
 (csrc/ov_fill.cu: its warp route at every lanes-a-thread instantiation and
 its block route) and the probes' chain kernel (csrc/sol_probe.cu).  Needs
 an NVIDIA GPU and skips without one.  This file imports no JAX, so it also
@@ -83,9 +85,16 @@ def _batch(case, rng, tt):
     )
 
 
+# parameter files of the table cases other than the default parameters:
+# gap order 1, and -suborder 2 (match order 3, Km = 64: an E-step count
+# table of 24444 floats, past what K3's warp route keeps in shared memory)
+PARAMS_FILES = {"gaporder1": "params-gaporder1.json",
+                "sub2": "c8f30-params-sub2.oracle.json"}
+
+
 def _tables(case):
-    params = (QuaffParams.from_json((DATA / "params-gaporder1.json").read_text())
-              if case == "gaporder1" else default_params())
+    params = (QuaffParams.from_json((DATA / PARAMS_FILES[case]).read_text())
+              if case in PARAMS_FILES else default_params())
     return ScoreTables.from_params(params)
 
 
@@ -307,6 +316,111 @@ def test_estep_kernels_match_plain(case):
     assert torch.equal(tab, estep.estep_reduce(part2))
     assert {k: getattr(estep, k).launches - v for k, v in n.items()} == {
         "fwd_store": 2, "bwd_counts": 2, "estep_reduce": 2}
+
+
+# (local, table case) of each E-step variant; sub2's count table lives in
+# partial itself on K3's warp route, the others' in shared memory
+ESTEP_VARIANTS = {"local": (True, "packed"), "local-gap1": (True, "gaporder1"),
+                  "global": (False, "packed"),
+                  "global-gap1": (False, "gaporder1"),
+                  "local-sub2": (True, "sub2")}
+
+
+def _estep_plain(variant, W, seed):
+    """K2's and K3's inputs on random bands of W lanes (random_fill_inputs)
+    and their plain versions' outputs: (inp, v2, local, fwd_p, wrow,
+    part_p, sc_p); wrow's weights are 0.5 and its normalisers the plain
+    forward scores."""
+    local, tables = ESTEP_VARIANTS[variant]
+    inp, v2 = random_fill_inputs(np.random.default_rng(seed), _tables(tables),
+                                 W, local=local)
+    fwd_p, rows_p, offs_p = estep.fwd_store_reference(**inp, tables=v2,
+                                                      local=local)
+    fin = fwd_p > fill_v2.NEG_INF / 2
+    wrow = torch.stack([torch.full_like(fwd_p, 0.5),
+                        torch.where(fin, fwd_p, 0.0)]).contiguous()
+    part_p, sc_p = estep.bwd_counts_reference(
+        inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow,
+        rows_p, offs_p, local=local)
+    return inp, v2, local, fwd_p, wrow, part_p, sc_p
+
+
+def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
+    """Each (K2 route, K3 route) pair against the plain versions: forward
+    scores rtol 1e-5 / atol 1e-3, tables and d_sc rtol 3e-3 / atol 5e-3,
+    the back-start posterior of every finite pair within 5e-3 of 1, both
+    kernels bit-identical on a second run, one launch counted on each
+    kernel's route."""
+    counts = ("launches", "warp_launches", "block_launches")
+    fin = fwd_p > fill_v2.NEG_INF / 2
+    assert bool(fin.any())
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
+    for r2, r3 in routes:
+        before = [getattr(estep.fwd_store, k) for k in counts]
+        fwd, rows, offs = estep.fwd_store(**inp, tables=v2, local=local,
+                                          route=r2)
+        torch.cuda.synchronize()
+        moved = [getattr(estep.fwd_store, k) - n
+                 for k, n in zip(counts, before)]
+        assert moved == [1, int(r2[0] == "warp"), int(r2[0] == "block")]
+        assert torch.equal(fwd > fill_v2.NEG_INF / 2, fin)
+        np.testing.assert_allclose(fwd[fin].double().cpu(),
+                                   fwd_p[fin].double().cpu(),
+                                   rtol=1e-5, atol=1e-3)
+        before = [getattr(estep.bwd_counts, k) for k in counts]
+        part, sc = estep.bwd_counts(*base, rows, offs, local=local, route=r3)
+        torch.cuda.synchronize()
+        moved = [getattr(estep.bwd_counts, k) - n
+                 for k, n in zip(counts, before)]
+        assert moved == [1, int(r3[0] == "warp"), int(r3[0] == "block")]
+        for got, want in ((part, part_p), (sc, sc_p)):
+            np.testing.assert_allclose(got.double().cpu(),
+                                       want.double().cpu(),
+                                       rtol=3e-3, atol=5e-3)
+        bsp = sc[4][fin].double().cpu()
+        assert float((bsp - 1).abs().max()) < 5e-3
+        fwd2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
+                                             route=r2)
+        part2, sc2 = estep.bwd_counts(*base, rows2, offs2, local=local,
+                                      route=r3)
+        assert torch.equal(fwd, fwd2)
+        assert torch.equal(part, part2) and torch.equal(sc, sc2)
+
+
+# each kernel's cutover and the width past it
+ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256}.union(
+    *({c, c + 1} for c in estep.ESTEP_WARP_MAX_LANES.values())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(ESTEP_VARIANTS))
+@pytest.mark.parametrize("W", ESTEP_WIDTHS)
+def test_estep_routes_match_plain(W, variant):
+    """K2 and K3 on random bands of W lanes (their strips end on member
+    lanes, not on halo lanes), each route forced and each pairing of a K2
+    route with a K3 route (the layout they share), against
+    fwd_store_reference and bwd_counts_reference: the warp route at the
+    smallest lanes-a-thread that covers W (up to 512 lanes) and the block
+    route; then both kernels through estep_route's own route."""
+    _need_card()
+    case = _estep_plain(variant, W, 61 + W)
+    routes = [("block", 0)]
+    if estep.warp_lpt(W) is not None:
+        routes.insert(0, ("warp", estep.warp_lpt(W)))
+    pairs = [(r2, r3) for r2 in routes for r3 in routes]
+    _estep_routes_check(*case, pairs + [(estep.estep_route(W, "fwd_store"),
+                                         estep.estep_route(W, "bwd_counts"))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(ESTEP_VARIANTS))
+@pytest.mark.parametrize("lpt", fill_v2.WARP_LPTS)
+def test_estep_warp_route_every_lanes_a_thread(lpt, variant):
+    """Each instantiation of K2's and K3's warp kernels on a 31-lane band
+    (which every lpt covers) against the plain versions."""
+    _need_card()
+    case = _estep_plain(variant, 31, 13 * lpt)
+    _estep_routes_check(*case, [(("warp", lpt), ("warp", lpt))])
 
 
 def bounding_band_desc(pairs):

@@ -216,3 +216,61 @@ def test_kernel_sass_parsers():
         "_Z4demoPf": (12, 0, 128, 0), "_Z5otherv": (4, 8, 0, 16)}
     assert kernel_sass.parse_ptxas(PTXAS) == {
         "_Z4demoPf": (12, 0, 0), "_Z5otherv": (4, 16, 12)}
+
+
+@pytest.mark.parametrize("name, owner", [
+    ("void (anonymous namespace)::band_fill_kernel<false, true>(signed char "
+     "const*, int, int4 const*, int)", ("fwd_store", "block")),
+    ("void band_fill_kernel<true, false>", ("band_fill", "block")),
+    ("void band_fill_warp_kernel<false, 8>", ("band_fill", "warp")),
+    ("void (anonymous namespace)::fwd_store_warp_kernel<8>(signed char "
+     "const*, int)", ("fwd_store", "warp")),
+    ("void fwd_store_warp_kernel<16>", ("fwd_store", "warp")),
+    ("void (anonymous namespace)::bwd_counts_warp_kernel<4>(signed char "
+     "const*, int)", ("bwd_counts", "warp")),
+    ("(anonymous namespace)::bwd_counts_kernel(signed char const*, int)",
+     ("bwd_counts", "block")),
+    ("estep_reduce_kernel", ("estep_reduce", None)),
+    ("void ov_fill_warp_kernel<true, 4>", ("ov_fill", "warp")),
+    ("ov_fill_kernel", ("ov_fill", "block")),
+    ("void sol_chain_kernel<2>", ("sol_chain", None)),
+    ("void at::native::vectorized_elementwise_kernel<4>", None),
+])
+def test_kernel_of_names_each_kernel(name, owner):
+    """kernel_of attributes a kernel's demangled name (as torch.profiler
+    or c++filt prints it) to the wrapper that launches it and its route:
+    K2's block route is K1's block fill with STORE set, its warp route
+    and K3's have kernels of their own; a PyTorch kernel is none of the
+    port's."""
+    from quaff_tpu_torch.prof import kernel_sass
+
+    assert kernel_sass.kernel_of(name) == owner
+
+
+SASS_CTRL = """
+		Function : _Z4loopv
+        /*0000*/                   S2R R0, SR_TID.X ;     /* 0x0000000000007919 */
+                                                          /* 0x000e220000002100 */
+        /*0010*/                   FADD R2, R0, R0 ;      /* 0x0000000000027221 */
+                                                          /* 0x001fc80000000000 */
+        /*0020*/                   FSETP.GEU.AND P0, PT, R2, 1, PT ; /* 0x3f8000000200780b */
+                                                          /* 0x000fda0003f0e000 */
+        /*0030*/              @!P0 BRA 0x10 ;             /* 0xfffffffc00008947 */
+                                                          /* 0x000fea000383ffff */
+        /*0040*/                   EXIT ;                 /* 0x000000000000794d */
+                                                          /* 0x000fea0003800000 */
+"""
+
+
+def test_kernel_sass_stall_cycles():
+    """parse_stalls reads each instruction's stall count (bits 41-44 of its
+    control word): the loop 0x10-0x30 waits 4 + 13 + 5 cycles; loop_span
+    finds that loop."""
+    from quaff_tpu_torch.prof import kernel_sass
+
+    stalls = kernel_sass.parse_stalls(SASS_CTRL)
+    assert stalls == {"_Z4loopv": {0x0: 1, 0x10: 4, 0x20: 13, 0x30: 5,
+                                   0x40: 5}}
+    instrs = kernel_sass.parse_sass(SASS_CTRL)["_Z4loopv"]
+    assert kernel_sass.loop_span(instrs) == (0x10, 0x30)
+    assert kernel_sass.row_loop(instrs) == (3, 0)
