@@ -7,18 +7,22 @@ It builds everything from the checkout and runs its phases in order; any
 failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
-  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp and block
-     routes, K2, K3, the count reduction, K4's warp and block routes and
-     the probes' chain kernel;
+  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster and
+     block routes, K2, K3, the count reduction, K4's warp and cluster
+     routes and the probes' chain kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
      and the host library libquaffio (native/*.cpp, one g++ per source),
      both at once
   2  K1 against its plain PyTorch version on the card: c8f30 against itself
      lane-packed at B=2048 (the align configuration; the warp route), plus
-     forward, global (the block route), no-quality, gap-order-1 and a band
-     wider than shared memory (the block route); every launch must take
-     fill_route's route; median times of both, in-envelope cells/s, the
-     least time the card could take
+     forward, global (the cluster route), no-quality, gap-order-1 and a
+     band wider than the block route's shared memory (the cluster route);
+     every launch must take fill_route's route; on the two cluster-route
+     cases the block route forced on the same inputs, held against the
+     plain version, and every other cluster tiling timed alike, each
+     one's error logged against the plain version and against it in
+     float64 (the float32 drift's witness); median times, in-envelope
+     cells/s, the least time the card could take
   2b K2, K3 and the count reduction against their plain versions: B=64
      W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
      (the warp routes' cutover: lanes-a-thread 16 against the block
@@ -36,9 +40,9 @@ failure exits non-zero before the final line is printed.
      on 8 of them (per strand, the two multi-strip pairs of reads with
      qualities and the two of reads without that have the fewest rows);
      times, in-envelope cells/s, the bound.  Per gap order two batches: the
-     64 widest pairs (the block route: their widest band is past the warp
-     route's cutover) and the 64 widest pairs that the warp route takes,
-     on the warp route and on the block route forced on the same inputs
+     64 widest pairs (7211 lanes: the cluster route) and the 64 widest
+     pairs that the warp route takes, on the warp route and on the cluster
+     route forced on the same inputs
   2d the speed-of-light probes (quaff_tpu_torch/prof/, the chain kernel
      csrc/sol_probe.cu): each of its five ops against its plain version at
      [2048, 256] over 128 steps (add_max and roll_add bitwise, the lse
@@ -60,10 +64,18 @@ failure exits non-zero before the final line is printed.
   4  align at a size users run: a seeded 200 kb genome and 512 reads of
      2-10 kb (12% substitutions and indels, half reverse strand, with
      qualities) through the CLI on cuda; reads/s, K1 launches by route and
-     width and each route's share of the in-envelope cells; the first 32
-     reads again on the CPU (plain version) must give the same text; then
-     the block route on the run's largest block-route chunk (if any)
-     against its plain version
+     width and each route's share of the in-envelope cells, K1's device
+     time by route and the device's busy share (torch.profiler); each
+     warp-route chunk with the cluster route forced on the same inputs;
+     the first 32 reads again on the CPU (plain version) must give the
+     same text; then the cluster route on the run's largest cluster-route
+     chunk against its plain version, the block route forced beside it
+     and every other cluster tiling timed alike, with the errors of
+     phase 2's cluster-route cases
+  4b `align -kmatchoff` (no k-mer envelope, so bands wider than the
+     cluster route's widest): a seeded 20 kb genome and 4 reads of 2-3 kb
+     through the CLI on cuda, every K1 launch on the block route, which is
+     then held against its plain version on the run's chunk
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches by
      route, each chunk's (B, W, routes, K2 and K3 device ms) from the
@@ -83,20 +95,26 @@ failure exits non-zero before the final line is printed.
      first 32 reads' text must equal the port's sequential float64 route
      (no kernel pruning) on the same reads, and the first 8 reads' run on
      the CPU (plain K4, in a process of its own beside the reference) the
-     GPU's; then K4 on the run's largest chunk (the warp route, and the
-     block route forced on the same inputs) against its plain version (its
-     first 128 pairs), on the largest block-route chunk, and, where the run
-     has a chunk of 257-512 lanes, lanes-a-thread 16 against the block
-     route on it (the warp route's cutover)
+     GPU's; each warp-route chunk with the cluster route forced on the
+     same inputs, and each cluster-route chunk at every tiling it can
+     take; then K4 on the run's largest chunk (the warp route, and the
+     cluster route forced on the same inputs) against its plain version
+     (its first 128 pairs), on the largest cluster-route chunk (the plain
+     version on its last 4 pairs), and, where the run has a chunk of
+     OV_WARP_MAX_LANES + 1 to twice as many lanes, the warp route forced on
+     it against the cluster route (the warp route's cutover)
 
 Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
 well inside its time limit.  Each plain version's comparison run is also
-one of its timed runs.
+one of its timed runs.  Each kernel case of phases 2, 2c, 4, 4b and 6 also
+reruns the kernel on the same inputs and requires the same bits.
 
-Each path (phase 4 for K1's two routes, phase 5 for K2's and K3's warp
-routes and the reduction, phase 3b's wide-band count -fast for their block
-routes, phase 6 for K4, the probes' run in phase 2d for the chain kernel)
-runs with the launch counts set to 0 just before it and read just after.
+Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
+-kmatchoff for its block route, phase 5 for K2's and K3's warp routes and
+the reduction, phase 3b's wide-band count -fast for their block routes,
+phase 6 for K4's two routes, the probes' run in phase 2d for the chain
+kernel) runs with the launch counts set to 0 just before it and read just
+after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -180,8 +198,9 @@ def phase1_build():
         t_host = ex.submit(timed, native.get_lib)
         t_cuda, t_host = t_cuda.result(), t_host.result()
     how = "built" if kernels.build_log is not None else "reused"
-    log(f"phase 1: kernel library (K1's warp and block routes, K2, K3, "
-        f"reduce, K4, P1/P2 chains) {how} in {t_cuda:.1f} s "
+    log(f"phase 1: kernel library (K1's warp, cluster and block routes, K2, "
+        f"K3, reduce, K4's warp and cluster routes, P1/P2 chains) {how} in "
+        f"{t_cuda:.1f} s "
         f"({kernels.library_path().relative_to(ROOT)})")
     from quaff_tpu_torch.prof.kernel_sass import demangle, parse_ptxas
 
@@ -222,8 +241,10 @@ def _synthetic_pairs(rng, n, with_qual=True):
     return pairs
 
 
-def _compare(got, ref, rtol=RTOL, atol=ATOL):
-    """max |kernel - plain| over finite entries; fails outside tolerance."""
+def _errors(got, ref, rtol=RTOL, atol=ATOL):
+    """(max |got - ref| over finite entries, whether every entry is within
+    rtol / atol of ref); fails where the two disagree on which scores are
+    -inf."""
     import torch
 
     floor = -3.4028234663852886e38 / 2
@@ -234,11 +255,15 @@ def _compare(got, ref, rtol=RTOL, atol=ATOL):
     fin = torch.isfinite(r)
     check(bool(fin.any()), "no finite score to compare")
     err = (g[fin] - r[fin]).abs()
-    bad = err > atol + rtol * r[fin].abs()
-    check(not bool(bad.any()),
-          f"kernel vs plain outside rtol {rtol} / atol {atol}: max abs err "
-          f"{float(err.max()):.3g}")
-    return float(err.max())
+    return float(err.max()), not bool((err > atol + rtol * r[fin].abs()).any())
+
+
+def _compare(got, ref, rtol=RTOL, atol=ATOL):
+    """max |kernel - plain| over finite entries; fails outside tolerance."""
+    err, ok = _errors(got, ref, rtol, atol)
+    check(ok, f"kernel vs plain outside rtol {rtol} / atol {atol}: max abs "
+              f"err {err:.3g}")
+    return err
 
 
 def _timed(fn, v):
@@ -294,6 +319,26 @@ def _back_to_back(fn, arg, n=100):
 def _time(fn, variants):
     """Median seconds of fn(v) over distinct inputs."""
     return statistics.median(_times(fn, variants))
+
+
+def _sweep_tilings(W, lpts, max_warps):
+    """The cluster tilings (CTAs a pair, warps a CTA, lanes a thread) a
+    band of W lanes can take: for each lanes-a-thread whose tiles (at most
+    32) cover it, the fewest CTAs of at most 4, 8 and 16 warps (as the
+    kernel allows), spread evenly, up to 8 CTAs.  Timed beside the route
+    table's pick on the cluster-route chunks of the paths: the
+    measurement the tables (fill_v2.FILL_CLUSTER_TABLE,
+    ov_fill.OV_CLUSTER_TABLE) are set from."""
+    out = []
+    for lpt in lpts:
+        tiles = -(-W // (32 * lpt))
+        for cap in (4, 8, 16):
+            nct = -(-tiles // cap)
+            t = (nct, -(-tiles // nct), lpt)
+            if (tiles <= 32 and cap <= max_warps(lpt) and nct <= 8
+                    and t not in out):
+                out.append(t)
+    return out
 
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at its 700 W limit): float32
@@ -372,7 +417,19 @@ def _fill_in_bytes(inp, v2):
                       inp["seg_width"]) + _table_bytes(v2))
 
 
-def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None):
+def _key_variants(keys, n):
+    """n copies of K1's keys, each with one quality value changed: distinct
+    inputs for timed runs."""
+    out = []
+    for i in range(n):
+        k = keys.clone()
+        k[:, i % k.shape[1], 1] = (k[:, i % k.shape[1], 1] + 1) % 40
+        out.append(k)
+    return out
+
+
+def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None,
+             also=()):
     """K1 and its plain version on one batch: agreement and times."""
     from quaff_tpu_torch.dp import fill_v2
     from quaff_tpu_torch.dp.engine import to_device
@@ -380,56 +437,77 @@ def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None):
     v2 = fill_v2.V2Tables.from_tables(tables, "cuda")
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
     return fill_case(f"phase 2: {name}", inp, v2, mode, local, card, n_runs,
-                     route, fill_v2.batch_max_prop(pb))
+                     route, fill_v2.batch_max_prop(pb), also=also)
 
 
-ROUTE_COUNTS = ("launches", "warp_launches", "block_launches")
+FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
+               "block_launches")
 
 
 def _route_counts():
     from quaff_tpu_torch.dp import fill_v2
 
-    return {k: getattr(fill_v2.band_fill, k) for k in ROUTE_COUNTS}
+    return {k: getattr(fill_v2.band_fill, k) for k in FILL_COUNTS}
+
+
+def _route_label(route):
+    """A route as the logs name it: the warp route with its lanes a
+    thread, the cluster route with its tiling (CTAs a pair x warps a CTA x
+    lanes a thread), the block route."""
+    kind, arg = route
+    if kind == "warp":
+        return f"warp route, {arg} lanes a thread"
+    if kind == "cluster":
+        return "cluster route, {} x {} x {}".format(*arg)
+    return "block route"
 
 
 def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
-              mp=None, n_plain=None):
-    """K1 and its plain version on kernel_inputs `inp`: agreement, times,
-    and that every launch took fill_route's route (`route`, when given,
-    must be it)."""
+              mp=None, n_plain=None, also=()):
+    """K1 and its plain version on kernel_inputs `inp`: agreement, a rerun
+    bit for bit, times, and that every launch took fill_route's route
+    (`route`, when given, must be its kind).  Each route of `also` is forced on the same inputs,
+    held against the plain version and timed alike; on the cluster route
+    every other tiling of _sweep_tilings is timed alike, and every route
+    and tiling's error is logged against the plain version and against it
+    in float64 (the float32 drift's witness), a swept tiling's without
+    failing (only the route table's tiling is held to the tolerance).
+    Returns the result of fill_route's route, with "also" {label: ms} and,
+    on the cluster route, "sweep" {label: (ms, error against the plain
+    version, error against float64, within tolerance)}."""
+    import torch
+
     from quaff_tpu_torch.dp import fill_v2
 
     W = inp["doff"].shape[1]
-    want, lpt = fill_v2.fill_route(W)
-    check(route is None or want == route,
-          f"{name}: W={W} takes the {want} route, not the {route} route")
+    want = fill_v2.fill_route(W)
+    check(route is None or want[0] == route,
+          f"{name}: W={W} takes the {want[0]} route, not the {route} route")
     before = _route_counts()
 
-    def kern(keys):
+    def kern(keys, r=None):
         return fill_v2.band_fill(**dict(inp, keys=keys), tables=v2, mode=mode,
-                                 local=local)
+                                 local=local, route=r)
 
-    def plain(keys):
+    def plain(keys, dtype=torch.float32):
         return fill_v2.band_fill_reference(**dict(inp, keys=keys), tables=v2,
-                                           mode=mode, local=local, max_prop=mp)
+                                           mode=mode, local=local, max_prop=mp,
+                                           dtype=dtype)
 
     got = kern(inp["keys"])
+    check(torch.equal(kern(inp["keys"]), got),
+          f"{name}: a rerun of K1 on the same inputs is not bit-identical")
     ref, t_ref = _timed(plain, inp["keys"])
     err = _compare(got, ref)
-    # distinct inputs per timed run: one quality value changed per variant
-    variants = []
-    for i in range(n_runs + 1):
-        k = inp["keys"].clone()
-        k[:, i % k.shape[1], 1] = (k[:, i % k.shape[1], 1] + 1) % 40
-        variants.append(k)
+    variants = _key_variants(inp["keys"], n_runs + 1)
     kern(variants[0])  # warm
     ms = _time(kern, variants[1:]) * 1e3
     moved = {k: v - before[k] for k, v in _route_counts().items()}
-    check(moved == {"launches": n_runs + 2,
-                    "warp_launches": (n_runs + 2) * (want == "warp"),
-                    "block_launches": (n_runs + 2) * (want == "block")},
-          f"{name}: K1's launches by route {moved}, want all {n_runs + 2} "
-          f"on the {want} route")
+    check(moved == {"launches": n_runs + 3,
+                    **{f"{r}_launches": (n_runs + 3) * (want[0] == r)
+                       for r in ("warp", "cluster", "block")}},
+          f"{name}: K1's launches by route {moved}, want all {n_runs + 3} "
+          f"on the {want[0]} route")
     # the plain version: the comparison's run and n_plain - 1 more
     n_plain = n_runs if n_plain is None else n_plain
     plain_ms = statistics.median(
@@ -439,16 +517,57 @@ def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
     bound_ms, bound_by = _bound(
         _fill_in_bytes(inp, v2) + 4 * B * (1 + inp["seg_start"].shape[1]),
         OPS_PER_CELL[mode] * cells)
-    how = f"warp route, {lpt} lanes a thread" if want == "warp" else \
-        "block route"
     log(f"{name}: B={B} W={W} Ly={inp['keys'].shape[1]} {mode} "
-        f"{'local' if local else 'global'} ({how}): max abs err {err:.3g}; "
-        f"K1 {ms:.3f} ms (median of {n_runs}), plain {plain_ms:.3f} ms "
-        f"(median of {n_plain}); "
+        f"{'local' if local else 'global'} ({_route_label(want)}): max abs "
+        f"err {err:.3g}; K1 {ms:.3f} ms (median of {n_runs}), plain "
+        f"{plain_ms:.3f} ms (median of {n_plain}); "
         f"{cells} in-envelope cells, {cells / (ms / 1e3):.4g} cells/s, "
         f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    # the plain version in float64 where the band is a cluster route's:
+    # how far each float32 fill drifts, so which side an error comes from
+    wit = plain(inp["keys"], torch.float64) if want[0] == "cluster" else None
+    if wit is not None:
+        log(f"{name}: against the plain version in float64: the plain "
+            f"version {_errors(ref, wit)[0]:.3g}, {_route_label(want)} "
+            f"{_errors(got, wit)[0]:.3g}")
+    others = {}
+    for r in also:
+        out = kern(inp["keys"], r)
+        e = _compare(out, ref)
+        kern(variants[0], r)  # warm
+        others[_route_label(r)] = _time(lambda k: kern(k, r),
+                                        variants[1:]) * 1e3
+        e64 = "" if wit is None else (
+            f", {_errors(out, wit)[0]:.3g} against it in float64")
+        log(f"{name}: {_route_label(r)} forced on the same inputs: "
+            f"{others[_route_label(r)]:.3f} ms (median of {n_runs}), max abs "
+            f"err {e:.3g} against the plain version{e64} [{card}]")
+    sweep = {}
+    if wit is not None:
+        # the other tilings, timed alike, each one's error logged (the card
+        # tests hold every tiling against the plain version on their own
+        # inputs)
+        for t in _sweep_tilings(W, fill_v2.FILL_CLUSTER_LPTS,
+                                fill_v2.fill_cluster_max_warps):
+            if t == want[1]:
+                continue
+            r = ("cluster", t)
+            out = kern(inp["keys"], r)
+            e32, ok = _errors(out, ref)
+            kern(variants[0], r)  # warm
+            sweep[_route_label(r)] = (
+                _time(lambda k: kern(k, r), variants[1:]) * 1e3, e32,
+                _errors(out, wit)[0], ok)
+        log(f"{name}: each other tiling on the same inputs (ms, median of "
+            f"{n_runs}; max abs err against the plain version / against it "
+            f"in float64): " + "; ".join(
+                "{}: {:.3f} ({:.3g} / {:.3g}{})".format(
+                    k.removeprefix("cluster route, "), ms, e32, e64,
+                    "" if ok else f", outside rtol {RTOL} / atol {ATOL}")
+                for k, (ms, e32, e64, ok) in sweep.items()) + f" [{card}]")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "cells": cells}
+            "bound_ms": bound_ms, "bound_by": bound_by, "cells": cells,
+            "route": want, "also": others, "sweep": sweep}
 
 
 def phase2_kernel(card):
@@ -456,6 +575,7 @@ def phase2_kernel(card):
     import torch
 
     from quaff_tpu_torch import kernels
+    from quaff_tpu_torch.dp import fill_v2
     from quaff_tpu_torch.envelope import full_envelope, make_envelope
     from quaff_tpu_torch.io.fastseq import FastSeq, KmerIndex, read_fast_seqs
     from quaff_tpu_torch.model.params import QuaffParams, default_params
@@ -481,10 +601,11 @@ def phase2_kernel(card):
     run_case("forward", PairBatch.build_packed(pairs, tables), tables,
              "forward", True, card)
     # global paths need the whole ref in the band: full envelopes (W above
-    # 1024 lanes: the block route, each thread owning two lanes)
+    # 1024 lanes: the cluster route; the block route forced beside it)
     run_case("global", PairBatch.build(
         [(xg, yg, full_envelope(len(xg.seq), len(yg.seq)))
-         for xg, yg, _ in pairs[:16]], tables), tables, "viterbi", False, card)
+         for xg, yg, _ in pairs[:16]], tables), tables, "viterbi", False, card,
+        route="cluster", also=(("block", 0),))
     run_case("no-qual", PairBatch.build_packed(
         _synthetic_pairs(rng, 64, with_qual=False), tables), tables,
         "viterbi", True, card)
@@ -492,8 +613,9 @@ def phase2_kernel(card):
         (DATA / "params-gaporder1.json").read_text()))
     run_case("gaporder1", PairBatch.build_packed(pairs, gap1), gap1,
              "viterbi", True, card)
-    # a band wider than the block's shared memory: row state in global
-    # scratch
+    # a band wider than the block route's shared memory (its row state in
+    # global scratch) and narrower than the cluster route's widest: the
+    # cluster route, the block route forced beside it
     limit = kernels.max_smem_lanes(torch.cuda.current_device())
     xs = "".join("ACGT"[t] for t in rng.integers(0, 4, limit + 2000))
     wide = []
@@ -505,10 +627,11 @@ def phase2_kernel(card):
         wide.append((FastSeq(name="xw", seq=xs), yw,
                      full_envelope(len(xs), 400)))
     wpb = PairBatch.build(wide, tables)
-    check(wpb.member.shape[1] > limit, "wide case fits shared memory")
-    wide_res = run_case(f"wide (W > {limit} smem lanes)", wpb, tables,
-                        "viterbi", True, card, route="block")
-    return main, wide_res
+    check(limit < wpb.member.shape[1] <= fill_v2.FILL_CLUSTER_MAX_LANES,
+          "the wide case fits shared memory, or no cluster route takes it")
+    run_case(f"wide (W > {limit} smem lanes)", wpb, tables, "viterbi", True,
+             card, route="cluster", also=(("block", 0),))
+    return main
 
 
 # ---------------------------------------------------------------- phase 3
@@ -611,10 +734,27 @@ def _workload(tmp, seed=1, genome_len=200_000, n_reads=1024,
     return gpath, rpath, head, genome, origins
 
 
-def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
+def _fill_time(kw, route, n_runs=3):
+    """Median ms of K1 on `route` over n_runs distinct inputs of a recorded
+    band_fill call, after a warm run."""
     from quaff_tpu_torch.dp import fill_v2
+
+    def kern(keys):
+        return fill_v2.band_fill(**dict(kw, keys=keys), route=route)
+
+    vs = _key_variants(kw["keys"], n_runs + 1)
+    kern(vs[0])
+    return _time(kern, vs[1:]) * 1e3
+
+
+def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
+    from torch.profiler import ProfilerActivity, profile
+
+    from quaff_tpu_torch.dp import fill_v2
+    from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
     from quaff_tpu_torch.io.fastseq import read_fast_seqs
     from quaff_tpu_torch.model.params import QuaffNullParams
+    from quaff_tpu_torch.prof.kernel_sass import kernel_of
 
     threads = str(os.cpu_count() or 1)
     with tempfile.TemporaryDirectory() as d:
@@ -632,32 +772,14 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
         argv = ["align", str(gpath), str(rpath), "-threads", threads,
                 "-null", str(null)]
         # each K1 launch's route, width and in-envelope cells; the inputs
-        # of the largest block-route chunk are kept for its timed run
-        orig = fill_v2.band_fill
-        calls, widest = [], {}
-
-        def recording(**kw):
-            res = orig(**kw)
-            B, W = kw["doff"].shape
-            route = fill_v2.fill_route(W)[0]
-            calls.append((route, W, B, _cells_on_device(kw)))
-            size = B * W * kw["keys"].shape[1]
-            if route == "block" and size > widest.get("size", 0):
-                widest.update(size=size, kw=kw)
-            return res
-
-        # band_fill adds its launches to the counts of the module's
-        # `band_fill`, which is `recording` while it is installed
-        for k in ROUTE_COUNTS:
-            setattr(recording, k, 0)
-        fill_v2.band_fill = recording
-        try:
+        # of the largest cluster-route chunk are kept for its timed run
+        calls = _record_fill()
+        with calls, profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             out = _cli(argv, "cuda")
             wall = time.perf_counter() - t0
-        finally:
-            fill_v2.band_fill = orig
-        counts = {k: getattr(recording, k) for k in ROUTE_COUNTS}
+        counts = calls.counts
         check(counts["launches"] > 0, "the main path launched no K1")
         n_aligned = out.count("#=GF Score")
         check(n_aligned >= 0.9 * n_reads,
@@ -665,11 +787,25 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
         log(f"phase 4: align on cuda: {wall:.2f} s wall, "
             f"{n_reads / wall:.2f} reads/s, {n_aligned} alignments, "
             f"{counts['launches']} K1 launches [{card}]")
-        cells = {r: sum(int(c) for rr, _, _, c in calls if rr == r)
-                 for r in ("warp", "block")}
+        # K1's device time by route from the kernels' names, and the
+        # device's busy share
+        events = _kernel_events(prof, "band_fill")
+        check(len(events) == counts["launches"],
+              f"phase 4: {len(events)} K1 kernels traced, {counts}")
+        by_route = {}
+        for (kname, ms), (r, _, _, _) in zip(events, calls.calls):
+            check(kernel_of(kname) == ("band_fill", r[0]),
+                  f"phase 4: a chunk on fill_route's {r} ran {kname}")
+            by_route[r[0]] = by_route.get(r[0], 0.0) + ms
+        busy = sum(_device_busy(prof).values())
+        log(f"phase 4: K1 device ms by route {by_route}; torch.profiler: "
+            f"device busy {busy:.3f} s of {wall:.3f} s wall "
+            f"({100 * busy / wall:.2f}%) [{card}]")
+        cells = {r: sum(int(c) for rr, _, _, c in calls.calls if rr[0] == r)
+                 for r in ("warp", "cluster", "block")}
         total = max(sum(cells.values()), 1)
-        for r in ("warp", "block"):
-            ws = sorted(W for rr, W, _, _ in calls if rr == r)
+        for r in ("warp", "cluster", "block"):
+            ws = sorted(W for rr, W, _, _ in calls.calls if rr[0] == r)
             check(len(ws) == counts[f"{r}_launches"],
                   f"phase 4: {len(ws)} {r}-route chunks but "
                   f"{counts[f'{r}_launches']} {r}-route launches")
@@ -677,7 +813,24 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
                 f"{cells[r]} in-envelope cells "
                 f"({100 * cells[r] / total:.2f}% of the run's)")
         log("phase 4: K1 launches (route, W, B): "
-            + ", ".join(f"({r}, {W}, {B})" for r, W, B, _ in calls))
+            + ", ".join(f"({_route_label(r)}, {W}, {B})"
+                        for r, W, B, _ in calls.calls))
+        # each warp-route chunk with the cluster route forced on the same
+        # inputs (the warp route's cutover, at the sizes align launches)
+        both = []
+        for kw, (r, W, B, _) in zip(calls.inputs, calls.calls):
+            if r[0] == "warp":
+                forced = ("cluster", cluster_tiling(
+                    W, fill_v2.FILL_CLUSTER_TABLE))
+                both.append((B, W, r[1], forced[1],
+                             _fill_time(kw, r), _fill_time(kw, forced)))
+        log("phase 4: warp-route chunks on both routes (B, W, lanes a "
+            "thread, cluster tiling, warp ms, cluster ms): " + "; ".join(
+                "({}, {}, {}, {} x {} x {}, {:.3f}, {:.3f})".format(
+                    B, W, lpt, *t, w, c) for B, W, lpt, t, w, c in both)
+            + f"; all {len(both)}: {sum(b[4] for b in both):.3f} against "
+            f"{sum(b[5] for b in both):.3f} ms [{card}]")
+        del calls.inputs
         t0 = time.perf_counter()
         cpu = _cli(["align", str(gpath), str(head), "-threads", threads,
                     "-null", str(null)], "cpu")
@@ -688,7 +841,91 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
               "the GPU run's")
         log(f"phase 4: first {n_check} reads on the CPU (plain version): "
             f"byte-identical to the GPU run ({time.perf_counter() - t0:.1f} s)")
-    return counts, widest.get("kw")
+    return counts, calls.widest.get("cluster")
+
+
+class _record_fill:
+    """While active (a with block), each K1 launch's (route, W, B,
+    in-envelope cells) in .calls and its inputs in .inputs, the inputs of
+    each route's largest chunk (B * W * Ly) in .widest, and the launches by
+    route, counted from 0, in .counts."""
+
+    def __init__(self):
+        self.calls, self.inputs, self.widest, self.counts = [], [], {}, {}
+        self._size = {}
+
+    def __enter__(self):
+        from quaff_tpu_torch.dp import fill_v2
+
+        self.orig = orig = fill_v2.band_fill
+
+        def recording(**kw):
+            res = orig(**kw)
+            B, W = kw["doff"].shape
+            route = fill_v2.fill_route(W)
+            self.calls.append((route, W, B, _cells_on_device(kw)))
+            self.inputs.append(kw)
+            size = B * W * kw["keys"].shape[1]
+            if size > self._size.get(route[0], 0):
+                self._size[route[0]] = size
+                self.widest[route[0]] = kw
+            return res
+
+        # band_fill adds its launches to the counts of the module's
+        # `band_fill`, which is `recording` while it is installed
+        for k in FILL_COUNTS:
+            setattr(recording, k, 0)
+        self.recording = recording
+        fill_v2.band_fill = recording
+        return self
+
+    def __exit__(self, *exc):
+        from quaff_tpu_torch.dp import fill_v2
+
+        fill_v2.band_fill = self.orig
+        self.counts = {k: getattr(self.recording, k) for k in FILL_COUNTS}
+        return False
+
+
+def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
+    """`align -kmatchoff` (no k-mer envelope: every pair's band spans its
+    whole ref and read, wider than the cluster route's widest): K1's block
+    route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
+    CLI on cuda; every launch must take the block route; then the block
+    route on the run's chunk against its plain version (once)."""
+    from quaff_tpu_torch.dp import fill_v2
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        gpath, rpath, _, _, _ = _workload(tmp, seed=9, n_reads=n_reads,
+                                          genome_len=genome_len,
+                                          min_len=2000, max_len=3000,
+                                          n_head=1)
+        calls = _record_fill()
+        with calls:
+            t0 = time.perf_counter()
+            out = _cli(["align", str(gpath), str(rpath), "-kmatchoff",
+                        "-nothreshold"], "cuda")
+            wall = time.perf_counter() - t0
+        counts = calls.counts
+        check(counts["launches"] > 0
+              and counts["block_launches"] == counts["launches"],
+              f"phase 4b: K1 launches by route {counts}, want all on the "
+              f"block route")
+        check(out.count("#=GF Score") == n_reads,
+              f"phase 4b: {out.count('#=GF Score')} of {n_reads} reads "
+              "aligned")
+        log(f"phase 4b: align -kmatchoff on cuda: {wall:.2f} s wall, "
+            f"{n_reads} alignments, K1 launches (route, W, B): "
+            + ", ".join(f"({_route_label(r)}, {W}, {B})"
+                        for r, W, B, _ in calls.calls) + f" [{card}]")
+        kw = calls.widest["block"]
+    res = fill_case("phase 4b: the -kmatchoff chunk",
+                    {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
+                                        "seg_start", "seg_width")},
+                    kw["tables"], kw["mode"], kw["local"], card,
+                    route="block", mp=kw["max_prop"], n_plain=1)
+    return counts, res
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -1046,7 +1283,8 @@ def _estep_launches():
 def _reset_launches():
     from quaff_tpu_torch.dp import estep, fill_v2, ov_fill
 
-    fill_v2.band_fill.launches = 0
+    for k in FILL_COUNTS:
+        setattr(fill_v2.band_fill, k, 0)
     for k in OV_COUNTS:
         setattr(ov_fill.ov_fill, k, 0)
     for k in ESTEP:
@@ -1467,7 +1705,7 @@ def _ov_subset(inp, n, last=False):
             for k, v in inp.items()}
 
 
-OV_COUNTS = ("launches", "warp_launches", "block_launches")
+OV_COUNTS = ("launches", "warp_launches", "cluster_launches")
 
 
 def _ov_counts():
@@ -1498,13 +1736,15 @@ def ov_case(name, inp, card, n_plain=None, n_runs=3, routes=(None,),
     """K4 and its plain version on one batch (the plain version on its
     first n_plain pairs, or its last with last=True, timed once): for each
     of `routes` (None: ov_route's pick; else a route forced on the same
-    inputs) agreement, times, in-envelope cells/s and the bound, and that
-    every launch took that route.  Returns one dict per route."""
+    inputs) agreement, a rerun bit for bit, times, in-envelope cells/s and
+    the bound, and that every launch took that route.  Returns one dict per
+    route."""
     import torch
 
     from quaff_tpu_torch.dp import ov_fill
 
     B, W = inp["doff"].shape
+    routes = [r or ov_fill.ov_route(W) for r in routes]
     sub = (inp if n_plain is None or n_plain >= B
            else _ov_subset(inp, n_plain, last))
     Bs = sub["doff"].shape[0]
@@ -1523,11 +1763,13 @@ def ov_case(name, inp, card, n_plain=None, n_runs=3, routes=(None,),
     which = f"last {Bs}" if last else f"first {Bs}"
     out = []
     for route in routes:
-        route = route or ov_fill.ov_route(W)
         before = _ov_counts()
 
-        err = _compare(ov_fill.ov_fill(**sub, route=route), ref, OV_RTOL,
-                       OV_ATOL)
+        got = ov_fill.ov_fill(**sub, route=route)
+        check(torch.equal(ov_fill.ov_fill(**sub, route=route), got),
+              f"{name}: a rerun of K4 on the same inputs is not "
+              "bit-identical")
+        err = _compare(got, ref, OV_RTOL, OV_ATOL)
         res = {}
         for tag, (batch, cells, bound_ms, bound_by) in shapes.items():
             res[tag] = {"ms": _ov_time(batch, route, n_runs), "cells": cells,
@@ -1538,8 +1780,7 @@ def ov_case(name, inp, card, n_plain=None, n_runs=3, routes=(None,),
               f"{name}: K4's launches by route {moved}, want all {n} on "
               f"the {route[0]} route")
         a, s_ = res["all"], res["sub"]
-        how = (f"warp route, {route[1]} lanes a thread"
-               if route[0] == "warp" else "block route")
+        how = _route_label(route)
         log(f"{name}: B={B} W={W} "
             f"rows<={int(inp['meta'][:, 5].max())} C={inp['bank'].shape[1]} "
             f"({how}): max abs err {err:.3g} ({Bs} pairs); K4 "
@@ -1573,11 +1814,12 @@ def phase2c_overlap_kernel(card):
     other read without qualities (a batch mixes both strands and both
     kinds of reads: the bank's rows carry them).  Per gap order two
     batches: the 64 widest pairs (their widest band, 7211 lanes, takes the
-    block route), and the 64 widest pairs the warp route takes, on the
-    warp route and on the block route forced on the same inputs."""
+    cluster route), and the 64 widest pairs the warp route takes, on the
+    warp route and on the cluster route forced on the same inputs."""
     import numpy as np
 
     from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
     from quaff_tpu_torch.io.fastseq import FastSeq, add_revcomps, read_fast_seqs
     from quaff_tpu_torch.model.params import (QuaffNullParams, QuaffParams,
                                               default_params)
@@ -1640,7 +1882,8 @@ def phase2c_overlap_kernel(card):
             route = ov_fill.ov_route(W)
             check((route[0] == "warp") == (which == "warp-route"),
                   f"{name}, {which} pairs: W={W} takes the {route} route")
-            routes = (None,) if route[0] == "block" else (None, ("block", None))
+            routes = (None,) if route[0] == "cluster" else (
+                None, ("cluster", cluster_tiling(W, ov_fill.OV_CLUSTER_TABLE)))
             ov_case(f"phase 2c: {name}, {which} pairs, both strands, with "
                     f"and without qualities", inp, card, n_plain=len(sub),
                     routes=routes)
@@ -1791,10 +2034,12 @@ def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
 
     from quaff_tpu_torch import overlap as overlap_mod
     from quaff_tpu_torch.dp import ov_fill
+    from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
     from quaff_tpu_torch.formats.alignment import AlignmentPrinter
     from quaff_tpu_torch.io.fastseq import add_revcomps, read_fast_seqs
     from quaff_tpu_torch.model.params import QuaffNullParams, default_params
     from quaff_tpu_torch.overlap import QuaffOverlapAligner
+    from quaff_tpu_torch.prof.kernel_sass import kernel_of
 
     threads = str(os.cpu_count() or 1)
     with tempfile.TemporaryDirectory() as d:
@@ -1863,22 +2108,25 @@ def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
         check(len(events) == len(chunks) == launches["launches"],
               f"phase 6: {len(events)} K4 kernels traced, {len(chunks)} "
               f"chunks, launches {launches}")
-        per_chunk, cells, dev_ms = [], {"warp": 0, "block": 0}, \
-            {"warp": 0.0, "block": 0.0}
+        kinds = ("warp", "cluster")
+        per_chunk = []
+        cells = {k: 0 for k in kinds}
+        dev_ms = {k: 0.0 for k in kinds}
         for inp, (kname, ms) in zip(chunks, events):
             B, W = inp["doff"].shape
             route = ov_fill.ov_route(W)
-            check(("ov_fill_warp_kernel" in kname) == (route[0] == "warp"),
+            check(kernel_of(kname) == ("ov_fill", route[0]),
                   f"phase 6: a chunk of W={W} ran {kname}, not ov_route's "
                   f"{route}")
             n = _ov_cells(inp)
             cells[route[0]] += n
             dev_ms[route[0]] += ms
             per_chunk.append((B, W, route, ms, n))
-        check(launches["warp_launches"] == sum(
-            r[2][0] == "warp" for r in per_chunk),
-            f"phase 6: launches by route {launches} against the chunks' "
-            f"routes")
+        for k in kinds:
+            check(launches[f"{k}_launches"] == sum(
+                r[2][0] == k for r in per_chunk),
+                f"phase 6: launches by route {launches} against the chunks' "
+                f"routes")
         n_aln = out.count("#=GF Score")
         check(n_aln > 0, "phase 6: reported no overlap")
         device = _device_busy(prof)
@@ -1891,23 +2139,35 @@ def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
             f"{n_aln} overlaps reported, K4 launches {launches} [{card}]")
         log("phase 6: K4 chunks (B, W, route, device ms, in-envelope "
             "cells): " + "; ".join(
-                f"({B}, {W}, {r[0]}{'' if r[1] is None else ' ' + str(r[1])}"
-                f", {ms:.3f}, {n})" for B, W, r, ms, n in per_chunk)
-            + f" [{card}]")
-        # the block route forced on each warp-route chunk (median of 3,
+                f"({B}, {W}, {_route_label(r)}, {ms:.3f}, {n})"
+                for B, W, r, ms, n in per_chunk) + f" [{card}]")
+        # the cluster route forced on each warp-route chunk (median of 3,
         # CUDA events), against the warp route timed alike
-        pairs = [(_ov_time(c, r[2]), _ov_time(c, ("block", None)), r)
+        pairs = [(_ov_time(c, r[2]), _ov_time(
+            c, ("cluster", cluster_tiling(r[1], ov_fill.OV_CLUSTER_TABLE))), r)
                  for c, r in zip(chunks, per_chunk) if r[2][0] == "warp"]
         log("phase 6: warp-route chunks on both routes (B, W, lanes a "
-            "thread, warp ms, block ms): " + "; ".join(
+            "thread, warp ms, cluster ms): " + "; ".join(
                 f"({r[0]}, {r[1]}, {r[2][1]}, {w:.3f}, {b:.3f})"
                 for w, b, r in pairs)
             + f"; all {len(pairs)}: {sum(w for w, _, _ in pairs):.3f} "
             f"against {sum(b for _, b, _ in pairs):.3f} ms [{card}]")
+        # each cluster-route chunk at every tiling it can take (the route
+        # table's measurement)
+        for c, r in zip(chunks, per_chunk):
+            if r[2][0] != "cluster":
+                continue
+            tilings = _sweep_tilings(r[1], ov_fill.OV_CLUSTER_LPTS,
+                                     ov_fill.ov_cluster_max_warps)
+            log(f"phase 6: the B={r[0]} W={r[1]} chunk at each tiling "
+                f"(ms, median of 3; ov_route's {r[2][1]}): " + "; ".join(
+                    "{} x {} x {}: ".format(*t)
+                    + f"{_ov_time(c, ('cluster', t)):.3f}" for t in tilings)
+                + f" [{card}]")
         log("phase 6: K4 by route: " + "; ".join(
             f"{k} {launches[k + '_launches']} launches, {dev_ms[k]:.3f} ms "
             f"device, {100 * cells[k] / max(total, 1):.2f}% of the "
-            f"{total} in-envelope cells" for k in ("warp", "block"))
+            f"{total} in-envelope cells" for k in kinds)
             + f" [{card}]")
 
         def largest(pick):
@@ -1915,8 +2175,9 @@ def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
             return max(cands, key=_ov_cells) if cands else None
 
         biggest = {k: largest(lambda r, k=k: r[2][0] == k)
-                   for k in ("warp", "block")}
-        biggest["cutover"] = largest(lambda r: 256 < r[1] <= 512)
+                   for k in ("warp", "cluster")}
+        cut = ov_fill.OV_WARP_MAX_LANES
+        biggest["cutover"] = largest(lambda r: cut < r[1] <= 2 * cut)
         log("phase 6: where the time goes (host seconds, fenced by "
             "synchronize): " + "; ".join(
                 f"{k} {sum(v):.3f} s in {len(v)} calls"
@@ -1997,7 +2258,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase0_card()
     phase1_build()
-    k1, k1_wide = phase2_kernel(card)
+    k1 = phase2_kernel(card)
     phase2b_estep(card)
     phase2c_overlap_kernel(card)
     probes = phase2d_sol_probes(card)
@@ -2012,16 +2273,25 @@ def main() -> int:
     del wide
     phase3c_overlap_goldens()
     k1_counts, k1_chunk = phase4_workload(card)
-    if k1_chunk is not None:
-        # the block route at the align path's largest block-route chunk;
-        # its plain version once (tens of seconds)
-        inp = {k: k1_chunk[k] for k in ("x_tok", "keys", "meta", "doff",
-                                        "seg_start", "seg_width")}
-        k1_wide = fill_case("phase 4: the largest block-route chunk", inp,
-                            k1_chunk["tables"], k1_chunk["mode"],
-                            k1_chunk["local"], card, route="block",
-                            mp=k1_chunk["max_prop"], n_plain=1)
-        del inp, k1_chunk
+    check(k1_counts["cluster_launches"] > 0 and k1_chunk is not None,
+          f"phase 4: the align path launched no K1 on the cluster route: "
+          f"{k1_counts}")
+    # the cluster route at the align path's largest cluster-route chunk,
+    # the block route forced beside it and the other tilings of the sweep
+    # timed alike; its plain version once (tens of seconds)
+    inp = {k: k1_chunk[k] for k in ("x_tok", "keys", "meta", "doff",
+                                    "seg_start", "seg_width")}
+    k1_wide = fill_case("phase 4: the largest cluster-route chunk", inp,
+                        k1_chunk["tables"], k1_chunk["mode"],
+                        k1_chunk["local"], card, route="cluster",
+                        mp=k1_chunk["max_prop"], n_plain=1,
+                        also=(("block", 0),))
+    log(f"phase 4: the largest cluster-route chunk: cluster route "
+        f"{k1_wide['ms']:.3f} ms against the block route's "
+        f"{k1_wide['also']['block route']:.3f} ms "
+        f"({k1_wide['also']['block route'] / k1_wide['ms']:.2f}x) [{card}]")
+    del inp, k1_chunk
+    k1_block_counts, k1_block = phase4b_kmatchoff(card)
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
     # chunk, against their plain versions (timed once: minutes otherwise),
@@ -2032,35 +2302,40 @@ def main() -> int:
           "the phase-5 chunk is too wide for the warp routes")
     del chunk
     k4_launches, k4_chunks = phase6_overlap(card)
-    from quaff_tpu_torch.dp.ov_fill import OV_WARP_MAX_LANES
+    from quaff_tpu_torch.dp import fill_v2, ov_fill
+    from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
 
     # K4 at the overlap path's largest warp-route chunk (the warp route;
-    # the block route forced on the same inputs), its plain version on the
-    # chunk's first 128 pairs (a whole chunk is minutes)
+    # the cluster route forced on the same inputs), its plain version on
+    # the chunk's first 128 pairs (a whole chunk is minutes)
+    W = k4_chunks["warp"]["doff"].shape[1]
     k4 = ov_case("phase 6: the largest warp-route chunk", k4_chunks["warp"],
-                 card, n_plain=128, routes=(None, ("block", None)))
+                 card, n_plain=128, routes=(
+                     None, ("cluster",
+                            cluster_tiling(W, ov_fill.OV_CLUSTER_TABLE))))
     log(f"phase 6: the largest warp-route chunk, first 128 pairs: warp route "
-        f"{k4[0]['ms']:.3f} ms, block route {k4[1]['ms']:.3f} ms "
+        f"{k4[0]['ms']:.3f} ms, cluster route {k4[1]['ms']:.3f} ms "
         f"({k4[1]['ms'] / k4[0]['ms']:.2f}x); whole chunk "
         f"{k4[0]['full']['ms']:.3f} / {k4[1]['full']['ms']:.3f} ms [{card}]")
-    # the block route at the path's largest block-route chunk, its plain
-    # version on the chunk's last 4 pairs (the fewest rows)
-    k4_block = k4[1]
-    if k4_chunks["block"] is not None:
-        k4_block = ov_case("phase 6: the largest block-route chunk",
-                           k4_chunks["block"], card, n_plain=4, last=True)[0]
-    # the warp route's cutover: lanes-a-thread 16 against the block route
-    # on the same 257-512-lane chunk
+    # the cluster route at the path's largest cluster-route chunk, its
+    # plain version on the chunk's last 4 pairs (the fewest rows)
+    k4_cl = ov_case("phase 6: the largest cluster-route chunk",
+                    k4_chunks["cluster"], card, n_plain=4, last=True)[0]
+    # the warp route's cutover: the warp route forced on the same chunk of
+    # OV_WARP_MAX_LANES + 1 to twice as many lanes, against the cluster
+    # route
     if k4_chunks["cutover"] is not None:
-        lpt16, blk = ov_case("phase 6: the 257-512-lane chunk",
-                             k4_chunks["cutover"], card, n_plain=2, last=True,
-                             routes=(("warp", 16), ("block", None)))
-        log(f"phase 6: the warp route's cutover: at B="
-            f"{k4_chunks['cutover']['doff'].shape[0]} W="
-            f"{k4_chunks['cutover']['doff'].shape[1]}, 16 lanes a thread "
-            f"{lpt16['full']['ms']:.3f} ms against the block route's "
-            f"{blk['full']['ms']:.3f} ms ({blk['full']['ms'] / lpt16['full']['ms']:.2f}x); "
-            f"OV_WARP_MAX_LANES is {OV_WARP_MAX_LANES} [{card}]")
+        B, W = k4_chunks["cutover"]["doff"].shape
+        lpt = next(n for n in fill_v2.WARP_LPTS if 32 * n >= W)
+        warp, clu = ov_case(f"phase 6: the {ov_fill.OV_WARP_MAX_LANES + 1}-"
+                            f"{2 * ov_fill.OV_WARP_MAX_LANES}-lane chunk",
+                            k4_chunks["cutover"], card, n_plain=2, last=True,
+                            routes=(("warp", lpt), None))
+        log(f"phase 6: the warp route's cutover: at B={B} W={W}, {lpt} lanes "
+            f"a thread {warp['full']['ms']:.3f} ms against the cluster "
+            f"route's {clu['full']['ms']:.3f} ms "
+            f"({clu['full']['ms'] / warp['full']['ms']:.2f}x); "
+            f"OV_WARP_MAX_LANES is {ov_fill.OV_WARP_MAX_LANES} [{card}]")
     del k4_chunks
     log(f"total {time.perf_counter() - t_start:.1f} s")
     k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2069,11 +2344,16 @@ def main() -> int:
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
                     launches=k1_counts["warp_launches"], library_ms=None,
                     **{k: k1[k] for k in k1_keys}),
+               dict(name="band_fill_cluster", route="cuda",
+                    source="quaff_tpu_torch/csrc/band_fill_cluster.cuh",
+                    replaces="quaff_tpu/dp/pallas_v2.py:491",
+                    launches=k1_counts["cluster_launches"], library_ms=None,
+                    **{k: k1_wide[k] for k in k1_keys}),
                dict(name="band_fill_block", route="cuda",
                     source="quaff_tpu_torch/csrc/band_fill.cuh",
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
-                    launches=k1_counts["block_launches"], library_ms=None,
-                    **{k: k1_wide[k] for k in k1_keys})]
+                    launches=k1_block_counts["block_launches"],
+                    library_ms=None, **{k: k1_block[k] for k in k1_keys})]
     # K2 and K3: the warp routes on phase 5's path (train), timed on its
     # largest chunk; the block routes on phase 3b's count -fast with a
     # band wider than any warp route, timed on that run's chunk
@@ -2103,8 +2383,9 @@ def main() -> int:
     for name, source, n, res in (
             ("ov_fill", "quaff_tpu_torch/csrc/ov_fill_warp.cuh",
              k4_launches["warp_launches"], k4[0]),
-            ("ov_fill_block", "quaff_tpu_torch/csrc/ov_fill.cu",
-             k4_launches["block_launches"], k4_block)):
+            ("ov_fill_cluster", "quaff_tpu_torch/csrc/ov_fill_cluster.cuh",
+             k4_launches["cluster_launches"], k4_cl)):
+        check(n > 0, f"{name} was not launched on phase 6's path")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces="quaff_tpu/dp/pallas_overlap.py:221",
                             launches=n, **{k: res[k] for k in k4_keys}))

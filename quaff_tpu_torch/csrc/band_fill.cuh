@@ -362,7 +362,9 @@ cudaError_t launch_fill(const int8_t* x_tok, int Lx, const int4* keys, int Ly,
   const int threads = fill_threads(W);
   const int lanes_per_thread = (W + threads - 1) / threads;
   const size_t smem = scratch != nullptr ? 0 : (size_t)6 * W * sizeof(float);
-  if (smem > 48 * 1024) {
+  // the opt-in covers the kernel's static arrays too: dynamic bytes of
+  // 48 KB or just under still need it
+  if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
         band_fill_kernel<VIT, STORE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -120,25 +120,40 @@ struct Trans {
   float d2d, d2m, i2i, i2m;
 };
 
-// row j of the fill from row j-1's cells in s (FIRST: j == 1, where a
-// path may start)
-template <bool VIT, int LPT, bool FIRST>
-__device__ __forceinline__ void fill_row(Lanes<LPT>& s, const RowIn& r,
-                                         const Trans& tr, int j, int t,
-                                         bool local) {
+// one row's work on a thread's lanes between its two halves: validity,
+// the match and insert cells, the delete-chain steps and the thread's
+// composed step
+template <int LPT>
+struct RowWork {
+  bool v[LPT];
+  float mc[LPT], ic[LPT], cc[LPT], bb[LPT];
+  float c_acc, b_acc;
+};
+
+// The first half of row j from row j-1's cells in s (FIRST: j == 1, where
+// a path may start): A, the match and insert cells; B, the delete-chain
+// steps and their composition over the thread's lanes.  Thread 31's lane
+// w+1 of the previous row is (seam_m, seam_i): NEG past the warp route's
+// band, the next tile's first lane in a cluster route.  TILE: the first
+// lane of thread 0 stays out of the thread's step; it reads the tile
+// before's last lane and joins at the cross-tile fold.
+template <bool VIT, int LPT, bool FIRST, bool TILE>
+__device__ __forceinline__ void fill_cells(RowWork<LPT>& w,
+                                           const Lanes<LPT>& s,
+                                           const RowIn& r, const Trans& tr,
+                                           int j, int t, bool local,
+                                           float seam_m, float seam_i) {
   const float NEG = neg_big();
   float mat_r = __shfl_down_sync(kFull, s.mat[0], 1);
   float ins_r = __shfl_down_sync(kFull, s.ins[0], 1);
   if (t == 31) {
-    mat_r = NEG;
-    ins_r = NEG;
+    mat_r = seam_m;
+    ins_r = seam_i;
   }
-  bool v[LPT];
-  float mc[LPT], ic[LPT];
   // A: match and insert cells
 #pragma unroll
   for (int k = 0; k < LPT; ++k) {
-    v[k] = live(j, s.jlo[k], s.span[k]);
+    w.v[k] = live(j, s.jlo[k], s.span[k]);
     const float mh = k + 1 < LPT ? s.mat[k + 1 < LPT ? k + 1 : k] : mat_r;
     const float ih = k + 1 < LPT ? s.ins[k + 1 < LPT ? k + 1 : k] : ins_r;
     float a = comb<VIT>(comb<VIT>(s.mat[k] + r.m2m, s.del[k] + tr.d2m),
@@ -147,34 +162,56 @@ __device__ __forceinline__ void fill_row(Lanes<LPT>& s, const RowIn& r,
     const int tk = s.tok[k];
     const float e = tk < 2 ? (tk == 0 ? r.e[0] : r.e[1])
                            : (tk == 2 ? r.e[2] : r.e[3]);
-    mc[k] = v[k] ? a + e : NEG;
-    ic[k] = v[k] ? r.ins + comb<VIT>(ih + tr.i2i, mh + r.m2i) : NEG;
+    w.mc[k] = w.v[k] ? a + e : NEG;
+    w.ic[k] = w.v[k] ? r.ins + comb<VIT>(ih + tr.i2i, mh + r.m2i) : NEG;
   }
-  // B: compose the thread's delete-chain steps, scan them across the warp
-  float ml = __shfl_up_sync(kFull, mc[LPT - 1], 1);
+  // B: compose the thread's delete-chain steps
+  float ml = __shfl_up_sync(kFull, w.mc[LPT - 1], 1);
   if (t == 0) ml = NEG;
-  float cc[LPT], bb[LPT];
-  float c_acc = 0.f, b_acc = neg_inf();  // the identity step
+  w.c_acc = 0.f;
+  w.b_acc = neg_inf();  // the identity step
 #pragma unroll
   for (int k = 0; k < LPT; ++k) {
-    const float mprev = k > 0 ? mc[k > 0 ? k - 1 : 0] : ml;
-    cc[k] = v[k] ? tr.d2d : NEG;
-    bb[k] = v[k] ? mprev + r.m2d : NEG;
-    b_acc = comb<VIT>(b_acc + cc[k], bb[k]);
-    c_acc = c_acc + cc[k];
+    const float mprev = k > 0 ? w.mc[k > 0 ? k - 1 : 0] : ml;
+    w.cc[k] = w.v[k] ? tr.d2d : NEG;
+    w.bb[k] = w.v[k] ? mprev + r.m2d : NEG;
+    const bool skip = TILE && k == 0 && t == 0;
+    w.b_acc = skip ? w.b_acc : comb<VIT>(w.b_acc + w.cc[k], w.bb[k]);
+    w.c_acc = skip ? w.c_acc : w.c_acc + w.cc[k];
   }
+}
+
+// The second half of row j: C, replay the thread's lanes from x, the
+// chain's value entering them (an invalid lane's step (NEG, NEG) leaves
+// exactly NEG there); TILE: thread 0's x is already its first lane's
+// delete cell.
+template <bool VIT, int LPT, bool TILE>
+__device__ __forceinline__ void fill_apply(Lanes<LPT>& s, const RowWork<LPT>& w,
+                                           float x, int t) {
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const bool keep = TILE && k == 0 && t == 0;
+    x = keep ? x : comb<VIT>(x + w.cc[k], w.bb[k]);
+    s.del[k] = x;
+    s.mat[k] = w.mc[k];
+    s.ins[k] = w.ic[k];
+  }
+}
+
+// row j of the fill from row j-1's cells in s (FIRST: j == 1, where a
+// path may start)
+template <bool VIT, int LPT, bool FIRST>
+__device__ __forceinline__ void fill_row(Lanes<LPT>& s, const RowIn& r,
+                                         const Trans& tr, int j, int t,
+                                         bool local) {
+  const float NEG = neg_big();
+  RowWork<LPT> w;
+  fill_cells<VIT, LPT, FIRST, false>(w, s, r, tr, j, t, local, NEG, NEG);
+  float c_acc = w.c_acc, b_acc = w.b_acc;
   warp_scan<VIT>(c_acc, b_acc, t);
   float x = __shfl_up_sync(kFull, b_acc, 1);
   if (t == 0) x = neg_inf();
-  // C: replay the thread's lanes from the chain's incoming value (an
-  // invalid lane's step (NEG, NEG) leaves exactly NEG there)
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    x = comb<VIT>(x + cc[k], bb[k]);
-    s.del[k] = x;
-    s.mat[k] = mc[k];
-    s.ins[k] = ic[k];
-  }
+  fill_apply<VIT, LPT, false>(s, w, x, t);
 }
 
 // one row step: issue row j+1's loads (its inputs from the key loaded a

@@ -445,7 +445,9 @@ int quaff_bwd_counts(const void* x_tok, int Lx, const void* keys, int Ly,
   const int threads = fill_threads(W);
   const int lanes_per_thread = (W + threads - 1) / threads;
   const size_t smem = scratch != nullptr ? 0 : (size_t)8 * W * sizeof(float);
-  if (smem > 48 * 1024) {
+  // the opt-in covers the kernel's static arrays too: dynamic bytes of
+  // 48 KB or just under still need it
+  if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
         bwd_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

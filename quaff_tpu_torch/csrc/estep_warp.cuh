@@ -32,7 +32,7 @@
 //     with one warp on a scheduler that interleaving is what a row costs.
 //   - The log-add-exp is the TPU kernels' own (_fwd_kernel and _bwd_kernel
 //     both take pallas_v2._lse2_fast), lse2 below: the operations of
-//     ov_fill_warp.cuh's lse<true> without its predicates.  K3's posterior
+//     ov_fill_warp.cuh's lse without its predicates.  K3's posterior
 //     weights take the hardware exp (post_fast).  The block routes keep
 //     log1pf and expf.
 //   - The delete chains, K2's del[w] = lse(del[w-1] + d2d, mat[w-1] + m2d)
@@ -98,9 +98,9 @@ __device__ __forceinline__ float lg2_ftz(float x) {
 }
 
 // The TPU kernels' log-add-exp (pallas_v2._lse2_fast; ov_fill_warp.cuh's
-// lse<true>):
+// lse):
 // max(a, b) + ln 2 * lg2(1 + 2^(-|a - b| * log2 e)), the same operations on
-// the same values, in 8 instructions without a predicate.  lse<true>'s
+// the same values, in 8 instructions without a predicate.  lse's
 // __expf and __logf check for denormals (a compare feeding a predicated
 // multiply each, ~13 stall cycles on this card) and its guard for two
 // operands near -inf is a third; here exp and log flush to zero (exp's

@@ -1,21 +1,20 @@
 // K4's warp route: the banded read-vs-read overlap Viterbi score fill with
 // one warp per pair and the band row in registers, for NVIDIA Hopper
-// (sm_90a).  Also the delete chain's triple algebra, which ov_fill.cu's
-// block route shares.
+// (sm_90a).  Also the delete chain's triple algebra and the row code that
+// the cluster route (ov_fill_cluster.cuh) runs on each of its tiles.
 //
-// It computes what ov_fill_kernel (ov_fill.cu, the "block route")
-// computes, on the same inputs and into the same [B + B*S] output, for
-// bands of at most 32 * LPT lanes; ov_fill.cu launches it and
-// dp/ov_fill.ov_fill picks the route and LPT from the band's width
-// (ov_route).  The recurrence is the one at the top of ov_fill.cu.
+// It computes K4's [B + B*S] output (ov_fill.cu) for bands of at most 32
+// * LPT lanes; ov_fill.cu launches it and dp/ov_fill.ov_fill picks the
+// route and LPT from the band's width (ov_route).  The recurrence is the
+// one at the top of ov_fill.cu.
 //
-// Why.  The block route gives each pair a block with the M/I/D row in
-// shared memory and passes four block barriers a row.  At phase 6 of
+// Why.  A block a pair with the M/I/D row in shared memory (K4's first
+// design, since removed) passed four block barriers a row.  At phase 6 of
 // chip_smoke.py (128 pairs of W=126 on 132 SMs, one block an SM) a row
-// costs ~4 us: every row starts with 7 (gap order 1: 9) dependent loads of
-// each lane's x values from L2, then the emission's three log-add-exps,
-// then shared-memory round trips around the scans, all on the row's
-// critical path.
+// cost ~4 us: every row started with 7 (gap order 1: 9) dependent loads
+// of each lane's x values from L2, then the emission's three
+// log-add-exps, then shared-memory round trips around the scans, all on
+// the row's critical path.
 //
 // Design (band_fill_warp.cuh's, with three log-add-exp states).
 //   - One warp fills one pair; a block holds kOvWarpsPerBlock independent
@@ -51,7 +50,7 @@
 //     on a row's dependent chain: only the match/insert update, the
 //     thread's composes, the triple scan and one log-add-exp do.
 //   - The log-add-exp is the TPU kernel's own form (pallas_v2._lse2_fast,
-//     lse<true> below): the hardware exp and log of 1 + exp(-|a - b|).
+//     lse below): the hardware exp and log of 1 + exp(-|a - b|).
 //     log1pf's software polynomial made a row's chain ~6x longer, and
 //     with one warp a pair the chain is what a row costs.
 //   - The pair score (end + x and y insert sums) and the per-strip end
@@ -77,31 +76,27 @@ namespace {
 constexpr int kChIns = 4, kChOpen = 5, kChStay = 6;
 constexpr int kOvWarpsPerBlock = 4;
 
-// log-add-exp: comb<false> (log1pf, as K1-K3 and the block route), or with
-// FAST the TPU kernel's own form (pallas_v2._lse2_fast): the hardware exp
-// and log of 1 + exp(-|a - b|), within ~2e-7 of log1p (far below float32's
-// step at the cells' magnitudes) in about a sixth of the dependent
-// instructions, with the same guard for two operands near -inf
-template <bool FAST = false>
+// log-add-exp in the TPU kernel's own form (pallas_v2._lse2_fast): the
+// hardware exp and log of 1 + exp(-|a - b|), within ~2e-7 of log1p (far
+// below float32's step at the cells' magnitudes) in about a sixth of
+// log1pf's dependent instructions, with the same guard for two operands
+// near -inf
 __device__ __forceinline__ float lse(float a, float b) {
-  if (!FAST) return comb<false>(a, b);
   const float m = fmaxf(a, b);
   const float r = m + __logf(1.f + __expf(-fabsf(a - b)));
   return m < -1e38f ? m : r;
 }
 
 // (c, k, b) := (c, k, b) then (c2, k2, b2)
-template <bool FAST = false>
 __device__ __forceinline__ void compose(float& c, float& k, float& b, float c2,
                                         float k2, float b2) {
-  b = fmaxf(lse<FAST>(b + c2, k2), b2);
-  k = lse<FAST>(k + c2, k2);
+  b = fmaxf(lse(b + c2, k2), b2);
+  k = lse(k + c2, k2);
   c = c + c2;
 }
 
 // inclusive scan of triples over the first `span` lanes of a warp (a
 // warp-uniform count; the lanes past it get partial scans), in lane order
-template <bool FAST = false>
 __device__ __forceinline__ void warp_scan3(float& c, float& k, float& b,
                                            int lane, int span = 32) {
 #pragma unroll
@@ -111,7 +106,7 @@ __device__ __forceinline__ void warp_scan3(float& c, float& k, float& b,
     float ko = __shfl_up_sync(kFull, k, off);
     float bo = __shfl_up_sync(kFull, b, off);
     if (lane >= off) {
-      compose<FAST>(co, ko, bo, c, k, b);  // the earlier lanes' map, then ours
+      compose(co, ko, bo, c, k, b);  // the earlier lanes' map, then ours
       c = co;
       k = ko;
       b = bo;
@@ -177,7 +172,7 @@ __device__ __forceinline__ void ov_row_in(OvRowIn<IK, LPT>& r,
   for (int k = 0; k < LPT; ++k) {
     float acc = ld.x[0][k] + ld.y[0];
 #pragma unroll
-    for (int c = 1; c < 4; ++c) acc = lse<true>(acc, ld.x[c][k] + ld.y[c]);
+    for (int c = 1; c < 4; ++c) acc = lse(acc, ld.x[c][k] + ld.y[c]);
     r.emit[k] = acc - ld.x[kChIns][k] - ld.y[kChIns];
     if (IK) {
       r.sx[IK ? k : 0] = s.dm1[k] + j >= 1 ? ld.x[IK ? kChStay : 0][k] : 0.f;
@@ -194,6 +189,103 @@ struct OvTrans {
   float m2m, m2i, m2d, i2m, i2i, d2m, d2i, d2d;
 };
 
+// one row's work on a thread's lanes between its two halves: validity,
+// the match and insert cells, and the inclusive delete-chain maps
+template <int LPT>
+struct OvRowWork {
+  bool v[LPT];
+  float mc[LPT], ic[LPT];
+  float pc[LPT], pk[LPT], pb[LPT];
+};
+
+// The first half of row j from row j-1's cells in s: A, the match and
+// insert cells; B, the inclusive maps of the thread's lanes (its
+// delete-chain triples composed in lane order).  Thread 31's lane w+1 of
+// the previous row is (seam_m, seam_i, seam_d): NEG past the warp route's
+// band, the next tile's first lane in a cluster route.  TILE: the first
+// lane of thread 0 keeps the identity map; its step reads the tile
+// before's last lane and joins at the cross-tile fold.
+template <bool IK, int LPT, bool TILE>
+__device__ __forceinline__ void ov_row_cells(OvRowWork<LPT>& w,
+                                             const OvLanes<LPT>& s,
+                                             const OvRowIn<IK, LPT>& r,
+                                             const OvTrans& tr, int j,
+                                             int xlen, int ylen, int t,
+                                             float seam_m, float seam_i,
+                                             float seam_d) {
+  const float NEG = neg_big();
+  const bool row_ok = j <= ylen;
+  float mat_r = __shfl_down_sync(kFull, s.mat[0], 1);
+  float ins_r = __shfl_down_sync(kFull, s.ins[0], 1);
+  float del_r = __shfl_down_sync(kFull, s.del[0], 1);
+  if (t == 31) {
+    mat_r = seam_m;
+    ins_r = seam_i;
+    del_r = seam_d;
+  }
+  // A: match and insert cells from the previous row
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const int ti = s.dm1[k] + j;  // i - 1
+    w.v[k] = row_ok && (unsigned)ti < (unsigned)xlen;
+    const float m2m = IK ? r.sx[IK ? k : 0] + r.ys : tr.m2m;
+    const float m2i = IK ? r.ox[IK ? k : 0] : tr.m2i;
+    float a = fmaxf(fmaxf(s.mat[k] + m2m, s.del[k] + tr.d2m), s.ins[k] + tr.i2m);
+    if (j == 1 || ti == 0) a = fmaxf(a, 0.f);
+    const float mh = k + 1 < LPT ? s.mat[k + 1 < LPT ? k + 1 : k] : mat_r;
+    const float ih = k + 1 < LPT ? s.ins[k + 1 < LPT ? k + 1 : k] : ins_r;
+    const float dh = k + 1 < LPT ? s.del[k + 1 < LPT ? k + 1 : k] : del_r;
+    w.mc[k] = w.v[k] ? a + r.emit[k] : NEG;
+    w.ic[k] = w.v[k] ? fmaxf(lse(ih + tr.i2i, dh + tr.d2i), mh + m2i) : NEG;
+  }
+  // B: the inclusive maps of the thread's lanes
+  float ml = __shfl_up_sync(kFull, w.mc[LPT - 1], 1);
+  float il = __shfl_up_sync(kFull, w.ic[LPT - 1], 1);
+  if (t == 0) {
+    ml = NEG;
+    il = NEG;
+  }
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const float mprev = k > 0 ? w.mc[k > 0 ? k - 1 : 0] : ml;
+    const float iprev = k > 0 ? w.ic[k > 0 ? k - 1 : 0] : il;
+    const float m2d = IK ? r.sx[IK ? k : 0] + r.yo : tr.m2d;
+    const float cc = w.v[k] ? tr.d2d : NEG;
+    const float kk = w.v[k] ? iprev + tr.d2i : NEG;
+    const float bb = w.v[k] ? mprev + m2d : NEG;
+    if (k == 0) {
+      const bool first = TILE && t == 0;
+      w.pc[0] = first ? 0.f : cc;
+      w.pk[0] = first ? neg_inf() : kk;
+      w.pb[0] = first ? neg_inf() : bb;
+    } else {
+      w.pc[k] = w.pc[k > 0 ? k - 1 : 0];
+      w.pk[k] = w.pk[k > 0 ? k - 1 : 0];
+      w.pb[k] = w.pb[k > 0 ? k - 1 : 0];
+      compose(w.pc[k], w.pk[k], w.pb[k], cc, kk, bb);
+    }
+  }
+}
+
+// The second half of row j: C, each lane's delete cell is its inclusive
+// map applied to x, the value entering the thread (no chain across the
+// thread's lanes), then the end maxima and the row's cells into s.
+template <int LPT>
+__device__ __forceinline__ void ov_row_apply(OvLanes<LPT>& s,
+                                             const OvRowWork<LPT>& w, float x,
+                                             int j, int xlen, int ylen) {
+  const float NEG = neg_big();
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    s.del[k] = w.v[k] ? fmaxf(lse(x + w.pc[k], w.pk[k]), w.pb[k]) : NEG;
+    const int ti = s.dm1[k] + j;
+    if (w.v[k] && (j == ylen || ti == xlen - 1))
+      s.endw[k] = fmaxf(s.endw[k], w.mc[k]);
+    s.mat[k] = w.mc[k];
+    s.ins[k] = w.ic[k];
+  }
+}
+
 // row j of the pair from row j-1's cells in s; `span`: the threads that
 // hold a lane of the band (ceil(W / LPT))
 template <bool IK, int LPT>
@@ -203,76 +295,16 @@ __device__ __forceinline__ void ov_fill_row(OvLanes<LPT>& s,
                                             int xlen, int ylen, int t,
                                             int span) {
   const float NEG = neg_big();
-  const bool row_ok = j <= ylen;
-  float mat_r = __shfl_down_sync(kFull, s.mat[0], 1);
-  float ins_r = __shfl_down_sync(kFull, s.ins[0], 1);
-  float del_r = __shfl_down_sync(kFull, s.del[0], 1);
-  if (t == 31) {
-    mat_r = NEG;
-    ins_r = NEG;
-    del_r = NEG;
-  }
-  bool v[LPT];
-  float mc[LPT], ic[LPT];
-  // A: match and insert cells from the previous row
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    const int ti = s.dm1[k] + j;  // i - 1
-    v[k] = row_ok && (unsigned)ti < (unsigned)xlen;
-    const float m2m = IK ? r.sx[IK ? k : 0] + r.ys : tr.m2m;
-    const float m2i = IK ? r.ox[IK ? k : 0] : tr.m2i;
-    float a = fmaxf(fmaxf(s.mat[k] + m2m, s.del[k] + tr.d2m), s.ins[k] + tr.i2m);
-    if (j == 1 || ti == 0) a = fmaxf(a, 0.f);
-    const float mh = k + 1 < LPT ? s.mat[k + 1 < LPT ? k + 1 : k] : mat_r;
-    const float ih = k + 1 < LPT ? s.ins[k + 1 < LPT ? k + 1 : k] : ins_r;
-    const float dh = k + 1 < LPT ? s.del[k + 1 < LPT ? k + 1 : k] : del_r;
-    mc[k] = v[k] ? a + r.emit[k] : NEG;
-    ic[k] = v[k] ? fmaxf(lse<true>(ih + tr.i2i, dh + tr.d2i), mh + m2i) : NEG;
-  }
-  // B: the inclusive maps of the thread's lanes (its delete-chain triples
-  // composed in lane order), then the scan of the threads' totals
-  float ml = __shfl_up_sync(kFull, mc[LPT - 1], 1);
-  float il = __shfl_up_sync(kFull, ic[LPT - 1], 1);
-  if (t == 0) {
-    ml = NEG;
-    il = NEG;
-  }
-  float pc[LPT], pk[LPT], pb[LPT];
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    const float mprev = k > 0 ? mc[k > 0 ? k - 1 : 0] : ml;
-    const float iprev = k > 0 ? ic[k > 0 ? k - 1 : 0] : il;
-    const float m2d = IK ? r.sx[IK ? k : 0] + r.yo : tr.m2d;
-    const float cc = v[k] ? tr.d2d : NEG;
-    const float kk = v[k] ? iprev + tr.d2i : NEG;
-    const float bb = v[k] ? mprev + m2d : NEG;
-    if (k == 0) {
-      pc[0] = cc;
-      pk[0] = kk;
-      pb[0] = bb;
-    } else {
-      pc[k] = pc[k > 0 ? k - 1 : 0];
-      pk[k] = pk[k > 0 ? k - 1 : 0];
-      pb[k] = pb[k > 0 ? k - 1 : 0];
-      compose<true>(pc[k], pk[k], pb[k], cc, kk, bb);
-    }
-  }
-  float c_acc = pc[LPT - 1], k_acc = pk[LPT - 1], b_acc = pb[LPT - 1];
-  warp_scan3<true>(c_acc, k_acc, b_acc, t, span);
+  OvRowWork<LPT> w;
+  ov_row_cells<IK, LPT, false>(w, s, r, tr, j, xlen, ylen, t, NEG, NEG, NEG);
+  // the scan of the threads' totals
+  float c_acc = w.pc[LPT - 1], k_acc = w.pk[LPT - 1], b_acc = w.pb[LPT - 1];
+  warp_scan3(c_acc, k_acc, b_acc, t, span);
   // the map of the lanes before this thread's, applied to -inf
   float ke = __shfl_up_sync(kFull, k_acc, 1);
   float be = __shfl_up_sync(kFull, b_acc, 1);
   const float x = t == 0 ? neg_inf() : fmaxf(ke, be);
-  // C: each lane's delete cell is its inclusive map applied to the value
-  // entering the thread (no chain across the thread's lanes)
-#pragma unroll
-  for (int k = 0; k < LPT; ++k) {
-    s.del[k] = v[k] ? fmaxf(lse<true>(x + pc[k], pk[k]), pb[k]) : NEG;
-    const int ti = s.dm1[k] + j;
-    if (v[k] && (j == ylen || ti == xlen - 1)) s.endw[k] = fmaxf(s.endw[k], mc[k]);
-    s.mat[k] = mc[k];
-    s.ins[k] = ic[k];
-  }
+  ov_row_apply<LPT>(s, w, x, j, xlen, ylen);
 }
 
 __device__ __forceinline__ float ov_warp_max(float v) {

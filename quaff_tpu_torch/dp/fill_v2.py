@@ -11,8 +11,9 @@ score plus the end maximum of each lane-packed strip:
                         float32 tensors, mirroring _one_row step by step
   band_fill             the wrapper: csrc/band_fill.cu on a CUDA tensor
                         (the warp route for bands of up to 32 * 16 lanes,
-                        the block route for wider ones: fill_route), the
-                        plain version on a CPU tensor
+                        the cluster route up to FILL_CLUSTER_MAX_LANES, the
+                        block route for wider ones: fill_route), the plain
+                        version on a CPU tensor
   scores_v2             prep + band_fill + the -inf mapping
                         (scores_v2_device / scores_v2_traceable)
 
@@ -50,16 +51,91 @@ D_SENTINEL = 1 << 24
 # lanes a thread of K1's warp route (the instantiations of
 # csrc/band_fill_warp.cuh); a warp covers 32 * lpt lanes
 WARP_LPTS = (1, 2, 4, 8, 16)
+# K1's cluster route (csrc/band_fill_cluster.cuh): a pair's band tiled over
+# the warps of a thread-block cluster, 32 * lpt lanes a tile, at most
+# MAX_TILES tiles and MAX_CLUSTER_CTAS CTAs (the card's portable cluster
+# size); lanes a thread of its instantiations, and the warps a CTA each
+# may have (its registers: 255 a thread at 8 warps, 128 at 16)
+MAX_TILES = 32
+MAX_CLUSTER_CTAS = 8
+FILL_CLUSTER_LPTS = (4, 8, 16)
+# The cluster route's tiling by width: (widest band, lanes a thread, warps
+# a CTA at most), the first row that covers W; the tiles spread evenly over
+# the fewest CTAs that hold them (cluster_tiling).  Each row is the fastest
+# tiling that holds K1's tolerance against the plain version (rtol 1e-5 /
+# atol 1e-3) on the cluster-route cases of chip_smoke.py phases 2 and 4,
+# from their sweep of every tiling (median of 3; NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md §6):
+#   - 1101 lanes (global, 300 rows): 1 x 9 x 4 0.405 ms, the fastest (the
+#     next 1 x 5 x 8 0.465);
+#   - 4038 lanes (phase 4's chunk, reads of up to 8598 rows): 1 x 16 x 8
+#     15.421 ms.  1 x 8 x 16 took 14.620, but it and every other tiling of
+#     16 lanes a thread are 0.445 off the plain version there, outside the
+#     tolerance (0.35 at these scores); 8 lanes a thread are 0.355 off, 4
+#     lanes 0.223.  The error is the order of the float32 sums: every one of
+#     these fills, the plain version's too, is 1.99 off the plain version
+#     run in float64, so none is nearer the exact score.  One CTA beat every
+#     multi-CTA tiling (the fastest 4 x 4 x 8, 17.896) and the block route
+#     (31.417);
+#   - 12070 lanes (400 rows): 6 x 4 x 16 1.062 ms against 1.374 for 3 x 8 x
+#     16; past 8192 lanes only 16 lanes a thread cover the band in 32 tiles.
+FILL_CLUSTER_TABLE = ((2048, 4, 16), (8192, 8, 16), (16384, 16, 4))
+# the widest band the cluster route takes; wider ones take the block route
+FILL_CLUSTER_MAX_LANES = FILL_CLUSTER_TABLE[-1][0]
+
+
+def fill_cluster_max_warps(lpt: int) -> int:
+    """Warps a CTA of K1's cluster route may have at lpt lanes a thread."""
+    return 8 if lpt >= 16 else 16
+
+
+def cluster_tiling(W: int, table) -> tuple:
+    """(CTAs a pair, warps a CTA, lanes a thread) of a cluster route for a
+    band of W lanes from its (widest band, lpt, warps a CTA at most) table:
+    the tiles of 32 * lpt lanes that cover the band, over the fewest CTAs
+    that hold them, spread evenly."""
+    for widest, lpt, cap in table:
+        if W <= widest:
+            tiles = -(-W // (32 * lpt))
+            nct = -(-tiles // cap)
+            return nct, -(-tiles // nct), lpt
+    raise ValueError(f"no cluster tiling covers a band of {W} lanes")
+
+
+def cluster_route_ok(W: int, tiling, lpts, max_warps) -> bool:
+    """Whether a cluster tiling (nct, warps, lpt) is one the kernel has and
+    covers W lanes, in a cluster of at most MAX_CLUSTER_CTAS CTAs."""
+    try:
+        nct, warps, lpt = (int(v) for v in tiling)
+    except (TypeError, ValueError):
+        return False
+    return (lpt in lpts and 1 <= nct <= MAX_CLUSTER_CTAS
+            and 1 <= warps <= max_warps(lpt) and nct * warps <= MAX_TILES
+            and W <= 32 * lpt * warps * nct)
 
 
 def fill_route(W: int) -> tuple:
-    """K1's route for a band of W lanes: ("warp", lpt) with the smallest
-    lpt of WARP_LPTS whose warp covers the band (32 * lpt >= W), else
-    ("block", 0): one block per pair, for bands wider than 32 * 16."""
+    """K1's route for a band of W lanes, a function of W alone: ("warp",
+    lpt) with the smallest lpt of WARP_LPTS whose warp covers the band
+    (32 * lpt >= W); past 32 * 16 lanes ("cluster", (nct, warps, lpt)) of
+    cluster_tiling up to FILL_CLUSTER_MAX_LANES; ("block", 0) past it: one
+    block per pair."""
     for lpt in WARP_LPTS:
         if 32 * lpt >= W:
             return "warp", lpt
+    if W <= FILL_CLUSTER_MAX_LANES:
+        return "cluster", cluster_tiling(W, FILL_CLUSTER_TABLE)
     return "block", 0
+
+
+def _fill_route_ok(W: int, route) -> bool:
+    kind, arg = route
+    if kind == "warp":
+        return arg in WARP_LPTS and W <= 32 * arg
+    if kind == "cluster":
+        return cluster_route_ok(W, arg, FILL_CLUSTER_LPTS,
+                                fill_cluster_max_warps)
+    return kind == "block" and arg == 0
 
 
 class V2Tables:
@@ -185,9 +261,13 @@ def _lse2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
                         tables: V2Tables, mode: str = "viterbi",
                         local: bool = True, max_prop=None,
-                        rows=None, offsets=None) -> torch.Tensor:
+                        rows=None, offsets=None,
+                        dtype=torch.float32) -> torch.Tensor:
     """The plain PyTorch version of K1 on the packed layout: returns the
-    raw [B + B*S] float32 pair scores and strip maxima.
+    raw [B + B*S] float32 pair scores and strip maxima.  With dtype
+    torch.float64 the row cells and sums are float64 (the float32 tables'
+    values, added without float32 rounding) and so is the output: a
+    witness of how far a float32 fill drifts.
 
     With `rows` ([3, B, Ly, W] float32) and `offsets` ([B, Ly] float64),
     K2's store, the Forward fill is kept scaled: after each row its largest
@@ -203,7 +283,7 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     B, W = doff.shape
     Ly = keys.shape[1]
     dev = doff.device
-    f32 = torch.float32
+    f32 = dtype
 
     xt = x_tok.long()
     Lx = xt.shape[1]
@@ -212,10 +292,11 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     has_q = meta[:, 2].bool()
     doffl = doff.long()
     not_sent = doff != D_SENTINEL
-    d2d, d2m, i2i, i2m = tables.trans.unbind(0)
+    d2d, d2m, i2i, i2m = tables.trans.to(f32).unbind(0)
+    ik = tables.ik.to(f32)
     if tables.n_ik == 1:
         # gap order 0: one indel context, transitions are scalars
-        m2m, m2i, m2d, m2e = tables.ik[0].unbind(0)
+        m2m, m2i, m2d, m2e = ik[0].unbind(0)
     ik_prev = torch.zeros(B, dtype=torch.long, device=dev)
     reach = W if max_prop is None else min(int(max_prop), W)
 
@@ -227,10 +308,10 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     for j in range(1, Ly + 1):
         mk, q, yt, ik_cur = keys[:, j - 1].long().unbind(1)
         if tables.n_ik != 1:
-            m2m = tables.ik[ik_prev, 0][:, None]
-            m2i = tables.ik[ik_prev, 1][:, None]
-            m2d = tables.ik[ik_cur, 2][:, None]
-            m2e = tables.ik[ik_cur, 3][:, None]
+            m2m = ik[ik_prev, 0][:, None]
+            m2i = ik[ik_prev, 1][:, None]
+            m2d = ik[ik_cur, 2][:, None]
+            m2e = ik[ik_cur, 3][:, None]
         emit4 = torch.where(has_q[:, None], tables.match[:, mk, q].T,
                             tables.match_noq[:, mk].T)  # [B, 4]
         ins_emit = torch.where(has_q, tables.insert[yt, q],
@@ -328,18 +409,46 @@ def table_specs(tables: V2Tables) -> dict:
     }
 
 
+def launch_args(x_tok, keys, meta, doff, seg_start, seg_width,
+                tables: V2Tables, mode: str, local: bool) -> tuple:
+    """The arguments every K1 entry of csrc/band_fill.cu takes first (its
+    route's own and the output follow)."""
+    B, W = doff.shape
+    return (
+        x_tok.data_ptr(), x_tok.shape[1], keys.data_ptr(), keys.shape[1],
+        meta.data_ptr(), doff.data_ptr(), W, seg_start.data_ptr(),
+        seg_width.data_ptr(), seg_start.shape[1],
+        tables.match.data_ptr(), tables.match_noq.data_ptr(),
+        tables.insert.data_ptr(), tables.insert_noq.data_ptr(),
+        tables.match.shape[1], tables.match.shape[2],
+        tables.ik.data_ptr(), tables.n_ik, tables.trans.data_ptr(),
+        B, int(mode == "viterbi"), int(bool(local)),
+    )
+
+
 def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
               tables: V2Tables, mode: str = "viterbi", local: bool = True,
-              max_prop=None) -> torch.Tensor:
+              max_prop=None, route=None) -> torch.Tensor:
     """K1 on the tensors' device: csrc/band_fill.cu for CUDA tensors, on
     the route fill_route picks from the band's width (each launch adds one
-    to `band_fill.launches` and to `warp_launches` or `block_launches`),
-    the plain version for CPU tensors.  Same inputs and [B + B*S] float32
-    output for all three.  A failed launch raises on either route.
+    to `band_fill.launches` and to `warp_launches`, `cluster_launches` or
+    `block_launches`), the plain version for CPU tensors.  Same inputs and
+    [B + B*S] float32 output for all.  A failed launch, or a cluster shape
+    the card refuses, raises on every route; none gives way to another.
+
+    route, ("warp", lpt), ("cluster", (nct, warps, lpt)) or ("block", 0),
+    launches that route instead, for holding the routes against each other
+    on the same inputs; it must cover the band.
 
     max_prop bounds the plain version's shift-scan steps; the kernels'
     delete scans are sequential inside a thread and a tree across threads,
     which covers the whole row at any reach."""
+    B, W = doff.shape
+    if route is None:
+        route = fill_route(W)
+    if not _fill_route_ok(W, route):
+        raise ValueError(f"band_fill: no route {route} for a band of {W} "
+                         f"lanes")
     dev = doff.device
     if dev.type == "cpu":
         return band_fill_reference(x_tok, keys, meta, doff, seg_start,
@@ -348,7 +457,6 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
         raise RuntimeError(f"band_fill: no kernel for device {dev}")
     from .. import kernels
 
-    B, W = doff.shape
     S = seg_start.shape[1]
     Ly = keys.shape[1]
     Lx = x_tok.shape[1]
@@ -361,24 +469,21 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
         "seg_width": (seg_width, torch.int32, (B, S)),
         **table_specs(tables),
     }, dev)
-    Km, Q = tables.match.shape[1], tables.match.shape[2]
     out = torch.empty(B + B * S, dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    route, lpt = fill_route(W)
+    kind, arg = route
     with torch.cuda.device(dev):
         lib = kernels.library()
-        args = (
-            x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
-            doff.data_ptr(), W, seg_start.data_ptr(), seg_width.data_ptr(), S,
-            tables.match.data_ptr(), tables.match_noq.data_ptr(),
-            tables.insert.data_ptr(), tables.insert_noq.data_ptr(), Km, Q,
-            tables.ik.data_ptr(), tables.n_ik, tables.trans.data_ptr(),
-            B, int(mode == "viterbi"), int(bool(local)),
-        )
+        args = launch_args(x_tok, keys, meta, doff, seg_start, seg_width,
+                           tables, mode, local)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if route == "warp":
-            err = lib.quaff_band_fill_warp(*args, lpt, out.data_ptr(), stream)
+        if kind == "warp":
+            err = lib.quaff_band_fill_warp(*args, arg, out.data_ptr(), stream)
+        elif kind == "cluster":
+            nct, warps, lpt = arg
+            err = lib.quaff_band_fill_cluster(*args, lpt, nct, warps,
+                                              out.data_ptr(), stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0):
@@ -389,21 +494,16 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
             err = lib.quaff_band_fill(
                 *args, 0 if scratch is None else scratch.data_ptr(),
                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"band_fill kernel launch failed ({route} route): "
-            f"{kernels.error_string(err)} (B={B}, W={W}, Ly={Ly})"
-        )
+    kernels.check_launch(err, "band_fill", route, f"B={B}, W={W}, Ly={Ly}")
     band_fill.launches += 1
-    if route == "warp":
-        band_fill.warp_launches += 1
-    else:
-        band_fill.block_launches += 1
+    setattr(band_fill, f"{kind}_launches",
+            getattr(band_fill, f"{kind}_launches") + 1)
     return out
 
 
 band_fill.launches = 0
 band_fill.warp_launches = 0
+band_fill.cluster_launches = 0
 band_fill.block_launches = 0
 
 

@@ -12,8 +12,8 @@ each pair's score plus the end maximum of each lane-packed strip:
                       (its doubling scan of the delete chain included)
   ov_fill             the wrapper: csrc/ov_fill.cu on a CUDA tensor (the
                       warp route for bands of up to OV_WARP_MAX_LANES, the
-                      block route for wider ones: ov_route), the plain
-                      version on a CPU tensor
+                      cluster route for wider ones up to OV_LANE_CAP:
+                      ov_route), the plain version on a CPU tensor
   overlap_scores      prep + ov_fill (overlap_scores_kernel)
 
 The pair emission of a cell is recomputed from its definition, which
@@ -51,25 +51,50 @@ import torch
 
 from ..alphabet import QUAL_SCORE_RANGE
 from .engine import _shift_left, _shift_right
-from .fill_v2 import D_SENTINEL, NEG_INF, WARP_LPTS, _lse2, check_tensors
+from .fill_v2 import (D_SENTINEL, NEG_INF, WARP_LPTS, _lse2, check_tensors,
+                      cluster_route_ok, cluster_tiling)
 
 MAX_SEGS = 3  # lane-packed strips per pair (more get merged)
 
-# Widest packed band K4 takes: its row state is 7 float32 words a lane in
-# shared memory, and an H100 block may hold 227 KB (8192 lanes use 224 KB).
-# Wider pairs go straight to the host's exact pass.  The cap is a constant,
-# not a query of the card, because it decides which envelopes are re-banded
-# and so the output text: the CPU and the card must agree.
+# Widest packed band K4 takes.  Wider pairs go straight to the host's
+# exact pass.  The cap is a constant, not a query of the card, because it
+# decides which envelopes are re-banded and so the output text: the CPU
+# and the card must agree.  (It was set by the block route's row state, 7
+# float32 words a lane in a block's 227 KB of shared memory; the cluster
+# route keeps it.)
 OV_LANE_CAP = 8192
 
 # Widest band K4's warp route takes (csrc/ov_fill_warp.cuh, one warp a
-# pair, 32 * lpt lanes for lpt in WARP_LPTS); wider bands take the block
-# route (csrc/ov_fill.cu).  256, not 512: on the same inputs, 16 lanes a
-# thread lost to the block route at 257-512 lanes (chip_smoke.py phase 6,
-# its 7-pair W=455 chunk: 52.1 against 48.0 ms), while 8 lanes a thread won
-# at 218 lanes (its 73-pair chunk: 27.7 against 42.3 ms; NVIDIA H100 80GB
-# HBM3 at 700 W, PERF.md).
-OV_WARP_MAX_LANES = 256
+# pair, 32 * lpt lanes for lpt in WARP_LPTS); wider bands take the cluster
+# route.  128: on the same inputs (chip_smoke.py phase 6, NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md) the warp route won at 126 lanes (its
+# 630-pair chunk: 4 lanes a thread 14.478 ms against the cluster route's
+# 17.399) and lost at 218 (its 73-pair chunk: 8 lanes a thread 27.727
+# against 17.095) and at 455 (16 lanes a thread 52.047 against 19.503).
+OV_WARP_MAX_LANES = 128
+
+# K4's cluster route (csrc/ov_fill_cluster.cuh): a pair's band tiled over
+# the warps of a thread-block cluster, 32 * lpt lanes a tile; lanes a
+# thread of its instantiations, and its tiling by width: (widest band,
+# lanes a thread, warps a CTA at most), the first row that covers W
+# (fill_v2.cluster_tiling).  Set from chip_smoke.py phase 6's sweep of
+# every tiling on each of its cluster-route chunks (median of 3, NVIDIA
+# H100 80GB HBM3 at 700 W, PERF.md): the fastest was one CTA of up to 16
+# warps at 2 lanes a thread up to 1024 lanes (825: 1 x 13 x 2 19.054 ms,
+# against 21.330 for 4 x 4 x 2), and then CTAs of 4 warps at the fewest
+# lanes a thread whose 32 tiles cover the band (1945: 8 x 4 x 2 18.728
+# against 26.607 for 2 x 8 x 4; 3788: 8 x 4 x 4 31.960 against 34.100 for
+# 4 x 8 x 4; 8063: 8 x 4 x 8 41.051 against 45.352 for 4 x 8 x 8).
+OV_CLUSTER_LPTS = (2, 4, 8)
+OV_CLUSTER_TABLE = ((1024, 2, 16), (2048, 2, 4), (4096, 4, 4),
+                    (OV_LANE_CAP, 8, 4))
+
+
+def ov_cluster_max_warps(lpt: int) -> int:
+    """Warps a CTA of K4's cluster route may have at lpt lanes a thread
+    (its registers: 255 a thread at 8 warps, 128 at 16)."""
+    return 8 if lpt >= 8 else 16
+
 
 # bank channels
 CH_INS = 4  # insX / insY
@@ -250,7 +275,7 @@ def ov_fill_reference(bank, meta, doff, seg_start, seg_width, ins_xy,
     past that reach every step leaves max(k, b) bit for bit as it was."""
     neg = NEG_INF
     B, W = doff.shape
-    NR, C, L = bank.shape
+    _, C, L = bank.shape
     dev = doff.device
     use_ik = C == 7
     flat = bank.reshape(-1)
@@ -348,33 +373,57 @@ def ov_fill_reference(bank, meta, doff, seg_start, seg_width, ins_xy,
 
 
 def ov_route(W: int) -> tuple:
-    """K4's route for a band of W lanes: ("warp", lpt) with the smallest
-    lpt of WARP_LPTS whose warp covers the band (32 * lpt >= W), up to
-    OV_WARP_MAX_LANES, else ("block", None): one block per pair."""
+    """K4's route for a band of W lanes, a function of W alone: ("warp",
+    lpt) with the smallest lpt of WARP_LPTS whose warp covers the band
+    (32 * lpt >= W), up to OV_WARP_MAX_LANES; past it ("cluster", (nct,
+    warps, lpt)) of OV_CLUSTER_TABLE, up to OV_LANE_CAP.  No route takes a
+    wider band (ValueError): the pipeline re-bands those."""
     for lpt in WARP_LPTS:
         if W <= 32 * lpt <= OV_WARP_MAX_LANES:
             return "warp", lpt
-    return "block", None
+    if W > OV_LANE_CAP:
+        raise ValueError(f"ov_route: a band of {W} lanes is past "
+                         f"OV_LANE_CAP ({OV_LANE_CAP})")
+    return "cluster", cluster_tiling(W, OV_CLUSTER_TABLE)
+
+
+def _ov_route_ok(W: int, route) -> bool:
+    kind, arg = route
+    if kind == "warp":
+        return arg in WARP_LPTS and W <= 32 * arg
+    return kind == "cluster" and cluster_route_ok(
+        W, arg, OV_CLUSTER_LPTS, ov_cluster_max_warps)
+
+
+def launch_args(bank, meta, doff, seg_start, seg_width, ins_xy,
+                trans) -> tuple:
+    """The arguments every K4 entry of csrc/ov_fill.cu takes first (its
+    route's own and the output follow)."""
+    B, W = doff.shape
+    _, C, L = bank.shape
+    return (bank.data_ptr(), C, L, meta.data_ptr(), doff.data_ptr(), W,
+            seg_start.data_ptr(), seg_width.data_ptr(), seg_start.shape[1],
+            ins_xy.data_ptr(), trans.data_ptr(), B)
 
 
 def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy, trans,
             route=None) -> torch.Tensor:
     """K4 on the tensors' device: csrc/ov_fill.cu for CUDA tensors, on the
     route ov_route picks from the band's width (each launch adds one to
-    `ov_fill.launches` and to `warp_launches` or `block_launches`), the
+    `ov_fill.launches` and to `warp_launches` or `cluster_launches`), the
     plain version for CPU tensors.  Same inputs and [B + B*S] float32
-    output for all three.  A failed launch raises on either route.
+    output for all.  A failed launch, or a cluster shape the card refuses,
+    raises on every route; none gives way to another.
 
-    route, ("warp", lpt) or ("block", None), launches that route instead,
-    for holding the two against each other on the same inputs; a warp of
-    32 * lpt lanes must cover the band."""
+    route, ("warp", lpt) or ("cluster", (nct, warps, lpt)), launches that
+    route instead, for holding the routes against each other on the same
+    inputs; it must cover the band."""
     B, W = doff.shape
     if route is None:
         route = ov_route(W)
-    kind, lpt = route
-    if not (kind == "block" and lpt is None
-            or kind == "warp" and lpt in WARP_LPTS and W <= 32 * lpt):
+    if not _ov_route_ok(W, route):
         raise ValueError(f"ov_fill: no route {route} for a band of {W} lanes")
+    kind, arg = route
     dev = doff.device
     if dev.type == "cpu":
         return ov_fill_reference(bank, meta, doff, seg_start, seg_width,
@@ -384,7 +433,7 @@ def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy, trans,
     from .. import kernels
 
     S = seg_start.shape[1]
-    NR, C, L = bank.shape
+    _, C, L = bank.shape
     check_tensors("ov_fill", {
         "bank": (bank, torch.float32, None),
         "meta": (meta, torch.int32, (B, 8)),
@@ -401,37 +450,24 @@ def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy, trans,
         return out
     with torch.cuda.device(dev):
         lib = kernels.library()
-        args = (bank.data_ptr(), C, L, meta.data_ptr(), doff.data_ptr(), W,
-                seg_start.data_ptr(), seg_width.data_ptr(), S,
-                ins_xy.data_ptr(), trans.data_ptr(), B)
+        args = launch_args(bank, meta, doff, seg_start, seg_width, ins_xy,
+                           trans)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "warp":
-            err = lib.quaff_ov_fill_warp(*args, lpt, out.data_ptr(), stream)
+            err = lib.quaff_ov_fill_warp(*args, arg, out.data_ptr(), stream)
         else:
-            limit = kernels.max_smem_lanes(dev.index or 0, "ov_fill")
-            if W > limit:
-                raise ValueError(
-                    f"ov_fill: a band of {W} lanes exceeds the {limit} lanes "
-                    f"of row state a block keeps in shared memory "
-                    f"(OV_LANE_CAP is {OV_LANE_CAP})"
-                )
-            err = lib.quaff_ov_fill(*args, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"ov_fill kernel launch failed ({kind} route): "
-            f"{kernels.error_string(err)} (B={B}, W={W}, L={L})"
-        )
+            nct, warps, lpt = arg
+            err = lib.quaff_ov_fill_cluster(*args, lpt, nct, warps,
+                                            out.data_ptr(), stream)
+    kernels.check_launch(err, "ov_fill", route, f"B={B}, W={W}, L={L}")
     ov_fill.launches += 1
-    if kind == "warp":
-        ov_fill.warp_launches += 1
-    else:
-        ov_fill.block_launches += 1
+    setattr(ov_fill, f"{kind}_launches", getattr(ov_fill, f"{kind}_launches") + 1)
     return out
 
 
 ov_fill.launches = 0
 ov_fill.warp_launches = 0
-ov_fill.block_launches = 0
+ov_fill.cluster_launches = 0
 
 
 def overlap_scores(tables, batch: dict) -> torch.Tensor:

@@ -84,6 +84,11 @@ def library() -> ctypes.CDLL:
             i, i, i, i,  # B, viterbi, local, lpt
             p, p,  # out, stream
         ]
+        lib.quaff_band_fill_cluster.argtypes = fill_args + [
+            i, i, i,  # B, viterbi, local
+            i, i, i,  # lpt, nct, warps
+            p, p,  # out, stream
+        ]
         lib.quaff_fwd_store.argtypes = fill_args + [
             i, i,  # B, local
             p, p, p, p, p,  # scratch, out, rows, offs, stream
@@ -113,29 +118,32 @@ def library() -> ctypes.CDLL:
             p, p, p, p,  # scratch, partial, d_sc, stream
         ]
         lib.quaff_estep_reduce.argtypes = [p, i, i, p, p]
-        lib.quaff_ov_fill.argtypes = [
-            p, i, i, p,  # bank, C, L, meta
-            p, i, p, p, i,  # doff, W, seg_start, seg_width, S
-            p, p, i, p, p,  # ins_xy, trans, B, out, stream
-        ]
         lib.quaff_ov_fill_warp.argtypes = [
             p, i, i, p,  # bank, C, L, meta
             p, i, p, p, i,  # doff, W, seg_start, seg_width, S
             p, p, i, i, p, p,  # ins_xy, trans, B, lpt, out, stream
+        ]
+        lib.quaff_ov_fill_cluster.argtypes = [
+            p, i, i, p,  # bank, C, L, meta
+            p, i, p, p, i,  # doff, W, seg_start, seg_width, S
+            p, p, i,  # ins_xy, trans, B
+            i, i, i,  # lpt, nct, warps
+            p, p,  # out, stream
         ]
         lib.quaff_sol_chain.argtypes = [
             i, p, p, p, p,  # op, x0, a, b, out
             i, i, i, i, p,  # B, W, grid, iters, stream
         ]
         for fn in ("quaff_band_fill", "quaff_band_fill_warp",
+                   "quaff_band_fill_cluster",
                    "quaff_fwd_store", "quaff_bwd_counts",
                    "quaff_fwd_store_warp", "quaff_bwd_counts_warp",
-                   "quaff_estep_reduce", "quaff_ov_fill", "quaff_ov_fill_warp",
+                   "quaff_estep_reduce", "quaff_ov_fill_warp",
+                   "quaff_ov_fill_cluster",
                    "quaff_sol_chain"):
             getattr(lib, fn).restype = i
         for fn in ("quaff_band_fill_max_smem_lanes",
-                   "quaff_bwd_counts_max_smem_lanes",
-                   "quaff_ov_fill_max_smem_lanes"):
+                   "quaff_bwd_counts_max_smem_lanes"):
             getattr(lib, fn).argtypes = [i]
             getattr(lib, fn).restype = i
         lib.quaff_cuda_error_string.argtypes = [i]
@@ -145,8 +153,8 @@ def library() -> ctypes.CDLL:
 
 
 def max_smem_lanes(device_index: int, kernel: str = "band_fill") -> int:
-    """Widest band a kernel ("band_fill", which K2 shares, "bwd_counts" or
-    "ov_fill") keeps in shared memory on this card."""
+    """Widest band a block-route kernel ("band_fill", which K2 shares, or
+    "bwd_counts") keeps in shared memory on this card."""
     key = (device_index, kernel)
     if key not in _smem_lanes:
         fn = getattr(library(), f"quaff_{kernel}_max_smem_lanes")
@@ -156,3 +164,12 @@ def max_smem_lanes(device_index: int, kernel: str = "band_fill") -> int:
 
 def error_string(err: int) -> str:
     return library().quaff_cuda_error_string(err).decode()
+
+
+def check_launch(err: int, name: str, route, shape: str) -> None:
+    """Raise RuntimeError where a kernel entry returned a CUDA error (a
+    refused or failed launch of `name` on `route`, (kind, arg))."""
+    if err != 0:
+        kind, arg = route
+        raise RuntimeError(f"{name} kernel launch failed ({kind} route {arg}): "
+                           f"{error_string(err)} ({shape})")

@@ -49,12 +49,13 @@ KERNEL_NAMES = (
     ("band_fill_kernel<false, true>", ("fwd_store", "block")),
     ("band_fill_kernel<", ("band_fill", "block")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),
+    ("band_fill_cluster_kernel<", ("band_fill", "cluster")),
     ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
     ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),
     ("bwd_counts_kernel", ("bwd_counts", "block")),
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("ov_fill_warp_kernel<", ("ov_fill", "warp")),
-    ("ov_fill_kernel", ("ov_fill", "block")),
+    ("ov_fill_cluster_kernel<", ("ov_fill", "cluster")),
     ("sol_chain_kernel<", ("sol_chain", None)),
 )
 

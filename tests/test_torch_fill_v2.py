@@ -191,6 +191,38 @@ def test_max_prop_does_not_change_scores():
         np.testing.assert_array_equal(capped, full)
 
 
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+@pytest.mark.parametrize("local", [True, False])
+def test_plain_float64_witness(mode, local):
+    """band_fill_reference with dtype float64 (chip_smoke.py's witness of
+    float32 drift) is the float64 engine's fill on the float32 tables'
+    values, to rounding; its float32 run agrees with it within K1's
+    tolerance."""
+    rng = np.random.default_rng(31)
+    _, tt, _ = _tables(default_params())
+    v2 = fill_v2.V2Tables.from_tables(tt)
+    tabs = {k: v.float().double() for k, v in table_tensors(tt).items()}
+    bdev = to_device(PairBatch.build(port_pairs(_random_pairs(rng, 5)), tt),
+                     "cpu")
+    inp = fill_v2.kernel_inputs(bdev)
+    B = inp["doff"].shape[0]
+    wit = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode,
+                                      local=local, dtype=torch.float64)
+    assert wit.dtype == torch.float64
+    ref = dp_fill(tabs, bdev, mode=mode, local=local)["score"].numpy()
+    # no path: the engine's -inf, the fill's float32-minimum floor
+    got = wit[:B].numpy()
+    got = np.where(got <= fill_v2.NEG_INF / 2, -np.inf, got)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    fin = np.isfinite(ref)
+    assert fin.any()
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-9, atol=1e-9)
+    f32 = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode,
+                                      local=local)
+    assert f32.dtype == torch.float32
+    _close(f32, wit)
+
+
 def test_tables_from_reference_match_port_tables():
     jt, tt, v2 = _tables(_order2_gap1_params())
     mine = fill_v2.V2Tables.from_tables(tt)
@@ -221,13 +253,18 @@ def test_band_fill_routes_by_device():
 @pytest.mark.parametrize("W, route", [
     (1, ("warp", 1)), (32, ("warp", 1)), (33, ("warp", 2)),
     (203, ("warp", 8)), (256, ("warp", 8)), (512, ("warp", 16)),
-    (513, ("block", 0)),
+    (513, ("cluster", (1, 5, 4))), (2048, ("cluster", (1, 16, 4))),
+    (2049, ("cluster", (1, 9, 8))), (4038, ("cluster", (1, 16, 8))),
+    (8192, ("cluster", (2, 16, 8))), (16384, ("cluster", (8, 4, 16))),
+    (16385, ("block", 0)),
 ])
 def test_fill_route_and_cpu_plain(W, route):
     """K1's route is a pure function of the band's width: the warp route
     with the smallest lanes-a-thread whose warp covers the band, up to
-    32 * 16 lanes, the block route past it.  A CPU tensor of any width
-    takes the plain version and moves no launch count."""
+    32 * 16 lanes; the cluster route past it, its tiling (CTAs a pair,
+    warps a CTA, lanes a thread) from FILL_CLUSTER_TABLE, up to
+    FILL_CLUSTER_MAX_LANES; the block route past that.  A CPU tensor of any
+    width takes the plain version and moves no launch count."""
     from test_torch_kernel_cuda import random_fill_inputs
 
     assert fill_v2.fill_route(W) == route
@@ -235,8 +272,62 @@ def test_fill_route_and_cpu_plain(W, route):
     _, tt, _ = _tables(default_params())
     inp, v2 = random_fill_inputs(np.random.default_rng(W), tt, W, B=2,
                                  Lx=60, Ly=24, device="cpu")
-    counts = ("launches", "warp_launches", "block_launches")
+    counts = ("launches", "warp_launches", "cluster_launches",
+              "block_launches")
     before = [getattr(fill_v2.band_fill, k) for k in counts]
     out = fill_v2.band_fill(**inp, tables=v2)
     assert [getattr(fill_v2.band_fill, k) for k in counts] == before
     assert torch.equal(out, fill_v2.band_fill_reference(**inp, tables=v2))
+
+
+def test_fill_cluster_tilings_cover_their_bands():
+    """Every width the cluster route takes gets a tiling the kernel has:
+    lanes a thread of FILL_CLUSTER_LPTS, at most MAX_TILES tiles, at most
+    MAX_CLUSTER_CTAS CTAs of at most fill_cluster_max_warps warps, covering
+    the band, with no whole tile past it; the tiling never narrows as the
+    band widens within one table row."""
+    lo = 32 * fill_v2.WARP_LPTS[-1] + 1
+    prev = None
+    for W in range(lo, fill_v2.FILL_CLUSTER_MAX_LANES + 1):
+        kind, (nct, warps, lpt) = fill_v2.fill_route(W)
+        assert kind == "cluster"
+        assert lpt in fill_v2.FILL_CLUSTER_LPTS
+        assert nct <= fill_v2.MAX_CLUSTER_CTAS
+        assert warps <= fill_v2.fill_cluster_max_warps(lpt)
+        assert nct * warps <= fill_v2.MAX_TILES
+        tiles = -(-W // (32 * lpt))
+        assert nct * warps >= tiles and (nct - 1) * warps < tiles
+        if prev is not None and prev[2] == lpt:
+            assert nct * warps >= prev[0] * prev[1]
+        prev = (nct, warps, lpt)
+
+
+@pytest.mark.parametrize("route, ok", [
+    (("warp", 16), False), (("cluster", (1, 5, 4)), True),
+    (("cluster", (1, 4, 4)), False), (("cluster", (2, 3, 4)), True),
+    (("cluster", (1, 17, 4)), False), (("cluster", (1, 9, 16)), False),
+    (("cluster", (8, 1, 4)), True), (("cluster", (16, 1, 4)), False),
+    (("cluster", (1, 5, 2)), False), (("cluster", (1, 5)), False),
+    (("block", 0), True), (("block", None), False), (("tile", 0), False),
+])
+def test_band_fill_forced_route(route, ok):
+    """A route given to band_fill must be one K1 has and cover the band
+    (here 513 lanes) in a cluster of at most MAX_CLUSTER_CTAS (8) CTAs, or
+    band_fill raises ValueError before any launch.  On CPU tensors every route runs the plain
+    version and moves no launch count, cluster_launches included."""
+    from test_torch_kernel_cuda import random_fill_inputs
+
+    _, tt, _ = _tables(default_params())
+    inp, v2 = random_fill_inputs(np.random.default_rng(2), tt, 513, B=2,
+                                 Lx=60, Ly=24, device="cpu")
+    counts = ("launches", "warp_launches", "cluster_launches",
+              "block_launches")
+    before = [getattr(fill_v2.band_fill, k) for k in counts]
+    if ok:
+        out = fill_v2.band_fill(**inp, tables=v2, route=route)
+        assert torch.equal(out, fill_v2.band_fill_reference(**inp,
+                                                            tables=v2))
+    else:
+        with pytest.raises(ValueError, match="no route"):
+            fill_v2.band_fill(**inp, tables=v2, route=route)
+    assert [getattr(fill_v2.band_fill, k) for k in counts] == before

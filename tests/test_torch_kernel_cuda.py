@@ -1,16 +1,18 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
-route at every lanes-a-thread instantiation and its block route), K2 and
-K3 (csrc/estep.cu: their warp routes at every lanes-a-thread
+route at every lanes-a-thread instantiation, its cluster route at every
+tiling its route table chooses and at forced ones, and its block route),
+K2 and K3 (csrc/estep.cu: their warp routes at every lanes-a-thread
 instantiation, their block routes, and each pairing of the two), the count
-reduction (bit for bit), K4
-(csrc/ov_fill.cu: its warp route at every lanes-a-thread instantiation and
-its block route) and the probes' chain kernel (csrc/sol_probe.cu).  Needs
-an NVIDIA GPU and skips without one.  This file imports no JAX, so it also
-runs on a host that has none:
+reduction (bit for bit), K4 (csrc/ov_fill.cu: its warp route at every
+lanes-a-thread instantiation, its cluster route as K1's) and the probes'
+chain kernel (csrc/sol_probe.cu).  Needs an NVIDIA GPU and skips without
+one.  This file imports no JAX, so it also runs on a host that has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernel_cuda.py
+
+(`-k cluster` selects the cluster routes' tests.)
 
 Tolerances, the TPU kernels' own: scores rtol 1e-5 / atol 1e-3 (the
 kernels sum their delete chains and Forward end reductions in another
@@ -130,13 +132,16 @@ def test_kernel_matches_plain(case):
 
 
 def random_fill_inputs(rng, tt, W, *, B=8, Lx=300, Ly=120, local=True,
-                       qual=True, device="cuda"):
+                       qual=True, device="cuda", seams=None):
     """K1's inputs (fill_v2.kernel_inputs's layout) for B random pairs on a
     band of W lanes, with V2Tables of `tt`.  Local: 1-3 strips a pair at
     random diagonals, a few sentinel lanes inside and between them, and
-    sentinel lanes after the last.  Global: one strip over every diagonal
-    of a ref and read that fit the band.  Read lengths vary below Ly; keys
-    are random; with qual, about half the pairs have qualities."""
+    sentinel lanes after the last; with `seams` (lane positions from 0 to
+    W) the strips are exactly [seams[k], seams[k+1]) instead, at random
+    diagonals, their first and last lanes in the envelope.  Global: one
+    strip over every diagonal of a ref and read that fit the band.  Read
+    lengths vary below Ly; keys are random; with qual, about half the
+    pairs have qualities."""
     from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL, V2Tables
 
     v2 = V2Tables.from_tables(tt, device)
@@ -150,7 +155,12 @@ def random_fill_inputs(rng, tt, W, *, B=8, Lx=300, Ly=120, local=True,
     seg_start = np.zeros((B, S), np.int64)
     seg_width = np.zeros((B, S), np.int64)
     for b in range(B):
-        if local:
+        if local and seams is not None:
+            ylen = int(rng.integers(Ly // 2, Ly + 1))
+            xlen = int(rng.integers(Lx // 2, Lx + 1))
+            _seam_strips(rng, doff[b], seg_start[b], seg_width[b], seams,
+                         xlen, ylen)
+        elif local:
             ylen = int(rng.integers(Ly // 2, Ly + 1))
             xlen = int(rng.integers(Lx // 2, Lx + 1))
             start = 0
@@ -178,6 +188,22 @@ def random_fill_inputs(rng, tt, W, *, B=8, Lx=300, Ly=120, local=True,
            "keys": dev(keys), "meta": dev(meta), "doff": dev(doff),
            "seg_start": dev(seg_start), "seg_width": dev(seg_width)}
     return inp, v2
+
+
+def _seam_strips(rng, doff, seg_start, seg_width, seams, xlen, ylen):
+    """One pair's strips [seams[k], seams[k+1]) at random diagonals that
+    meet the pair's cells, a few sentinel lanes inside each but never its
+    first or last lane (so a strip's last lane, at a tile's or a CTA's
+    last lane, is in the envelope)."""
+    from quaff_tpu_torch.dp.fill_v2 import D_SENTINEL
+
+    for k, (a, z) in enumerate(zip(seams[:-1], seams[1:])):
+        wk = z - a
+        d_lo = int(rng.integers(-(ylen - 1), xlen)) - wk // 2
+        seg_start[k], seg_width[k] = a, wk
+        doff[a:z] = d_lo + np.arange(wk)
+        holes = a + 1 + np.nonzero(rng.random(max(wk - 2, 0)) < 0.05)[0]
+        doff[holes] = D_SENTINEL
 
 
 # (mode, local, qualities, gap order) of each fill variant
@@ -209,24 +235,42 @@ def _variant_inputs(variant, W, seed):
     return inp, v2, mode, local
 
 
+FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
+               "block_launches")
+
+
+def _fill_checked(inp, v2, mode, local, route=None):
+    """K1 through the wrapper on `inp` (on `route` when given, else
+    fill_route's), asserting that it launched once, on that route, and
+    agrees with band_fill_reference within rtol 1e-5 / atol 1e-3."""
+    kind = (route or fill_v2.fill_route(inp["doff"].shape[1]))[0]
+    before = [getattr(fill_v2.band_fill, k) for k in FILL_COUNTS]
+    got = fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local,
+                            route=route)
+    torch.cuda.synchronize()
+    moved = [getattr(fill_v2.band_fill, k) - n
+             for k, n in zip(FILL_COUNTS, before)]
+    assert moved == [1] + [int(kind == k) for k in ("warp", "cluster",
+                                                    "block")]
+    ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode,
+                                      local=local)
+    _assert_scores_close(got, ref, inp["doff"].shape[0])
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(FILL_VARIANTS))
 @pytest.mark.parametrize("W", [1, 31, 33, 100, 203, 512, 513])
 def test_fill_routes_match_plain(W, variant):
     """K1 through the wrapper on random bands of W lanes: the warp route at
     its smallest lanes-a-thread (W = 1 and 31: 1, 33: 2, 100: 4, 203: 8,
-    512: 16), the block route at 513, each against band_fill_reference."""
+    512: 16), the cluster route at 513, each against band_fill_reference;
+    at 513 the block route forced on the same inputs too."""
     _need_card()
     inp, v2, mode, local = _variant_inputs(variant, W, 41 + W)
-    route, _ = fill_v2.fill_route(W)
-    counts = ("launches", "warp_launches", "block_launches")
-    before = [getattr(fill_v2.band_fill, k) for k in counts]
-    got = fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local)
-    torch.cuda.synchronize()
-    moved = [getattr(fill_v2.band_fill, k) - n for k, n in zip(counts, before)]
-    assert moved == [1, int(route == "warp"), int(route == "block")]
-    ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode, local=local)
-    _assert_scores_close(got, ref, inp["doff"].shape[0])
+    _fill_checked(inp, v2, mode, local)
+    if W > 32 * fill_v2.WARP_LPTS[-1]:
+        _fill_checked(inp, v2, mode, local, ("block", 0))
 
 
 @pytest.mark.cuda
@@ -388,7 +432,11 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
 
 
 # each kernel's cutover and the width past it
-ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256}.union(
+# the warp routes' cutovers, and the block routes at their shared-memory
+# row state's 48 KB (K3's 8 words a lane at 1536 lanes, K2's 6 at 2048),
+# past which the launch must opt in to more (the opt-in also counts the
+# kernels' static arrays)
+ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256, 1536, 2048}.union(
     *({c, c + 1} for c in estep.ESTEP_WARP_MAX_LANES.values())))
 
 
@@ -528,13 +576,17 @@ def _overlap_batch(case, rng):
                            overlap_bank_batch(pairs, tables, desc, "cuda"))
 
 
-def random_ov_inputs(rng, W, *, B=8, L=160, gap_order=0, device="cuda"):
+def random_ov_inputs(rng, W, *, B=8, L=160, gap_order=0, device="cuda",
+                     seams=None, full=False):
     """K4's inputs (dp/ov_fill.prepare's layout) for B random pairs on a
     band of W lanes: a bank of B x rows then B y rows [2B, C, L] with
     log-score-like values (match channels -inf, the others 0 past each
     read's length, as bank_rows makes them), 1-3 strips a pair at random
     diagonals with a few sentinel lanes inside and between them, sentinel
-    lanes after the last, the live-row window of
+    lanes after the last (with `seams`, the strips [seams[k], seams[k+1])
+    of _seam_strips; with full=True one strip over the band from the
+    pair's first diagonal, -(y_len - 1), so that most lanes are live in a
+    few of the pair's rows only), the live-row window of
     packed_overlap_descriptors, and the transitions of the shipped
     parameters (gap order 0) or params-gaporder1.json."""
     from quaff_tpu_torch.dp import ov_fill
@@ -562,7 +614,13 @@ def random_ov_inputs(rng, W, *, B=8, L=160, gap_order=0, device="cuda"):
     seg_width = np.zeros((B, S), np.int64)
     for b in range(B):
         xlen, ylen = int(lens[b]), int(lens[B + b])
-        start = 0
+        start = W if seams is not None or full else 0
+        if seams is not None:
+            _seam_strips(rng, doff[b], seg_start[b], seg_width[b], seams,
+                         xlen, ylen)
+        elif full:
+            seg_width[b, 0] = W
+            doff[b] = -(ylen - 1) + np.arange(W)
         for k in range(int(rng.integers(1, S + 1))):
             if start >= W:
                 break
@@ -594,7 +652,7 @@ def random_ov_inputs(rng, W, *, B=8, L=160, gap_order=0, device="cuda"):
             "ins_xy": dev(ins_xy, torch.float32), "trans": trans}
 
 
-OV_COUNTS = ("launches", "warp_launches", "block_launches")
+OV_COUNTS = ("launches", "warp_launches", "cluster_launches")
 
 
 def _ov_checked(inp, route=None):
@@ -609,27 +667,37 @@ def _ov_checked(inp, route=None):
     torch.cuda.synchronize()
     moved = [getattr(ov_fill.ov_fill, k) - n
              for k, n in zip(OV_COUNTS, before)]
-    assert moved == [1, int(kind == "warp"), int(kind == "block")]
+    assert moved == [1, int(kind == "warp"), int(kind == "cluster")]
     ref = ov_fill.ov_fill_reference(**inp)
-    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
-    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
+    got_np, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got_np), np.isfinite(ref))
     fin = np.isfinite(ref)
     assert fin[: inp["meta"].shape[0]].any()
-    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=0.05)
-    return fin
+    np.testing.assert_allclose(got_np[fin], ref[fin], rtol=1e-5, atol=0.05)
+    return fin, got
+
+
+def _ov_cluster_route(W):
+    """The cluster route at OV_CLUSTER_TABLE's tiling for W lanes (for a
+    band the warp route takes, the table's first row's)."""
+    from quaff_tpu_torch.dp import ov_fill
+
+    return "cluster", fill_v2.cluster_tiling(W, ov_fill.OV_CLUSTER_TABLE)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["routed", "block"])
+@pytest.mark.parametrize("route", ["routed", "cluster"])
 @pytest.mark.parametrize("case", ["forward", "reverse", "noqual", "gaporder1"])
 def test_ov_fill_matches_plain(case, route):
     """K4 against ov_fill_reference on lane-packed overlap pairs (W=70):
     pair scores and strip maxima, on the route ov_route picks (the warp
-    route, 4 lanes a thread) and on the block route forced on the same
+    route, 4 lanes a thread) and on the cluster route forced on the same
     inputs."""
     _need_card()
     inp = _overlap_batch(case, np.random.default_rng(43))
-    fin = _ov_checked(inp, ("block", None) if route == "block" else None)
+    W = inp["doff"].shape[1]
+    fin, _ = _ov_checked(inp, _ov_cluster_route(W) if route == "cluster"
+                         else None)
     assert fin[: inp["meta"].shape[0]].all()
 
 
@@ -638,8 +706,8 @@ def test_ov_fill_matches_plain(case, route):
 @pytest.mark.parametrize("W", [1, 31, 33, 100, 203, 256, 257, 512, 513, 1100])
 def test_ov_fill_routes_match_plain(W, gap_order):
     """K4 through the wrapper on random bands of W lanes: the warp route at
-    its smallest lanes-a-thread up to the cutover, the block route past it
-    (513 and 1100 lanes are always past it), each against the plain
+    its smallest lanes-a-thread up to the cutover, the cluster route past
+    it (513 and 1100 lanes are always past it), each against the plain
     version."""
     _need_card()
     _ov_checked(random_ov_inputs(np.random.default_rng(61 + W), W,
@@ -652,13 +720,193 @@ def test_ov_fill_routes_match_plain(W, gap_order):
 def test_ov_warp_route_every_lanes_a_thread(lpt, case):
     """Each instantiation of the warp kernel, forced on a 31-lane band
     (which every lpt covers) and on the widest band it takes, against the
-    plain version; and the block route forced on the same inputs."""
+    plain version; and the cluster route forced on the same inputs."""
     _need_card()
     for W in (31, 32 * lpt):
         inp = random_ov_inputs(np.random.default_rng(7 * lpt + W), W,
                                gap_order=int(case == "gap1"))
         _ov_checked(inp, ("warp", lpt))
-        _ov_checked(inp, ("block", None))
+        _ov_checked(inp, _ov_cluster_route(W))
+
+
+# the cluster routes' tilings: every one the route tables choose (with the
+# widest band each takes), and tilings forced over 1, 2, 4 and 8 CTAs at
+# every lanes-a-thread, two warps a CTA, on bands they fill exactly
+def _table_tilings(route_fn, lo, hi):
+    widest = {}
+    for W in range(lo, hi + 1):
+        widest[route_fn(W)[1]] = W
+    return sorted((tiling, W) for tiling, W in widest.items())
+
+
+def _forced_tilings(lpts):
+    return [(nct, 2, lpt) for nct in (1, 2, 4, 8) for lpt in lpts]
+
+
+def _ov_table_tilings():
+    from quaff_tpu_torch.dp import ov_fill
+
+    return _table_tilings(ov_fill.ov_route, ov_fill.OV_WARP_MAX_LANES + 1,
+                          ov_fill.OV_LANE_CAP)
+
+
+def _fill_table_tilings():
+    return _table_tilings(fill_v2.fill_route, 32 * fill_v2.WARP_LPTS[-1] + 1,
+                          fill_v2.FILL_CLUSTER_MAX_LANES)
+
+
+def _tile_seams(W, tiling):
+    """Strip seams on tile and CTA boundaries, the last strip ending at the
+    band's last lane (the last CTA's last lane where the tiling fills W)."""
+    nct, warps, lpt = tiling
+    tile = 32 * lpt
+    cta = warps * tile
+    first = cta if nct > 1 else tile
+    return sorted({0, min(first, W - 1), min(first + tile, W - 1), W})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gap0", "gap1"])
+@pytest.mark.parametrize("tiling, W", _ov_table_tilings(), ids=str)
+def test_ov_cluster_table_tilings(tiling, W, case):
+    """K4's cluster route at each tiling ov_route chooses, on the widest
+    band it takes (random strips, and strips seamed on tile and CTA
+    boundaries), against the plain version; a rerun is bit-identical."""
+    _need_card()
+    from quaff_tpu_torch.dp import ov_fill
+
+    assert ov_fill.ov_route(W) == ("cluster", tiling)
+    gap = int(case == "gap1")
+    for seams in (None, _tile_seams(W, tiling)):
+        inp = random_ov_inputs(np.random.default_rng(W + gap), W, B=4,
+                               gap_order=gap, seams=seams)
+        _, got = _ov_checked(inp)
+        assert torch.equal(ov_fill.ov_fill(**inp), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gap0", "gap1"])
+@pytest.mark.parametrize("tiling", _forced_tilings((2, 4, 8)), ids=str)
+def test_ov_cluster_forced_tilings(tiling, case):
+    """K4's cluster route forced at 1, 2, 4 and 8 CTAs and every
+    lanes-a-thread, on bands it fills exactly, strips seamed on tile and
+    CTA boundaries and the last ending on a member lane at the last CTA's
+    last lane; on full bands whose tiles are dead in most rows; and the
+    warp route forced on the same inputs where one warp covers the band."""
+    _need_card()
+    nct, warps, lpt = tiling
+    W = nct * warps * 32 * lpt
+    gap = int(case == "gap1")
+    rng = np.random.default_rng(W + 3 * lpt + gap)
+    for inp in (random_ov_inputs(rng, W, B=4, gap_order=gap,
+                                 seams=_tile_seams(W, tiling)),
+                random_ov_inputs(rng, W, B=3, L=400, gap_order=gap,
+                                 full=True)):
+        _ov_checked(inp, ("cluster", tiling))
+        if W <= 32 * fill_v2.WARP_LPTS[-1]:
+            _ov_checked(inp, ("warp", fill_v2.fill_route(W)[1]))
+
+
+@pytest.mark.cuda
+def test_ov_cluster_refused_launch_raises():
+    """A cluster of 16 CTAs (past the portable 8, which no route opts out
+    of) is refused by the card: the entry returns an error, which the
+    wrapper's launch check raises.  The wrapper itself takes no cluster of
+    more than MAX_CLUSTER_CTAS, nor a tiling that cannot cover the band:
+    it raises before any launch."""
+    _need_card()
+    from quaff_tpu_torch import kernels
+    from quaff_tpu_torch.dp import ov_fill
+
+    inp = random_ov_inputs(np.random.default_rng(5), 1024, B=2)
+    B = inp["doff"].shape[0]
+    before = ov_fill.ov_fill.launches
+    out = torch.empty(B + B * inp["seg_start"].shape[1], device="cuda")
+    err = kernels.library().quaff_ov_fill_cluster(
+        *ov_fill.launch_args(**inp), 2, 16, 1, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cluster route"):
+        kernels.check_launch(err, "ov_fill", ("cluster", (16, 1, 2)), "")
+    for bad in ((16, 1, 2), (1, 2, 2)):
+        with pytest.raises(ValueError, match="no route"):
+            ov_fill.ov_fill(**inp, route=("cluster", bad))
+    assert ov_fill.ov_fill.launches == before
+    # the card runs on: the table's route on the same inputs
+    _ov_checked(inp, ov_fill.ov_route(1024))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["viterbi", "forward", "global"])
+@pytest.mark.parametrize("tiling, W", _fill_table_tilings(), ids=str)
+def test_fill_cluster_table_tilings(tiling, W, variant):
+    """K1's cluster route at each tiling fill_route chooses, on the widest
+    band it takes (local: random strips, and strips seamed on tile and CTA
+    boundaries; global: one strip over every diagonal), against the plain
+    version; a rerun is bit-identical."""
+    _need_card()
+    mode, local, qual, gap = FILL_VARIANTS[variant]
+    assert fill_v2.fill_route(W) == ("cluster", tiling)
+    tt = _tables("packed")
+    for seams in ((None, _tile_seams(W, tiling)) if local else (None,)):
+        inp, v2 = random_fill_inputs(np.random.default_rng(W), tt, W, B=4,
+                                     local=local, qual=qual, seams=seams)
+        got = _fill_checked(inp, v2, mode, local)
+        assert torch.equal(
+            fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FILL_VARIANTS))
+@pytest.mark.parametrize("tiling", _forced_tilings(fill_v2.FILL_CLUSTER_LPTS),
+                         ids=str)
+def test_fill_cluster_forced_tilings(tiling, variant):
+    """K1's cluster route forced at 1, 2, 4 and 8 CTAs and every
+    lanes-a-thread, on bands it fills exactly: local variants with strips
+    seamed on tile and CTA boundaries (the last ending on a member lane at
+    the last CTA's last lane), global ones over long reads whose tiles are
+    dead in most rows; the block route forced on the same inputs."""
+    _need_card()
+    nct, warps, lpt = tiling
+    W = nct * warps * 32 * lpt
+    mode, local, qual, gap = FILL_VARIANTS[variant]
+    tt = _tables("gaporder1" if gap else "packed")
+    rng = np.random.default_rng(W + lpt)
+    if local:
+        inp, v2 = random_fill_inputs(rng, tt, W, B=4, qual=qual,
+                                     seams=_tile_seams(W, tiling))
+    else:
+        inp, v2 = random_fill_inputs(rng, tt, W, B=3, Lx=W // 2 + 64,
+                                     Ly=W // 4, local=False, qual=qual)
+    _fill_checked(inp, v2, mode, local, ("cluster", tiling))
+    _fill_checked(inp, v2, mode, local, ("block", 0))
+
+
+@pytest.mark.cuda
+def test_fill_cluster_refused_launch_raises():
+    """K1's cluster route at 16 CTAs is refused by the card: the entry
+    returns an error, which the wrapper's launch check raises.  The wrapper
+    itself takes no cluster of more than MAX_CLUSTER_CTAS, nor a tiling
+    that cannot cover the band: it raises before any launch."""
+    _need_card()
+    from quaff_tpu_torch import kernels
+
+    inp, v2, mode, local = _variant_inputs("viterbi", 2048, 3)
+    B = inp["doff"].shape[0]
+    before = fill_v2.band_fill.launches
+    out = torch.empty(B + B * inp["seg_start"].shape[1], device="cuda")
+    err = kernels.library().quaff_band_fill_cluster(
+        *fill_v2.launch_args(**inp, tables=v2, mode=mode, local=local),
+        4, 16, 1, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cluster route"):
+        kernels.check_launch(err, "band_fill", ("cluster", (16, 1, 4)), "")
+    for bad in ((16, 1, 4), (1, 2, 4)):
+        with pytest.raises(ValueError, match="no route"):
+            fill_v2.band_fill(**inp, tables=v2, route=("cluster", bad))
+    assert fill_v2.band_fill.launches == before
+    # the card runs on: the table's route on the same inputs
+    _fill_checked(inp, v2, mode, local)
 
 
 @pytest.mark.cuda

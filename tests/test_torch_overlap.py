@@ -294,33 +294,55 @@ def test_ov_route_table(lpt):
     """K4's route is a pure function of the band's width: every width up to
     OV_WARP_MAX_LANES takes the warp route with the smallest lanes-a-thread
     whose warp (32 * lpt lanes) covers it (the widths 16*lpt+1 .. 32*lpt);
-    every wider band up to OV_LANE_CAP takes the block route (lpt None:
-    the widths past the cutover)."""
+    every wider band up to OV_LANE_CAP takes the cluster route (lpt None:
+    the widths past the cutover), its tiling (CTAs a pair, warps a CTA,
+    lanes a thread) from OV_CLUSTER_TABLE, one the kernel has, covering the
+    band with no whole tile past it; no route takes a wider band."""
+    from quaff_tpu_torch.dp.fill_v2 import MAX_CLUSTER_CTAS, MAX_TILES
+
     cut = ov_fill.OV_WARP_MAX_LANES
-    assert cut in (256, 512)
+    assert cut in (128, 256, 512)
     if lpt is None:
         widths = range(cut + 1, ov_fill.OV_LANE_CAP + 1)
-    else:
-        widths = range(16 * lpt + 1 if lpt > 1 else 1, 32 * lpt + 1)
-    want = ("warp", lpt) if lpt is not None and 32 * lpt <= cut else \
-        ("block", None)
+        for W in widths:
+            kind, (nct, warps, tl) = ov_fill.ov_route(W)
+            assert kind == "cluster" and tl in ov_fill.OV_CLUSTER_LPTS
+            assert warps <= ov_fill.ov_cluster_max_warps(tl)
+            assert nct <= MAX_CLUSTER_CTAS and nct * warps <= MAX_TILES
+            tiles = -(-W // (32 * tl))
+            assert nct * warps >= tiles and (nct - 1) * warps < tiles
+        with pytest.raises(ValueError, match="OV_LANE_CAP"):
+            ov_fill.ov_route(ov_fill.OV_LANE_CAP + 1)
+        return
+    widths = range(16 * lpt + 1 if lpt > 1 else 1, 32 * lpt + 1)
+    want = ("warp", lpt) if 32 * lpt <= cut else None
     assert len(widths) > 0
-    assert all(ov_fill.ov_route(W) == want for W in widths)
+    for W in widths:
+        got = ov_fill.ov_route(W)
+        assert got == want if want else got[0] == "cluster"
 
 
 def test_ov_fill_forced_route_on_cpu():
-    """A route given to ov_fill must cover the band; on CPU tensors either
-    route runs the plain version and moves no launch count."""
+    """A route given to ov_fill must be one K4 has and cover the band, in
+    a cluster of at most 8 CTAs; on CPU tensors every route runs the plain
+    version and moves no launch count, cluster_launches included."""
     from test_torch_kernel_cuda import random_ov_inputs
 
     inp = random_ov_inputs(np.random.default_rng(3), 40, B=2, L=48,
                            device="cpu")
     ref = ov_fill.ov_fill_reference(**inp)
-    counts = ("launches", "warp_launches", "block_launches")
+    counts = ("launches", "warp_launches", "cluster_launches")
     before = [getattr(ov_fill.ov_fill, k) for k in counts]
-    for route in (None, ("warp", 2), ("warp", 16), ("block", None)):
+    for route in (None, ("warp", 2), ("warp", 16), ("cluster", (1, 1, 2)),
+                  ("cluster", (2, 1, 2)), ("cluster", (1, 2, 8)),
+                  ("cluster", (8, 1, 2))):
         assert torch.equal(ov_fill.ov_fill(**inp, route=route), ref)
     assert [getattr(ov_fill.ov_fill, k) for k in counts] == before
-    for bad in (("warp", 1), ("warp", 3), ("block", 4), ("tile", None)):
+    for bad in (("warp", 1), ("warp", 3), ("block", None), ("block", 4),
+                ("tile", None), ("cluster", (1, 1, 1)),
+                ("cluster", (1, 1, 16)), ("cluster", (1, 17, 2)),
+                ("cluster", (1, 9, 8)), ("cluster", (16, 1, 2)),
+                ("cluster", (17, 1, 2)),
+                ("cluster", None)):
         with pytest.raises(ValueError, match="no route"):
             ov_fill.ov_fill(**inp, route=bad)

@@ -223,6 +223,8 @@ def test_kernel_sass_parsers():
      "const*, int, int4 const*, int)", ("fwd_store", "block")),
     ("void band_fill_kernel<true, false>", ("band_fill", "block")),
     ("void band_fill_warp_kernel<false, 8>", ("band_fill", "warp")),
+    ("void (anonymous namespace)::band_fill_cluster_kernel<true, 16>(signed "
+     "char const*, int)", ("band_fill", "cluster")),
     ("void (anonymous namespace)::fwd_store_warp_kernel<8>(signed char "
      "const*, int)", ("fwd_store", "warp")),
     ("void fwd_store_warp_kernel<16>", ("fwd_store", "warp")),
@@ -232,7 +234,8 @@ def test_kernel_sass_parsers():
      ("bwd_counts", "block")),
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("void ov_fill_warp_kernel<true, 4>", ("ov_fill", "warp")),
-    ("ov_fill_kernel", ("ov_fill", "block")),
+    ("void (anonymous namespace)::ov_fill_cluster_kernel<false, 8>(float "
+     "const*, int)", ("ov_fill", "cluster")),
     ("void sol_chain_kernel<2>", ("sol_chain", None)),
     ("void at::native::vectorized_elementwise_kernel<4>", None),
 ])
@@ -240,8 +243,8 @@ def test_kernel_of_names_each_kernel(name, owner):
     """kernel_of attributes a kernel's demangled name (as torch.profiler
     or c++filt prints it) to the wrapper that launches it and its route:
     K2's block route is K1's block fill with STORE set, its warp route
-    and K3's have kernels of their own; a PyTorch kernel is none of the
-    port's."""
+    and K3's have kernels of their own, as have K1's and K4's cluster
+    routes; a PyTorch kernel is none of the port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner
