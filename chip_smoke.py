@@ -83,7 +83,7 @@ failure exits non-zero before the final line is printed.
      rise; `count -fast` on all 128 reads twice, the second time while a
      tensor holds most of the card's free memory, byte for byte the same
      (the E-step's chunk plan reads no free memory); `count -fast` on the
-     first 16 reads against the parity count; then K2/K3 (both routes
+     first 8 reads against the parity count; then K2/K3 (both routes
      forced) and the reduction on the run's largest chunk against their
      plain versions
   6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
@@ -103,18 +103,38 @@ failure exits non-zero before the final line is printed.
      version on its last 4 pairs), and, where the run has a chunk of
      OV_WARP_MAX_LANES + 1 to twice as many lanes, the warp route forced on
      it against the cluster route (the warp route's cutover)
+  7  `server` and its backends: (a) the port's `server align` in a thread
+     of this process on cuda, and `align -remote` against it through the
+     CLI on 128 of phase 4's reads against a 12 kb genome (an align job
+     refills the winner's whole envelope in float64, as the JAX package's
+     does: on phase 4's 200 kb genome that is gigabytes a read, logged),
+     byte for byte the local align; K1's launches by the server's jobs (at
+     least one a read, each on fill_route's route by the profiler's
+     kernel names), requests/s, the median and p90 request, K1's device
+     time; the jobs' K1 launches at the widest band, the most rows and on
+     each route taken against the plain version, rerun bit for bit; (b)
+     the same with two ports and two client workers, the same blocks in
+     reply order; (c) `server count` and `count -remote` on phase 5's
+     first read against its genome window, against the plain float64
+     count of the read without qualities (a count worker loads reads
+     so), and the exact engine's launches a row on the card
+     (torch.profiler); (d) `server overlap` and `overlap -remote` on
+     phase 6's first 8 reads, byte for byte the local overlap; (e) an
+     ssh-launched worker (stub ssh) and qsub through /bin/sh, 2 reads
+     each, (a)'s text; (f) `align -profile`, whose Chrome trace must name
+     K1's kernels
 
 Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
 well inside its time limit.  Each plain version's comparison run is also
-one of its timed runs.  Each kernel case of phases 2, 2c, 4, 4b and 6 also
+one of its timed runs.  Each kernel case of phases 2, 2c, 4, 4b, 6 and 7 also
 reruns the kernel on the same inputs and requires the same bits.
 
 Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
 -kmatchoff for its block route, phase 5 for K2's and K3's warp routes and
 the reduction, phase 3b's wide-band count -fast for their block routes,
 phase 6 for K4's two routes, the probes' run in phase 2d for the chain
-kernel) runs with the launch counts set to 0 just before it and read just
-after.
+kernel, phase 7's `align -remote` runs for K1 on the server's path) runs
+with the launch counts set to 0 just before it and read just after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -1451,7 +1471,7 @@ def phase3b_train_goldens(card):
 # ---------------------------------------------------------------- phase 5
 
 
-def phase5_train(card, n_reads=128, genome_len=200_000, n_check=16):
+def phase5_train(card, n_reads=128, genome_len=200_000, n_check=8):
     """`train -maxiter 2` on a size users run, through the CLI on the card;
     returns the main path's launches and its largest E-step chunk."""
     import torch
@@ -2243,6 +2263,454 @@ def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
     return launches, biggest
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+def _free_ports(n):
+    """The first of n consecutive ports that are free on this host."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        try:
+            for q in range(port + 1, port + n):
+                with socket.socket() as s:
+                    s.bind(("", q))
+            return port
+        except OSError:
+            continue
+    raise SmokeFailure(f"no {n} consecutive free ports")
+
+
+class _Served:
+    """`server <argv>` of the port in a thread of this process, on the card,
+    while the with block runs: its "# READY" goes to a buffer (this
+    script's stdout stays its own), and at the end every port it serves is
+    sent {"quit": 1}."""
+
+    def __init__(self, argv):
+        self.argv = argv
+
+    def __enter__(self):
+        import threading
+        from collections import deque
+
+        from quaff_tpu_torch.server import READY, server_from_args
+
+        self.server, _, _ = server_from_args(deque(self.argv), {})
+        check(self.server.device.type == "cuda",
+              f"server {self.argv[0]} resolved {self.server.device}")
+        self.port = _free_ports(self.server.n_ports)
+        ready = io.StringIO()
+        self.thread = threading.Thread(
+            target=self.server.serve, args=(self.port, self.server.n_ports),
+            kwargs={"ready_out": ready}, daemon=True)
+        self.thread.start()
+        t0 = time.perf_counter()
+        while READY not in ready.getvalue():
+            check(self.thread.is_alive() and time.perf_counter() - t0 < 60,
+                  f"server {self.argv[0]} did not report READY")
+            time.sleep(0.01)
+        return self
+
+    @property
+    def address(self):
+        last = self.port + self.server.n_ports - 1
+        return f"127.0.0.1:{self.port}" + (
+            f"-{last}" if last > self.port else "")
+
+    def __exit__(self, *exc):
+        from quaff_tpu_torch.server import RemoteWorker
+
+        for p in range(self.port, self.port + self.server.n_ports):
+            RemoteWorker("127.0.0.1", p).quit()
+        self.thread.join(timeout=30)
+        check(not self.thread.is_alive(),
+              f"server {self.argv[0]} did not stop on quit")
+        return False
+
+
+def _read_blocks(text):
+    """{read name: its block} of Stockholm align text (a block from its
+    "# STOCKHOLM" line to its "//" line, one a read without -printall)."""
+    blocks = {}
+    for b in re.split(r"(?m)^//\n", text)[:-1]:
+        name = re.search(r"(?m)^#=GS CC Read (.*)$", b).group(1)
+        check(name not in blocks, f"two blocks for read {name}")
+        blocks[name] = b + "//\n"
+    check("".join(blocks.values()) == text, "align text is not whole blocks")
+    return blocks
+
+
+def _timed_requests(waits):
+    """Patches RemoteWorker.request to add each request's wall seconds to
+    `waits` (the client's view: send, the server's job, the reply); returns
+    what restores it."""
+    from quaff_tpu_torch import server
+
+    orig = server.RemoteWorker.request
+
+    def timed(self, payload):
+        t0 = time.perf_counter()
+        reply = orig(self, payload)
+        waits.append(time.perf_counter() - t0)
+        return reply
+
+    server.RemoteWorker.request = timed
+    return lambda: setattr(server.RemoteWorker, "request", orig)
+
+
+def _request_stats(waits):
+    qs = statistics.quantiles(waits, n=10)
+    return (f"{len(waits) / sum(waits):.2f} requests/s over {len(waits)} "
+            f"back to back, per request median {statistics.median(waits) * 1e3:.1f} "
+            f"ms, p90 {qs[8] * 1e3:.1f} ms")
+
+
+def _refill_cells(gpath, rpath, origins):
+    """Cells of each read's float64 refill in a `server align` job (its
+    true strand's whole envelope: rows + 1 times the bounding band), at
+    `align`'s default k-mer threshold."""
+    from quaff_tpu_torch.aligner import VITERBI_CELL_SIZE, DPConfig
+    from quaff_tpu_torch.cliargs import DEFAULT_REFSEQ_KMER_THRESHOLD
+    from quaff_tpu_torch.io.fastseq import KmerIndex, read_fast_seqs
+
+    cfg = DPConfig(kmer_threshold=DEFAULT_REFSEQ_KMER_THRESHOLD, device="cpu")
+    x = read_fast_seqs(str(gpath))[0]
+    strands = (x, x.revcomp())
+    return [(len(y.seq) + 1) * cfg.make_envelope(
+                strands[rev], KmerIndex(y, cfg.kmer_len),
+                VITERBI_CELL_SIZE).band_width
+            for y, (_, _, rev) in zip(read_fast_seqs(str(rpath)), origins)]
+
+
+def _server_k1_cases(calls, card):
+    """The server path's K1 launches at the widest band, at the most rows
+    and the widest on each route taken, each against the plain version on
+    its recorded inputs (fill_case: phase 2's tolerance, a rerun bit for
+    bit, times, the bound).  Returns {route: the fill_case result of the
+    route's widest case, its "max_abs_err" the worst of the route's
+    cases}."""
+    n = range(len(calls.calls))
+    width = lambda i: calls.calls[i][1]
+    picks = {max(n, key=width): "the widest band"}
+    picks.setdefault(max(n, key=lambda i: calls.inputs[i]["keys"].shape[1]),
+                     "the most rows")
+    for r in sorted({c[0][0] for c in calls.calls}):
+        picks.setdefault(max((i for i in n if calls.calls[i][0][0] == r),
+                             key=width), f"the widest on the {r} route")
+    by_route = {}
+    for i, why in sorted(picks.items()):
+        kw = calls.inputs[i]
+        inp = {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
+                                  "seg_start", "seg_width")}
+        got = fill_case(f"phase 7 (a): a job's launch, {why}", inp,
+                        kw["tables"], kw["mode"], kw["local"], card,
+                        mp=kw["max_prop"], n_plain=1)
+        by_route.setdefault(got["route"][0], []).append((width(i), got))
+    return {r: dict(max(cs, key=lambda c: c[0])[1],
+                    max_abs_err=max(c[1]["max_abs_err"] for c in cs))
+            for r, cs in by_route.items()}
+
+
+def phase7_server(card, n_align=128, n_count=1, n_overlap=8, n_launch=2,
+                  n_profile=8, genome_len=12_000):
+    """`server` and the remote, ssh and qsub backends on the card: the
+    port's `server align` in a thread here, `align -remote` against it on
+    phase 4's reads against a `genome_len` genome (byte for byte the local
+    align; K1 launched by the server's jobs, each on fill_route's route,
+    and held against its plain version), the same with two ports, `server
+    count` and `count -remote` on phase 5's first reads, `server overlap`
+    and `overlap -remote` on phase 6's, an ssh-launched (stub ssh) and a
+    qsub (/bin/sh) align, and `align -profile`.  Returns K1's launches on
+    the server path by route, and _server_k1_cases's results."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from quaff_tpu_torch.aligner import DPConfig
+    from quaff_tpu_torch.cliargs import DEFAULT_REFSEQ_KMER_THRESHOLD
+    from quaff_tpu_torch.io.fastseq import read_fast_seqs
+    from quaff_tpu_torch.model.params import QuaffNullParams, default_params
+    from quaff_tpu_torch.prof.kernel_sass import kernel_of
+    from quaff_tpu_torch.trainer import QuaffCounter
+
+    t_phase = time.perf_counter()
+    threads = str(os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        # what an align job's float64 refill of the whole envelope costs on
+        # phase 4's 200 kb genome: random 6-mer seeds make distant clusters
+        # in every read's envelope, so its bounding band spans much of the
+        # genome
+        (tmp / "phase4").mkdir()
+        g4, r4, _, _, o4 = _workload(tmp / "phase4", n_reads=16,
+                                     genome_len=200_000, n_head=1)
+        cells4 = _refill_cells(g4, r4, o4)
+        log(f"phase 7: an align job's refill on phase 4's first 16 reads "
+            f"(200 kb genome) would fill {sum(cells4):.4g} cells, up to "
+            f"{max(cells4):.4g} for one read "
+            f"({24 * max(cells4) / 2**30:.1f} GiB of float64 matrices); "
+            f"phase 7 cuts the genome to {genome_len // 1000} kb")
+        # (a) phase 4's recipe and first reads against a genome_len genome,
+        # with their null model
+        gpath, rpath, head, _, origins = _workload(
+            tmp, n_reads=n_align, genome_len=genome_len, n_head=n_launch)
+        cells = _refill_cells(gpath, rpath, origins)
+        null = tmp / "null.json"
+        with open(null, "w") as f:
+            QuaffNullParams.fit(read_fast_seqs(str(rpath))).write_json(f)
+        base = [str(gpath), str(rpath), "-null", str(null)]
+        t0 = time.perf_counter()
+        local = _cli(["align", *base, "-threads", threads], "cuda")
+        t_local = time.perf_counter() - t0
+        check(local.count("#=GF Score") >= 0.9 * n_align,
+              f"phase 7: local align aligned {local.count('#=GF Score')} of "
+              f"{n_align} reads")
+        waits = []
+        with _Served(["align", *base]) as srv:
+            calls = _record_fill()
+            restore = _timed_requests(waits)
+            try:
+                with calls, profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    remote = _cli(["align", *base, "-remote", srv.address],
+                                  "cuda")
+                    wall = time.perf_counter() - t0
+            finally:
+                restore()
+        check(remote == local, "phase 7 (a): align -remote differs from the "
+              "local align")
+        counts = calls.counts
+        check(len(waits) == n_align and counts["launches"] >= n_align,
+              f"phase 7 (a): {len(waits)} requests, K1 launches {counts}")
+        events = _kernel_events(prof, "band_fill")
+        check(len(events) == counts["launches"],
+              f"phase 7 (a): {len(events)} K1 kernels traced, {counts}")
+        for (kname, _), (r, W, B, _) in zip(events, calls.calls):
+            check(kernel_of(kname) == ("band_fill", r[0]),
+                  f"phase 7 (a): a job's B={B} W={W} batch on fill_route's "
+                  f"{r} ran {kname}")
+        k1_ms = sum(ms for _, ms in events)
+        busy = sum(_device_busy(prof).values())
+        widths = sorted(W for _, W, _, _ in calls.calls)
+        log(f"phase 7 (a): align -remote against server align on cuda, "
+            f"{n_align} reads: byte-identical to the local align "
+            f"({t_local:.2f} s); {wall:.2f} s wall, {_request_stats(waits)}; "
+            f"K1 {counts['launches']} launches (warp "
+            f"{counts['warp_launches']}, cluster {counts['cluster_launches']}, "
+            f"block {counts['block_launches']}; W {widths[0]}-{widths[-1]}), "
+            f"{k1_ms:.3f} ms device (torch.profiler); device busy "
+            f"{busy:.3f} s ({100 * busy / wall:.2f}% of the wall); the "
+            f"jobs' float64 refills {sum(cells):.4g} cells, up to "
+            f"{max(cells):.4g} a read [{card}]")
+        server_counts = dict(counts)
+        k1_cases = _server_k1_cases(calls, card)
+        del calls
+
+        # (b) two ports, two client workers: replies in arrival order
+        waits2 = []
+        with _Served(["align", *base, "-threads", "2"]) as srv:
+            calls = _record_fill()
+            restore = _timed_requests(waits2)
+            try:
+                with calls:
+                    t0 = time.perf_counter()
+                    two = _cli(["align", *base, "-remote", srv.address],
+                               "cuda")
+                    wall2 = time.perf_counter() - t0
+            finally:
+                restore()
+        mine, blocks_a = _read_blocks(two), _read_blocks(local)
+        check(sorted(mine.values()) == sorted(blocks_a.values()),
+              "phase 7 (b): the two-port run's blocks differ from (a)'s")
+        check(calls.counts["launches"] >= n_align,
+              f"phase 7 (b): K1 launches {calls.counts}")
+        log(f"phase 7 (b): server align -threads 2, two client workers: the "
+            f"same {len(mine)} blocks as (a) in reply order; {wall2:.2f} s "
+            f"wall, {len(waits2) / wall2:.2f} requests/s, per request median "
+            f"{statistics.median(waits2) * 1e3:.1f} ms; K1 "
+            f"{calls.counts['launches']} launches [{card}]")
+        del calls
+
+        # (c) count: phase 5's first n_count reads, each against its genome
+        # window (+-200 bp, its strand; the exact engine fills a pair's
+        # bounding band).  `server count` loads reads without qualities, as
+        # the JAX package's does (quaff_tpu/server.py:293-296), and counts
+        # in float64 by the exact engine on its device: held to the plain
+        # count (float64, the host) of the reads without qualities, through
+        # the wire's 6 significant figures.  The engine on the card is
+        # launch-bound (its launches a row are measured below): 16 reads
+        # would take minutes
+        ctmp = tmp / "count"
+        ctmp.mkdir()
+        _, crpath, _, genome, origins = _workload(
+            ctmp, seed=2, n_reads=n_count, genome_len=200_000, n_head=1)
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        lines = crpath.read_text().splitlines()
+        t_remote = t_plain = 0.0
+        worst = 0.0
+        picked = range(n_count)
+        for i in picked:
+            s0, n, rev = origins[i]
+            w = genome[max(s0 - 200, 0):s0 + n + 200]
+            if rev:
+                w = (3 - w)[::-1]
+            wpath, ypath = ctmp / f"window{i}.fasta", ctmp / f"read{i}.fastq"
+            wpath.write_text(f">window{i}\n{acgt[w].tobytes().decode()}\n")
+            ypath.write_text("\n".join(lines[4 * i:4 * i + 4]) + "\n")
+            args = [str(wpath), str(ypath), "-fwdstrand"]
+            t1 = time.perf_counter()
+            with _Served(["count", *args]) as srv:
+                got = json.loads(_cli(["count", *args, "-remote", srv.address],
+                                      "cuda"))
+            t_remote += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            refs, reads = read_fast_seqs(str(wpath)), read_fast_seqs(str(ypath))
+            nullm = QuaffNullParams.fit(reads)  # the client's, as sent
+            for q in refs + reads:
+                q.qual = ""
+            cfg = DPConfig(kmer_threshold=DEFAULT_REFSEQ_KMER_THRESHOLD,
+                           device="cpu")
+            plain, _, _ = QuaffCounter(default_params(), nullm, cfg).get_counts(
+                refs, reads)
+            buf = io.StringIO()
+            plain.write_json(buf)
+            t_plain += time.perf_counter() - t1
+            want = json.loads(buf.getvalue())
+            bad = _json_close(got, want, 1e-5, 1e-6)
+            check(not bad, f"phase 7 (c): count -remote vs the plain count, "
+                           f"read {i}: {bad[:5]}")
+            worst = max(worst, max(
+                abs(float(a) - float(b)) / (1e-6 + 1e-5 * abs(float(b)))
+                for a, b in _json_pairs(got, want)))
+        log(f"phase 7 (c): count -remote against server count on cuda, each "
+            f"of {n_count} reads (of {[origins[i][1] for i in picked]} bp) "
+            f"against its genome window: within 1e-6 + "
+            f"1e-5*|x| of the plain float64 count (worst {worst:.3f} of the "
+            f"tolerance); remote {t_remote:.1f} s, plain {t_plain:.1f} s")
+        _count_engine_launches(refs, reads, nullm, card)
+
+        # (d) overlap: phase 6's first reads, all against all
+        otmp = tmp / "overlap"
+        otmp.mkdir()
+        _, orpath, _, _, _ = _workload(otmp, seed=21, n_reads=n_overlap,
+                                       genome_len=100_000, n_head=1)
+        onull = otmp / "null.json"
+        with open(onull, "w") as f:
+            QuaffNullParams.fit(read_fast_seqs(str(orpath))).write_json(f)
+        obase = [str(orpath), "-null", str(onull)]
+        t0 = time.perf_counter()
+        olocal = _cli(["overlap", *obase, "-threads", threads], "cuda")
+        with _Served(["overlap", *obase]) as srv:
+            oremote = _cli(["overlap", *obase, "-remote", srv.address], "cuda")
+        check(oremote == olocal and olocal.count("#=GF Score") > 0,
+              "phase 7 (d): overlap -remote differs from the local overlap")
+        log(f"phase 7 (d): overlap -remote against server overlap on cuda, "
+            f"{n_overlap} reads ({olocal.count('#=GF Score')} overlaps): "
+            f"byte-identical to the local overlap "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # (e) an ssh-launched worker (a stub ssh runs the worker command
+        # here: a `server align` process on the card) and qsub through
+        # /bin/sh (a `server align -job` process a read)
+        t0 = time.perf_counter()
+        stub = tmp / "fake-ssh"
+        stub.write_text("#!/bin/sh\nfor last; do :; done\n"
+                        'exec sh -c "$last"\n')
+        stub.chmod(0o755)
+        names = [ln[1:] for ln in head.read_text().splitlines()[::4]]
+        want = "".join(blocks_a[nm] for nm in names if nm in blocks_a)
+        hbase = [str(gpath), str(head), "-null", str(null)]
+        ssh = _cli(["align", *hbase, "-remote",
+                    f"tester@127.0.0.1:{_free_ports(1)}", "-sshpath",
+                    str(stub)], "cuda")
+        check(ssh == want, "phase 7 (e): the ssh-launched worker's text "
+                           "differs from (a)'s")
+        qsub = _cli(["align", *hbase, "-qsubjobs", "1", "-qsubpath", "/bin/sh",
+                     "-qsubdir", str(tmp / "jobs")], "cuda")
+        check(qsub == want, "phase 7 (e): the qsub run's text differs from "
+                            "(a)'s")
+        log(f"phase 7 (e): align through an ssh-launched server (stub ssh) "
+            f"and through qsub (/bin/sh), {n_launch} reads each: "
+            f"byte-identical to (a)'s ({time.perf_counter() - t0:.1f} s)")
+
+        # (f) -profile: a Chrome trace holding K1's kernels by name
+        ppath = tmp / f"reads{n_profile}.fastq"
+        ppath.write_text("\n".join(
+            rpath.read_text().splitlines()[:4 * n_profile]) + "\n")
+        _cli(["align", str(gpath), str(ppath), "-null", str(null), "-profile",
+              str(tmp / "trace")], "cuda")
+        traces = list((tmp / "trace").glob("quaff-align-*.trace.json"))
+        check(len(traces) == 1, f"phase 7 (f): traces {traces}")
+        kevents = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        k1 = [e for e in kevents
+              if (kernel_of(e.get("name", "")) or ("",))[0] == "band_fill"]
+        check(k1, f"phase 7 (f): no K1 kernel in the trace's "
+                  f"{len(kevents)} kernel events")
+        log(f"phase 7 (f): align -profile on {n_profile} reads: "
+            f"{traces[0].name} holds {len(k1)} K1 kernel events of "
+            f"{len(kevents)} kernels ({sum(e.get('dur', 0) for e in k1) / 1e3:.3f} ms)")
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return server_counts, k1_cases
+
+
+def _count_engine_launches(refs, reads, nullm, card, n_rows=200):
+    """Why a count job is slow on the card: the exact engine (float64, the
+    path of a read without qualities) on the first n_rows bases of the
+    last read against the start of its window, on cuda under
+    torch.profiler (kernels launched a row, device busy share) and on the
+    host (its wall, for the ratio)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from quaff_tpu_torch.aligner import DPConfig
+    from quaff_tpu_torch.cliargs import DEFAULT_REFSEQ_KMER_THRESHOLD
+    from quaff_tpu_torch.io.fastseq import FastSeq
+    from quaff_tpu_torch.model.params import default_params
+    from quaff_tpu_torch.trainer import QuaffCounter
+
+    x = FastSeq(name="window", seq=refs[0].seq[:n_rows + 400])
+    y = FastSeq(name="read", seq=reads[0].seq[:n_rows])
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        counter = QuaffCounter(default_params(), nullm, DPConfig(
+            kmer_threshold=DEFAULT_REFSEQ_KMER_THRESHOLD, device=dev))
+        counter.count_read([x], y, [0])  # warm
+        with profile(activities=[ProfilerActivity.CPU]
+                     + [ProfilerActivity.CUDA] * (dev == "cuda")) as prof:
+            t0 = time.perf_counter()
+            counter.count_read([x], y, [0])
+            walls[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            n_kernels = sum(e.device_type == DeviceType.CUDA
+                            for e in prof.events())
+            busy = sum(_device_busy(prof).values())
+    log(f"phase 7 (c): the exact engine on {n_rows} rows: on cuda "
+        f"{n_kernels} device events, kernels and copies "
+        f"({n_kernels / n_rows:.0f} a row), "
+        f"{1e3 * walls['cuda'] / n_rows:.3f} ms a row, device busy "
+        f"{100 * busy / walls['cuda']:.2f}% of the wall (torch.profiler); "
+        f"on the host {1e3 * walls['cpu'] / n_rows:.3f} ms a row (the card "
+        f"takes {walls['cuda'] / walls['cpu']:.2f}x the host's time) [{card}]")
+
+
+def _json_pairs(a, b):
+    """(a's number, b's) of every number of two JSON documents alike in
+    shape."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _json_pairs(a[k], b[k])
+    elif isinstance(a, list):
+        for u, v in zip(a, b):
+            yield from _json_pairs(u, v)
+    elif isinstance(a, (int, float)):
+        yield a, b
+
+
 def main() -> int:
     if not (ROOT / "quaff_tpu_torch").is_dir():
         sys.stderr.write("chip_smoke.py: run it from a checkout of the "
@@ -2337,6 +2805,7 @@ def main() -> int:
             f"({clu['full']['ms'] / warp['full']['ms']:.2f}x); "
             f"OV_WARP_MAX_LANES is {ov_fill.OV_WARP_MAX_LANES} [{card}]")
     del k4_chunks
+    k1_server_counts, k1_server = phase7_server(card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [dict(name="band_fill", route="cuda",
@@ -2354,6 +2823,16 @@ def main() -> int:
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
                     launches=k1_block_counts["block_launches"],
                     library_ms=None, **{k: k1_block[k] for k in k1_keys})]
+    # K1 on the server's path (phase 7 (a)'s align jobs), a row per route
+    # its jobs took
+    for r, res in sorted(k1_server.items()):
+        kernels.append(dict(
+            name=f"band_fill{'' if r == 'warp' else '_' + r}_server",
+            route="cuda", source=f"quaff_tpu_torch/csrc/band_fill"
+            f"{'' if r == 'block' else '_' + r}.cuh",
+            replaces="quaff_tpu/dp/pallas_v2.py:491",
+            launches=k1_server_counts[f"{r}_launches"], library_ms=None,
+            **{k: res[k] for k in k1_keys}))
     # K2 and K3: the warp routes on phase 5's path (train), timed on its
     # largest chunk; the block routes on phase 3b's count -fast with a
     # band wider than any warp route, timed on that run's chunk

@@ -8,8 +8,8 @@ float64 on the host by the port's native library and walked back, so the
 text output is decided in float64 exactly as in the JAX package; the
 float32 scores only choose the winners.
 
-Not ported here: the device mesh (-mesh), remote, qsub and ssh/EC2
-backends (the CLI refuses them), and the JAX package's TPU workarounds
+Not ported here: the device mesh (-mesh; the CLI refuses it), and the JAX
+package's TPU workarounds
 (the cold-kernel native gates, the wide-envelope host fallback and the
 VMEM-derived batch caps: chunks are sized from the card's memory).
 """

@@ -37,6 +37,7 @@ row's five emission values and each lane's ref token directly.
 
 from __future__ import annotations
 
+import threading
 from typing import Mapping
 
 import numpy as np
@@ -495,12 +496,14 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
                 *args, 0 if scratch is None else scratch.data_ptr(),
                 out.data_ptr(), stream)
     kernels.check_launch(err, "band_fill", route, f"B={B}, W={W}, Ly={Ly}")
-    band_fill.launches += 1
-    setattr(band_fill, f"{kind}_launches",
-            getattr(band_fill, f"{kind}_launches") + 1)
+    with _COUNT_LOCK:  # a server's ports launch from threads of their own
+        band_fill.launches += 1
+        setattr(band_fill, f"{kind}_launches",
+                getattr(band_fill, f"{kind}_launches") + 1)
     return out
 
 
+_COUNT_LOCK = threading.Lock()
 band_fill.launches = 0
 band_fill.warp_launches = 0
 band_fill.cluster_launches = 0

@@ -21,7 +21,8 @@ Not carried over: the TPU's cold-kernel CPU gate (_small_cpu_estep_gate,
 KERNEL_WARM), its VMEM/HBM batch caps, the power-of-two batch padding with
 a sentinel read group and the padding of W to 128.  A chunk is sized by a
 fixed byte budget (ESTEP_CHUNK_BYTES, estep_chunk_plan); the JAX
-multi-host and remote counting branches are not ported.
+multi-host counting branch is not ported.  Remote and qsub counting pass
+their own counts provider to QuaffTrainer.fit.
 """
 
 from __future__ import annotations
@@ -443,7 +444,12 @@ class QuaffTrainer:
         pseudocounts: QuaffParamCounts,
         config: DPConfig,
         log=lambda *a: None,
+        counts_provider=None,
     ) -> QuaffParams:
+        """EM fit.  counts_provider, when given, replaces the local E-step:
+        a callable (params, sort_order) -> (counts, loglike, sort_order),
+        used to farm each iteration's counting to remote or qsub workers
+        (QuaffTrainer::fit remote dispatch, qmodel.cpp:2050-2120)."""
         reads = self.effective_reads(reads)
         assert pseudocounts.match_kmer_len == seed.match_kmer_len
         assert pseudocounts.indel_kmer_len == seed.indel_kmer_len
@@ -463,10 +469,13 @@ class QuaffTrainer:
                 start_iter = ckpt.iteration
                 log(f"Resuming from checkpoint at EM iteration {start_iter}")
         for it in range(start_iter, self.max_iterations):
-            counter = QuaffCounter(qp, null_model, config,
-                                   self.allow_null_model)
-            counts, loglike, sort_order = counter.get_counts(refs, reads,
-                                                             sort_order)
+            if counts_provider is not None:
+                counts, loglike, sort_order = counts_provider(qp, sort_order)
+            else:
+                counter = QuaffCounter(qp, null_model, config,
+                                       self.allow_null_model)
+                counts, loglike, sort_order = counter.get_counts(
+                    refs, reads, sort_order)
             if self.raw_counts_filename:
                 with open(self.raw_counts_filename, "w") as f:
                     counts.write_json(f)

@@ -61,25 +61,20 @@ def test_cuda_without_a_card_exits_nonzero(data_dir, monkeypatch):
     assert "QUAFF_TORCH_DEVICE=cuda" in err and "torch.cuda.is_available()" in err
 
 
-@pytest.mark.parametrize("command", ["train", "count", "overlap", "server"])
+@pytest.mark.parametrize("command", ["train", "count", "overlap"])
 def test_unported_commands(command, data_dir, monkeypatch):
-    """server is refused; train, count and overlap are ported, and refuse
-    the distributed backends they do not have yet (-mesh here)."""
+    """train, count and overlap are ported, and refuse the distributed
+    backend they do not have yet (-mesh)."""
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
-    extra = ["-mesh"] if command != "server" else []
     rc, out, err = _run([command, str(data_dir / "tiny.fasta"),
-                         str(data_dir / "tiny.fastq"), *extra])
+                         str(data_dir / "tiny.fastq"), "-mesh"])
     assert rc == 1
     assert NOT_PORTED in err
     assert out == ""
 
 
 @pytest.mark.parametrize(
-    "flags",
-    [("-mesh",), ("-remote", "localhost:8000"), ("-remote", "me@host"),
-     ("-qsubjobs", "2"), ("-ec2instances", "1"),
-     ("-coordinator", "localhost:1234"), ("-profile", "trace")],
-)
+    "flags", [("-mesh",), ("-coordinator", "localhost:1234")])
 def test_unported_align_options(flags, data_dir, monkeypatch):
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
     rc, out, err = _run(["align", str(data_dir / "tiny.fasta"),
@@ -89,8 +84,32 @@ def test_unported_align_options(flags, data_dir, monkeypatch):
     assert out == ""
 
 
-@pytest.mark.parametrize(
-    "flags", [("-mesh",), ("-remote", "localhost:8000"), ("-qsubjobs", "2")])
+def test_server_refuses_mesh(data_dir, monkeypatch):
+    monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    rc, out, err = _run(["server", "align", str(data_dir / "tiny.fasta"),
+                         str(data_dir / "tiny.fastq"), "-mesh"])
+    assert rc == 1
+    assert NOT_PORTED in err
+    assert out == ""
+
+
+def test_profile_writes_a_trace(data_dir, tmp_path, monkeypatch):
+    """-profile <dir>: a torch.profiler Chrome trace of the whole command
+    (CPU activity on a host without a card); the output is unchanged."""
+    monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    args = ["align", str(data_dir / "tiny.fasta"), str(data_dir / "tiny.fastq"),
+            "-nothreshold"]
+    rc, want, _ = _run(args)
+    rc2, out, err = _run(args + ["-profile", str(tmp_path / "trace")])
+    assert rc == rc2 == 0, err
+    assert out == want
+    (trace,) = (tmp_path / "trace").glob("quaff-align-*.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("band_fill" in n or "aten::" in n for n in names)
+
+
+@pytest.mark.parametrize("flags", [("-mesh",)])
 def test_unported_overlap_options(flags, data_dir, monkeypatch):
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
     rc, out, err = _run(["overlap", str(data_dir / "tiny.fastq"), *flags])

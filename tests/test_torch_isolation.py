@@ -90,3 +90,39 @@ sys.exit(rc)
     assert res.stdout.startswith(align)
     assert res.stdout.endswith(overlap)
     assert '"insert"' in res.stdout[len(align):-len(overlap)]
+
+
+def test_server_and_qsub_runs_load_no_jax(data_dir, tmp_path):
+    """`server align -job` and `align -qsubjobs 1 -qsubpath /bin/sh` (whose
+    job is such a `server` process) in fresh interpreters: no jax and no
+    quaff_tpu module, and the job's text is the golden."""
+    c8 = str(data_dir / "c8f30.fastq.gz")
+    job = tmp_path / "info.json"
+    job.write_text('{"yName": "%s"}' % open(
+        data_dir / "c8f30-self-align.json").read().split(
+            "#=GS CC Read ")[1].split("\n")[0])
+    check = """
+sys.stdout.flush()
+loaded = sorted(m for m in sys.modules
+                if m in ("jax", "jaxlib", "quaff_tpu")
+                or m.startswith(("jax.", "jaxlib.", "quaff_tpu.")))
+sys.stderr.write("LOADED=" + ",".join(loaded) + "\\n")
+sys.exit(rc)
+"""
+    runs = {
+        "server": f"rc = main(['server', 'align', {c8!r}, {c8!r}, "
+                  f"'-kmatchmb', '10', '-fwdstrand', '-job', {str(job)!r}])",
+        "qsub": f"rc = main(['align', {c8!r}, {c8!r}, '-kmatchmb', '10', "
+                f"'-fwdstrand', '-qsubjobs', '1', '-qsubpath', '/bin/sh', "
+                f"'-qsubdir', {str(tmp_path / 'jobs')!r}])",
+    }
+    env = dict(os.environ, QUAFF_TORCH_DEVICE="cpu")
+    for name, run in runs.items():
+        code = "import sys\nfrom quaff_tpu_torch.cli import main\n" + run + check
+        res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, (name, res.stderr[-3000:])
+        assert "LOADED=\n" in res.stderr, name
+        assert res.stdout == (data_dir / "c8f30-self-align.json").read_text()
+    assert "quaff_tpu_torch.cli server align" in (
+        tmp_path / "jobs" / "job1" / "job.sh").read_text()
