@@ -123,6 +123,21 @@ failure exits non-zero before the final line is printed.
      ssh-launched worker (stub ssh) and qsub through /bin/sh, 2 reads
      each, (a)'s text; (f) `align -profile`, whose Chrome trace must name
      K1's kernels
+  8  `-mesh` (quaff_tpu_torch/parallel/, one rank a device): (a) align of
+     128 of phase 4's reads, train -maxiter 2 on 32 of phase 5's and
+     overlap of 16 of phase 6's, each with -mesh in one process (a world of
+     one rank) and without it: the text byte for byte, the train JSON
+     within rtol 2e-3 / atol 1e-4, and the same kernels on the same routes
+     by the profiler's kernel names; (b) the same three on two ranks that
+     share the card (two processes, a gloo group: NCCL refuses two ranks on
+     one device), rank 0's output (a)'s, each rank's kernels launched and
+     the two ranks' K1 and K4 launches together (a)'s; (c) train -mesh
+     -maxiter 1 in a one-rank NCCL group (its all_gather on the card), the
+     provider's counts bit for bit (a)'s first iteration's; each rank's
+     K1-K4 launches and device ms, the collectives' wall, the walls of (a)
+     and (b); then each kernel of the mesh path against its plain version
+     on the path's chunk with the fewest rows (K2/K3 on its 2 shortest
+     pairs, K4 on its last 2)
 
 Phases 4 and 5 run at a cut depth (512 and 128 reads) to keep the script
 well inside its time limit.  Each plain version's comparison run is also
@@ -133,8 +148,10 @@ Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
 -kmatchoff for its block route, phase 5 for K2's and K3's warp routes and
 the reduction, phase 3b's wide-band count -fast for their block routes,
 phase 6 for K4's two routes, the probes' run in phase 2d for the chain
-kernel, phase 7's `align -remote` runs for K1 on the server's path) runs
-with the launch counts set to 0 just before it and read just after.
+kernel, phase 7's `align -remote` runs for K1 on the server's path, phase
+8 (a)'s `-mesh` runs for K1, K2, K3, the reduction and K4 on the mesh
+path) runs with the launch counts set to 0 just before it and read just
+after.
 The next-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Nothing of JAX is imported.
 """
@@ -2710,6 +2727,504 @@ def _json_pairs(a, b):
     elif isinstance(a, (int, float)):
         yield a, b
 
+# ---------------------------------------------------------------- phase 8
+
+
+def _kernel_tally(prof):
+    """{"wrapper" or "wrapper route": [launches, device ms]} of the port's
+    kernels in a torch.profiler run, told apart by their names
+    (prof/kernel_sass.kernel_of)."""
+    from torch.autograd import DeviceType
+
+    from quaff_tpu_torch.prof.kernel_sass import kernel_of
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        k = kernel_of(e.name)
+        if k is None:
+            continue
+        key = k[0] if k[1] is None else f"{k[0]} {k[1]}"
+        n, ms = out.get(key, (0, 0.0))
+        out[key] = [n + 1, ms + e.time_range.elapsed_us() / 1e3]
+    return out
+
+
+def _launch_counts():
+    """Every wrapper's launch counts: K1's, K2's and K3's by route, the
+    reduction's and K4's by route."""
+    return {"band_fill": _route_counts(), **_estep_launches(),
+            "ov_fill": _ov_counts()}
+
+
+def _profiled_cli(argv):
+    """The CLI on cuda under torch.profiler, with every launch count set to
+    0 just before: (stdout, wall s, launch counts, kernel tally, seconds in
+    the ranks' collectives)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quaff_tpu_torch.parallel.distributed import gather_floats
+
+    import torch
+
+    _reset_launches()
+    coll = gather_floats.seconds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = _cli(argv, "cuda")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return (out, wall, _launch_counts(), _kernel_tally(prof),
+            gather_floats.seconds - coll)
+
+
+def _counted(launches):
+    """The wrappers' launch counts (_launch_counts) keyed as _kernel_tally
+    keys the traced kernels: "wrapper route", or "wrapper" for a kernel of
+    one route; the launched ones only."""
+    out = {}
+    for w, c in launches.items():
+        routes = [(k[: -len("_launches")], n) for k, n in c.items()
+                  if k != "launches"] or [(None, c["launches"])]
+        for r, n in routes:
+            if n:
+                out[w if r is None else f"{w} {r}"] = n
+    return out
+
+
+def _trace_short(res):
+    """None when a _profiled_cli run's trace holds, by kernel name, every
+    launch the wrappers counted and no other; else what each saw."""
+    traced = {k: v[0] for k, v in res[3].items()}
+    counted = _counted(res[2])
+    return None if traced == counted else (traced, counted)
+
+
+def _profiled_job(argv, what, *recorders):
+    """_profiled_cli, its trace held to the wrappers' counts by kernel name.
+    torch.profiler has lost a kernel's record once in a run whose output
+    and counts were whole, so a run whose trace disagrees is run once more
+    (logged) and the second must agree.  The recorders (context managers)
+    are active in the first run alone: (its result, what each yielded)."""
+    for attempt in (1, 2):
+        with contextlib.ExitStack() as stack:
+            got = [stack.enter_context(r) for r in recorders]
+            recorders = ()
+            res = _profiled_cli(argv)
+        if attempt == 1:
+            kept = got
+        short = _trace_short(res)
+        if short is None:
+            return res, kept
+        log(f"{what}: torch.profiler traced {short[0]}, the wrappers "
+            f"counted {short[1]}"
+            + ("; run once more" if attempt == 1 else ""))
+    raise SmokeFailure(f"{what}: the trace disagrees with the wrappers' "
+                       "counts in two runs")
+
+
+@contextlib.contextmanager
+def _provider_counts():
+    """Records each MeshCountsProvider iteration's (counts vector,
+    log-likelihood): yields the list it fills."""
+    from quaff_tpu_torch.parallel import estep as pe
+
+    got, orig = [], pe.MeshCountsProvider.__call__
+
+    def recording(self, qp, order):
+        res = orig(self, qp, order)
+        got.append((pe.counts_vector(res[0]), res[1]))
+        return res
+
+    pe.MeshCountsProvider.__call__ = recording
+    try:
+        yield got
+    finally:
+        pe.MeshCountsProvider.__call__ = orig
+
+
+@contextlib.contextmanager
+def _ov_chunks():
+    """Records K4's prepared input of each chunk a run makes: yields the
+    list it fills."""
+    from quaff_tpu_torch.dp import ov_fill
+
+    chunks, orig = [], ov_fill.prepare
+
+    def recording(tabs, batch):
+        inp = orig(tabs, batch)
+        chunks.append(inp)
+        return inp
+
+    ov_fill.prepare = recording
+    try:
+        yield chunks
+    finally:
+        ov_fill.prepare = orig
+
+
+def _estep_subset(bdev, n):
+    """The n pairs of a fused E-step chunk with the fewest rows, the rows
+    cut to theirs (the plain K2 and K3 step row by row)."""
+    import torch
+
+    B = bdev["y_len"].shape[0]
+    keep = torch.argsort(bdev["y_len"].long())[:n].sort().values
+    ly = int(bdev["y_len"][keep].max())
+    out = {}
+    for k, v in bdev.items():
+        v = v[keep] if v.dim() and v.shape[0] == B else v
+        if k in ("y_tok", "y_match_kmer", "y_qual"):
+            v = v[:, :ly]
+        elif k == "y_indel_kmer_pad":
+            v = v[:, : ly + 1]
+        out[k] = v.contiguous()
+    return out
+
+
+def phase8_rank(coord, rank, jobs_file, out_file):
+    """One of phase 8 (b)'s two ranks on the one card: joins a gloo group
+    (NCCL refuses two ranks on one device), runs each job's `-mesh` command
+    through the CLI on cuda, and writes each one's output, wall, launch
+    counts, kernel tally and collectives' seconds to out_file as JSON."""
+    sys.path.insert(0, str(ROOT))
+    from quaff_tpu_torch.parallel.distributed import (
+        gather_floats, init_distributed, shutdown_distributed)
+
+    init_distributed(coord, 2, rank, backend="gloo")
+    res = {}
+    try:
+        for name, argv in json.loads(pathlib.Path(jobs_file).read_text()):
+            # both ranks run a job once more when either's trace lost a
+            # kernel (see _profiled_job), so their collectives stay paired
+            for attempt in (1, 2):
+                run = _profiled_cli(argv + ["-mesh"])
+                short = [bool(f[0]) for f in gather_floats(
+                    [float(_trace_short(run) is not None)])]
+                if not any(short) or attempt == 2:
+                    break
+                log(f"phase 8 (b): {name}: rank {short.index(True)}'s trace "
+                    "disagrees with its wrappers' counts; both run once more")
+            out, wall, launches, tally, coll = run
+            res[name] = {"out": out, "wall": wall, "launches": launches,
+                         "tally": tally, "collectives_s": coll}
+    finally:
+        shutdown_distributed()
+    pathlib.Path(out_file).write_text(json.dumps(res))
+
+
+def _two_ranks(tmp, jobs, timeout=600):
+    """phase8_rank on ranks 0 and 1 at once, each in a process of its own
+    on the one card: [rank 0's results, rank 1's]."""
+    port = _free_ports(1)
+    (tmp / "jobs.json").write_text(json.dumps(jobs))
+    env = dict(os.environ, QUAFF_TORCH_DEVICE="cuda", PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as cs; cs.phase8_rank("
+         f"'127.0.0.1:{port}', {r}, {str(tmp / 'jobs.json')!r}, "
+         f"{str(tmp / f'rank{r}.json')!r})"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for r in (0, 1)]
+    try:
+        errs = [p.communicate(timeout=timeout)[1].decode() for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"phase 8 (b): the ranks did not end within "
+                           f"{timeout} s")
+    for r, (p, e) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"phase 8 (b): rank {r} exited "
+              f"{p.returncode}: {e[-3000:]}")
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in (0, 1)]
+
+
+def _tally_text(tally):
+    return ", ".join(f"{k} {n} ({ms:.3f} ms)"
+                     for k, (n, ms) in sorted(tally.items()))
+
+
+def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
+    """`-mesh` on the card (parallel/): (a) align, train and overlap with
+    -mesh in one process (a world of one rank), against the local runs on
+    the same inputs, the same kernels launched by name; (b) the same on two
+    ranks that share the card (gloo), rank 0's output against (a)'s, each
+    rank's kernels launched; (c) one MeshCountsProvider iteration (train
+    -mesh -maxiter 1) in a one-rank NCCL group, its counts bit for bit
+    (a)'s first iteration's.  Returns the mesh path's kernel rows."""
+    import numpy as np
+
+    from quaff_tpu_torch.dp import fill_v2, ov_fill
+    from quaff_tpu_torch.parallel.distributed import (
+        gather_floats, init_distributed, shutdown_distributed)
+
+    threads = str(os.cpu_count() or 1)
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        dirs = {k: tmp / k for k in ("p4", "p5", "p6", "ranks")}
+        for v in dirs.values():
+            v.mkdir()
+        # the first reads of phases 4, 5 and 6 (the same seeds and sizes)
+        g4, r4, _, _, _ = _workload(dirs["p4"], n_reads=n_align)
+        g5, r5, _, _, _ = _workload(dirs["p5"], seed=2, n_reads=n_train)
+        _, r6, _, _, _ = _workload(dirs["p6"], seed=21, n_reads=n_overlap,
+                                   genome_len=100_000)
+        jobs = [("align", ["align", str(g4), str(r4), "-threads", threads]),
+                ("train", ["train", str(g5), str(r5), "-maxiter", "2",
+                           "-threads", threads]),
+                ("overlap", ["overlap", str(r6), "-threads", threads])]
+        t_a = time.perf_counter()
+        local, mesh = {}, {}
+        for name, argv in jobs:
+            local[name] = _profiled_job(argv, f"phase 8 (a): {name}")[0]
+        mesh["align"], (k1_calls,) = _profiled_job(
+            jobs[0][1] + ["-mesh"], "phase 8 (a): align -mesh", _record_fill())
+        mesh["train"], (e_chunks, first_a) = _profiled_job(
+            jobs[1][1] + ["-mesh"], "phase 8 (a): train -mesh",
+            _estep_chunks(), _provider_counts())
+        mesh["overlap"], (k4_chunks,) = _profiled_job(
+            jobs[2][1] + ["-mesh"], "phase 8 (a): overlap -mesh",
+            _ov_chunks())
+        wall_a = time.perf_counter() - t_a
+        kernel_of_job = {"align": ("band_fill",),
+                         "train": ("fwd_store", "bwd_counts", "estep_reduce"),
+                         "overlap": ("ov_fill",)}
+        for name, _ in jobs:
+            lo, me = local[name], mesh[name]
+            if name == "train":
+                bad = _json_close(json.loads(me[0]), json.loads(lo[0]),
+                                  2e-3, 1e-4)
+                check(not bad, f"phase 8 (a): train -mesh off the local "
+                      f"train: {bad[:5]}")
+            else:
+                check(me[0] == lo[0], f"phase 8 (a): {name} -mesh text "
+                      "differs from the local run's")
+            # the same kernels, on the same routes (each run's trace holds
+            # them by name: _profiled_job)
+            check(_counted(me[2]) == _counted(lo[2]),
+                  f"phase 8 (a): {name}: -mesh launched {_counted(me[2])}, "
+                  f"the local run {_counted(lo[2])}")
+            for w in kernel_of_job[name]:
+                check(me[2][w]["launches"] > 0, f"phase 8 (a): {name} -mesh "
+                      f"launched no {w}")
+            log(f"phase 8 (a): {name} -mesh, one rank: {me[1]:.2f} s wall "
+                f"(local {lo[1]:.2f} s), the local "
+                f"{'JSON within rtol 2e-3 / atol 1e-4' if name == 'train' else 'text byte for byte'}; "
+                f"kernels {_tally_text(me[3])}; collectives "
+                f"{me[4]:.4f} s [{card}]")
+        log(f"phase 8 (a): wall {wall_a:.2f} s [{card}]")
+
+        # (b) two ranks sharing the card
+        t_b = time.perf_counter()
+        ranks = _two_ranks(dirs["ranks"], jobs)
+        wall_b = time.perf_counter() - t_b
+        for name, _ in jobs:
+            r0, r1 = ranks[0][name], ranks[1][name]
+            check(r1["out"] == "", f"phase 8 (b): rank 1 wrote {name} output")
+            if name == "train":
+                bad = _json_close(json.loads(r0["out"]),
+                                  json.loads(mesh[name][0]), 2e-3, 1e-4)
+                check(not bad, f"phase 8 (b): train on two ranks off (a)'s: "
+                      f"{bad[:5]}")
+            else:
+                check(r0["out"] == mesh[name][0], f"phase 8 (b): {name} on "
+                      "two ranks differs from (a)'s text")
+            for r, res in enumerate((r0, r1)):
+                for w in kernel_of_job[name]:
+                    check(res["launches"][w]["launches"] > 0,
+                          f"phase 8 (b): {name}: rank {r} launched no {w}")
+                short = _trace_short((None, None, res["launches"],
+                                      res["tally"]))
+                check(short is None, f"phase 8 (b): {name}: rank {r} traced "
+                      f"{short and short[0]}, its wrappers counted "
+                      f"{short and short[1]}")
+                log(f"phase 8 (b): {name}, rank {r} of 2: {res['wall']:.2f} "
+                    f"s wall; kernels {_tally_text(res['tally'])}; "
+                    f"collectives {res['collectives_s']:.4f} s [{card}]")
+            if name != "train":
+                # the ranks' chunks together are (a)'s, on the same routes
+                both = {}
+                for res in (r0, r1):
+                    for k, n in _counted(res["launches"]).items():
+                        both[k] = both.get(k, 0) + n
+                check(both == _counted(mesh[name][2]),
+                      f"phase 8 (b): {name}: the ranks launched {both}, "
+                      f"(a) {_counted(mesh[name][2])}")
+        log(f"phase 8 (b): wall {wall_b:.2f} s (both ranks' processes, "
+            f"start-up included) [{card}]")
+
+        # (c) one provider iteration in a one-rank NCCL group
+        coll = gather_floats.seconds
+        init_distributed(num_processes=1, backend="nccl")
+        try:
+            with _provider_counts() as first_c:
+                _cli(jobs[1][1] + ["-mesh", "-maxiter", "1"], "cuda")
+        finally:
+            shutdown_distributed()
+        check(len(first_a) == 2 and len(first_c) == 1,
+              f"phase 8 (c): {len(first_a)} and {len(first_c)} provider "
+              "iterations")
+        check(np.array_equal(first_c[0][0], first_a[0][0])
+              and first_c[0][1] == first_a[0][1],
+              "phase 8 (c): the NCCL group's counts differ from (a)'s first "
+              "iteration")
+        log(f"phase 8 (c): one MeshCountsProvider iteration in a one-rank "
+            f"NCCL group: counts and log-likelihood bit for bit (a)'s first "
+            f"iteration; NCCL collectives {gather_floats.seconds - coll:.4f} "
+            f"s [{card}]")
+
+        # each kernel of the mesh path against its plain version, on the
+        # path's chunk with the fewest rows (a subset of pairs where the
+        # plain version would take minutes)
+        k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        counts = k1_calls.counts
+        for r in ("warp", "cluster", "block"):
+            if not counts[f"{r}_launches"]:
+                continue
+            kw = min((kw for kw, c in zip(k1_calls.inputs, k1_calls.calls)
+                      if c[0][0] == r), key=lambda kw: kw["keys"].shape[1])
+            inp = {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
+                                      "seg_start", "seg_width")}
+            res = fill_case(f"phase 8: align -mesh's shortest {r}-route "
+                            "chunk", inp, kw["tables"], kw["mode"],
+                            kw["local"], card, route=r, mp=kw["max_prop"],
+                            n_plain=1)
+            rows.append(dict(
+                name=f"band_fill{'' if r == 'warp' else '_' + r}_mesh",
+                route="cuda", source="quaff_tpu_torch/csrc/band_fill"
+                f"{'' if r == 'block' else '_' + r}.cuh",
+                replaces="quaff_tpu/dp/pallas_v2.py:491",
+                launches=counts[f"{r}_launches"], library_ms=None,
+                **{k: res[k] for k in k1_keys}))
+        del k1_calls.inputs
+        chunk = min(e_chunks, key=lambda c: int(c["batch"]["y_len"].max()))
+        e = estep_case("phase 8: train -mesh's chunk, its 2 shortest pairs",
+                       _estep_subset(chunk["batch"], 2), chunk["v2"],
+                       chunk["local"], card, n_plain=1)
+        e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")
+        launched = mesh["train"][2]
+        for name, rep_at in (("fwd_store", "quaff_tpu/dp/pallas_counts.py:507"),
+                             ("bwd_counts",
+                              "quaff_tpu/dp/pallas_counts.py:561")):
+            for r in ("warp", "block"):
+                n = launched[name][f"{r}_launches"]
+                if not n:
+                    continue
+                rows.append(dict(
+                    name=f"{name}{'' if r == 'warp' else '_block'}_mesh",
+                    route="cuda", source=(
+                        "quaff_tpu_torch/csrc/estep_warp.cuh" if r == "warp"
+                        else "quaff_tpu_torch/csrc/estep.cu"),
+                    replaces=rep_at, launches=n,
+                    **{k: e[name][r][k] for k in e_keys}))
+        rows.append(dict(name="estep_reduce_mesh", route="cuda",
+                         source="quaff_tpu_torch/csrc/estep.cu",
+                         replaces="quaff_tpu/dp/pallas_counts.py:561",
+                         launches=launched["estep_reduce"]["launches"],
+                         **e["estep_reduce"]))
+        del e_chunks, chunk
+        launched = mesh["overlap"][2]["ov_fill"]
+        for r in ("warp", "cluster"):
+            if not launched[f"{r}_launches"]:
+                continue
+            inp = min((c for c in k4_chunks
+                       if ov_fill.ov_route(c["doff"].shape[1])[0] == r),
+                      key=lambda c: int(c["meta"][:, 5].max()))
+            res = ov_case(f"phase 8: overlap -mesh's {r}-route chunk with "
+                          "the fewest rows", inp, card, n_plain=2,
+                          last=True)[0]
+            rows.append(dict(
+                name=f"ov_fill{'' if r == 'warp' else '_cluster'}_mesh",
+                route="cuda", source=f"quaff_tpu_torch/csrc/ov_fill_{r}.cuh",
+                replaces="quaff_tpu/dp/pallas_overlap.py:221",
+                launches=launched[f"{r}_launches"],
+                **{k: res[k] for k in e_keys}))
+        del k4_chunks
+    log(f"phase 8: {len(rows)} kernel rows of the mesh path: "
+        + ", ".join(f"{r['name']} x{r['launches']}" for r in rows)
+        + f" [{card}]")
+    return rows
+
+
+def phase8_cards(card, n_align=512, n_train=128, n_overlap=64):
+    """`-mesh` over every card of a host, one process a card joined by
+    -coordinator/-nprocs/-procid (an NCCL group): phases 4, 5 and 6's
+    workloads, and train -meshmp 2, each against one process on one card,
+    the align and overlap text byte for byte, the train JSON within rtol
+    2e-3 / atol 1e-4; rank 0 alone writes.  Not part of main(), which
+    needs one card: on a host with several, after phase 1,
+
+        python -c "import chip_smoke as cs; c = cs.phase0_card();
+                   cs.phase1_build(); cs.phase8_cards(c)"
+    """
+    import torch
+
+    n = torch.cuda.device_count()
+    check(n > 1, f"phase 8 cards: {n} card; this check needs several")
+    threads = str(max(1, (os.cpu_count() or 1) // n))
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        for k in ("p4", "p5", "p6"):
+            (tmp / k).mkdir()
+        g4, r4, _, _, _ = _workload(tmp / "p4", n_reads=n_align)
+        g5, r5, _, _, _ = _workload(tmp / "p5", seed=2, n_reads=n_train)
+        _, r6, _, _, _ = _workload(tmp / "p6", seed=21, n_reads=n_overlap,
+                                   genome_len=100_000)
+        jobs = [("align", ["align", str(g4), str(r4), "-threads", threads],
+                 []),
+                ("train", ["train", str(g5), str(r5), "-maxiter", "2",
+                           "-threads", threads], []),
+                ("train -meshmp 2", ["train", str(g5), str(r5), "-maxiter",
+                                     "2", "-threads", threads],
+                 ["-meshmp", "2"]),
+                ("overlap", ["overlap", str(r6), "-threads", threads], [])]
+        env = dict(os.environ, QUAFF_TORCH_DEVICE="cuda",
+                   PYTHONPATH=str(ROOT))
+        for name, argv, extra in jobs:
+            t0 = time.perf_counter()
+            one = _cli(argv, "cuda")
+            t_one = time.perf_counter() - t0
+            port = _free_ports(1)
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "quaff_tpu_torch.cli", *argv, "-mesh",
+                 *extra, "-coordinator", f"127.0.0.1:{port}", "-nprocs",
+                 str(n), "-procid", str(i)], cwd=str(ROOT), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                for i in range(n)]
+            try:
+                outs = [p.communicate(timeout=600) for p in procs]
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                    p.communicate()
+                raise SmokeFailure(f"phase 8 cards: {name}: the ranks did "
+                                   "not end within 600 s")
+            wall = time.perf_counter() - t0
+            for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+                check(p.returncode == 0, f"phase 8 cards: {name}: rank {i} "
+                      f"exited {p.returncode}: {err.decode()[-3000:]}")
+            check(all(o == b"" for o, _ in outs[1:]),
+                  f"phase 8 cards: {name}: a rank but 0 wrote output")
+            got = outs[0][0].decode()
+            if name.startswith("train"):
+                bad = _json_close(json.loads(got), json.loads(one), 2e-3,
+                                  1e-4)
+                check(not bad, f"phase 8 cards: {name} off one card's: "
+                      f"{bad[:5]}")
+            else:
+                check(got == one, f"phase 8 cards: {name}: {n} ranks' text "
+                      "differs from one card's")
+            log(f"phase 8 cards: {name} on {n} ranks, one a card (NCCL): "
+                f"{wall:.2f} s wall with the processes' start-up, one "
+                f"process on one card {t_one:.2f} s; "
+                f"{'JSON within rtol 2e-3 / atol 1e-4' if name.startswith('train') else 'text byte for byte'} "
+                f"[{card}]")
+
 
 def main() -> int:
     if not (ROOT / "quaff_tpu_torch").is_dir():
@@ -2806,6 +3321,7 @@ def main() -> int:
             f"OV_WARP_MAX_LANES is {ov_fill.OV_WARP_MAX_LANES} [{card}]")
     del k4_chunks
     k1_server_counts, k1_server = phase7_server(card)
+    mesh_rows = phase8_mesh(card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [dict(name="band_fill", route="cuda",
@@ -2868,6 +3384,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces="quaff_tpu/dp/pallas_overlap.py:221",
                             launches=n, **{k: res[k] for k in k4_keys}))
+    kernels += mesh_rows
     kernels += probes
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

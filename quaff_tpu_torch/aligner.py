@@ -8,10 +8,16 @@ float64 on the host by the port's native library and walked back, so the
 text output is decided in float64 exactly as in the JAX package; the
 float32 scores only choose the winners.
 
-Not ported here: the device mesh (-mesh; the CLI refuses it), and the JAX
-package's TPU workarounds
-(the cold-kernel native gates, the wide-envelope host fallback and the
-VMEM-derived batch caps: chunks are sized from the card's memory).
+With -mesh (`mesh`, a parallel/distributed.GlobalMesh) the scoring chunks
+are dealt to the ranks in turn, each rank scores its own with K1 on its
+device, the scores are all_gathered, and rank 0 picks the winners, refills
+them and writes (quaff_tpu/aligner.py's _mesh_chunk_scores).  A chunk of
+any width stays on one rank: K1's block route takes any band on one card,
+so the JAX package's band-sharded fill (parallel/spfill.py) is not ported.
+
+Not ported here: the JAX package's TPU workarounds (the cold-kernel native
+gates, the wide-envelope host fallback and the VMEM-derived batch caps:
+chunks are sized from the card's memory).
 """
 
 from __future__ import annotations
@@ -124,6 +130,7 @@ class QuaffAligner:
         self.device = resolve_device(config.device)
         self.tables = ScoreTables.from_params(params)
         self.v2tab = V2Tables.from_tables(self.tables, self.device)
+        self.mesh = None  # -mesh: the GlobalMesh (the CLI sets it)
 
     def align_read(self, refs: List[FastSeq], y: FastSeq) -> List[Alignment]:
         """Align one read against all refs; returns the best alignment (or
@@ -428,22 +435,40 @@ class QuaffAligner:
             B = len(chunk)
             record_chunk(chunk, packed[:B], packed[B:].reshape(B, n_segs))
 
+        def score_chunk(chunk):
+            batch = PairBatch.build_packed(
+                [(refs[nx], reads[ny], env) for ny, nx, env in chunk],
+                self.tables,
+            )
+            dev = scores_v2(
+                self.v2tab, to_device(batch, self.device), mode="viterbi",
+                local=self.config.local, return_segments=True,
+                defer_fetch=True, max_prop=batch_max_prop(batch),
+            )
+            return dev, batch.seg_d_lo.shape[1]
+
         try:
-            for chunk in chunks:
-                batch = PairBatch.build_packed(
-                    [(refs[nx], reads[ny], env) for ny, nx, env in chunk],
-                    self.tables,
-                )
-                dev = scores_v2(
-                    self.v2tab, to_device(batch, self.device), mode="viterbi",
-                    local=self.config.local, return_segments=True,
-                    defer_fetch=True, max_prop=batch_max_prop(batch),
-                )
-                inflight.append((chunk, dev, batch.seg_d_lo.shape[1]))
-                if len(inflight) >= max_inflight:
+            if self.mesh is not None:
+                # -mesh: chunk i on rank i % ranks, every chunk's scores
+                # on every rank; rank 0 alone refills and writes
+                from .parallel.distributed import is_primary
+                from .parallel.estep import sharded_scores
+
+                got = sharded_scores(self.mesh, len(chunks),
+                                     lambda i: score_chunk(chunks[i])[0])
+                if not is_primary():
+                    return {}
+                for chunk, packed in zip(chunks, got):
+                    B = len(chunk)
+                    record_chunk(chunk, packed[:B], packed[B:].reshape(B, -1))
+            else:
+                for chunk in chunks:
+                    dev, n_segs = score_chunk(chunk)
+                    inflight.append((chunk, dev, n_segs))
+                    if len(inflight) >= max_inflight:
+                        drain_one()
+                while inflight:
                     drain_one()
-            while inflight:
-                drain_one()
 
             flush()
             while futures:

@@ -14,8 +14,12 @@ qsub) inherit it.  The socket, ssh, EC2 and qsub backends are server.py,
 bootstrap.py and batch.py; `-profile <dir>` writes a torch.profiler Chrome
 trace of the whole command into <dir>.
 
--mesh and the multi-host flags (-coordinator/-nprocs/-procid) exit 1 with
-"not yet ported".
+-mesh runs on parallel/: one process (rank) a device.  One process is a
+world of one rank; several cards take one process each, joined by
+-coordinator/-nprocs/-procid (or $QUAFF_COORDINATOR, $QUAFF_NPROCS,
+$QUAFF_PROCID) before any work, and rank 0 writes the output.  Unlike the
+JAX package, whose single-process -mesh spans every local device, a
+process here drives one card.
 """
 
 from __future__ import annotations
@@ -41,7 +45,6 @@ from .cliargs import (
 
 PROG = "quaff-tpu-torch"
 VERSION = "0.1"
-NOT_PORTED = "not yet ported in quaff_tpu_torch"
 
 USAGE = f"""Usage: {PROG} {{help,train,count,align,overlap,server}} [options]
 
@@ -122,8 +125,19 @@ Remote and batch backends (align, count, train, overlap):
                    filesystem); -qsub <path>, -qsubopts <options>,
                    -qsubdir <path>, -qsubheader <file>
 
--mesh and the multi-host flags (-coordinator/-nprocs/-procid) are
-{NOT_PORTED}.
+PARALLEL PROCESSING
+
+One process (rank) drives one device: cuda:(rank % cards), or the CPU
+with QUAFF_TORCH_DEVICE=cpu.  Every rank runs the same command:
+   -mesh           Share align, overlap, train and count -fast over the
+                   ranks (reads over a dp axis; one process: one rank)
+   -meshmp <K>     Also split the references over an mp axis of K ranks
+                   (train, count -fast)
+   -coordinator <host:port>   Rank 0's address
+   -nprocs <N>     Number of ranks (processes, one a card)
+   -procid <I>     This process's rank, 0..N-1
+   (or env QUAFF_COORDINATOR/QUAFF_NPROCS/QUAFF_PROCID)
+Rank 0 writes the output.  NCCL joins CUDA ranks, gloo CPU ranks.
 """
 
 
@@ -155,7 +169,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     profile_dir = None
     if "-profile" in rest and rest.index("-profile") + 1 < len(rest):
         profile_dir = rest[rest.index("-profile") + 1]
+    joined = False
     try:
+        joined = _join_ranks(rest)
         if profile_dir:
             with _profiled(profile_dir, command):
                 return commands[command](args, {})
@@ -165,6 +181,74 @@ def main(argv: Optional[List[str]] = None) -> int:
         # (t/quaff.cpp:321-323)
         sys.stderr.write(f"{e}\n")
         return 1
+    finally:
+        if joined:
+            from .parallel.distributed import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _peek_distributed_args(argv: List[str]) -> dict:
+    """-coordinator/-nprocs/-procid anywhere in argv, else
+    $QUAFF_COORDINATOR/$QUAFF_NPROCS/$QUAFF_PROCID (quaff_tpu/cli.py:400-430),
+    as init_distributed's keyword arguments."""
+    vals = {"-coordinator": None, "-nprocs": None, "-procid": None}
+    for i, a in enumerate(argv):
+        if a in vals and i + 1 < len(argv):
+            vals[a] = argv[i + 1]
+    coord = vals["-coordinator"] or os.environ.get("QUAFF_COORDINATOR")
+    nprocs = vals["-nprocs"] or os.environ.get("QUAFF_NPROCS")
+    procid = vals["-procid"] or os.environ.get("QUAFF_PROCID")
+    out = {}
+    if coord:
+        out["coordinator_address"] = coord
+    if nprocs is not None:
+        out["num_processes"] = int(nprocs)
+    if procid is not None:
+        out["process_id"] = int(procid)
+    return out
+
+
+def _join_ranks(argv: List[str]) -> bool:
+    """Join the ranks' process group before any work (the counterpart of
+    jax.distributed.initialize in quaff_tpu/cli.py:460-480), unless this
+    process has one already or runs alone.  True when it joined here."""
+    from .parallel.distributed import init_distributed, world
+
+    dist_args = _peek_distributed_args(argv)
+    if "num_processes" not in dist_args and dist_args:
+        raise RuntimeError("-coordinator and -procid need -nprocs <N> (the "
+                           "number of ranks)")
+    if world()[1] > 1 or dist_args.get("num_processes", 1) <= 1:
+        return False
+    init_distributed(**dist_args)
+    return True
+
+
+def _mesh(mp: int):
+    """The GlobalMesh of a -mesh run: the world's ranks as (dp, mp), mp
+    dividing the world (quaff_tpu/cli.py:963-975, 1183-1187)."""
+    from .logger import logger
+    from .parallel.distributed import make_global_mesh, world
+
+    n = world()[1]
+    if mp < 1 or mp > n or n % mp:
+        raise RuntimeError(f"-meshmp {mp} must divide the device count ({n} "
+                           "ranks running, one a device)")
+    mesh = make_global_mesh(mp)
+    logger.log(1, f"Mesh over {mesh.size} ranks (dp={mesh.dp}, mp={mesh.mp})")
+    return mesh
+
+
+def _out_stream(state):
+    """The command's output: -savealign's file or stdout on rank 0, and
+    nothing on the other ranks (quaff_tpu/cli.py:777)."""
+    from .parallel.distributed import is_primary
+
+    if not is_primary():
+        return open(os.devnull, "w")
+    fn = state.get("align_file")
+    return open(fn, "w") if fn else sys.stdout
 
 
 @contextlib.contextmanager
@@ -216,23 +300,18 @@ def _parse_target():
 
 
 def _config(parsed, state):
-    """The DPConfig of the parsed flags, after refusing the backends this
-    port does not have yet (rather than ignoring them) and resolving the
-    device (so a run that cannot have its device fails before any work)."""
+    """The DPConfig of the parsed flags, with the device resolved (so a run
+    that cannot have its device fails before any work); a rank of several
+    takes its own card."""
     from dataclasses import fields
 
     from .aligner import DPConfig
-    from .device import resolve_device
+    from .parallel.distributed import rank_device, world
 
-    named = []
-    if parsed.use_mesh:
-        named.append("-mesh")
-    if parsed.coordinator or parsed.n_procs or parsed.proc_id >= 0:
-        named.append("multi-host (-coordinator/-nprocs/-procid)")
-    if named:
-        raise RuntimeError(f"{', '.join(named)}: {NOT_PORTED}")
     config = DPConfig(**{f.name: getattr(parsed, f.name) for f in fields(DPConfig)})
-    resolve_device(config.device)
+    dev = rank_device(config.device)
+    if world()[1] > 1:
+        config.device = str(dev)
     return config
 
 
@@ -430,8 +509,11 @@ def _load_null(state, reads):
         null = QuaffNullParams.fit(reads)
     sf = state.get("savenull_file")
     if sf:
-        with open(sf, "w") as f:
-            null.write_json(f)
+        from .parallel.distributed import is_primary
+
+        if is_primary():
+            with open(sf, "w") as f:
+                null.write_json(f)
     return null
 
 
@@ -481,8 +563,7 @@ def _cmd_align(args: deque, state) -> int:
     _collect_file_args(parsed, state, refs_args, reads_args)
     pool, extra_remotes = _launch_remote_pool(
         parsed, server_args(reads_args.filenames))
-    fn = state.get("align_file")
-    out = open(fn, "w") if fn else sys.stdout
+    out = _out_stream(state)
     try:
         if parsed.remotes or extra_remotes:
             from .server import remote_align_all
@@ -501,6 +582,8 @@ def _cmd_align(args: deque, state) -> int:
                            reads, refs, printer)
         else:
             aligner = QuaffAligner(params, null, config, print_all=print_all)
+            if parsed.use_mesh:
+                aligner.mesh = _mesh(1)
             aligner.align_all(out, refs, reads, printer)
     finally:
         _stop_remote_pool(pool)
@@ -510,8 +593,7 @@ def _cmd_align(args: deque, state) -> int:
 
 
 def _cmd_overlap(args: deque, state) -> int:
-    import torch
-
+    from .device import one_thread_on_cpu
     from .formats.alignment import AlignmentPrinter
     from .overlap import QuaffOverlapAligner
 
@@ -547,8 +629,7 @@ def _cmd_overlap(args: deque, state) -> int:
     pool, extra_remotes = _launch_remote_pool(
         parsed, server_args(reads_args.filenames))
     if parsed.remotes or extra_remotes or parsed.qsub_jobs > 0:
-        fn = state.get("align_file")
-        out = open(fn, "w") if fn else sys.stdout
+        out = _out_stream(state)
         # the pair order without building the pair tables
         pairs = QuaffOverlapAligner.__new__(QuaffOverlapAligner).enumerate_pairs
         try:
@@ -576,18 +657,16 @@ def _cmd_overlap(args: deque, state) -> int:
         return 0
 
     aligner = QuaffOverlapAligner(params, null, config)
-    n_threads = torch.get_num_threads()
-    if aligner.device.type == "cpu":
+    if parsed.use_mesh:
+        aligner.mesh = _mesh(1)
+    out = _out_stream(state)
+    try:
         # K4's plain version steps small [B, W] tensors row by row: more
         # intra-op threads only add synchronisation, and beside the exact
         # pass's pool they made each row ~100x slower
-        torch.set_num_threads(1)
-    fn = state.get("align_file")
-    out = open(fn, "w") if fn else sys.stdout
-    try:
-        aligner.align_all(out, seqs, n_originals, printer)
+        with one_thread_on_cpu(aligner.device):
+            aligner.align_all(out, seqs, n_originals, printer)
     finally:
-        torch.set_num_threads(n_threads)
         if out is not sys.stdout:
             out.close()
     return 0
@@ -663,6 +742,15 @@ def _cmd_count(args: deque, state) -> int:
         counts, _, _ = qsub_get_counts(
             _make_qsub_runner(parsed, server_args(None)), refs, reads, params,
             null)
+    elif fast_counts and parsed.use_mesh:
+        # `count -fast -mesh`: the train -mesh E-step, once
+        from .parallel.estep import MeshCountsProvider
+
+        provider = MeshCountsProvider(
+            _mesh(parsed.mesh_mp), refs, reads, params, null, config,
+            allow_null=allow_null, dtype=torch.float32)
+        counts, _, _ = provider(params, [list(range(len(refs)))
+                                         for _ in reads])
     elif fast_counts:
         # `count -fast`: the E-step that `train` runs, at its precision
         # (the fused float32 kernels on a card, the float32 engine on the
@@ -675,10 +763,20 @@ def _cmd_count(args: deque, state) -> int:
         # exact engine on the host CPU whatever the device, as the JAX
         # package computes it (quaff_tpu/cli.py:991-1011); off the card
         # the counter never takes the fused kernels
+        if parsed.use_mesh:
+            from .logger import logger
+
+            logger.log(1, "count: -mesh ignored without -fast (count output "
+                          "is the float64 parity artifact; mesh-shared "
+                          "counts need `-fast`)")
         config.device = "cpu"
         counter = QuaffCounter(params, null, config, use_null_model=allow_null,
                                dtype=torch.float64)
         counts, _, _ = counter.get_counts(refs, reads)
+    from .parallel.distributed import is_primary
+
+    if not is_primary():
+        return 0  # rank 0 owns the counts artifact
     if save_counts:
         with open(save_counts, "w") as f:
             counts.write_json(f)
@@ -778,11 +876,17 @@ def _cmd_train(args: deque, state) -> int:
             gap_order = seed_probe.indel_kmer_len
         prior = QuaffParamCounts.zero(match_order, gap_order)
         prior.init_counts(9, 9, 5, 1, null)
-    if save_prior:
+    from .parallel.distributed import is_primary, world
+
+    if save_prior and is_primary():
         with open(save_prior, "w") as f:
             prior.write_json(f)
             f.write("\n")
     params = _load_params(state, prior=prior)
+    if world()[1] > 1 and not parsed.use_mesh:
+        raise RuntimeError(
+            "multi-process runs (-nprocs > 1) require -mesh: the ranks' "
+            "mesh is the multi-process execution path")
 
     # remote/qsub E-step dispatch (QuaffTrainer::getCounts wraps each EM
     # iteration's counting in startRemoteServers/stopRemoteServers,
@@ -813,6 +917,14 @@ def _cmd_train(args: deque, state) -> int:
         def counts_provider(qp, order):
             return qsub_get_counts(runner, refs, used, qp, null, order)
 
+    elif parsed.use_mesh:
+        # the E-step shared over the ranks (parallel/estep.py)
+        from .parallel.estep import MeshCountsProvider
+
+        counts_provider = MeshCountsProvider(
+            _mesh(parsed.mesh_mp), refs, used, params, null, config,
+            allow_null=trainer.allow_null_model)
+
     try:
         new_params = trainer.fit(refs, reads, params, null, prior, config,
                                  log=lambda msg: logger.log(1, msg),
@@ -821,7 +933,7 @@ def _cmd_train(args: deque, state) -> int:
         for w in workers:
             w.close()
         _stop_remote_pool(pool)
-    if not trainer.save_params_filename:
+    if not trainer.save_params_filename and is_primary():
         new_params.write_json(sys.stdout)
     return 0
 

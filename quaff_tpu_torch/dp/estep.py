@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import one_thread_on_cpu
 from .engine import _shift_left, _shift_right, doubling_scan
 from .fill_v2 import (
     D_SENTINEL,
@@ -153,8 +154,9 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
     dev = doff.device
     kind, lpt = _check_route("fwd_store", route, doff.shape[1])
     if dev.type == "cpu":
-        return fwd_store_reference(x_tok, keys, meta, doff, seg_start,
-                                   seg_width, tables, local, max_prop)
+        with one_thread_on_cpu(dev):
+            return fwd_store_reference(x_tok, keys, meta, doff, seg_start,
+                                       seg_width, tables, local, max_prop)
     if dev.type != "cuda":
         raise RuntimeError(f"fwd_store: no kernel for device {dev}")
     from .. import kernels
@@ -366,8 +368,9 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
     dev = doff.device
     kind, lpt = _check_route("bwd_counts", route, doff.shape[1])
     if dev.type == "cpu":
-        return bwd_counts_reference(x_tok, keys, meta, doff, tables, wrow,
-                                    rows, offsets, local, max_prop)
+        with one_thread_on_cpu(dev):
+            return bwd_counts_reference(x_tok, keys, meta, doff, tables,
+                                        wrow, rows, offsets, local, max_prop)
     if dev.type != "cuda":
         raise RuntimeError(f"bwd_counts: no kernel for device {dev}")
     from .. import kernels

@@ -43,6 +43,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..device import one_thread_on_cpu
 from .engine import TABLE_NAMES, _shift_left, _shift_right
 from .scores import ScoreTables
 
@@ -452,8 +453,10 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
                          f"lanes")
     dev = doff.device
     if dev.type == "cpu":
-        return band_fill_reference(x_tok, keys, meta, doff, seg_start,
-                                   seg_width, tables, mode, local, max_prop)
+        with one_thread_on_cpu(dev):
+            return band_fill_reference(x_tok, keys, meta, doff, seg_start,
+                                       seg_width, tables, mode, local,
+                                       max_prop)
     if dev.type != "cuda":
         raise RuntimeError(f"band_fill: no kernel for device {dev}")
     from .. import kernels

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..alphabet import QUAL_SCORE_RANGE
+from ..device import one_thread_on_cpu
 from .engine import _shift_left, _shift_right
 from .fill_v2 import (D_SENTINEL, NEG_INF, WARP_LPTS, _lse2, check_tensors,
                       cluster_route_ok, cluster_tiling)
@@ -426,8 +427,9 @@ def ov_fill(bank, meta, doff, seg_start, seg_width, ins_xy, trans,
     kind, arg = route
     dev = doff.device
     if dev.type == "cpu":
-        return ov_fill_reference(bank, meta, doff, seg_start, seg_width,
-                                 ins_xy, trans)
+        with one_thread_on_cpu(dev):
+            return ov_fill_reference(bank, meta, doff, seg_start, seg_width,
+                                     ins_xy, trans)
     if dev.type != "cuda":
         raise RuntimeError(f"ov_fill: no kernel for device {dev}")
     from .. import kernels

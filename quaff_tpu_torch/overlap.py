@@ -22,8 +22,12 @@ Two routes, as in the JAX package:
   sequential  one pair, or `-log dpmatrix`: one bounding-band float64 fill
               with matrices per pair, then the traceback
 
-Not ported here: the device mesh (-mesh), remote and qsub backends (the
-CLI refuses them), and the JAX package's TPU workarounds (interpret mode,
+With -mesh (`mesh`, a parallel/distributed.GlobalMesh) K4's chunks are
+dealt to the ranks in turn, each rank scores its own on its device, the
+scores (strip maxima included) are all_gathered, and rank 0 alone runs the
+exact pass and writes (quaff_tpu/overlap.py's _mesh_overlap_scores).
+
+Not ported here: the JAX package's TPU workarounds (interpret mode,
 the VMEM cell budget and kernel-warmth gates, the small-workload native
 gate, bit-packed masks, power-of-two batch padding, 128-lane and 512-row
 rounding, the pipeline chunk count, the device-side bank reversal, and the
@@ -217,6 +221,7 @@ class QuaffOverlapAligner:
                 False: OverlapScoreTables.from_params(params, False, base),
             }
         self._tcache = cache
+        self.mesh = None  # -mesh: the GlobalMesh (the CLI sets it)
 
     def _tables(self, y_complemented: bool) -> OverlapScoreTables:
         """The tables of a strand; the reverse strand's build lazily (not
@@ -543,6 +548,24 @@ class QuaffOverlapAligner:
             }
         direct = wide_pairs | single_set
         scored_jobs = [j for j in jobs if (j[0], j[1]) not in direct]
+        chunks = self._chunks(scored_jobs, packed) if scored_jobs else []
+        gathered = None
+        if self.mesh is not None:
+            # -mesh: chunk i on rank i % ranks, every chunk's scores on
+            # every rank; rank 0 alone runs the exact pass and writes
+            from .parallel.distributed import is_primary
+            from .parallel.estep import sharded_scores
+
+            mine = list(self.mesh.chunks_of_rank(len(chunks)))
+            batches = self._kernel_batches(seqs, [chunks[i] for i in mine],
+                                           packed)
+            # sharded_scores asks for this rank's chunks in `mine` order
+            gathered = sharded_scores(
+                self.mesh, len(chunks),
+                lambda i: overlap_scores(self._tables(False),
+                                         next(batches)[1]))
+            if not is_primary():
+                return
 
         # every strand's tables on the main thread before the pool starts
         for yc in {j[2] for j in jobs}:
@@ -573,11 +596,15 @@ class QuaffOverlapAligner:
                 # candidates start their exact fills while later chunks
                 # still run on the device
                 # (the transitions K4 takes are the same on both strands)
-                pending = [
-                    (chunk, overlap_scores(self._tables(False), batch))
-                    for chunk, batch in self._kernel_batches(
-                        seqs, self._chunks(scored_jobs, packed), packed)
-                ]
+                if gathered is None:
+                    pending = [
+                        (chunk, overlap_scores(self._tables(False), batch))
+                        for chunk, batch in self._kernel_batches(
+                            seqs, chunks, packed)
+                    ]
+                else:
+                    pending = [(chunk, torch.from_numpy(g))
+                               for chunk, g in zip(chunks, gathered)]
                 for chunk, dev in pending:
                     host = dev.cpu().numpy().astype(np.float64)
                     B = len(chunk)

@@ -349,6 +349,11 @@ def server_from_args(args: deque, state) -> Tuple[QuaffServer, Optional[str], in
             continue
         if not _parse_unknown(args, implicit, True):
             break
+    if parsed.use_mesh:
+        # a worker serves its jobs on its one device; the ranks of -mesh
+        # are the client's (refused rather than ignored)
+        raise RuntimeError("server: -mesh is an option of align, train, "
+                           "count and overlap, not of a worker")
     config = _config(parsed, state)
 
     if parsed.bucket:

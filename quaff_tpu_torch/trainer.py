@@ -20,9 +20,10 @@ Two E-step routes, chosen as the JAX package chooses them:
 Not carried over: the TPU's cold-kernel CPU gate (_small_cpu_estep_gate,
 KERNEL_WARM), its VMEM/HBM batch caps, the power-of-two batch padding with
 a sentinel read group and the padding of W to 128.  A chunk is sized by a
-fixed byte budget (ESTEP_CHUNK_BYTES, estep_chunk_plan); the JAX
-multi-host counting branch is not ported.  Remote and qsub counting pass
-their own counts provider to QuaffTrainer.fit.
+fixed byte budget (ESTEP_CHUNK_BYTES, estep_chunk_plan).  Remote, qsub
+and mesh counting (parallel/estep.MeshCountsProvider) pass their own
+counts provider to QuaffTrainer.fit.  On the CPU the E-step runs on one
+intra-op thread (device.one_thread_on_cpu).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from .aligner import DPConfig
-from .device import resolve_device
+from .device import one_thread_on_cpu, resolve_device
 from .dp.counts import dp_forward_backward
 from .dp.engine import PairBatch, table_tensors, to_device
 from .dp.fill_v2 import V2Tables
@@ -49,6 +50,7 @@ from .model.params import (
     QuaffParamCounts,
     QuaffParams,
 )
+from .parallel.distributed import gather_floats, is_primary
 
 # EM convergence parameters (reference qmodel.h:19-20)
 MAX_EM_ITERATIONS = 100
@@ -157,6 +159,35 @@ def estep_chunk_plan(reads, pair_bytes, lane_cap=None, budget=None):
     return chunks, oversize
 
 
+def read_envelopes(config: DPConfig, refs, y: FastSeq, nxs,
+                   kernel: bool = True):
+    """(raw, kernel): read y's envelope against refs[nx] for each nx of
+    nxs, {nx: Envelope}, and when `kernel` the fused E-step's, whose bands
+    wider than ESTEP_LANE_CAP lanes are re-banded with the memory-fitted
+    walk (fit_envelope_lanes); kernel is None otherwise.  Neither depends
+    on the params, so a caller may build them once a run; the read's
+    KmerIndex (4^k + 1 ints) is dropped on return."""
+    y_index = KmerIndex(y, config.kmer_len)
+    raw = {nx: config.make_envelope(refs[nx], y_index, FWDBACK_CELL_SIZE)
+           for nx in nxs}
+    if not kernel:
+        return raw, None
+    kern = {}
+    for nx, env in raw.items():
+        if config.sparse and _packed_width(env) > ESTEP_LANE_CAP:
+            env = fit_envelope_lanes(
+                refs[nx], y_index, ESTEP_LANE_CAP,
+                band_size=config.band_size,
+                kmer_threshold=max(config.kmer_threshold, 0),
+            )
+        kern[nx] = env
+    return raw, kern
+
+
+def _packed_width(env) -> int:
+    return sum(s.band_width for s in pack_strips(env))
+
+
 class QuaffCounter:
     """E-step count computation for reads against references on
     `config.device`.  `dtype` is the exact engine's (float64 parity, or
@@ -169,8 +200,12 @@ class QuaffCounter:
         config: DPConfig,
         use_null_model: bool = True,
         dtype: torch.dtype = torch.float64,
+        envelopes: Optional[list] = None,
     ):
         self.params = params
+        # read_envelopes of each read that count_reads is given, when the
+        # caller built them once for the run
+        self.envelopes = envelopes
         self.null_model = null_model
         self.config = config
         self.use_null_model = use_null_model
@@ -189,12 +224,15 @@ class QuaffCounter:
         return (self.null_model.log_likelihood(y) if self.use_null_model
                 else -math.inf)
 
-    def _envelopes(self, refs, y, sort_order):
-        y_index = KmerIndex(y, self.config.kmer_len)
-        return y_index, {
-            nx: self.config.make_envelope(refs[nx], y_index, FWDBACK_CELL_SIZE)
-            for nx in sort_order
-        }
+    def _envelopes(self, refs, y, nxs, envs=None):
+        """(raw, kernel) envelopes of read y against refs[nx] for nx in
+        nxs: `envs` when the caller built them (read_envelopes), else
+        built now, the kernel ones only for a read the fused E-step
+        takes."""
+        if envs is not None:
+            return envs
+        return read_envelopes(self.config, refs, y, nxs,
+                              kernel=self._use_kernel(y))
 
     def _engine(self, batch: PairBatch, want_post: bool) -> dict:
         if self._engine_tables is None:
@@ -211,12 +249,17 @@ class QuaffCounter:
 
     def count_read(
         self, refs: List[FastSeq], y: FastSeq, sort_order: List[int],
-        force_engine: bool = False,
+        force_engine: bool = False, envs=None,
     ) -> Tuple[QuaffParamCounts, float, List[int]]:
         """One read's posterior-weighted counts against its refs
         (QuaffCountingTask::run, qmodel.cpp:2238-2271): (counts,
         log-likelihood, updated ref sort order).  force_engine takes the
-        exact engine for a read whose band is too wide for the kernels."""
+        exact engine for a read whose band is too wide for the kernels;
+        envs are the read's read_envelopes, when the caller has them."""
+        with one_thread_on_cpu(self.device):
+            return self._count_read(refs, y, sort_order, force_engine, envs)
+
+    def _count_read(self, refs, y, sort_order, force_engine, envs):
         mk, ik = self.params.match_kmer_len, self.params.indel_kmer_len
         y_null_ll = self._null_ll(y)
         if not sort_order:
@@ -225,12 +268,12 @@ class QuaffCounter:
         if not force_engine and not want_post and self._use_kernel(y):
             # the fused kernels never materialise posterior matrices; the
             # postmatrix dump takes the exact engine
-            counts, ll, orders = self._get_counts_kernel_batched(
-                refs, [y], [sort_order], None)
-            return counts, ll, orders[0]
+            counts, lls, orders = self._get_counts_kernel_batched(
+                refs, [y], [sort_order], None, [envs])
+            return counts, lls[0], orders[0]
 
         y_counts = QuaffParamCounts.zero(mk, ik)
-        _, envs = self._envelopes(refs, y, sort_order)
+        envs = self._envelopes(refs, y, sort_order, envs)[0]
         pairs = [(refs[nx], y, envs[nx]) for nx in sort_order]
         res = self._engine(PairBatch.build(pairs, self.tables), want_post)
         fwd = np.asarray(res["fwd_score"], dtype=np.float64)
@@ -273,33 +316,51 @@ class QuaffCounter:
         reads: List[FastSeq],
         sort_order: Optional[List[List[int]]] = None,
     ) -> Tuple[QuaffParamCounts, float, List[List[int]]]:
-        """Counts summed over all reads (QuaffTrainer::getCounts).  When
-        every read takes the fused E-step, pairs of many reads share each
-        launch (the counterpart of the reference's read-level thread
-        pool, qmodel.cpp:2005-2031)."""
+        """Counts summed over all reads (QuaffTrainer::getCounts):
+        (counts, log-likelihood, updated ref sort orders)."""
+        total, lls, new_orders = self.count_reads(refs, reads, sort_order)
+        loglike = 0.0
+        for v in lls:
+            loglike += v
+        return total, loglike, new_orders
+
+    def count_reads(
+        self,
+        refs: List[FastSeq],
+        reads: List[FastSeq],
+        sort_order: Optional[List[List[int]]] = None,
+    ) -> Tuple[QuaffParamCounts, List[float], List[List[int]]]:
+        """get_counts with each read's log-likelihood apart: (counts,
+        [log-likelihood a read], sort orders).  When every read takes the
+        fused E-step, pairs of many reads share each launch (the
+        counterpart of the reference's read-level thread pool,
+        qmodel.cpp:2005-2031)."""
         mk, ik = self.params.match_kmer_len, self.params.indel_kmer_len
         if sort_order is None:
             sort_order = [list(range(len(refs))) for _ in reads]
+        envs = self.envelopes or [None] * len(reads)
         plog = ProgressLogger(level=2)
         plog.init_progress("Expected counts (E-step)")
-        if (not logger.logging_tag("postmatrix")
-                and all(self._use_kernel(y) for y in reads)):
-            out = self._get_counts_kernel_batched(refs, reads, sort_order,
-                                                  plog)
-            plog.done()
-            return out
-        total = QuaffParamCounts.zero(mk, ik)
-        loglike = 0.0
-        new_orders: List[List[int]] = []
-        for ny, y in enumerate(reads):
-            plog.log_progress(ny / max(len(reads), 1),
-                              f"read {ny + 1}/{len(reads)}")
-            y_counts, y_ll, order = self.count_read(refs, y, sort_order[ny])
-            total.add_weighted(y_counts, 1.0)
-            loglike += y_ll
-            new_orders.append(order)
+        with one_thread_on_cpu(self.device):
+            if (not logger.logging_tag("postmatrix")
+                    and all(self._use_kernel(y) for y in reads)):
+                out = self._get_counts_kernel_batched(refs, reads, sort_order,
+                                                      plog, envs)
+                plog.done()
+                return out
+            total = QuaffParamCounts.zero(mk, ik)
+            lls: List[float] = []
+            new_orders: List[List[int]] = []
+            for ny, y in enumerate(reads):
+                plog.log_progress(ny / max(len(reads), 1),
+                                  f"read {ny + 1}/{len(reads)}")
+                y_counts, y_ll, order = self.count_read(
+                    refs, y, sort_order[ny], envs=envs[ny])
+                total.add_weighted(y_counts, 1.0)
+                lls.append(y_ll)
+                new_orders.append(order)
         plog.done()
-        return total, loglike, new_orders
+        return total, lls, new_orders
 
     def _pair_bytes(self, width: int, rows: int, x_len: int) -> int:
         """Device bytes one pair takes in a fused E-step chunk: K2's three
@@ -309,7 +370,8 @@ class QuaffCounter:
         table = 4 * (4 * Km * Q + 4 * Q + 4 * len(self.tables.m2m))
         return 12 * width * rows + table + 32 * width + x_len + 16 * rows
 
-    def _get_counts_kernel_batched(self, refs, reads, sort_order, plog):
+    def _get_counts_kernel_batched(self, refs, reads, sort_order, plog,
+                                   envs):
         """Cross-read fused E-step (quaff_tpu/trainer.py:396-603): the
         (read, ref) pairs of many reads go through estep_fused_multi in
         the chunks of estep_chunk_plan, the longest reads first; each read's
@@ -326,18 +388,12 @@ class QuaffCounter:
         for ny, y in enumerate(reads):
             if not sort_order[ny]:
                 continue
-            y_index, envs = self._envelopes(refs, y, sort_order[ny])
+            envs[ny] = self._envelopes(refs, y, sort_order[ny], envs[ny])
+            kern = envs[ny][1]
             jobs, width = [], 1
             for nx in sort_order[ny]:
-                env = envs[nx]
-                wp = sum(s.band_width for s in pack_strips(env))
-                if self.config.sparse and wp > ESTEP_LANE_CAP:
-                    env = fit_envelope_lanes(
-                        refs[nx], y_index, ESTEP_LANE_CAP,
-                        band_size=self.config.band_size,
-                        kmer_threshold=max(self.config.kmer_threshold, 0),
-                    )
-                    wp = sum(s.band_width for s in pack_strips(env))
+                env = kern[nx]
+                wp = _packed_width(env)
                 if wp == 0:
                     continue  # an empty envelope: forward score -inf
                 jobs.append((ny, nx, env))
@@ -390,13 +446,13 @@ class QuaffCounter:
         }
         # per-read statistics in host float64 (the kernels' float32 y_ll
         # only shapes the count weights)
-        loglike = 0.0
+        lls: List[float] = []
         new_orders: List[List[int]] = []
         for ny in range(len(reads)):
             if ny in oversize_results:
                 y_counts, y_ll, order = oversize_results[ny]
                 total.add_weighted(y_counts, 1.0)
-                loglike += y_ll
+                lls.append(y_ll)
                 new_orders.append(order)
                 continue
             y_loglike = null_lls[ny]
@@ -404,9 +460,21 @@ class QuaffCounter:
             for nx in sort_order[ny]:
                 xy[nx] = xy_ll.get((ny, nx), -math.inf)
                 y_loglike = _log_sum_exp(y_loglike, xy[nx])
-            loglike += y_loglike
+            lls.append(y_loglike)
             new_orders.append(_ref_order(xy, y_loglike))
-        return total, loglike, new_orders
+        return total, lls, new_orders
+
+
+def _check_resume_agrees(start_iter: int, ckpt_dir: str) -> None:
+    """Every rank must resume the same EM state, or their E-steps drift
+    apart: only rank 0 writes the checkpoint, so its directory must be on
+    a filesystem every rank sees (quaff_tpu/trainer.py:665-700)."""
+    iters = {int(v[0]) for v in gather_floats([start_iter])}
+    if len(iters) > 1:
+        raise RuntimeError(
+            "multi-process checkpoint resume desync: ranks see different "
+            f"EM iterations {sorted(iters)}; -checkpoint dir '{ckpt_dir}' "
+            "must be a shared filesystem visible to every rank")
 
 
 @dataclass
@@ -468,6 +536,8 @@ class QuaffTrainer:
                 sort_order = ckpt.sort_order
                 start_iter = ckpt.iteration
                 log(f"Resuming from checkpoint at EM iteration {start_iter}")
+            _check_resume_agrees(start_iter, self.checkpoint_dir)
+        primary = is_primary()  # only rank 0 writes artifacts
         for it in range(start_iter, self.max_iterations):
             if counts_provider is not None:
                 counts, loglike, sort_order = counts_provider(qp, sort_order)
@@ -476,7 +546,7 @@ class QuaffTrainer:
                                        self.allow_null_model)
                 counts, loglike, sort_order = counter.get_counts(
                     refs, reads, sort_order)
-            if self.raw_counts_filename:
+            if self.raw_counts_filename and primary:
                 with open(self.raw_counts_filename, "w") as f:
                     counts.write_json(f)
                     f.write("\n")
@@ -497,7 +567,7 @@ class QuaffTrainer:
             )
             counts_with_prior.add_weighted(counts, 1.0)
             counts_with_prior.add_weighted(pseudocounts, 1.0)
-            if self.counts_with_prior_filename:
+            if self.counts_with_prior_filename and primary:
                 with open(self.counts_with_prior_filename, "w") as f:
                     counts_with_prior.write_json(f)
                     f.write("\n")
@@ -505,11 +575,11 @@ class QuaffTrainer:
             qp = counts_with_prior.fit()
             qp.fit_ref_seqs(refs)
 
-            if self.save_params_filename:
+            if self.save_params_filename and primary:
                 with open(self.save_params_filename, "w") as f:
                     qp.write_json(f)
                     f.write("\n")
-            if self.checkpoint_dir:
+            if self.checkpoint_dir and primary:
                 save_checkpoint(
                     self.checkpoint_dir,
                     TrainState(

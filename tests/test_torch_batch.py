@@ -21,8 +21,10 @@ from quaff_tpu_torch.cli import main
 
 @pytest.fixture(autouse=True)
 def _cpu_device(monkeypatch):
-    # job processes inherit the device
+    # job processes inherit the device, and one intra-op thread (the suite
+    # runs many processes at once)
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
 def _run(argv):

@@ -38,6 +38,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 @pytest.fixture(autouse=True)
 def _worker_env(monkeypatch, tmp_path):
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    # workers inherit one intra-op thread (the suite runs many processes
+    # at once)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     # staged files go under the test's own directory
     monkeypatch.setenv("QUAFF_STAGING_DIR", str(tmp_path / "staging"))
 

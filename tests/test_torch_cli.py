@@ -1,6 +1,7 @@
 """The port's command line (python -m quaff_tpu_torch.cli): a full align run
 never imports JAX, CUDA asked for on a host without a card fails loudly,
-and what is not ported yet is refused, never silently ignored."""
+-mesh in one process is a world of one rank with the local output, and
+what has no meaning is refused, never silently ignored."""
 
 import contextlib
 import io
@@ -13,7 +14,7 @@ import sys
 import pytest
 import torch
 
-from quaff_tpu_torch.cli import NOT_PORTED, main
+from quaff_tpu_torch.cli import main
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -63,33 +64,45 @@ def test_cuda_without_a_card_exits_nonzero(data_dir, monkeypatch):
 
 @pytest.mark.parametrize("command", ["train", "count", "overlap"])
 def test_unported_commands(command, data_dir, monkeypatch):
-    """train, count and overlap are ported, and refuse the distributed
-    backend they do not have yet (-mesh)."""
+    """train, count and overlap take -mesh: in one process a world of one
+    rank, whose output is the local run's (count without -fast ignores
+    it, as the JAX package's does)."""
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
-    rc, out, err = _run([command, str(data_dir / "tiny.fasta"),
-                         str(data_dir / "tiny.fastq"), "-mesh"])
-    assert rc == 1
-    assert NOT_PORTED in err
-    assert out == ""
+    args = [command, str(data_dir / "tiny.fasta"), str(data_dir / "tiny.fastq")]
+    if command == "overlap":
+        args = [command, str(data_dir / "synth12.fastq"), "-kmatchn", "10"]
+    rc, want, err = _run(args)
+    assert rc == 0, err
+    rc, out, err = _run(args + ["-mesh"])
+    assert rc == 0, err
+    assert out == want
 
 
 @pytest.mark.parametrize(
     "flags", [("-mesh",), ("-coordinator", "localhost:1234")])
 def test_unported_align_options(flags, data_dir, monkeypatch):
+    """align -mesh in one process gives the local text; -coordinator
+    without -nprocs is refused before any work."""
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
-    rc, out, err = _run(["align", str(data_dir / "tiny.fasta"),
-                         str(data_dir / "tiny.fastq"), *flags])
-    assert rc == 1
-    assert NOT_PORTED in err
-    assert out == ""
+    args = ["align", str(data_dir / "tiny.fasta"), str(data_dir / "tiny.fastq"),
+            "-nothreshold"]
+    rc, out, err = _run(args + list(flags))
+    if flags[0] == "-mesh":
+        assert rc == 0, err
+        assert out == _run(args)[1]
+    else:
+        assert rc == 1
+        assert "need -nprocs" in err
+        assert out == ""
 
 
 def test_server_refuses_mesh(data_dir, monkeypatch):
+    """A worker serves its jobs on its one device: -mesh is the client's."""
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
     rc, out, err = _run(["server", "align", str(data_dir / "tiny.fasta"),
                          str(data_dir / "tiny.fastq"), "-mesh"])
     assert rc == 1
-    assert NOT_PORTED in err
+    assert "-mesh" in err and "not of a worker" in err
     assert out == ""
 
 
@@ -111,11 +124,13 @@ def test_profile_writes_a_trace(data_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [("-mesh",)])
 def test_unported_overlap_options(flags, data_dir, monkeypatch):
+    """overlap -mesh in one process gives the local text."""
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
-    rc, out, err = _run(["overlap", str(data_dir / "tiny.fastq"), *flags])
-    assert rc == 1
-    assert NOT_PORTED in err
-    assert out == ""
+    args = ["overlap", str(data_dir / "synth12.fastq"), "-kmatchn", "10",
+            "-nothreshold"]
+    rc, out, err = _run(args + list(flags))
+    assert rc == 0, err
+    assert out == (data_dir / "synth12-overlap.oracle.stk").read_text()
 
 
 def test_overlap_runs(data_dir, monkeypatch):

@@ -79,7 +79,7 @@ sys.stderr.write("LOADED=" + ",".join(loaded) + "\\n")
 sys.stderr.write("LIBS=" + ",".join(libs) + "\\n")
 sys.exit(rc)
 """
-    env = dict(os.environ, QUAFF_TORCH_DEVICE="cpu")
+    env = dict(os.environ, QUAFF_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -116,7 +116,7 @@ sys.exit(rc)
                 f"'-fwdstrand', '-qsubjobs', '1', '-qsubpath', '/bin/sh', "
                 f"'-qsubdir', {str(tmp_path / 'jobs')!r}])",
     }
-    env = dict(os.environ, QUAFF_TORCH_DEVICE="cpu")
+    env = dict(os.environ, QUAFF_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     for name, run in runs.items():
         code = "import sys\nfrom quaff_tpu_torch.cli import main\n" + run + check
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

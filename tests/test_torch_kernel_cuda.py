@@ -933,3 +933,30 @@ def test_sol_chain_matches_plain(op):
         assert torch.equal(got, ref)
     else:
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_nccl_rank_order_sum_is_the_one_rank_total():
+    """In a one-rank NCCL group, where all_gather runs on the card: the
+    rank-order float64 sum of the gathered count totals
+    (parallel/distributed.sum_in_rank_order, which MeshCountsProvider
+    takes) equals the one rank's totals bit for bit, and gather_floats
+    returns each vector as sent, of any length."""
+    _need_card()
+    from quaff_tpu_torch.parallel import distributed
+
+    rng = np.random.default_rng(5)
+    totals = rng.standard_normal(1888) * 10.0 ** rng.integers(-30, 30, 1888)
+    distributed.init_distributed(num_processes=1, backend="nccl")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        calls = distributed.gather_floats.calls
+        summed = distributed.sum_in_rank_order(
+            distributed.gather_floats(totals))
+        (short,) = distributed.gather_floats(totals[:7])
+        assert distributed.gather_floats.calls == calls + 2
+    finally:
+        distributed.shutdown_distributed()
+    assert summed.dtype == np.float64
+    assert np.array_equal(summed, totals)
+    assert np.array_equal(short, totals[:7])

@@ -45,6 +45,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 @pytest.fixture(autouse=True)
 def _cpu_device(monkeypatch):
     monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    # worker processes inherit one intra-op thread: the suite runs many
+    # processes at once, and the CPU paths step small tensors row by row
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
 def _free_port() -> int:
