@@ -8,8 +8,8 @@ failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
   1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster and
-     block routes, K2, K3, the count reduction, K4's warp and cluster
-     routes and the probes' chain kernel;
+     block routes, K2's and K3's warp, cluster and block routes, the count
+     reduction, K4's warp and cluster routes and the probes' chain kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
      and the host library libquaffio (native/*.cpp, one g++ per source),
      both at once
@@ -25,15 +25,19 @@ failure exits non-zero before the final line is printed.
      cells/s, the least time the card could take
   2b K2, K3 and the count reduction against their plain versions: B=64
      W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
-     (the warp routes' cutover: lanes-a-thread 16 against the block
-     route), a band wider than shared memory, and the c8f30 self pair;
-     each of K2's and K3's routes (the warp route where 512 lanes cover the
-     band, the block route) forced on the same inputs, K3 on each route's
-     K2 store, each against the plain versions and repeated bit for bit,
-     timed (CUDA events, median of 3); the reduction bit for bit; two runs
-     must give bit-identical count tables; the reduction and torch.sum
-     timed alike (device time from a CUDA graph of 100 calls, the eager
-     100 back to back, one call with host launch)
+     (the warp routes' cutover: lanes-a-thread 16 against the cluster and
+     block routes), a band wider than shared memory and than the cluster
+     routes' 4096 lanes (the block routes, their row state in global
+     scratch), and the c8f30 self pair; each of K2's and K3's routes (the
+     warp route where 512 lanes cover the band, the cluster route at the
+     table's tiling up to 4096 lanes, the block route) forced on the same
+     inputs, K3 on each of K2's routes' stores, each against the plain
+     versions and repeated bit for bit, timed (CUDA events, median of 3);
+     on the cutover case every other cluster tiling of each kernel timed
+     alike and its error logged; the reduction bit for bit; two runs must
+     give bit-identical count tables; the reduction and torch.sum timed alike
+     (device time from a CUDA graph of 100 calls, the eager 100 back to
+     back, one call with host launch)
   2c K4 against its plain version: 64 overlapping pairs of 2-10 kb reads,
      lane-packed (up to 3 strips), at gap order 0 and 1, each batch with
      both strands and reads with and without qualities; the plain version
@@ -55,9 +59,10 @@ failure exits non-zero before the final line is printed.
   3b `train` on c8f30 (2 EM iterations) through K2/K3 against the golden
      log-likelihoods and c8f30-train2.oracle.json; `count -fast` on
      synth12 against the float64 parity count, with the default k-mer band
-     and with -kmatchband 600 (wider than any warp route: the K2/K3 block
-     routes' path); each chunk's routes, held to estep_route's; then
-     K2/K3 (the block routes) and the reduction on the -kmatchband 600
+     and with -kmatchband 600 (W=606, wider than any warp route: K2's and
+     K3's cluster routes); each chunk's routes, held to estep_route's;
+     then K2/K3 (the cluster routes, the block routes forced beside them,
+     every other tiling swept) and the reduction on the -kmatchband 600
      run's chunk against their plain versions
   3c the port's `overlap` CLI on cuda, byte for byte against five goldens,
      with K4's launches (K4 must run on the multi-pair ones)
@@ -75,7 +80,11 @@ failure exits non-zero before the final line is printed.
   4b `align -kmatchoff` (no k-mer envelope, so bands wider than the
      cluster route's widest): a seeded 20 kb genome and 4 reads of 2-3 kb
      through the CLI on cuda, every K1 launch on the block route, which is
-     then held against its plain version on the run's chunk
+     then held against its plain version on the run's chunk; `count -fast
+     -kmatchoff` on the same reads (W up to 22882: K2's and K3's block
+     routes' path), every K2/K3 launch on the block routes, held against
+     the plain versions on its smaller chunk's 2 pairs with the fewest
+     rows
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches by
      route, each chunk's (B, W, routes, K2 and K3 device ms) from the
@@ -83,9 +92,22 @@ failure exits non-zero before the final line is printed.
      rise; `count -fast` on all 128 reads twice, the second time while a
      tensor holds most of the card's free memory, byte for byte the same
      (the E-step's chunk plan reads no free memory); `count -fast` on the
-     first 8 reads against the parity count; then K2/K3 (both routes
-     forced) and the reduction on the run's largest chunk against their
-     plain versions
+     first 8 reads against the parity count; then K2/K3 (the warp,
+     cluster and block routes forced) and the reduction timed on the run's
+     largest chunk, held against their plain versions on its 8 pairs with
+     the fewest rows
+  5b train on phase 4's recipe (512 reads, seed 1): `train -maxiter 2`
+     through the CLI on cuda, the K2/K3 cluster routes' path (the E-step
+     groups reads by rows, not width, so read 369's 4038-lane band puts
+     its chunk of 14 pairs there); each chunk's (B, W, rows, K2 route, K3
+     route, device ms) by the profiler's kernel names; the log-likelihood
+     must rise; then at the wide chunk K2 and K3 on their cluster routes
+     against their block routes forced on the same inputs (median of 3,
+     CUDA events) and every other tiling swept, the bound from its inputs,
+     the counts held to the plain versions on its 2 pairs with the fewest
+     rows and on read 369's pair, the one whose band spans every tile and
+     CTA (full rows; its error and back-start posterior logged apart),
+     two runs bit for bit
   6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
      genome (phase 4's recipe), all-vs-all with reverse complements (6048
      pairs) through the CLI on cuda; wall, pairs/s, K4 launches by route
@@ -146,7 +168,8 @@ reruns the kernel on the same inputs and requires the same bits.
 
 Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
 -kmatchoff for its block route, phase 5 for K2's and K3's warp routes and
-the reduction, phase 3b's wide-band count -fast for their block routes,
+the reduction, phase 5b's train with a wide read for their cluster
+routes, phase 4b's count -fast -kmatchoff for their block routes,
 phase 6 for K4's two routes, the probes' run in phase 2d for the chain
 kernel, phase 7's `align -remote` runs for K1 on the server's path, phase
 8 (a)'s `-mesh` runs for K1, K2, K3, the reduction and K4 on the mesh
@@ -929,7 +952,12 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
     whole ref and read, wider than the cluster route's widest): K1's block
     route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
     CLI on cuda; every launch must take the block route; then the block
-    route on the run's chunk against its plain version (once)."""
+    route on the run's chunk against its plain version (once).  Then
+    `count -fast -kmatchoff` on the same reads, K2's and K3's block routes'
+    path (bands past the cluster routes' widest): every launch on the
+    block routes, the counts finite.  Returns K1's launches and result,
+    and the count run's E-step launches and its chunk with the fewest
+    pairs."""
     from quaff_tpu_torch.dp import fill_v2
 
     with tempfile.TemporaryDirectory() as d:
@@ -957,12 +985,33 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
             + ", ".join(f"({_route_label(r)}, {W}, {B})"
                         for r, W, B, _ in calls.calls) + f" [{card}]")
         kw = calls.widest["block"]
+        _reset_launches()
+        with _estep_chunks() as chunks:
+            t0 = time.perf_counter()
+            fast = _cli(["count", str(gpath), str(rpath), "-kmatchoff",
+                         "-fast"], "cuda")
+            wall = time.perf_counter() - t0
+        e_counts = _estep_launches()
+        routes = _check_routes("phase 4b count -fast -kmatchoff", chunks,
+                               e_counts)
+        check(all(0 < e_counts[k]["block_launches"] == e_counts[k]["launches"]
+                  for k in ESTEP),
+              f"phase 4b: count -fast -kmatchoff's K2/K3 launches by route "
+              f"{e_counts}, want all on the block routes")
+        json.loads(fast)
+        check(not re.search(r"nan|inf", fast.lower()),
+              "phase 4b: count -fast -kmatchoff's counts are not finite")
+        log(f"phase 4b: count -fast -kmatchoff on cuda: {wall:.2f} s wall; "
+            f"chunks {_route_text(chunks, routes)} (Ly "
+            f"{[c['rows'] for c in chunks]}); launches {e_counts} [{card}]")
+        e_chunk = min(chunks, key=lambda c: c["B"])
+        del chunks
     res = fill_case("phase 4b: the -kmatchoff chunk",
                     {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
                                         "seg_start", "seg_width")},
                     kw["tables"], kw["mode"], kw["local"], card,
                     route="block", mp=kw["max_prop"], n_plain=1)
-    return counts, res
+    return counts, res, e_counts, e_chunk
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -995,77 +1044,131 @@ def _max_prop(bdev):
     return p if m > 0 else None
 
 
-ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: a warp and a block route
+ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: warp, cluster, block routes
 
 
-def _estep_routes(W):
-    """The K2/K3 routes held against each other on a band of W lanes: the
-    warp route at estep.warp_lpt(W) where a warp covers W (up to 512
-    lanes), then the block route."""
-    from quaff_tpu_torch.dp.estep import warp_lpt
+def _estep_routes(W, kernel):
+    """The routes of K2 or K3 (`kernel`) held against each other on a band
+    of W lanes: the warp route at estep.warp_lpt(W) where a warp covers W
+    (up to 512 lanes), the cluster route at the kernel's
+    ESTEP_CLUSTER_TABLE tiling up to ESTEP_CLUSTER_MAX_LANES, then the
+    block route."""
+    from quaff_tpu_torch.dp import estep
+    from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
 
-    lpt = warp_lpt(W)
-    return [("block", 0)] if lpt is None else [("warp", lpt), ("block", 0)]
+    lpt = estep.warp_lpt(W)
+    out = [] if lpt is None else [("warp", lpt)]
+    if W <= estep.ESTEP_CLUSTER_MAX_LANES:
+        out.append(("cluster",
+                    cluster_tiling(W, estep.ESTEP_CLUSTER_TABLE)))
+    return out + [("block", 0)]
 
 
-def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
+def _estep_wrow(fwd):
+    """K3's [2, B] weights (1 for a pair with a finite forward score) and
+    normalisers (its forward score) from K2's scores."""
+    import torch
+
+    from quaff_tpu_torch.dp.fill_v2 import NEG_INF
+
+    fin = fwd > NEG_INF / 2
+    return torch.stack([fin.float(), torch.where(fin, fwd, 0.0)]).contiguous()
+
+
+def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
+               check_n=None, widest=False, sweep=False):
     """K2, K3 and the count reduction against their plain versions on one
-    batch, each of K2's and K3's routes forced on the same inputs (and K3
-    on each route's K2 store): agreement, the back-start posterior,
-    bitwise repeatability, times and bounds.  Returns, per kernel and
-    route kind, the kernels line's numbers."""
+    batch, each of K2's and K3's routes (_estep_routes) forced on the same
+    inputs, K3 on each of K2's routes' stores: agreement, the back-start
+    posterior, bitwise repeatability, times and bounds.  With check_n, the
+    plain versions run on the batch's check_n pairs with the fewest rows
+    (_estep_subset, at the batch's band width, so at its routes), with
+    widest also on the pair whose live lanes span the most of the band
+    (its error and back-start posterior logged apart), and the kernels are
+    held against them there, while the kernels' times are the whole
+    batch's.  With sweep, every other cluster tiling of each kernel
+    (_sweep_tilings) is timed alike on the whole batch and its error
+    against the plain version logged (the measurement ESTEP_CLUSTER_TABLE
+    is set from; only the table's tiling is held to the tolerance).
+    Returns, per kernel and route kind, the kernels line's numbers, and
+    the sweep {kernel: {label: (ms, max abs err, within tolerance)}}."""
     import torch
 
     from quaff_tpu_torch.dp import estep, fill_v2
 
     inp = fill_v2.kernel_inputs(bdev)
+    chk = inp if check_n is None else fill_v2.kernel_inputs(
+        _estep_subset(bdev, check_n, widest))
     mp = _max_prop(bdev)
     B, W = inp["doff"].shape
     Ly = inp["keys"].shape[1]
-    routes = _estep_routes(W)
+    routes = {k: _estep_routes(W, k) for k in ESTEP}
     auto = {k: estep.estep_route(W, k) for k in ESTEP}
 
-    def k2(keys, route=None):
-        return estep.fwd_store(**dict(inp, keys=keys), tables=v2, local=local,
+    def k2(x, keys, route=None):
+        return estep.fwd_store(**dict(x, keys=keys), tables=v2, local=local,
                                route=route)
 
     def p2(keys):
-        return estep.fwd_store_reference(**dict(inp, keys=keys), tables=v2,
+        return estep.fwd_store_reference(**dict(chk, keys=keys), tables=v2,
                                          local=local, max_prop=mp)
 
+    def k3(x, w, store, route=None):
+        return estep.bwd_counts(x["x_tok"], x["keys"], x["meta"], x["doff"],
+                                v2, w, *store, local=local, route=route)
+
     # K2 on each route, against the plain version, and again bit for bit
-    ref2, t_p2 = _timed(p2, inp["keys"])
-    stores, err_f = {}, {}
-    for r in routes:
-        stores[r[0]] = k2(inp["keys"], r)
-        err_f[r[0]] = _compare(stores[r[0]][0], ref2[0])
-        check(torch.equal(stores[r[0]][0], k2(inp["keys"], r)[0]),
-              f"{name}: two runs of K2's {r[0]} route differ")
+    ref2, t_p2 = _timed(p2, chk["keys"])
+    ref_fwd = ref2[0]
     del ref2
+    stores, err_f = {}, {}
+    for r in routes["fwd_store"]:
+        stores[r[0]] = k2(chk, chk["keys"], r)
+        err_f[r[0]] = _compare(stores[r[0]][0], ref_fwd)
+        check(torch.equal(stores[r[0]][0], k2(chk, chk["keys"], r)[0]),
+              f"{name}: two runs of K2's {r[0]} route differ")
     fwd, rows, offs = stores[auto["fwd_store"][0]]
     fin = fwd > fill_v2.NEG_INF / 2
-    wrow = torch.stack([fin.float(), torch.where(fin, fwd, 0.0)]).contiguous()
-    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
-
-    def k3(w, route=None, store=None):
-        st = (rows, offs) if store is None else store
-        return estep.bwd_counts(*base, w, *st, local=local, route=route)
+    wrow = _estep_wrow(fwd)
+    # the widest pair: the only one whose band spans every tile and CTA of
+    # a cluster route, so the only one on its seams
+    wide = None
+    if widest:
+        live = chk["doff"] != fill_v2.D_SENTINEL
+        first, span = _live_span(live)
+        iw = int(span.argmax())
+        wide = {"at": iw, "lanes": int(live[iw].sum()),
+                "from": int(first[iw]), "to": int(first[iw] + span[iw] - 1),
+                "fwd": 0.0, "counts": 0.0, "bsp": 0.0}
+        check(bool(fin[iw]), f"{name}: the widest pair has no finite "
+              "forward score")
+        for r in routes["fwd_store"]:
+            wide["fwd"] = max(wide["fwd"], abs(
+                float(stores[r[0]][0][iw]) - float(ref_fwd[iw])))
 
     def p3(w):
-        return estep.bwd_counts_reference(*base, w, rows, offs, local=local,
-                                          max_prop=mp)
+        return estep.bwd_counts_reference(
+            chk["x_tok"], chk["keys"], chk["meta"], chk["doff"], v2, w, rows,
+            offs, local=local, max_prop=mp)
 
-    # K3 on each route, on each route's K2 store (the layout they share),
-    # against the plain version on estep_route's store: every pairing
+    # K3 on each route, on each of K2's routes' stores (the layout they
+    # share), against the plain version on estep_route's store
     (part_p, sc_p), t_p3 = _timed(p3, wrow)
     want = torch.cat([part_p.ravel(), sc_p.ravel()])
+    if wide is not None:
+        want_w = torch.cat([part_p[iw], sc_p[:, iw]])
     del part_p, sc_p
     err_c, bsp_err = {}, 0.0
-    for r3 in routes:
-        for r2 in routes:
-            part, sc = k3(wrow, r3, stores[r2[0]][1:])
+    for r3 in routes["bwd_counts"]:
+        for r2 in routes["fwd_store"]:
+            part, sc = k3(chk, wrow, stores[r2[0]][1:], r3)
             err = _compare_counts(torch.cat([part.ravel(), sc.ravel()]), want)
             err_c[r3[0]] = max(err_c.get(r3[0], 0.0), err)
+            if wide is not None:
+                got_w = torch.cat([part[iw], sc[:, iw]])
+                wide["counts"] = max(wide["counts"], float(
+                    (got_w.double() - want_w.double()).abs().max()))
+                wide["bsp"] = max(wide["bsp"], abs(float(sc[4][iw]) - 1))
             # each finite pair's back-start posterior exp(back - fwd) is 1
             # in exact arithmetic (rtol 5e-3, tests/test_pallas_counts.py)
             bsp = sc[4][fin].double().cpu()
@@ -1073,48 +1176,78 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
             check(bool(((bsp - 1).abs() < 5e-3).all()),
                   f"{name}: K3 {r3[0]} on K2 {r2[0]}: back-start posterior "
                   f"off 1 by {float((bsp - 1).abs().max()):.3g}")
-            part2, sc2 = k3(wrow, r3, stores[r2[0]][1:])
+            part2, sc2 = k3(chk, wrow, stores[r2[0]][1:], r3)
             check(torch.equal(part, part2) and torch.equal(sc, sc2),
                   f"{name}: two runs of K3's {r3[0]} route differ")
             del part, sc, part2, sc2
-    del want
-    for r in routes:
-        if r[0] != auto["fwd_store"][0]:
-            del stores[r[0]]
-    part, sc = k3(wrow)
+    # each other cluster tiling's error on the same inputs (timed below)
+    tilings = {k: [t for t in _sweep_tilings(
+                       W, estep.ESTEP_CLUSTER_LPTS,
+                       estep.ESTEP_CLUSTER_MAX_WARPS[k].get)
+                   if ("cluster", t) not in routes[k]]
+               if sweep and W <= estep.ESTEP_CLUSTER_MAX_LANES else []
+               for k in ESTEP}
+    swept = {k: {} for k in ESTEP}
+    for t in tilings["fwd_store"]:
+        e, ok = _errors(k2(chk, chk["keys"], ("cluster", t))[0], ref_fwd)
+        swept["fwd_store"][t] = [None, e, ok]
+    for t in tilings["bwd_counts"]:
+        part, sc = k3(chk, wrow, (rows, offs), ("cluster", t))
+        g = torch.cat([part.ravel(), sc.ravel()]).double().cpu()
+        r = want.double().cpu()
+        err = (g - r).abs()
+        swept["bwd_counts"][t] = [
+            None, float(err.max()),
+            bool(torch.isfinite(g).all())
+            and not bool((err > C_ATOL + C_RTOL * r.abs()).any())]
+    # the plain versions: the comparison's run and n_plain - 1 more
+    cw = [(wrow * torch.tensor([[1.0 + 1e-3 * i], [1.0]], device=wrow.device)
+           ).contiguous() for i in range(1, n_plain)]
+    plain = {"fwd_store": statistics.median(
+                 [t_p2] + _times(p2, _key_variants(chk["keys"],
+                                                   n_plain)[1:])),
+             "bwd_counts": statistics.median([t_p3] + _times(p3, cw))}
+    del want, stores, fwd, rows, offs, ref_fwd, cw
+
+    # the whole batch: K2 and K3 on estep_route's routes, the reduction;
+    # the whole E-step again must repeat bit for bit
+    fwd, rows, offs = k2(inp, inp["keys"])
+    wrow = _estep_wrow(fwd)
+    part, sc = k3(inp, wrow, (rows, offs))
     tab = estep.estep_reduce(part)
     tab_p, t_red_p = _timed(estep.estep_reduce_reference, part)
     err_r = float((tab - tab_p).abs().max())
     check(torch.equal(tab, tab_p), f"{name}: the count reduction differs "
           f"from its plain version (max abs err {err_r:.3g}), not bit for bit")
     del tab_p
-    # the whole E-step again on estep_route's routes: the tables must
-    # repeat bit for bit
-    fwd2, rows2, offs2 = k2(inp["keys"])
-    part2, sc2 = estep.bwd_counts(*base, wrow, rows2, offs2, local=local)
+    fwd2, rows2, offs2 = k2(inp, inp["keys"])
+    part2, sc2 = k3(inp, wrow, (rows2, offs2))
     tab2 = estep.estep_reduce(part2)
     check(torch.equal(fwd, fwd2) and torch.equal(sc, sc2)
           and torch.equal(tab, tab2), f"{name}: two runs differ")
     del fwd2, rows2, offs2, part2, sc2, tab2
 
-    variants = []
-    for i in range(n_runs + 1):
-        k = inp["keys"].clone()
-        k[:, i % Ly, 1] = (k[:, i % Ly, 1] + 1) % 40
-        variants.append(k)
+    variants = _key_variants(inp["keys"], n_runs + 1)
     wv = [(wrow * torch.tensor([[1.0 + 1e-3 * i], [1.0]], device=wrow.device)
            ).contiguous() for i in range(n_runs)]
-    # each route on the same inputs (CUDA events, median of n_runs), the
-    # plain versions: the comparison's run and n_plain - 1 more
+    # each route and swept tiling on the same inputs (CUDA events, median of
+    # n_runs)
     t = {"fwd_store": {}, "bwd_counts": {}}
-    for r in routes:
-        k2(variants[0], r)  # warm
-        t["fwd_store"][r[0]] = _time(lambda k, r=r: k2(k, r), variants[1:])
-        t["bwd_counts"][r[0]] = _time(lambda w, r=r: k3(w, r), wv)
-    plain = {"fwd_store": statistics.median(
-                 [t_p2] + _times(p2, variants[1:n_plain])),
-             "bwd_counts": statistics.median(
-                 [t_p3] + _times(p3, wv[:n_plain - 1]))}
+    for r in routes["fwd_store"] + [("cluster", x) for x in
+                                    tilings["fwd_store"]]:
+        k2(inp, variants[0], r)  # warm
+        ms = _time(lambda k, r=r: k2(inp, k, r), variants[1:])
+        if r in routes["fwd_store"]:
+            t["fwd_store"][r[0]] = ms
+        else:
+            swept["fwd_store"][r[1]][0] = ms * 1e3
+    for r in routes["bwd_counts"] + [("cluster", x) for x in
+                                     tilings["bwd_counts"]]:
+        ms = _time(lambda w, r=r: k3(inp, w, (rows, offs), r), wv)
+        if r in routes["bwd_counts"]:
+            t["bwd_counts"][r[0]] = ms
+        else:
+            swept["bwd_counts"][r[1]][0] = ms * 1e3
     # the reduction and torch.sum, timed alike: device time (a graph of
     # 100 back-to-back calls), the eager 100, one call with host launch
     red = {}
@@ -1145,32 +1278,55 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3):
     out = {k: {r[0]: {"max_abs_err": errs[k][r[0]],
                       "ms": t[k][r[0]] * 1e3, "plain_ms": plain[k] * 1e3,
                       "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-                      "library_ms": None, "route": r} for r in routes}
+                      "library_ms": None, "route": r} for r in routes[k]}
            for k in ESTEP}
     out["estep_reduce"] = {
         "max_abs_err": err_r, "ms": red["kernel"]["device"] * 1e3,
         "plain_ms": t_red_p * 1e3, "bound_ms": bounds["estep_reduce"][0],
         "bound_by": bounds["estep_reduce"][1],
         "library_ms": red["torch.sum"]["device"] * 1e3}
-    log(f"phase 2b: {name}: B={B} W={W} Ly={Ly} "
-        f"{'local' if local else 'global'}, {cells} in-envelope cells; "
+    out["sweep"] = {k: {_route_label(("cluster", x)): tuple(v)
+                        for x, v in swept[k].items()} for k in ESTEP}
+    at = "" if name.startswith("phase") else "phase 2b: "
+    on = ("" if check_n is None else
+          f"; the plain versions on its {chk['doff'].shape[0]} pairs: the "
+          f"{check_n} with the fewest rows"
+          + (" and the widest" if widest else "")
+          + f" (Ly={chk['keys'].shape[1]})")
+    log(f"{at}{name}: B={B} W={W} Ly={Ly} "
+        f"{'local' if local else 'global'}, {cells} in-envelope cells{on}; "
         f"estep_route: K2 {auto['fwd_store']}, K3 {auto['bwd_counts']}; max "
         f"abs err fwd {max(err_f.values()):.3g}, counts "
-        f"{max(err_c.values()):.3g} (routes {[r[0] for r in routes]}, K3 on "
-        f"each route's K2 store); reduce bitwise equal to its plain version; "
-        f"back-start posterior within {bsp_err:.3g} of 1; tables "
-        f"bit-identical over two runs [{card}]")
+        f"{max(err_c.values()):.3g} (K2 routes "
+        f"{[r[0] for r in routes['fwd_store']]}, K3 routes "
+        f"{[r[0] for r in routes['bwd_counts']]} on each K2 route's store); "
+        f"reduce bitwise equal to its plain version; back-start posterior "
+        f"within {bsp_err:.3g} of 1; tables bit-identical over two runs "
+        f"[{card}]")
+    if wide is not None:
+        log(f"{at}{name}: the widest pair ({wide['lanes']} live lanes of "
+            f"{W}, from lane {wide['from']} to {wide['to']}, "
+            f"{int(chk['meta'][wide['at'], 1])} rows), each route "
+            f"against the plain versions: max abs err fwd "
+            f"{wide['fwd']:.3g}, counts {wide['counts']:.3g}; back-start "
+            f"posterior within {wide['bsp']:.3g} of 1 [{card}]")
     for k in ESTEP:
         v = out[k]
-        times = ", ".join(
-            f"{r[0]}{'' if r[0] == 'block' else ' ' + str(r[1])} "
-            f"{v[r[0]]['ms']:.3f} ms" for r in routes)
-        ratio = (f" (block/warp {v['block']['ms'] / v['warp']['ms']:.2f}x)"
-                 if len(routes) == 2 else "")
-        log(f"phase 2b: {name}: {k} {times}{ratio} (median of {n_runs}, same "
-            f"inputs), plain {plain[k] * 1e3:.3f} ms (median of {n_plain}), "
+        times = ", ".join(f"{_route_label(r)} {v[r[0]]['ms']:.3f} ms"
+                          for r in routes[k])
+        log(f"{at}{name}: {k} {times} (median of {n_runs}, same "
+            f"inputs), plain {plain[k] * 1e3:.3f} ms (median of "
+            f"{n_plain}{on and ', on its pairs'}), "
             f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}) [{card}]")
-    log(f"phase 2b: {name}: estep_reduce [{B}, {E}]: device time (graph of "
+        if swept[k]:
+            log(f"{at}{name}: {k}: each other cluster tiling on the "
+                f"same inputs (ms, median of {n_runs}; max abs err against "
+                f"the plain version): " + "; ".join(
+                    "{}: {:.3f} ({:.3g}{})".format(
+                        "{} x {} x {}".format(*x), ms, e,
+                        "" if ok else ", outside the tolerance")
+                    for x, (ms, e, ok) in swept[k].items()) + f" [{card}]")
+    log(f"{at}{name}: estep_reduce [{B}, {E}]: device time (graph of "
         f"100) {red['kernel']['device'] * 1e3:.4f} ms vs torch.sum "
         f"{red['torch.sum']['device'] * 1e3:.4f} ms; eager 100 back to back "
         f"{red['kernel']['eager'] * 1e3:.4f} vs "
@@ -1240,10 +1396,13 @@ def phase2b_estep(card):
         _cutover_pairs(np.random.default_rng(9), 32), tables)
     cW = cpb.member.shape[1]
     check(256 < cW <= 512, f"the cutover case has {cW} lanes, not 257-512")
-    cut = case("cutover (257-512 lanes)", cpb, tables, True, n_plain=1)
+    cut = case("cutover (257-512 lanes)", cpb, tables, True, n_plain=1,
+               sweep=True)
     log(f"phase 2b: the warp routes' cutover at B={cpb.member.shape[0]} "
         f"W={cW}: " + "; ".join(
             f"{k} lanes-a-thread 16 {cut[k]['warp']['ms']:.3f} ms against "
+            f"the cluster route's {cut[k]['cluster']['ms']:.3f} ms "
+            f"({cut[k]['cluster']['ms'] / cut[k]['warp']['ms']:.2f}x) and "
             f"the block route's {cut[k]['block']['ms']:.3f} ms "
             f"({cut[k]['block']['ms'] / cut[k]['warp']['ms']:.2f}x), "
             f"ESTEP_WARP_MAX_LANES {estep.ESTEP_WARP_MAX_LANES[k]}"
@@ -1262,7 +1421,8 @@ def phase2b_estep(card):
                                   for q in rng.integers(3, 40, 400)))
         wide.append((FastSeq(name="xw", seq=xs), yw, full_envelope(len(xs), 400)))
     wpb = PairBatch.build(wide, tables)
-    check(wpb.member.shape[1] > limit, "wide case fits shared memory")
+    check(wpb.member.shape[1] > max(limit, estep.ESTEP_CLUSTER_MAX_LANES),
+          "wide case fits shared memory or a cluster route")
     case(f"wide (W > {limit} smem lanes)", wpb, tables, True)
     # the c8f30 self pair of `train c8f30 c8f30 -kmatchmb 10 -fwdstrand`
     y = read_fast_seqs(str(DATA / "c8f30.fastq.gz"))[0]
@@ -1304,7 +1464,8 @@ def _json_close(mine, want, rtol, atol, skip=()):
     return bad
 
 
-ROUTE_COUNTS = ("launches", "warp_launches", "block_launches")
+ROUTE_COUNTS = ("launches", "warp_launches", "cluster_launches",
+                "block_launches")
 
 
 def _estep_launches():
@@ -1340,7 +1501,8 @@ def _estep_chunks():
 
     def recording(v2tab, batch, gid, null_lls, local=True, max_prop=None):
         chunks.append({"B": int(batch["member"].shape[0]),
-                       "W": int(batch["member"].shape[1]), "batch": batch,
+                       "W": int(batch["member"].shape[1]),
+                       "rows": int(batch["y_len"].max()), "batch": batch,
                        "v2": v2tab, "local": local})
         return orig(v2tab, batch, gid, null_lls, local, max_prop)
 
@@ -1360,8 +1522,8 @@ def _check_routes(what, chunks, n):
               for c in chunks]
     for k in ESTEP:
         want = {r: sum(c[k][0] == r for c in routes)
-                for r in ("warp", "block")}
-        got = {r: n[k][f"{r}_launches"] for r in ("warp", "block")}
+                for r in ("warp", "cluster", "block")}
+        got = {r: n[k][f"{r}_launches"] for r in ("warp", "cluster", "block")}
         check(got == want, f"{what}: {k} launches by route {got}, the "
               f"chunks' estep_route {want}")
     return routes
@@ -1418,22 +1580,24 @@ def _loglikes(err):
 
 def _route_text(chunks, routes):
     return "; ".join(
-        f"(B={c['B']}, W={c['W']}: K2 {r['fwd_store'][0]}"
-        f"{'' if r['fwd_store'][0] == 'block' else ' ' + str(r['fwd_store'][1])}"
-        f", K3 {r['bwd_counts'][0]}"
-        f"{'' if r['bwd_counts'][0] == 'block' else ' ' + str(r['bwd_counts'][1])})"
-        for c, r in zip(chunks, routes))
+        f"(B={c['B']}, W={c['W']}: K2 {_route_name(r['fwd_store'])}, K3 "
+        f"{_route_name(r['bwd_counts'])})" for c, r in zip(chunks, routes))
 
 
 def _route_name(route):
-    return route[0] if route[0] == "block" else f"{route[0]} {route[1]}"
+    """A route as the chunk logs name it: "warp 8", "cluster 1 x 16 x 8",
+    "block"."""
+    kind, arg = route
+    if kind == "cluster":
+        return "cluster {} x {} x {}".format(*arg)
+    return kind if kind == "block" else f"{kind} {arg}"
 
 
 def phase3b_train_goldens(card):
     """The train golden and count -fast through the CLI on the card, each
     chunk's K2/K3 routes printed; then count -fast with a k-mer band wider
-    than any warp route, whose run is the block routes' path.  Returns
-    that run's launches and its E-step chunk."""
+    than any warp route (W=606), which runs both cluster routes.  Returns
+    that run's E-step chunk."""
     from quaff_tpu_torch.logger import logger
 
     c8 = str(DATA / "c8f30.fastq.gz")
@@ -1461,7 +1625,7 @@ def phase3b_train_goldens(card):
 
     args = [str(DATA / "synth12-genome.fasta"), str(DATA / "synth12.fastq"),
             "-kmatchn", "10", "-fwdstrand"]
-    wide, wide_chunk = {}, None
+    wide_chunk = None
     for band in (None, 600):
         extra = [] if band is None else ["-kmatchband", str(band)]
         _reset_launches()
@@ -1478,11 +1642,11 @@ def phase3b_train_goldens(card):
             f"within 5e-3 + 5e-3*|count| of the float64 parity count; chunks "
             f"{_route_text(chunks, routes)}; launches {n} [{card}]")
         if band is not None:
-            check(all(n[k]["block_launches"] > 0 for k in ESTEP),
-                  f"count -fast -kmatchband {band}: no block-route launch {n}")
-            wide = n
+            check(all(n[k]["cluster_launches"] > 0 for k in ESTEP),
+                  f"count -fast -kmatchband {band}: no cluster-route launch "
+                  f"{n}")
             wide_chunk = max(chunks, key=lambda c: c["B"] * c["W"])
-    return wide, wide_chunk
+    return wide_chunk
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1666,6 +1830,88 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=8):
             f"against its genome window: within 5e-3 + 5e-3*|count| of the "
             f"float64 parity count ({time.perf_counter() - t0:.1f} s)")
     return launches, biggest
+
+
+# ---------------------------------------------------------------- phase 5b
+
+
+def phase5b_train_wide(card, n_reads=512, genome_len=200_000):
+    """`train -maxiter 2` on phase 4's recipe (seed 1, 512 reads of 2-10
+    kb, a 200 kb genome) through the CLI on the card: K2's and K3's
+    cluster routes' path.  The E-step groups reads by rows, not by width,
+    and a chunk launches at its widest read's band, so one read with a
+    4038-lane band (read 369) puts its chunk on both cluster routes.  Logs
+    each E-step chunk's (B, W, rows, K2 route, K3 route, device ms by the
+    profiler's kernel names); the log-likelihood must rise.  Returns the
+    path's launches and its widest cluster-route chunk."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quaff_tpu_torch.logger import logger
+    from quaff_tpu_torch.prof.kernel_sass import kernel_of
+
+    threads = str(os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        gpath, rpath, _, _, _ = _workload(tmp, seed=1, n_reads=n_reads,
+                                          genome_len=genome_len, n_head=1)
+        with _estep_chunks() as chunks:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out, err = _cli(["train", str(gpath), str(rpath), "-maxiter",
+                                 "2", "-threads", threads, "-v"], "cuda",
+                                stderr=True)
+                wall = time.perf_counter() - t0
+            launches = _estep_launches()
+    logger.verbosity = 0
+    routes = _check_routes("phase 5b", chunks, launches)
+    check(all(launches[k]["cluster_launches"] > 0 for k in ESTEP),
+          f"phase 5b: the train path launched no K2 or K3 on the cluster "
+          f"route: {launches}")
+    evs = {k: [] for k in ESTEP}
+    for ename, ms in _kernel_events(prof, ""):
+        owner = kernel_of(ename)
+        if owner is not None and owner[0] in evs:
+            evs[owner[0]].append((owner[1], ms))
+    check(all(len(evs[k]) == len(chunks) for k in ESTEP),
+          f"phase 5b: {[len(evs[k]) for k in ESTEP]} K2/K3 kernels traced "
+          f"for {len(chunks)} chunks")
+    dev_ms = {k: {} for k in ESTEP}
+    for c, r, e2, e3 in zip(chunks, routes, evs["fwd_store"],
+                            evs["bwd_counts"]):
+        check(e2[0] == r["fwd_store"][0] and e3[0] == r["bwd_counts"][0],
+              f"phase 5b: a chunk of W={c['W']} ran K2 {e2[0]}, K3 {e3[0]}, "
+              f"not estep_route's {r}")
+        for k, e in (("fwd_store", e2), ("bwd_counts", e3)):
+            dev_ms[k][e[0]] = dev_ms[k].get(e[0], 0.0) + e[1]
+    lls = _loglikes(err)
+    check(len(lls) == 2 and lls[1] > lls[0],
+          f"phase 5b: log-likelihood did not rise over 2 EM iterations: {lls}")
+    json.loads(out)
+    check(not re.search(r"nan|inf", out.lower()),
+          "phase 5b: fitted parameters are not finite")
+    log(f"phase 5b: train {n_reads} reads (2-10 kb) vs a {genome_len} bp "
+        f"genome, 2 EM iterations on cuda: {wall:.2f} s wall; "
+        f"log-likelihoods {lls[0]:.6g} -> {lls[1]:.6g}; launches {launches}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    log("phase 5b: E-step chunks (B, W, rows, K2 route, K3 route, K2 device "
+        "ms, K3 device ms): " + "; ".join(
+            f"({c['B']}, {c['W']}, {c['rows']}, {_route_name(r['fwd_store'])}"
+            f", {_route_name(r['bwd_counts'])}, {e2[1]:.3f}, {e3[1]:.3f})"
+            for c, r, e2, e3 in zip(chunks, routes, evs["fwd_store"],
+                                    evs["bwd_counts"]))
+        + "; by route: " + "; ".join(
+            f"{k} " + ", ".join(f"{r} {ms:.3f} ms"
+                                for r, ms in sorted(dev_ms[k].items()))
+            for k in ESTEP) + f" [{card}]")
+    wide = max((c for c, r in zip(chunks, routes)
+                if all(r[k][0] == "cluster" for k in ESTEP)),
+               key=lambda c: (c["W"], c["B"]))
+    return launches, wide
 
 
 # ---------------------------------------------------------------- phase 2c
@@ -2865,13 +3111,30 @@ def _ov_chunks():
         ov_fill.prepare = orig
 
 
-def _estep_subset(bdev, n):
-    """The n pairs of a fused E-step chunk with the fewest rows, the rows
-    cut to theirs (the plain K2 and K3 step row by row)."""
+def _live_span(member):
+    """Each pair's first live lane and the span from it to its last, of a
+    [B, W] lane mask (0 where a pair has none)."""
+    import torch
+
+    W = member.shape[1]
+    m = member.bool()
+    first = m.int().argmax(1)
+    last = W - 1 - m.flip(1).int().argmax(1)
+    return first, torch.where(m.any(1), last - first + 1, 0)
+
+
+def _estep_subset(bdev, n, widest=False):
+    """The n pairs of a fused E-step chunk with the fewest rows, with
+    widest also the pair whose live lanes span the most of the band, the
+    rows cut to theirs (the plain K2 and K3 step row by row); the band's
+    width stays the chunk's."""
     import torch
 
     B = bdev["y_len"].shape[0]
-    keep = torch.argsort(bdev["y_len"].long())[:n].sort().values
+    keep = torch.argsort(bdev["y_len"].long())[:n]
+    if widest:
+        keep = torch.cat([keep, _live_span(bdev["member"])[1].argmax()[None]])
+    keep = keep.unique()
     ly = int(bdev["y_len"][keep].max())
     out = {}
     for k, v in bdev.items():
@@ -3110,15 +3373,18 @@ def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
         for name, rep_at in (("fwd_store", "quaff_tpu/dp/pallas_counts.py:507"),
                              ("bwd_counts",
                               "quaff_tpu/dp/pallas_counts.py:561")):
-            for r in ("warp", "block"):
+            sources = {"warp": "estep_warp.cuh", "block": "estep.cu",
+                       "cluster": ("band_fill_cluster.cuh"
+                                   if name == "fwd_store"
+                                   else "estep_cluster.cu")}
+            for r in ("warp", "cluster", "block"):
                 n = launched[name][f"{r}_launches"]
                 if not n:
                     continue
                 rows.append(dict(
-                    name=f"{name}{'' if r == 'warp' else '_block'}_mesh",
-                    route="cuda", source=(
-                        "quaff_tpu_torch/csrc/estep_warp.cuh" if r == "warp"
-                        else "quaff_tpu_torch/csrc/estep.cu"),
+                    name=f"{name}{'' if r == 'warp' else '_' + r}_mesh",
+                    route="cuda",
+                    source=f"quaff_tpu_torch/csrc/{sources[r]}",
                     replaces=rep_at, launches=n,
                     **{k: e[name][r][k] for k in e_keys}))
         rows.append(dict(name="estep_reduce_mesh", route="cuda",
@@ -3246,14 +3512,15 @@ def main() -> int:
     phase2c_overlap_kernel(card)
     probes = phase2d_sol_probes(card)
     phase3_goldens()
-    block_launches, wide = phase3b_train_goldens(card)
-    # K2's and K3's block routes at the chunk of their path (count -fast
-    # -kmatchband 600), against their plain versions
-    estep_block = estep_case("phase 3b: the -kmatchband 600 chunk",
-                             wide["batch"], wide["v2"], wide["local"], card)
-    check(all(set(estep_block[k]) == {"block"} for k in ESTEP),
+    wide = phase3b_train_goldens(card)
+    # K2's and K3's cluster routes at the chunk of count -fast -kmatchband
+    # 600, the block routes forced beside them and the other tilings swept,
+    # against their plain versions
+    est = estep_case("phase 3b: the -kmatchband 600 chunk", wide["batch"],
+                     wide["v2"], wide["local"], card, sweep=True)
+    check(all(set(est[k]) == {"cluster", "block"} for k in ESTEP),
           "the -kmatchband 600 chunk is narrow enough for a warp route")
-    del wide
+    del wide, est
     phase3c_overlap_goldens()
     k1_counts, k1_chunk = phase4_workload(card)
     check(k1_counts["cluster_launches"] > 0 and k1_chunk is not None,
@@ -3274,14 +3541,26 @@ def main() -> int:
         f"{k1_wide['also']['block route']:.3f} ms "
         f"({k1_wide['also']['block route'] / k1_wide['ms']:.2f}x) [{card}]")
     del inp, k1_chunk
-    k1_block_counts, k1_block = phase4b_kmatchoff(card)
+    k1_block_counts, k1_block, e_block_counts, e_chunk = \
+        phase4b_kmatchoff(card)
+    # K2's and K3's block routes at the chunk of their path (count -fast
+    # -kmatchoff), the plain versions on its 2 pairs with the fewest rows
+    estep_block = estep_case("phase 4b: the count -fast -kmatchoff chunk",
+                             e_chunk["batch"], e_chunk["v2"],
+                             e_chunk["local"], card, n_plain=1, check_n=2)
+    check(all(set(estep_block[k]) == {"block"} for k in ESTEP),
+          "the count -fast -kmatchoff chunk is narrow enough for a cluster "
+          "route")
+    del e_chunk
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
-    # chunk, against their plain versions (timed once: minutes otherwise),
-    # each of K2's and K3's routes forced on the same inputs
+    # chunk, each of K2's and K3's routes forced on the same inputs, the
+    # plain versions on its 8 pairs with the fewest rows (once: the whole
+    # chunk's took 75 s)
     estep_k = estep_case("phase-5 chunk", chunk["batch"], chunk["v2"],
-                         chunk["local"], card, n_plain=1)
-    check(all(set(estep_k[k]) == {"warp", "block"} for k in ESTEP),
+                         chunk["local"], card, n_plain=1, check_n=8)
+    check(all(set(estep_k[k]) == {"warp", "cluster", "block"}
+              for k in ESTEP),
           "the phase-5 chunk is too wide for the warp routes")
     del chunk
     k4_launches, k4_chunks = phase6_overlap(card)
@@ -3322,6 +3601,28 @@ def main() -> int:
     del k4_chunks
     k1_server_counts, k1_server = phase7_server(card)
     mesh_rows = phase8_mesh(card)
+    # phase 5b after phase 8: its profiled 512-read train would otherwise
+    # come between the profiled runs of phases 5-7 and phase 8's, whose
+    # traces are held to the wrappers' counts kernel by kernel
+    cluster_launches, wide = phase5b_train_wide(card)
+    # K2's and K3's cluster routes at the train path's wide chunk, the
+    # block routes forced on the same inputs and every other tiling swept,
+    # the plain versions on its 2 pairs with the fewest rows and on its
+    # widest pair, the one whose band spans every tile (full rows)
+    estep_w = estep_case("phase 5b: the wide chunk", wide["batch"], wide["v2"],
+                         wide["local"], card, n_plain=1, check_n=2,
+                         widest=True, sweep=True)
+    check(all(set(estep_w[k]) == {"cluster", "block"} for k in ESTEP),
+          "phase 5b's wide chunk is narrow enough for a warp route")
+    log(f"phase 5b: the wide chunk (B={wide['B']}, W={wide['W']}, "
+        f"Ly={wide['rows']}): " + "; ".join(
+            f"{k} cluster route {estep_w[k]['cluster']['ms']:.3f} ms against "
+            f"its block route's {estep_w[k]['block']['ms']:.3f} ms "
+            f"({estep_w[k]['block']['ms'] / estep_w[k]['cluster']['ms']:.2f}x"
+            f"), bound {estep_w[k]['cluster']['bound_ms']:.4f} ms "
+            f"({estep_w[k]['cluster']['bound_by']})" for k in ESTEP)
+        + f" [{card}]")
+    del wide
     log(f"total {time.perf_counter() - t_start:.1f} s")
     k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [dict(name="band_fill", route="cuda",
@@ -3350,19 +3651,25 @@ def main() -> int:
             launches=k1_server_counts[f"{r}_launches"], library_ms=None,
             **{k: res[k] for k in k1_keys}))
     # K2 and K3: the warp routes on phase 5's path (train), timed on its
-    # largest chunk; the block routes on phase 3b's count -fast with a
-    # band wider than any warp route, timed on that run's chunk
+    # largest chunk; the cluster routes on phase 5b's (train with a wide
+    # read), timed on its wide chunk; the block routes on phase 4b's count
+    # -fast -kmatchoff, timed on that run's chunk
     e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
-    for name, rep_at, block_src in (
+    for name, rep_at, cluster_src, block_src in (
             ("fwd_store", "quaff_tpu/dp/pallas_counts.py:507",
+             "quaff_tpu_torch/csrc/band_fill_cluster.cuh",
              "quaff_tpu_torch/csrc/band_fill.cuh"),
             ("bwd_counts", "quaff_tpu/dp/pallas_counts.py:561",
+             "quaff_tpu_torch/csrc/estep_cluster.cu",
              "quaff_tpu_torch/csrc/estep.cu")):
         for suffix, source, n, kind, res in (
                 ("", "quaff_tpu_torch/csrc/estep_warp.cuh",
                  launches[name]["warp_launches"], "warp", estep_k),
-                ("_block", block_src, block_launches[name]["block_launches"],
+                ("_cluster", cluster_src,
+                 cluster_launches[name]["cluster_launches"], "cluster",
+                 estep_w),
+                ("_block", block_src, e_block_counts[name]["block_launches"],
                  "block", estep_block)):
             check(n > 0, f"{name}'s {kind} route was not launched on its path")
             kernels.append(dict(name=name + suffix, route="cuda",

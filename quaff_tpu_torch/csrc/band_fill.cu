@@ -16,7 +16,7 @@
 //                  8, 16 with 32 * LPT >= W), no block barrier in the row
 //                  loop;
 //   cluster route  W <= dp/fill_v2.FILL_CLUSTER_MAX_LANES:
-//                  band_fill_cluster_kernel<VIT, LPT>
+//                  band_fill_cluster_kernel<VIT, false, LPT>
 //                  (band_fill_cluster.cuh), the pair's band tiled over the
 //                  warps of a thread-block cluster, each warp on the warp
 //                  route's row code, the tiles meeting once a row;
@@ -146,12 +146,12 @@ int quaff_band_fill_cluster(const void* x_tok, int Lx, const void* keys,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      viterbi ? launch_fill_cluster<true>(lpt, nct, warps, xt, Lx, k4, Ly, m4,
-                                          dof, W, s0, sw, S, tb, tr, B, local,
-                                          o, st)
-              : launch_fill_cluster<false>(lpt, nct, warps, xt, Lx, k4, Ly,
-                                           m4, dof, W, s0, sw, S, tb, tr, B,
-                                           local, o, st);
+      viterbi ? launch_fill_cluster<true, false>(lpt, nct, warps, xt, Lx, k4,
+                                                 Ly, m4, dof, W, s0, sw, S, tb,
+                                                 tr, B, local, o, st)
+              : launch_fill_cluster<false, false>(lpt, nct, warps, xt, Lx, k4,
+                                                  Ly, m4, dof, W, s0, sw, S,
+                                                  tb, tr, B, local, o, st);
   return (int)e;
 }
 

@@ -1,12 +1,17 @@
-// K1's cluster route: the banded pair-HMM score fill with one pair's band
-// tiled over the warps of a thread-block cluster, for NVIDIA Hopper
-// (sm_90a).
+// K1's and K2's cluster routes: the banded pair-HMM score fill with one
+// pair's band tiled over the warps of a thread-block cluster, for NVIDIA
+// Hopper (sm_90a).
 //
-// It computes what the warp route (band_fill_warp.cuh) computes, on the
-// same inputs and into the same [B + B*S] output, for bands too wide for
-// one warp: up to 32 tiles of 32 * LPT lanes, so 16384 lanes at LPT 16.
-// band_fill.cu launches it and dp/fill_v2.fill_route picks the tiling
-// (CTAs a pair, warps a CTA, LPT) from the band's width alone.
+// band_fill_cluster_kernel<VIT, false, LPT> (K1) computes what the warp
+// route (band_fill_warp.cuh) computes, on the same inputs and into the same
+// [B + B*S] output, for bands too wide for one warp: up to 32 tiles of
+// 32 * LPT lanes, so 16384 lanes at LPT 16.  band_fill.cu launches it and
+// dp/fill_v2.fill_route picks the tiling (CTAs a pair, warps a CTA, LPT)
+// from the band's width alone.  <false, true, LPT> (K2, STORE) is the same
+// Forward fill kept scaled, every row's M/I/D cells stored to
+// rows[3][B][Ly][W] relative to the row's float64 offset offs[B][Ly], as
+// K2's block and warp routes store them (estep_cluster.cu launches it,
+// dp/estep.estep_route picks its tiling).
 //
 // Why.  The block route gives a pair one block with the band row in
 // shared memory, splits all W lanes of the chunk over its threads whatever
@@ -39,6 +44,19 @@
 // What bounds it: per row, the longest live tile's chain (its cells, LPT
 // steps, the 5-round scan) plus the barrier and the fold's 5-round scan
 // over the tiles; the dead tiles cost the barrier alone.
+//
+// K2 (STORE).  The row's shift, its largest M/I/D cell, is known only
+// after the fold gives the row its delete cells, so it rides on the next
+// row's seam exchange instead of a barrier of its own: after row j's
+// apply each tile's warp maximum of its cells goes into its row-(j+1)
+// slot, and after that row's barrier every tile takes the largest of the
+// T maxima (exact in any order), adds it to the pair's float64 offset,
+// stores row j less it (its lanes contiguous; invalid lanes exactly NEG,
+// a dead tile's whole tile) and subtracts it from row j+1's cells, which
+// were filled from row j's unshifted ones.  So each stored row and offset
+// mean what the block route's mean (its largest cell 0), the carried
+// cells stay within one row's shift of 0, and one exchange after the
+// last row stores it.  Reruns repeat bit for bit, as K1's.
 
 #pragma once
 
@@ -48,16 +66,17 @@
 namespace {
 
 // warps a CTA of K1's cluster route at LPT lanes a thread: 8 at LPT 16
-// (up to 255 registers a thread), 16 below it (up to 128)
-template <int LPT>
+// (up to 255 registers a thread), 16 below it (up to 128); K2's (STORE)
+// from LPT 8 up, where 128 registers spill
+template <int LPT, bool STORE = false>
 constexpr int fill_cluster_max_warps() {
-  return LPT >= 16 ? 8 : 16;
+  return LPT >= (STORE ? 8 : 16) ? 8 : 16;
 }
 
 // a tile's slot: its step without its first lane (c, b), the first lane's
 // c (NEG where it is dead), match and insert cells, the last lane's match
-// cell
-enum { kFC, kFB, kFC0, kFMat0, kFIns0, kFMatL, kFSlot };
+// cell; with STORE its largest cell of the previous row
+enum { kFC, kFB, kFC0, kFMat0, kFIns0, kFMatL, kFTop, kFSlot };
 
 template <bool VIT, int LPT, bool FIRST>
 __device__ __forceinline__ void fill_cluster_cells(
@@ -77,8 +96,39 @@ __device__ __forceinline__ void fill_cluster_cells(
   post[kFMatL] = __shfl_sync(kFull, w.mc[LPT - 1], 31);
 }
 
-template <bool VIT, int LPT>
-__global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
+// K2: row j of the tile's cells (valid lanes less `shift`, the rest NEG)
+// to its stored rows, lane-contiguous
+template <int LPT>
+__device__ __forceinline__ void store_cluster_row(float* row, size_t plane,
+                                                  const Lanes<LPT>& s, int j,
+                                                  float shift, int w0, int W) {
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    if (w0 + k < W) {
+      const bool v = live(j, s.jlo[k], s.span[k]);
+      row[w0 + k] = v ? s.mat[k] - shift : neg_big();
+      row[plane + w0 + k] = v ? s.ins[k] - shift : neg_big();
+      row[2 * plane + w0 + k] = v ? s.del[k] - shift : neg_big();
+    }
+  }
+}
+
+// K2: the largest of the T tiles' maxima of the previous row in this
+// row's slots (every lane holds it), or 0 where no cell was valid
+__device__ __forceinline__ float fold_shift(
+    const SeamSlot<kFSlot> (*slots)[kMaxTiles], int buf, int T, int t) {
+  float v[kFSlot];
+  float m = neg_big();
+  if (t < T) {
+    seam_read<kFSlot>(slots, buf, t, v);
+    m = v[kFTop];
+  }
+  m = warp_max(m);
+  return m > neg_big() / 2 ? m : 0.f;
+}
+
+template <bool VIT, bool STORE, int LPT>
+__global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
     band_fill_cluster_kernel(const int8_t* __restrict__ x_tok, int Lx,
                              const int4* __restrict__ keys, int Ly,
                              const int4* __restrict__ meta,
@@ -86,7 +136,10 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
                              const int* __restrict__ seg_start,
                              const int* __restrict__ seg_width, int S,
                              FillTables tb, const float* __restrict__ trans,
-                             int B, int local, float* __restrict__ out) {
+                             int B, int local, float* __restrict__ out,
+                             float* __restrict__ rows,
+                             double* __restrict__ offs) {
+  static_assert(!(VIT && STORE), "K2 stores the Forward fill");
   constexpr int NR = 2 + kMaxSegs;  // end maximum, Forward sum, strips
   __shared__ SeamSlot<kFSlot> slots[2][kMaxTiles];
   __shared__ float red[kMaxTiles][NR];
@@ -138,6 +191,13 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
   cluster_sync(nct);
 
   float seam_m = NEG, seam_i = NEG;
+  // K2: the tile's largest cell of the last row filled, the pair's offset,
+  // its stored rows and the tile's first lane
+  float top = NEG;
+  double off = 0.0;
+  const size_t plane = (size_t)B * Ly * W;
+  float* prow = STORE ? rows + (size_t)b * Ly * W : nullptr;
+  const int w0 = (g * 32 + t) * LPT;
   RowIn r{};
   if (ylen >= 1) {
     int4 kn = kb[0];
@@ -170,13 +230,16 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
       } else {
 #pragma unroll
         for (int q = 0; q < kFSlot; ++q) post[q] = NEG;
+        if (!STORE) {  // K2 stores row j-1's cells after the barrier
 #pragma unroll
-        for (int k = 0; k < LPT; ++k) {
-          s.mat[k] = NEG;
-          s.ins[k] = NEG;
-          s.del[k] = NEG;
+          for (int k = 0; k < LPT; ++k) {
+            s.mat[k] = NEG;
+            s.ins[k] = NEG;
+            s.del[k] = NEG;
+          }
         }
       }
+      post[kFTop] = top;
       const float m2d = r.m2d;
       const int buf = j & 1;
       seam_post<kFSlot>(slots, buf, g, post, t, nct);
@@ -190,6 +253,17 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
       }
       seam_wait(nct);
 
+      // K2: row j-1's shift; row j-1 stored less it, with its offset
+      float shift = 0.f;
+      if (STORE) {
+        shift = fold_shift(slots, buf, T, t);
+        if (j >= 2) {
+          off += shift;
+          store_cluster_row<LPT>(prow + (size_t)(j - 2) * W, plane, s, j - 1,
+                                 shift, w0, W);
+          if (g == 0 && t == 0) offs[(size_t)b * Ly + j - 2] = off;
+        }
+      }
       if (lv || lv_next) {
         // the fold: lane h builds tile h's step, its first lane's from
         // tile h-1's last lane, then the rest of its lanes'
@@ -220,14 +294,46 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
           fill_apply<VIT, LPT, true>(s, w, x, t);
         }
         const int n = min(g + 1, 31);
-        const float nm = __shfl_sync(kFull, v[kFMat0], n);
-        const float ni = __shfl_sync(kFull, v[kFIns0], n);
+        const float nm = __shfl_sync(kFull, v[kFMat0], n) - shift;
+        const float ni = __shfl_sync(kFull, v[kFIns0], n) - shift;
         seam_m = g + 1 >= T ? NEG : nm;
         seam_i = g + 1 >= T ? NEG : ni;
       }
+      if (STORE) {
+        // row j, filled from row j-1's unshifted cells, less row j-1's
+        // shift; the tile's largest cell of it
+        float tm = NEG;
+#pragma unroll
+        for (int k = 0; k < LPT; ++k) {
+          const bool ok = lv && w.v[k];
+          s.mat[k] = ok ? s.mat[k] - shift : NEG;
+          s.ins[k] = ok ? s.ins[k] - shift : NEG;
+          s.del[k] = ok ? s.del[k] - shift : NEG;
+          tm = fmaxf(tm, fmaxf(fmaxf(s.mat[k], s.ins[k]), s.del[k]));
+        }
+        top = warp_max(tm);
+      }
+    }
+    if (STORE) {
+      // the last row's shift by one more exchange, then its store
+      float post[kFSlot];
+#pragma unroll
+      for (int q = 0; q < kFSlot; ++q) post[q] = NEG;
+      post[kFTop] = top;
+      const int buf = (ylen + 1) & 1;
+      seam_post<kFSlot>(slots, buf, g, post, t, nct);
+      cluster_sync(nct);
+      const float shift = fold_shift(slots, buf, T, t);
+      off += shift;
+      store_cluster_row<LPT>(prow + (size_t)(ylen - 1) * W, plane, s, ylen,
+                             shift, w0, W);
+      if (g == 0 && t == 0) offs[(size_t)b * Ly + ylen - 1] = off;
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) s.mat[k] -= shift;
     }
   }
-  // s.mat holds row ylen's match cells, and r.m2e is row ylen's
+  // s.mat holds row ylen's match cells (K2: scaled), and r.m2e is row
+  // ylen's
 
   // end row: each tile's maximum, its Forward sum, its strip maxima, to
   // CTA 0, which reduces them in tile order
@@ -252,7 +358,7 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
 #pragma unroll
   for (int q = 0; q < kMaxSegs; ++q) {
     float sk = NEG;
-    if (q < S) {
+    if (!STORE && q < S) {
       const int s0 = seg_start[b * S + q], sw = seg_width[b * S + q];
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
@@ -275,15 +381,19 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT>() * 32, 1)
     float f[kMaxSegs];
 #pragma unroll
     for (int q = 0; q < kMaxSegs; ++q) f[q] = warp_max(t < T ? red[t][2 + q] : NEG);
-    if (t == 0) {
+    if (t == 0 && STORE) {
+      // K2: the absolute Forward score; strip maxima are K1's alone
+      out[b] = score > NEG / 2 ? (float)(off + (double)score) : score;
+    } else if (t == 0) {
       out[b] = score;
       for (int q = 0; q < S; ++q) out[(size_t)B + (size_t)b * S + q] = f[q];
     }
   }
 }
 
-// the cluster route's instantiations: LPT 4, 8 and 16 lanes a thread
-template <bool VIT>
+// the cluster route's instantiations: LPT 4, 8 and 16 lanes a thread;
+// K2 (STORE) passes its rows and offsets
+template <bool VIT, bool STORE>
 cudaError_t launch_fill_cluster(int lpt, int nct, int warps,
                                 const int8_t* x_tok, int Lx, const int4* keys,
                                 int Ly, const int4* meta, const int* doff,
@@ -291,13 +401,16 @@ cudaError_t launch_fill_cluster(int lpt, int nct, int warps,
                                 const int* seg_width, int S,
                                 const FillTables& tb, const float* trans,
                                 int B, int local, float* out,
-                                cudaStream_t stream) {
-#define QUAFF_FILL_CLUSTER_CASE(N)                                          \
-  case N:                                                                   \
-    if (warps > fill_cluster_max_warps<N>()) return cudaErrorInvalidValue;  \
-    return launch_cluster(band_fill_cluster_kernel<VIT, N>, B, nct, warps,  \
-                          stream, x_tok, Lx, keys, Ly, meta, doff, W,       \
-                          seg_start, seg_width, S, tb, trans, B, local, out);
+                                cudaStream_t stream, float* rows = nullptr,
+                                double* offs = nullptr) {
+#define QUAFF_FILL_CLUSTER_CASE(N)                                           \
+  case N:                                                                    \
+    if (warps > fill_cluster_max_warps<N, STORE>())                          \
+      return cudaErrorInvalidValue;                                          \
+    return launch_cluster(band_fill_cluster_kernel<VIT, STORE, N>, B, nct,   \
+                          warps, 0, stream, x_tok, Lx, keys, Ly, meta, doff, \
+                          W, seg_start, seg_width, S, tb, trans, B, local,   \
+                          out, rows, offs);
   switch (lpt) {
     QUAFF_FILL_CLUSTER_CASE(4)
     QUAFF_FILL_CLUSTER_CASE(8)

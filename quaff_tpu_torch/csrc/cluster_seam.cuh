@@ -1,6 +1,6 @@
 // The seam exchange and the cross-tile scan of the "cluster routes" of K1
-// (band_fill_cluster.cuh) and K4 (ov_fill_cluster.cuh), for NVIDIA Hopper
-// (sm_90a).
+// and K2 (band_fill_cluster.cuh), K3 (estep_cluster.cu) and K4
+// (ov_fill_cluster.cuh), for NVIDIA Hopper (sm_90a).
 //
 // A cluster route tiles one pair's band over the warps of a thread-block
 // cluster: warp g of CTA r (of nct) is tile r * warps + g, and its 32
@@ -181,15 +181,15 @@ __device__ __forceinline__ int pair_extent(const int* seg_start,
 }
 
 // The launch of `kernel` with a cluster of `nct` CTAs a pair (B pairs,
-// `warps` warps a CTA, its shared memory static): `attr` holds the
-// cluster's dimension.
+// `warps` warps a CTA, `smem` bytes of dynamic shared memory a CTA):
+// `attr` holds the cluster's dimension.
 inline cudaLaunchConfig_t cluster_config(int B, int nct, int warps,
-                                         cudaStream_t stream,
+                                         size_t smem, cudaStream_t stream,
                                          cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(B * nct), 1, 1);
   cfg.blockDim = dim3((unsigned)(32 * warps), 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = (unsigned)nct;
@@ -200,17 +200,20 @@ inline cudaLaunchConfig_t cluster_config(int B, int nct, int warps,
   return cfg;
 }
 
-// Launches `kernel` on B pairs, a cluster of `nct` CTAs each.  A shape the
-// card holds no cluster of (too many registers or too much shared memory
-// for a cluster of this size) returns its error, or
+// Launches `kernel` on B pairs, a cluster of `nct` CTAs each, `smem`
+// bytes of dynamic shared memory a CTA (at most 48 KB: no opt-in).  A
+// shape the card holds no cluster of (too many registers or too much
+// shared memory for a cluster of this size) returns its error, or
 // cudaErrorLaunchOutOfResources; a refused launch returns its error.
 // Either is also taken off the runtime's last error, so that the next
 // launch's check does not report it again.
 template <typename... KArgs, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(KArgs...), int B, int nct,
-                           int warps, cudaStream_t stream, Args... args) {
+                           int warps, size_t smem, cudaStream_t stream,
+                           Args... args) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(B, nct, warps, stream, attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(B, nct, warps, smem, stream, attr);
   // clusters of this shape the card holds at once (they must fit inside a
   // GPC): none means the launch could never run
   int n = 0;

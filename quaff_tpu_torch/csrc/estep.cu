@@ -7,20 +7,26 @@
 // PyTorch versions are quaff_tpu_torch/dp/estep.py::fwd_store_reference
 // and ::bwd_counts_reference; the input layout is fill_v2.kernel_inputs.
 //
-// Two routes each, picked by dp/estep.estep_route from the band's width W
-// (and each kernel's measured cutover):
+// Three routes each, picked by dp/estep.estep_route from the band's width
+// W (and each kernel's measured cutover):
 //
-//   warp route   fwd_store_warp_kernel<LPT> and
-//                bwd_counts_warp_kernel<LPT> (estep_warp.cuh): one
-//                warp per pair, the band row in registers, LPT lanes a
-//                thread, no block barrier in the row loop;
-//   block route  wider bands: K1's block fill with STORE set
-//                (band_fill_kernel<false, true>, band_fill.cuh) and
-//                bwd_counts_kernel below, one block per pair, the row in
-//                shared memory or, past its size, global scratch.
+//   warp route     fwd_store_warp_kernel<LPT> and
+//                  bwd_counts_warp_kernel<LPT> (estep_warp.cuh): one
+//                  warp per pair, the band row in registers, LPT lanes a
+//                  thread, no block barrier in the row loop;
+//   cluster route  wider bands up to dp/estep.ESTEP_CLUSTER_MAX_LANES:
+//                  K1's cluster fill with STORE set
+//                  (band_fill_cluster_kernel<false, true, LPT>) and
+//                  bwd_counts_cluster_kernel<LPT>, a pair's band tiled
+//                  over the warps of a thread-block cluster
+//                  (estep_cluster.cu, with their entries);
+//   block route    wider bands still: K1's block fill with STORE set
+//                  (band_fill_kernel<false, true>, band_fill.cuh) and
+//                  bwd_counts_kernel below, one block per pair, the row in
+//                  shared memory or, past its size, global scratch.
 //
-// Both routes keep one layout, so either route's K2 store feeds either
-// route's K3.  K2 keeps its fill scaled, and every row's M/I/D cells go to
+// All routes keep one layout, so any route's K2 store feeds any route's
+// K3.  K2 keeps its fill scaled, and every row's M/I/D cells go to
 // rows[3][B][Ly][W] relative to the row's float64 offset offs[B][Ly],
 // pair-major, so each pair writes its own contiguous runs.
 //

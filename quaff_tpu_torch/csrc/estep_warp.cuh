@@ -8,7 +8,8 @@
 // inputs and into the same outputs (rows[3][B][Ly][W], offs[B][Ly],
 // partial[B][E], d_sc[5][B]), for bands of at most 32 * LPT lanes;
 // estep.cu launches them and dp/estep.estep_route picks the route and LPT
-// from the band's width.  Either route's K2 store feeds either route's K3.
+// from the band's width.  Any route's K2 store feeds any route's K3; the
+// cluster routes (estep_cluster.cu) run this file's K3 row on each tile.
 // The recurrences are those at the top of band_fill.cuh and estep.cu.
 //
 // Why.  The block routes give each pair a block, one thread a lane, the row

@@ -19,15 +19,19 @@ Ported from quaff_tpu/dp/pallas_counts.py:
   estep_kernel                         glue in plain torch: it is not a
                                        Pallas kernel)
 
-Each wrapper runs its CUDA kernel (csrc/estep.cu) on CUDA tensors, adding
-one to its `launches` count, and its plain version on CPU tensors; any
-other device raises.  K2 and K3 have two routes each, picked by
-estep_route from the band's width: the warp route (csrc/estep_warp.cuh,
-one warp per pair) up to the kernel's measured cutover, the block route
-(K1's block fill with STORE in csrc/band_fill.cuh, bwd_counts_kernel in
-estep.cu) past it; `warp_launches` and `block_launches` count each.  Both
-routes keep one layout, so either route's K2 store feeds either route's
-K3.  All take fill_v2.kernel_inputs's layout.  Count tables are flat:
+Each wrapper runs its CUDA kernel (csrc/estep.cu, csrc/estep_cluster.cu)
+on CUDA tensors, adding one to its `launches` count, and its plain version
+on CPU tensors; any other device raises.  K2 and K3 have three routes
+each, picked by estep_route from the band's width: the warp route
+(csrc/estep_warp.cuh, one warp per pair) up to the kernel's measured
+cutover, the cluster route (csrc/estep_cluster.cu: a pair's band tiled
+over the warps of a thread-block cluster, K2's as K1's cluster fill with
+STORE in csrc/band_fill_cluster.cuh) up to ESTEP_CLUSTER_MAX_LANES, the
+block route (K1's block fill with STORE in csrc/band_fill.cuh,
+bwd_counts_kernel in estep.cu) past it; `warp_launches`,
+`cluster_launches` and `block_launches` count each.  All routes keep one
+layout, so any route's K2 store feeds any route's K3.  All take
+fill_v2.kernel_inputs's layout.  Count tables are flat:
 E = 4*Km*Q match counts (symbol-major, then k-mer, then quality) + 4*Q
 insert counts (token, quality) + 4*Ki transition counts (m2m, m2i, m2d,
 m2e per indel context).
@@ -53,22 +57,62 @@ from .fill_v2 import (
     _lse2,
     band_fill_reference,
     check_tensors,
+    cluster_route_ok,
+    cluster_tiling,
     kernel_inputs,
     table_specs,
 )
 
 # Widest band each kernel's warp route takes (csrc/estep_warp.cuh, one warp
-# a pair, 32 * lpt lanes for lpt in WARP_LPTS); wider bands take the block
-# route.  A function of the width alone, never of the card, so that the
+# a pair, 32 * lpt lanes for lpt in WARP_LPTS); wider bands take the
+# cluster route.  A function of the width alone, never of the card, so that the
 # route, and with it the float32 sums, follow from the input.  Measured by
 # chip_smoke.py phase 2b on its 257-512-lane batch (B=32, W=423), both
 # routes forced on the same inputs (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
 # K2 at 16 lanes a thread 1.955 ms against its block route's 2.597, so
 # 512; K3 at 16 lanes a thread 3.239 against 4.003, but its 16-lane build
-# spills (~40/60 bytes, 11 local accesses in the row loop), so 256.  A
-# chunk of 257-512 lanes runs K2's warp route and K3's block route on one
-# stored-row layout.
+# spills (~40/60 bytes, 11 local accesses in the row loop), so 256 (on the
+# same batch K3's cluster route took 1.801 against 3.261 at 16 lanes a
+# thread).  A chunk of 257-512 lanes runs K2's warp route and K3's
+# cluster route on one stored-row layout.
 ESTEP_WARP_MAX_LANES = {"fwd_store": 512, "bwd_counts": 256}
+# K2's and K3's cluster routes (csrc/estep_cluster.cu), for bands past the
+# warp routes: a pair's band tiled over the warps of a thread-block
+# cluster, 32 * lpt lanes a tile, at most fill_v2.MAX_TILES tiles over at
+# most fill_v2.MAX_CLUSTER_CTAS CTAs; the lanes a thread of their
+# instantiations, and the warps a CTA each build takes at each (K2's is K1's
+# cluster kernel with STORE: 16 warps below 8 lanes a thread, where 128
+# registers do; K3's row state takes up to 255 registers a thread at 8)
+ESTEP_CLUSTER_LPTS = (4, 8, 16)
+ESTEP_CLUSTER_MAX_WARPS = {"fwd_store": {4: 16, 8: 8, 16: 8},
+                           "bwd_counts": {4: 8, 8: 8, 16: 8}}
+# The cluster tiling by width, K2's and K3's alike, as
+# fill_v2.FILL_CLUSTER_TABLE's: (widest band, lanes a thread, warps a CTA
+# at most), the tiles spread evenly over the fewest CTAs that hold them.
+# From chip_smoke.py's sweeps of every tiling (median of 3, NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md §6), each tiling within the tolerance:
+#   - phase 5b's wide chunk (B=14, W=4038, Ly=8540): K2 8 x 4 x 4 50.093
+#     ms (4 x 8 x 4 54.757, 2 x 16 x 4 64.434, 4 x 4 x 8 88.253, 2 x 8 x
+#     8 106.006, 1 x 8 x 16 181.012; its block route 105.675), K3 8 x 4 x
+#     4 28.407 (4 x 8 x 4 28.829, 2 x 8 x 8 42.124, 1 x 8 x 16 70.938;
+#     block 106.753): a chunk of a few wide pairs fills the card only when
+#     each pair spreads over several SMs, so the tiles go 4 warps a CTA
+#     over up to 8 CTAs at 4 lanes a thread;
+#   - K3 at phase 2b's cutover case (B=32, W=423): 1 x 4 x 4 1.801 ms, 1 x
+#     2 x 8 2.751, 1 x 1 x 16 5.044, its warp route 3.261;
+#   - phase 3b's chunk (B=12, W=606): 2 x 3 x 4 1.708 ms (K2) and 1.043
+#     (K3), 1 x 5 x 4 1.720 and 1.057; there K2's block route took 1.395,
+#     the one width measured where it beat the cluster route.
+# The route stops at 4096 lanes, the trainer's ESTEP_LANE_CAP and the
+# widest band 32 tiles of 4 lanes a thread cover: wider bands take the
+# block routes, and estep_route_ok refuses a cluster tiling there.  Past
+# it, on global bands of reads of ~1000 rows with ~3300 deletions each,
+# the cluster routes at 8 and 16 lanes a thread put the back-start
+# posterior up to 7.4e-3 off 1 (tolerance 5e-3), and the block routes
+# miss it too (6.8e-3 at 8192 lanes): an open fault, ROADMAP queue 3.
+ESTEP_CLUSTER_TABLE = ((4096, 4, 4),)
+# the widest band the cluster routes take; wider ones take the block routes
+ESTEP_CLUSTER_MAX_LANES = ESTEP_CLUSTER_TABLE[-1][0]
 
 
 def table_size(tables: V2Tables) -> int:
@@ -86,33 +130,49 @@ def warp_lpt(W: int):
 
 def estep_route(W: int, kernel: str) -> tuple:
     """The route of K2 (kernel "fwd_store") or K3 ("bwd_counts") for a band
-    of W lanes: ("warp", warp_lpt(W)) up to ESTEP_WARP_MAX_LANES[kernel]
-    lanes, else ("block", 0): one block per pair."""
+    of W lanes, a function of W alone: ("warp", warp_lpt(W)) up to
+    ESTEP_WARP_MAX_LANES[kernel] lanes; ("cluster", (nct, warps, lpt)) of
+    ESTEP_CLUSTER_TABLE up to ESTEP_CLUSTER_MAX_LANES; else
+    ("block", 0): one block per pair."""
     lpt = warp_lpt(W)
     if lpt is not None and 32 * lpt <= ESTEP_WARP_MAX_LANES[kernel]:
         return "warp", lpt
+    if W <= ESTEP_CLUSTER_MAX_LANES:
+        return "cluster", cluster_tiling(W, ESTEP_CLUSTER_TABLE)
     return "block", 0
+
+
+def estep_route_ok(W: int, route, kernel: str) -> bool:
+    """Whether `route` is one `kernel` has that covers a band of W lanes:
+    ("warp", lpt) with 32 * lpt >= W, ("cluster", (nct, warps, lpt)) of
+    fill_v2.cluster_route_ok at the kernel's lanes a thread and warps a
+    CTA for a band of at most ESTEP_CLUSTER_MAX_LANES, or ("block", 0)."""
+    try:
+        kind, arg = route
+    except (TypeError, ValueError):
+        return False
+    if kind == "warp":
+        return arg in WARP_LPTS and W <= 32 * arg
+    if kind == "cluster":
+        return W <= ESTEP_CLUSTER_MAX_LANES and cluster_route_ok(
+            W, arg, ESTEP_CLUSTER_LPTS, ESTEP_CLUSTER_MAX_WARPS[kernel].get)
+    return kind == "block" and arg == 0
 
 
 def _check_route(name, route, W):
     """The route a wrapper takes: estep_route's, or one forced by the
-    caller (the card tests and chip_smoke.py hold the two against each
+    caller (the card tests and chip_smoke.py hold them against each
     other), which must cover the band."""
     if route is None:
         return estep_route(W, name)
-    kind, lpt = route
-    if not (kind == "block" and lpt == 0
-            or kind == "warp" and lpt in WARP_LPTS and W <= 32 * lpt):
+    if not estep_route_ok(W, route, name):
         raise ValueError(f"{name}: no route {route} for a band of {W} lanes")
     return route
 
 
 def _count(fn, kind):
     fn.launches += 1
-    if kind == "warp":
-        fn.warp_launches += 1
-    else:
-        fn.block_launches += 1
+    setattr(fn, f"{kind}_launches", getattr(fn, f"{kind}_launches") + 1)
 
 
 def _raise_on(err, name, kernels, B, W, Ly, kind=None):
@@ -149,8 +209,10 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
     """K2 on the tensors' device; same outputs as fwd_store_reference,
     except that rows and offsets past a pair's read length are left
     unwritten on the card (K3 never reads them).  On the card it takes
-    estep_route's route, or `route` (("warp", lpt) or ("block", 0)) where
-    given; a CPU tensor takes the plain version whatever the route."""
+    estep_route's route, or `route` (("warp", lpt), ("cluster", (nct,
+    warps, lpt)) or ("block", 0)) where given; a CPU tensor takes the
+    plain version whatever the route.  A failed launch, or a cluster shape
+    the card refuses, raises; no route gives way to another."""
     dev = doff.device
     kind, lpt = _check_route("fwd_store", route, doff.shape[1])
     if dev.type == "cpu":
@@ -190,6 +252,14 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
                 x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
                 doff.data_ptr(), W, *tabs, B, int(bool(local)), lpt,
                 out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
+        elif kind == "cluster":
+            nct, warps, lpt = lpt
+            err = lib.quaff_fwd_store_cluster(
+                x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
+                doff.data_ptr(), W, seg_start.data_ptr(),
+                seg_width.data_ptr(), S, *tabs, B, int(bool(local)), lpt, nct,
+                warps, out.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
+                stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0):
@@ -208,6 +278,7 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
 
 fwd_store.launches = 0
 fwd_store.warp_launches = 0
+fwd_store.cluster_launches = 0
 fwd_store.block_launches = 0
 
 
@@ -406,6 +477,11 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
         if kind == "warp":
             err = lib.quaff_bwd_counts_warp(
                 *args, lpt, partial.data_ptr(), d_sc.data_ptr(), stream)
+        elif kind == "cluster":
+            nct, warps, lpt = lpt
+            err = lib.quaff_bwd_counts_cluster(
+                *args, lpt, nct, warps, partial.data_ptr(), d_sc.data_ptr(),
+                stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0, "bwd_counts"):
@@ -421,6 +497,7 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
 
 bwd_counts.launches = 0
 bwd_counts.warp_launches = 0
+bwd_counts.cluster_launches = 0
 bwd_counts.block_launches = 0
 
 

@@ -43,15 +43,17 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 # The port's kernels by their __global__ function: (part of the demangled
 # name, (the wrapper that launches it, its route)), the first match wins.
-# K1 and K2 share band_fill_kernel: its STORE instantiation is K2's block
-# route.
+# K1 and K2 share band_fill_kernel and band_fill_cluster_kernel: their
+# STORE instantiations are K2's block and cluster routes.
 KERNEL_NAMES = (
     ("band_fill_kernel<false, true>", ("fwd_store", "block")),
+    ("band_fill_cluster_kernel<false, true,", ("fwd_store", "cluster")),
     ("band_fill_kernel<", ("band_fill", "block")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),
     ("band_fill_cluster_kernel<", ("band_fill", "cluster")),
     ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
     ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),
+    ("bwd_counts_cluster_kernel<", ("bwd_counts", "cluster")),
     ("bwd_counts_kernel", ("bwd_counts", "block")),
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("ov_fill_warp_kernel<", ("ov_fill", "warp")),

@@ -186,23 +186,38 @@ def test_wrappers_route_by_device():
         estep.estep_reduce(part.to("meta"))
 
 
+def _cluster_route(W, kernel):
+    return "cluster", fill_v2.cluster_tiling(W, estep.ESTEP_CLUSTER_TABLE)
+
+
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
 @pytest.mark.parametrize("lpt", [1, 2, 4, 8, 16, None])
 def test_estep_route_table(kernel, lpt):
     """K2's and K3's routes are a pure function of the band's width: every
     width up to the kernel's ESTEP_WARP_MAX_LANES takes the warp route
     with the smallest lanes-a-thread whose warp (32 * lpt lanes) covers it
-    (the widths 16*lpt+1 .. 32*lpt), every wider band the block route (lpt
-    None: the widths past the cutover)."""
+    (the widths 16*lpt+1 .. 32*lpt), every wider band up to
+    ESTEP_CLUSTER_MAX_LANES the cluster route at the tiling of the first
+    row of ESTEP_CLUSTER_TABLE that covers it, every band past that the
+    block route (lpt None: the 4096 widths past the cutover)."""
     cut = estep.ESTEP_WARP_MAX_LANES[kernel]
     assert cut in (256, 512)
     if lpt is None:
         widths = range(cut + 1, cut + 4097)
     else:
         widths = range(16 * lpt + 1 if lpt > 1 else 1, 32 * lpt + 1)
-    want = ("warp", lpt) if lpt is not None and 32 * lpt <= cut else \
-        ("block", 0)
-    assert all(estep.estep_route(W, kernel) == want for W in widths)
+    top = estep.ESTEP_CLUSTER_MAX_LANES
+    for W in widths:
+        if lpt is not None and 32 * lpt <= cut:
+            want = ("warp", lpt)
+        elif W <= top:
+            want = _cluster_route(W, kernel)
+        else:
+            want = ("block", 0)
+        assert estep.estep_route(W, kernel) == want
+    assert estep.estep_route(top, kernel)[0] == "cluster"
+    assert estep.estep_route(top + 1, kernel) == ("block", 0)
+    assert estep.estep_route(12 * top, kernel) == ("block", 0)
 
 
 @pytest.mark.parametrize("W,lpt", [(1, 1), (32, 1), (33, 2), (64, 2),
@@ -212,11 +227,129 @@ def test_estep_route_table(kernel, lpt):
 def test_warp_lpt(W, lpt):
     """The warp routes' lanes a thread: the smallest of 1/2/4/8/16 whose
     warp covers the band, none past 512 lanes; estep_route takes it up to
-    each kernel's cutover."""
+    each kernel's cutover, the cluster route past it up to
+    ESTEP_CLUSTER_MAX_LANES, and the block route past that."""
     assert estep.warp_lpt(W) == lpt
     for kernel, cut in estep.ESTEP_WARP_MAX_LANES.items():
-        want = ("warp", lpt) if W <= cut else ("block", 0)
+        if W <= cut:
+            want = ("warp", lpt)
+        elif W <= estep.ESTEP_CLUSTER_MAX_LANES:
+            want = _cluster_route(W, kernel)
+        else:
+            want = ("block", 0)
         assert estep.estep_route(W, kernel) == want
+
+
+@pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
+def test_estep_cluster_table(kernel):
+    """ESTEP_CLUSTER_TABLE, K2's and K3's: rows of growing width up to
+    ESTEP_CLUSTER_MAX_LANES (the trainer's ESTEP_LANE_CAP) at lanes a
+    thread the kernels have, and at every width from the kernel's warp
+    route's cutover to the last row the tiling it gives is one the kernel
+    takes (at most MAX_TILES tiles over at most MAX_CLUSTER_CTAS CTAs of
+    at most ESTEP_CLUSTER_MAX_WARPS warps) that covers the band, with its
+    tiles spread evenly (no CTA idle)."""
+    from quaff_tpu_torch import trainer
+
+    table = estep.ESTEP_CLUSTER_TABLE
+    widths = [row[0] for row in table]
+    assert widths == sorted(widths)
+    assert widths[-1] == estep.ESTEP_CLUSTER_MAX_LANES == trainer.ESTEP_LANE_CAP
+    assert all(lpt in estep.ESTEP_CLUSTER_LPTS for _, lpt, _ in table)
+    max_warps = estep.ESTEP_CLUSTER_MAX_WARPS[kernel]
+    assert set(max_warps) == set(estep.ESTEP_CLUSTER_LPTS)
+    for W in range(estep.ESTEP_WARP_MAX_LANES[kernel] + 1, widths[-1] + 1):
+        route = estep.estep_route(W, kernel)
+        nct, warps, lpt = route[1]
+        assert route[0] == "cluster" and estep.estep_route_ok(W, route,
+                                                              kernel)
+        assert W <= nct * warps * 32 * lpt
+        assert nct <= fill_v2.MAX_CLUSTER_CTAS and warps <= max_warps[lpt]
+        assert nct * warps <= fill_v2.MAX_TILES
+        assert (nct - 1) * warps * 32 * lpt < W  # every CTA holds lanes
+
+
+@pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
+def test_estep_cluster_route_ok_refuses(kernel):
+    """A forced cluster tiling must be one the kernel has and cover the
+    band: estep_route_ok refuses a tiling whose tiles do not cover W, one
+    of more than MAX_CLUSTER_CTAS CTAs or MAX_TILES tiles, more warps a CTA
+    than the kernel takes (K3: 8 at any lanes a thread; K2: 8 from 8 lanes
+    a thread up, 16 below), lanes a thread the kernel has no instantiation
+    of, a band wider than ESTEP_CLUSTER_MAX_LANES, and anything that is not
+    a (CTAs, warps, lanes) triple; the wrappers raise on it before any
+    launch, CPU tensors too."""
+    ok = estep.estep_route_ok
+    assert ok(2048, ("cluster", (1, 4, 16)), kernel)
+    assert ok(2048, ("cluster", (2, 2, 16)), kernel)
+    assert not ok(2049, ("cluster", (1, 4, 16)), kernel)  # does not cover
+    assert not ok(600, ("cluster", (1, 1, 4)), kernel)
+    assert not ok(600, ("cluster", (9, 1, 4)), kernel)  # CTAs
+    assert not ok(600, ("cluster", (8, 5, 4)), kernel)  # tiles
+    assert not ok(600, ("cluster", (1, 20, 2)), kernel)  # no lpt 2
+    assert not ok(600, ("cluster", (1, 9, 16)), kernel)  # warps at lpt 16
+    assert ok(600, ("cluster", (1, 10, 4)), kernel) == (kernel == "fwd_store")
+    assert ok(600, ("cluster", (1, 9, 8)), kernel) is False  # warps at lpt 8
+    top = estep.ESTEP_CLUSTER_MAX_LANES
+    assert ok(top, ("cluster", (8, 4, 4)), kernel)
+    assert ok(top, ("cluster", (2, 4, 16)), kernel)
+    for W, tiling in ((top + 1, (8, 4, 8)), (8192, (8, 2, 16)),
+                      (16384, (8, 4, 16))):  # covered, but past the cap
+        assert not ok(W, ("cluster", tiling), kernel)
+    for bad in (("cluster", None), ("cluster", (1, 4)), ("cluster", 0),
+                None, ("warp",)):
+        assert not ok(600, bad, kernel)
+    from test_torch_kernel_cuda import _tables, random_fill_inputs
+
+    inp, v2 = random_fill_inputs(np.random.default_rng(4), _tables("packed"),
+                                 600, B=1, Lx=60, Ly=8, device="cpu")
+    with pytest.raises(ValueError, match="no route"):
+        if kernel == "fwd_store":
+            estep.fwd_store(**inp, tables=v2, route=("cluster", (1, 1, 4)))
+        else:
+            rows = torch.zeros((3, 1, 8, 600))
+            estep.bwd_counts(inp["x_tok"], inp["keys"], inp["meta"],
+                             inp["doff"], v2, torch.ones((2, 1)), rows,
+                             torch.zeros((1, 8), dtype=torch.float64),
+                             route=("cluster", (1, 1, 4)))
+
+
+def test_wide_read_routes_its_chunk_to_the_cluster_routes():
+    """The fused E-step's chunk plan groups reads by rows, longest first,
+    not by width, and a chunk launches at its widest read's band: one read
+    with a 4038-lane band (phase 4's recipe has one, read 369) puts every
+    pair of its chunk on K2's and K3's cluster routes, while the chunks of
+    narrow reads stay on the warp routes."""
+    import types
+
+    from quaff_tpu_torch import trainer
+
+    rng = np.random.default_rng(369)
+    counter = types.SimpleNamespace(
+        tables=ScoreTables.from_params(port_params(jax_default_params())))
+
+    def pair_bytes(width, rows, x_len):
+        return trainer.QuaffCounter._pair_bytes(counter, width, rows, x_len)
+
+    reads = [(ny, int(rng.integers(2000, 10001)), int(rng.integers(30, 191)),
+              [200_000, 200_000]) for ny in range(512)]
+    reads[369] = (369, 8540, 4038, [200_000, 200_000])
+    chunks, oversize = trainer.estep_chunk_plan(
+        reads, pair_bytes, lane_cap=trainer.ESTEP_LANE_CAP)
+    assert oversize == [] and sorted(sum(chunks, [])) == list(range(512))
+    width = {ny: w for ny, _, w, _ in reads}
+    wide = [c for c in chunks if 369 in c]
+    assert len(wide) == 1 and len(wide[0]) > 1
+    for c in chunks:
+        W = max(width[ny] for ny in c)
+        routes = {k: estep.estep_route(W, k)[0]
+                  for k in ("fwd_store", "bwd_counts")}
+        if c is wide[0]:
+            assert W == 4038
+            assert routes == {"fwd_store": "cluster", "bwd_counts": "cluster"}
+        else:
+            assert W <= 190
+            assert routes == {"fwd_store": "warp", "bwd_counts": "warp"}
 
 
 def test_estep_card_variants_cover_both_table_homes():
@@ -255,10 +388,13 @@ def test_estep_forced_route_on_cpu():
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow,
             rows, offs)
     part, sc = estep.bwd_counts_reference(*base)
-    counts = ("launches", "warp_launches", "block_launches")
+    counts = ("launches", "warp_launches", "cluster_launches",
+              "block_launches")
     before = {f: [getattr(getattr(estep, f), k) for k in counts]
               for f in ("fwd_store", "bwd_counts")}
-    for route in (None, ("warp", 2), ("warp", 16), ("block", 0)):
+    for route in (None, ("warp", 2), ("warp", 16), ("cluster", (1, 1, 4)),
+                  ("cluster", (2, 1, 8)), ("cluster", (1, 3, 16)),
+                  ("block", 0)):
         got = estep.fwd_store(**inp, tables=v2, route=route)
         assert all(torch.equal(a, b) for a, b in zip(got, (fwd, rows, offs)))
         got = estep.bwd_counts(*base, route=route)
@@ -266,7 +402,9 @@ def test_estep_forced_route_on_cpu():
     assert before == {f: [getattr(getattr(estep, f), k) for k in counts]
                       for f in ("fwd_store", "bwd_counts")}
     for bad in (("warp", 1), ("warp", 3), ("block", None), ("block", 8),
-                ("tile", 0)):
+                ("tile", 0), ("cluster", (1, 1, 1)), ("cluster", (9, 1, 4)),
+                ("cluster", (1, 1, 2)), ("cluster", (1, 40, 4)),
+                ("cluster", 4)):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=bad)
         with pytest.raises(ValueError, match="no route"):
@@ -276,25 +414,42 @@ def test_estep_forced_route_on_cpu():
 def test_chip_smoke_route_helpers():
     """chip_smoke.py's E-step route helpers, pure functions of the width:
     the routes it holds against each other (the warp route where 512
-    lanes cover the band, then the block route), and the check that a
-    run's launch counts by route match its chunks' estep_route (a 423-lane
-    chunk runs K2's warp route and K3's block route)."""
+    lanes cover the band, the cluster route at the table's tiling up to
+    4096 lanes, then the block route), and the check that a run's
+    launch counts by route match its chunks' estep_route (a 423-lane
+    chunk runs K2's warp route and K3's cluster route, a 4038-lane one
+    both cluster routes, a 22882-lane one both block routes)."""
     import chip_smoke
 
-    assert chip_smoke._estep_routes(3) == [("warp", 1), ("block", 0)]
-    assert chip_smoke._estep_routes(168) == [("warp", 8), ("block", 0)]
-    assert chip_smoke._estep_routes(512) == [("warp", 16), ("block", 0)]
-    assert chip_smoke._estep_routes(513) == [("block", 0)]
-    chunks = [{"B": 4, "W": 168}, {"B": 2, "W": 423}]
-    n = {"fwd_store": {"warp_launches": 2, "block_launches": 0},
-         "bwd_counts": {"warp_launches": 1, "block_launches": 1}}
+    assert chip_smoke._estep_routes(3, "fwd_store") == [
+        ("warp", 1), ("cluster", (1, 1, 4)), ("block", 0)]
+    assert chip_smoke._estep_routes(168, "bwd_counts") == [
+        ("warp", 8), _cluster_route(168, "bwd_counts"), ("block", 0)]
+    assert chip_smoke._estep_routes(512, "fwd_store") == [
+        ("warp", 16), _cluster_route(512, "fwd_store"), ("block", 0)]
+    for k in ("fwd_store", "bwd_counts"):
+        assert chip_smoke._estep_routes(4038, k) == [
+            _cluster_route(4038, k), ("block", 0)]
+        assert chip_smoke._estep_routes(22882, k) == [("block", 0)]
+        assert chip_smoke._estep_routes(4097, k) == [("block", 0)]
+    chunks = [{"B": 4, "W": 168}, {"B": 2, "W": 423}, {"B": 14, "W": 4038},
+              {"B": 8, "W": 22882}]
+    n = {"fwd_store": {"warp_launches": 2, "cluster_launches": 1,
+                       "block_launches": 1},
+         "bwd_counts": {"warp_launches": 1, "cluster_launches": 2,
+                        "block_launches": 1}}
     routes = chip_smoke._check_routes("a run", chunks, n)
     assert routes == [
         {"fwd_store": ("warp", 8), "bwd_counts": ("warp", 8)},
-        {"fwd_store": ("warp", 16), "bwd_counts": ("block", 0)}]
-    assert chip_smoke._route_text(chunks, routes) == (
+        {"fwd_store": ("warp", 16),
+         "bwd_counts": _cluster_route(423, "bwd_counts")},
+        {k: _cluster_route(4038, k) for k in ("fwd_store", "bwd_counts")},
+        {"fwd_store": ("block", 0), "bwd_counts": ("block", 0)}]
+    t423 = "{} x {} x {}".format(*_cluster_route(423, "bwd_counts")[1])
+    assert chip_smoke._route_text(chunks[:2], routes[:2]) == (
         "(B=4, W=168: K2 warp 8, K3 warp 8); "
-        "(B=2, W=423: K2 warp 16, K3 block)")
-    n["bwd_counts"] = {"warp_launches": 2, "block_launches": 0}
+        f"(B=2, W=423: K2 warp 16, K3 cluster {t423})")
+    n["bwd_counts"] = {"warp_launches": 2, "cluster_launches": 1,
+                       "block_launches": 1}
     with pytest.raises(chip_smoke.SmokeFailure, match="bwd_counts"):
         chip_smoke._check_routes("a run", chunks, n)

@@ -2,8 +2,11 @@
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
 route at every lanes-a-thread instantiation, its cluster route at every
 tiling its route table chooses and at forced ones, and its block route),
-K2 and K3 (csrc/estep.cu: their warp routes at every lanes-a-thread
-instantiation, their block routes, and each pairing of the two), the count
+K2 and K3 (csrc/estep.cu, csrc/estep_cluster.cu: their warp routes at every
+lanes-a-thread instantiation, their cluster routes at the tilings their
+route tables choose up to 2048 lanes and at each table row's widest band,
+at forced tilings and against their own one-tile tiling, their block
+routes, and each pairing of a K2 route with a K3 route), the count
 reduction (bit for bit), K4 (csrc/ov_fill.cu: its warp route at every
 lanes-a-thread instantiation, its cluster route as K1's) and the probes'
 chain kernel (csrc/sol_probe.cu).  Needs an NVIDIA GPU and skips without
@@ -31,7 +34,7 @@ import torch
 from quaff_tpu_torch.dp import estep, fill_v2
 from quaff_tpu_torch.dp.engine import PairBatch, to_device
 from quaff_tpu_torch.dp.scores import ScoreTables
-from quaff_tpu_torch.envelope import full_envelope, sparse_envelope
+from quaff_tpu_torch.envelope import Envelope, full_envelope, sparse_envelope
 from quaff_tpu_torch.io.fastseq import FastSeq, KmerIndex
 from quaff_tpu_torch.model.params import QuaffParams, default_params
 
@@ -370,14 +373,19 @@ ESTEP_VARIANTS = {"local": (True, "packed"), "local-gap1": (True, "gaporder1"),
                   "local-sub2": (True, "sub2")}
 
 
-def _estep_plain(variant, W, seed):
-    """K2's and K3's inputs on random bands of W lanes (random_fill_inputs)
-    and their plain versions' outputs: (inp, v2, local, fwd_p, wrow,
-    part_p, sc_p); wrow's weights are 0.5 and its normalisers the plain
-    forward scores."""
+def _estep_plain(variant, W, seed, **kw):
+    """K2's and K3's inputs on random bands of W lanes (random_fill_inputs,
+    with `kw`) and their plain versions' outputs (_plain_case)."""
     local, tables = ESTEP_VARIANTS[variant]
     inp, v2 = random_fill_inputs(np.random.default_rng(seed), _tables(tables),
-                                 W, local=local)
+                                 W, local=local, **kw)
+    return _plain_case(inp, v2, local)
+
+
+def _plain_case(inp, v2, local):
+    """(inp, v2, local, fwd_p, wrow, part_p, sc_p): the plain versions'
+    outputs on K2's and K3's inputs; wrow's weights are 0.5 and its
+    normalisers the plain forward scores."""
     fwd_p, rows_p, offs_p = estep.fwd_store_reference(**inp, tables=v2,
                                                       local=local)
     fin = fwd_p > fill_v2.NEG_INF / 2
@@ -394,8 +402,13 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
     scores rtol 1e-5 / atol 1e-3, tables and d_sc rtol 3e-3 / atol 5e-3,
     the back-start posterior of every finite pair within 5e-3 of 1, both
     kernels bit-identical on a second run, one launch counted on each
-    kernel's route."""
-    counts = ("launches", "warp_launches", "block_launches")
+    kernel's route.  K3 runs on the kernel K2's store with wrow, whose
+    normalisers are the plain forward scores, as the JAX package's test
+    runs its kernels (tests/test_pallas_counts.py): the back-start
+    posterior then also holds K2's forward scores to the plain version's
+    within about 5e-3 nats."""
+    counts = ("launches", "warp_launches", "cluster_launches",
+              "block_launches")
     fin = fwd_p > fill_v2.NEG_INF / 2
     assert bool(fin.any())
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
@@ -406,7 +419,8 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
         torch.cuda.synchronize()
         moved = [getattr(estep.fwd_store, k) - n
                  for k, n in zip(counts, before)]
-        assert moved == [1, int(r2[0] == "warp"), int(r2[0] == "block")]
+        assert moved == [1] + [int(r2[0] == k)
+                               for k in ("warp", "cluster", "block")]
         assert torch.equal(fwd > fill_v2.NEG_INF / 2, fin)
         np.testing.assert_allclose(fwd[fin].double().cpu(),
                                    fwd_p[fin].double().cpu(),
@@ -416,7 +430,8 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
         torch.cuda.synchronize()
         moved = [getattr(estep.bwd_counts, k) - n
                  for k, n in zip(counts, before)]
-        assert moved == [1, int(r3[0] == "warp"), int(r3[0] == "block")]
+        assert moved == [1] + [int(r3[0] == k)
+                               for k in ("warp", "cluster", "block")]
         for got, want in ((part, part_p), (sc, sc_p)):
             np.testing.assert_allclose(got.double().cpu(),
                                        want.double().cpu(),
@@ -440,6 +455,20 @@ ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256, 1536, 2048}.union(
     *({c, c + 1} for c in estep.ESTEP_WARP_MAX_LANES.values())))
 
 
+def _kernel_routes(W, kernel):
+    """The routes of K2 or K3 held against each other on a band of W lanes:
+    the warp route at the smallest lanes-a-thread that covers W (up to 512
+    lanes), the cluster route at the table's tiling (up to
+    ESTEP_CLUSTER_MAX_LANES), the block route."""
+    routes = [("block", 0)]
+    if W <= estep.ESTEP_CLUSTER_MAX_LANES:
+        routes.insert(0, ("cluster", fill_v2.cluster_tiling(
+            W, estep.ESTEP_CLUSTER_TABLE)))
+    if estep.warp_lpt(W) is not None:
+        routes.insert(0, ("warp", estep.warp_lpt(W)))
+    return routes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(ESTEP_VARIANTS))
 @pytest.mark.parametrize("W", ESTEP_WIDTHS)
@@ -448,14 +477,13 @@ def test_estep_routes_match_plain(W, variant):
     lanes, not on halo lanes), each route forced and each pairing of a K2
     route with a K3 route (the layout they share), against
     fwd_store_reference and bwd_counts_reference: the warp route at the
-    smallest lanes-a-thread that covers W (up to 512 lanes) and the block
-    route; then both kernels through estep_route's own route."""
+    smallest lanes-a-thread that covers W (up to 512 lanes), the cluster
+    route at each kernel's table tiling and the block route; then both
+    kernels through estep_route's own route."""
     _need_card()
     case = _estep_plain(variant, W, 61 + W)
-    routes = [("block", 0)]
-    if estep.warp_lpt(W) is not None:
-        routes.insert(0, ("warp", estep.warp_lpt(W)))
-    pairs = [(r2, r3) for r2 in routes for r3 in routes]
+    pairs = [(r2, r3) for r2 in _kernel_routes(W, "fwd_store")
+             for r3 in _kernel_routes(W, "bwd_counts")]
     _estep_routes_check(*case, pairs + [(estep.estep_route(W, "fwd_store"),
                                          estep.estep_route(W, "bwd_counts"))])
 
@@ -880,6 +908,354 @@ def test_fill_cluster_forced_tilings(tiling, variant):
                                      Ly=W // 4, local=False, qual=qual)
     _fill_checked(inp, v2, mode, local, ("cluster", tiling))
     _fill_checked(inp, v2, mode, local, ("block", 0))
+
+
+def _stored_rows_check(inp, v2, local, rows, offs):
+    """K2's stored rows on the card against the plain version's, up to each
+    pair's read length: the same cells hold NEG, the others' absolute
+    values (cell + the row's offset) within K1's rtol 1e-5 / atol 1e-3 of
+    the plain version's, and each row's largest cell is 0."""
+    _, rows_p, offs_p = estep.fwd_store_reference(**inp, tables=v2,
+                                                  local=local)
+    floor = fill_v2.NEG_INF / 2
+    for b, n in enumerate(inp["meta"][:, 1].tolist()):
+        got, want = rows[:, b, :n].cpu(), rows_p[:, b, :n].cpu()
+        live = want > floor
+        assert torch.equal(got > floor, live)
+        if not bool(live.any()):
+            continue
+        a = got.double() + offs[b, :n].cpu()[None, :, None]
+        w = want.double() + offs_p[b, :n].cpu()[None, :, None]
+        np.testing.assert_allclose(a[live], w[live], rtol=1e-5, atol=1e-3)
+        top = torch.where(live, got, float("-inf")).amax(dim=(0, 2))
+        assert bool((top[live.any(0).any(-1)] == 0).all())
+
+
+def _estep_table_tilings(kernel):
+    """(kernel, tiling, W): each tiling estep_route chooses for the kernel
+    past its warp route up to 2048 lanes, with the widest band it takes
+    there, and at each row of ESTEP_CLUSTER_TABLE the row's widest
+    band."""
+    widest = {}
+    for W in range(estep.ESTEP_WARP_MAX_LANES[kernel] + 1, 2049):
+        widest[estep.estep_route(W, kernel)[1]] = W
+    for W, _, _ in estep.ESTEP_CLUSTER_TABLE:
+        widest[estep.estep_route(W, kernel)[1]] = W
+    return [(kernel, t, W) for t, W in sorted(widest.items())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["local", "global"])
+@pytest.mark.parametrize(
+    "kernel, tiling, W",
+    _estep_table_tilings("fwd_store") + _estep_table_tilings("bwd_counts"),
+    ids=str)
+def test_estep_cluster_table_tilings(kernel, tiling, W, variant):
+    """K2's or K3's cluster route at each tiling estep_route chooses, on the
+    widest band it takes (random strips over a ref as wide as the band, or
+    one strip over every diagonal of a read and a ref twice its length, as
+    in the forced tilings), the other kernel on its own route, against the
+    plain versions; K2's stored rows against the plain version's; each
+    kernel rerun bit for bit."""
+    _need_card()
+    assert estep.estep_route(W, kernel) == ("cluster", tiling)
+    if variant == "local":
+        kw = dict(Lx=W + 64, Ly=120)
+    else:
+        kw = dict(Lx=W // 2 + 64, Ly=min(W // 4, 1024))
+    case = _estep_plain(variant, W, W + 7, B=4, **kw)
+    r = ("cluster", tiling)
+    if kernel == "fwd_store":
+        pair = (r, estep.estep_route(W, "bwd_counts"))
+    else:
+        pair = (estep.estep_route(W, "fwd_store"), r)
+    _estep_routes_check(*case, [pair])
+    inp, v2, local = case[:3]
+    _stored_rows_check(inp, v2, local, *estep.fwd_store(
+        **inp, tables=v2, local=local, route=pair[0])[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [estep.ESTEP_CLUSTER_MAX_LANES + 1, 8192, 16384])
+def test_estep_block_routes_past_the_cluster_routes(W):
+    """Past ESTEP_CLUSTER_MAX_LANES both kernels take their block routes,
+    and a cluster tiling that covers the band is refused before any
+    launch.  The block routes on global bands of reads of up to 1024 rows
+    over refs of up to W / 2 + 64 bases (at 8192 and 16384 lanes the input
+    on which the cluster routes at 8 and 16 lanes a thread put the
+    back-start posterior 7.4e-3 off 1), against the plain versions; K2's
+    stored rows against the plain version's.  At 8192 and 16384 lanes the
+    block routes miss the back-start posterior's tolerance as well (an
+    open fault, ROADMAP queue 3)."""
+    _need_card()
+    routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
+                                                      "bwd_counts"))
+    assert routes == (("block", 0), ("block", 0))
+    case = _estep_plain("global", W, W + 7, B=4, Lx=W // 2 + 64,
+                        Ly=min(W // 4, 1024))
+    inp, v2, local = case[:3]
+    tiling = (8, 4, 16)
+    assert W <= 32 * 16 * 4 * 8
+    with pytest.raises(ValueError, match="no route"):
+        estep.fwd_store(**inp, tables=v2, local=local,
+                        route=("cluster", tiling))
+    _estep_routes_check(*case, [routes])
+    _stored_rows_check(inp, v2, local, *estep.fwd_store(
+        **inp, tables=v2, local=local)[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(ESTEP_VARIANTS))
+@pytest.mark.parametrize("tiling", [
+    (nct, warps if nct * warps * 32 * lpt <= estep.ESTEP_CLUSTER_MAX_LANES
+     else 1, lpt) for nct, warps, lpt in _forced_tilings(
+         estep.ESTEP_CLUSTER_LPTS)], ids=str)
+def test_estep_cluster_forced_tilings(tiling, variant):
+    """K2's and K3's cluster routes forced at 1, 2, 4 and 8 CTAs and every
+    lanes-a-thread, two warps a CTA (one where two would fill more than
+    ESTEP_CLUSTER_MAX_LANES, the widest band the routes take), on bands
+    they fill exactly: local
+    variants with strips seamed on tile and CTA boundaries (the last ending
+    on a member lane at the last CTA's last lane), global ones over long
+    reads whose tiles are dead in most rows; each paired with itself and
+    with the block route of the other kernel, against the plain versions;
+    K2's stored rows against the plain version's."""
+    _need_card()
+    nct, warps, lpt = tiling
+    W = nct * warps * 32 * lpt
+    local, tables = ESTEP_VARIANTS[variant]
+    rng = np.random.default_rng(W + lpt + 1)
+    if local:
+        inp, v2 = random_fill_inputs(rng, _tables(tables), W, B=4,
+                                     seams=_tile_seams(W, tiling))
+    else:
+        inp, v2 = random_fill_inputs(rng, _tables(tables), W, B=3,
+                                     Lx=W // 2 + 64, Ly=min(W // 4, 1024),
+                                     local=False)
+    cl, bl = ("cluster", tiling), ("block", 0)
+    _estep_routes_check(*_plain_case(inp, v2, local),
+                        [(cl, cl), (cl, bl), (bl, cl)])
+    _stored_rows_check(inp, v2, local, *estep.fwd_store(
+        **inp, tables=v2, local=local, route=cl)[1:])
+
+
+def _seam_pairs(rng, lanes, ylen=100, W=512):
+    """Pairs of a random ref and a read copied from it (8% substitutions,
+    qualities), in full envelopes of W lanes: pair i's alignment diagonal
+    lies on band lane lanes[i] (PairBatch.build puts a halo lane first),
+    so that most of its posterior mass sits on the lanes around it."""
+    pairs = []
+    xlen = W - ylen - 1
+    for i, lane in enumerate(lanes):
+        d = lane - ylen
+        assert 0 <= d <= xlen - ylen
+        xs = "".join("ACGT"[t] for t in rng.integers(0, 4, xlen))
+        ys = list(xs[d:d + ylen])
+        for k in range(ylen):
+            if rng.random() < 0.08:
+                ys[k] = "ACGT"[int(rng.integers(0, 4))]
+        q = "".join(chr(33 + int(v)) for v in rng.integers(3, 40, ylen))
+        pairs.append((FastSeq(name=f"x{i}", seq=xs),
+                      FastSeq(name=f"y{i}", seq="".join(ys), qual=q),
+                      full_envelope(xlen, ylen)))
+    pb = PairBatch.build(pairs, _tables("packed"))
+    assert pb.member.shape[1] == W
+    return pb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("tiling", [(1, 4, 4), (2, 2, 4), (4, 1, 4),
+                                    (1, 2, 8), (2, 1, 8)], ids=str)
+def test_estep_cluster_seams_match_one_tile(tiling, local):
+    """K2's and K3's cluster routes over several tiles and CTAs against
+    their own one-tile run (1 x 1 x 16: no seam) on the same 512-lane band,
+    pairs whose alignment diagonals lie on tile boundaries: every seam's
+    value (the next tile's first cells, the delete value entering a tile,
+    the previous tile's insert cell, the edge lanes' stored cells, the row
+    shift) is then on the path, and a wrong one moves the forward scores
+    by nats and K3's tables by 1e-4 to 1 of their largest entry (measured
+    on a CPU host with one of each broken), while a right one changes only
+    the order of float32 sums (1e-4 nats of a forward score, 1e-7 of a
+    table, 4e-6 of the per-pair sums).  Held at forward scores 1e-3,
+    stored rows' absolute cells 1e-2, tables 1e-5 and per-pair sums 3e-5
+    of their largest: far inside the plain versions' rtol 3e-3, which a
+    wrong seam on random strips passes."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    pb = _seam_pairs(rng, [127, 128, 255, 256, 383, 384])
+    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
+    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
+    one, many = ("cluster", (1, 1, 16)), ("cluster", tiling)
+    f1, rows1, offs1 = estep.fwd_store(**inp, tables=v2, local=local,
+                                       route=one)
+    f2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
+                                       route=many)
+    fin = f1 > fill_v2.NEG_INF / 2
+    assert bool(fin.all()) and torch.equal(f2 > fill_v2.NEG_INF / 2, fin)
+    assert float((f1 - f2).abs().max()) <= 1e-3
+    live = rows1 > fill_v2.NEG_INF / 2
+    assert torch.equal(rows2 > fill_v2.NEG_INF / 2, live)
+    a1 = rows1.double() + offs1[None, :, :, None]
+    a2 = rows2.double() + offs2[None, :, :, None]
+    assert float((a1 - a2).abs()[live].max()) <= 1e-2
+    wrow = torch.stack([torch.full_like(f1, 0.5), f1]).contiguous()
+    p1, s1 = estep.bwd_counts(*base, wrow, rows1, offs1, local=local,
+                              route=one)
+    p2, s2 = estep.bwd_counts(*base, wrow, rows1, offs1, local=local,
+                              route=many)
+    assert float((p1 - p2).abs().max()) <= 1e-5 * float(p1.abs().max())
+    assert float((s1 - s2).abs().max()) <= 3e-5 * float(s1.abs().max())
+
+
+@pytest.mark.cuda
+def test_estep_cluster_refused_launch_raises():
+    """K2's and K3's cluster routes at 16 CTAs are refused by the card: the
+    entries return an error, which the wrappers' launch check raises.  The
+    wrappers themselves take no cluster of more than MAX_CLUSTER_CTAS, nor
+    a tiling that cannot cover the band or has more warps a CTA than the
+    kernel: they raise before any launch."""
+    _need_card()
+    from quaff_tpu_torch import kernels
+
+    inp, v2, local, fwd_p, wrow, part_p, sc_p = _estep_plain("local", 2048, 3)
+    B, W = inp["doff"].shape
+    Ly, Lx, S = inp["keys"].shape[1], inp["x_tok"].shape[1], \
+        inp["seg_start"].shape[1]
+    tabs = (v2.match.data_ptr(), v2.match_noq.data_ptr(),
+            v2.insert.data_ptr(), v2.insert_noq.data_ptr(),
+            v2.match.shape[1], v2.match.shape[2], v2.ik.data_ptr(), v2.n_ik,
+            v2.trans.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(B + B * S, device="cuda")
+    rows = torch.empty((3, B, Ly, W), device="cuda")
+    offs = torch.empty((B, Ly), dtype=torch.float64, device="cuda")
+    part = torch.empty((B, estep.table_size(v2)), device="cuda")
+    d_sc = torch.empty((5, B), device="cuda")
+    before = [estep.fwd_store.launches, estep.bwd_counts.launches]
+    lib = kernels.library()
+    err = lib.quaff_fwd_store_cluster(
+        inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+        inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
+        inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(), S, *tabs,
+        B, int(local), 4, 16, 1, out.data_ptr(), rows.data_ptr(),
+        offs.data_ptr(), stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cluster route"):
+        kernels.check_launch(err, "fwd_store", ("cluster", (16, 1, 4)), "")
+    err = lib.quaff_bwd_counts_cluster(
+        inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+        inp["meta"].data_ptr(), inp["doff"].data_ptr(), W, *tabs,
+        wrow.data_ptr(), rows.data_ptr(), offs.data_ptr(), B, int(local), 4,
+        16, 1, part.data_ptr(), d_sc.data_ptr(), stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cluster route"):
+        kernels.check_launch(err, "bwd_counts", ("cluster", (16, 1, 4)), "")
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
+    for bad in ((16, 1, 4), (1, 2, 4), (1, 16, 16)):
+        with pytest.raises(ValueError, match="no route"):
+            estep.fwd_store(**inp, tables=v2, route=("cluster", bad))
+    for bad in ((16, 1, 4), (1, 2, 4), (2, 16, 4)):
+        with pytest.raises(ValueError, match="no route"):
+            estep.bwd_counts(*base, rows, offs, route=("cluster", bad))
+    assert [estep.fwd_store.launches, estep.bwd_counts.launches] == before
+    # the card runs on: the tables' routes on the same inputs
+    _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p,
+                        [(estep.estep_route(W, "fwd_store"),
+                          estep.estep_route(W, "bwd_counts"))])
+
+
+def _long_read_band(W, seed):
+    """Two pairs of random reads of 4300-8600 rows in full bands of up to W
+    lanes (one strip over every diagonal of the read and a ref of up to
+    W - ylen + 1 bases), the longer of 8534 rows: the long reads'
+    wide bands of align -kmatchoff, run in local mode."""
+    inp, v2 = random_fill_inputs(np.random.default_rng(seed),
+                                 _tables("packed"), W, B=2, Lx=9000,
+                                 Ly=8600, local=False)
+    assert int(inp["meta"][:, 1].max()) > 8000
+    return inp, v2
+
+
+def _long_read_pairs(rng, W, lanes, xlen=9000, ylens=(8600, 8200)):
+    """Pairs of a random ref and a long read copied from it as
+    chip_smoke.py's workloads copy them (each base substituted with
+    probability 7.2%, followed by an inserted base 2.4%, deleted 2.4%;
+    qualities drawn from the c8f30 read's, which the default model fits),
+    each in a band of W contiguous diagonals (halo lanes included) whose
+    lane lanes[i] holds the read's first diagonal: a long read's wide band
+    in a training chunk, every lane live, the path near a chosen lane (a
+    CTA boundary of the cluster tiling, say)."""
+    from quaff_tpu_torch.io.fastseq import read_fast_seqs
+
+    quals = read_fast_seqs(str(DATA / "c8f30.fastq.gz"))[0].qual_scores()
+    pairs = []
+    for i, (lane, ylen) in enumerate(zip(lanes, ylens)):
+        xs = "".join("ACGT"[t] for t in rng.integers(0, 4, xlen))
+        d = 100 + 50 * i
+        ys, k = [], d
+        while len(ys) < ylen and k < xlen:
+            r = rng.random()
+            if r < 0.072:  # substituted
+                ys.append("ACGT"["ACGT".index(xs[k]) ^ int(rng.integers(1, 4))])
+            elif r < 0.096:  # followed by an inserted base
+                ys += [xs[k], "ACGT"[int(rng.integers(0, 4))]]
+            elif r >= 0.12:  # kept (0.096-0.12: deleted)
+                ys.append(xs[k])
+            k += 1
+        q = "".join(chr(33 + int(v)) for v in rng.choice(quals, len(ys)))
+        lo = d - lane + 1  # the band's first member diagonal (lane 1)
+        assert 1 - len(ys) <= lo and lo + W - 3 <= xlen - 1
+        env = Envelope(x_len=xlen, y_len=len(ys),
+                       diagonals=np.arange(lo, lo + W - 2, dtype=np.int64))
+        pairs.append((FastSeq(name=f"x{i}", seq=xs),
+                      FastSeq(name=f"y{i}", seq="".join(ys), qual=q), env))
+    pb = PairBatch.build(pairs, _tables("packed"))
+    assert pb.member.shape[1] == W
+    return pb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+def test_fill_cluster_widest_band_long_reads(mode):
+    """K1's cluster route at the table's widest row (16384 lanes: 8 x 4 x
+    16, 16 lanes a thread) on reads of about 8600 rows, the length at
+    which phase 4's 4038-lane chunk showed 16-lane tilings 0.445 nats off
+    the plain version, against the plain version at K1's own rtol 1e-5 /
+    atol 1e-3."""
+    _need_card()
+    W = fill_v2.FILL_CLUSTER_MAX_LANES
+    assert fill_v2.fill_route(W) == ("cluster", (8, 4, 16))
+    inp, v2 = _long_read_band(W, 102)
+    _fill_checked(inp, v2, mode, True)
+
+
+@pytest.mark.cuda
+def test_estep_cluster_widest_band_long_reads():
+    """K2's and K3's cluster routes at their table's widest row (4096
+    lanes, 8 x 4 x 4) on reads of 8600 and 8200 rows copied from their
+    refs, in bands of 4096 live lanes with the paths starting on a CTA
+    boundary (lane 2048) and inside a tile (lane 1151): phase 5b's wide
+    read at the table's widest band.  Against the plain versions at their
+    tolerances (forward scores rtol 1e-5 / atol 1e-3, counts rtol 3e-3 /
+    atol 5e-3, the back-start posterior 5e-3); K2's stored rows against
+    the plain version's."""
+    _need_card()
+    W = estep.ESTEP_CLUSTER_MAX_LANES
+    pb = _long_read_pairs(np.random.default_rng(102), W, [2048, 1151])
+    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
+    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+    assert int(inp["meta"][:, 1].max()) > 8000
+    case = _plain_case(inp, v2, True)
+    assert bool((case[3] > fill_v2.NEG_INF / 2).all())
+    local = True
+    routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
+                                                      "bwd_counts"))
+    assert all(r[0] == "cluster" for r in routes)
+    _estep_routes_check(*case, [routes])
+    _stored_rows_check(inp, v2, local, *estep.fwd_store(
+        **inp, tables=v2, local=local)[1:])
 
 
 @pytest.mark.cuda

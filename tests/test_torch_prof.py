@@ -225,6 +225,12 @@ def test_kernel_sass_parsers():
     ("void band_fill_warp_kernel<false, 8>", ("band_fill", "warp")),
     ("void (anonymous namespace)::band_fill_cluster_kernel<true, 16>(signed "
      "char const*, int)", ("band_fill", "cluster")),
+    ("void (anonymous namespace)::band_fill_cluster_kernel<true, false, 8>("
+     "signed char const*, int)", ("band_fill", "cluster")),
+    ("void (anonymous namespace)::band_fill_cluster_kernel<false, true, 16>("
+     "signed char const*, int)", ("fwd_store", "cluster")),
+    ("void (anonymous namespace)::bwd_counts_cluster_kernel<4>(signed char "
+     "const*, int)", ("bwd_counts", "cluster")),
     ("void (anonymous namespace)::fwd_store_warp_kernel<8>(signed char "
      "const*, int)", ("fwd_store", "warp")),
     ("void fwd_store_warp_kernel<16>", ("fwd_store", "warp")),
@@ -242,9 +248,10 @@ def test_kernel_sass_parsers():
 def test_kernel_of_names_each_kernel(name, owner):
     """kernel_of attributes a kernel's demangled name (as torch.profiler
     or c++filt prints it) to the wrapper that launches it and its route:
-    K2's block route is K1's block fill with STORE set, its warp route
-    and K3's have kernels of their own, as have K1's and K4's cluster
-    routes; a PyTorch kernel is none of the port's."""
+    K2's block and cluster routes are K1's block and cluster fills with
+    STORE set, its warp route and K3's have kernels of their own, as have
+    K3's and K4's cluster routes; a PyTorch kernel is none of the
+    port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner

@@ -406,6 +406,60 @@ def test_train_remote_matches_jax(data_dir, monkeypatch):
                        skip="/refBase") == []
 
 
+def test_train_remote_maxreadmb_matches_local(data_dir, tmp_path,
+                                              monkeypatch):
+    """`train -remote -maxreadmb` trains on the truncated read set, as the
+    local `train -maxreadmb` does: the client hands the provider the first
+    reads that make up the megabases, with their sort orders.  (The JAX
+    package hands it every read with the truncated set's orders,
+    quaff_tpu/cli.py:1152-1153, so its server indexes a sort order past
+    its end, quaff_tpu/server.py:495.)  The ref is c8f30's first 3300 bp,
+    the reads the same bases cut in three; 0.002 Mb keeps the first two.  A count server loads its
+    reads without qualities and train needs them, so a remote and a local
+    run differ by design: each -maxreadmb run is held to the same kind of
+    run on a file of just those two reads (the null model given, not
+    fitted to the file) byte for byte, and the remote run without the cap
+    comes out otherwise.  One EM iteration: its jobs carry the seed
+    parameters."""
+    from quaff_tpu_torch.cli import main as pmain
+
+    monkeypatch.setenv("QUAFF_TORCH_DEVICE", "cpu")
+    y = read_fast_seqs(str(data_dir / "c8f30.fastq.gz"))[0]
+    ref = tmp_path / "ref.fasta"
+    ref.write_text(f">ref\n{y.seq[:3300]}\n")
+    cut = [0, 1100, 2200, 3300]
+    records = [f"@piece{i}\n{y.seq[a:b]}\n+\n{y.qual[a:b]}\n"
+               for i, (a, b) in enumerate(zip(cut, cut[1:]))]
+    reads, head = tmp_path / "pieces.fastq", tmp_path / "head.fastq"
+    reads.write_text("".join(records))
+    head.write_text("".join(records[:2]))
+    opts = ["-kmatchmb", "10", "-fwdstrand", "-null",
+            str(data_dir / "testquaffnullparams.json"), "-maxiter", "1"]
+
+    def train(read_file, *extra):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert pmain(["train", str(ref), str(read_file), *opts,
+                          *extra]) == 0
+        return out.getvalue()
+
+    port = _free_port()
+    server, _, _ = server_from_args(deque(
+        ["count", "-ref", str(ref), "-read", str(reads), "-kmatchmb", "10",
+         "-fwdstrand", "-port", str(port)]), {})
+    t = _start_server(server, port)
+    remote = ["-remote", f"127.0.0.1:{port}"]
+    try:
+        capped = train(reads, "-maxreadmb", "0.002", *remote)
+        two = train(head, *remote)
+        every = train(reads, *remote)
+    finally:
+        RemoteWorker("127.0.0.1", port).quit()
+        t.join(timeout=5)
+    assert capped == two != every
+    assert train(reads, "-maxreadmb", "0.002") == train(head) != two
+
+
 # ---------------------------------------------------------------- CLI server
 
 
