@@ -26,23 +26,24 @@ failure exits non-zero before the final line is printed.
   2b K2, K3 and the count reduction against their plain versions: B=64
      W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
      (the warp routes' cutover: lanes-a-thread 16 against the cluster and
-     block routes), a band wider than shared memory and than the cluster
-     routes' 4096 lanes (the block routes, their row state in global
-     scratch), and the c8f30 self pair; each of K2's and K3's routes (the
-     warp route where 512 lanes cover the band, the cluster route at the
-     table's tiling up to 4096 lanes, the block route) forced on the same
-     inputs, K3 on each of K2's routes' stores, each against the plain
-     versions and repeated bit for bit, timed (CUDA events, median of 3);
-     on the cutover case every other cluster tiling of each kernel timed
-     alike and its error logged; the reduction bit for bit; two runs must
+     block routes), a band wider than shared memory and than the train
+     path's 4096 lanes (W=12070: the cluster routes' two-level fold, and
+     the block routes, their row state in global scratch), and the c8f30
+     self pair; each of K2's and K3's routes (the warp route where 512
+     lanes cover the band, the cluster route at the table's tiling up to
+     32768 lanes, the block route) forced on the same inputs, K3 on each
+     of K2's routes' stores, each against the plain versions and repeated
+     bit for bit, timed (CUDA events, median of 3); on the cutover and
+     wide cases every other cluster tiling of each kernel timed alike and
+     its error logged; the reduction bit for bit; two runs must
      give bit-identical count tables; the reduction and torch.sum timed alike
      (device time from a CUDA graph of 100 calls, the eager 100 back to
      back, one call with host launch)
   2c K4 against its plain version: 64 overlapping pairs of 2-10 kb reads,
      lane-packed (up to 3 strips), at gap order 0 and 1, each batch with
      both strands and reads with and without qualities; the plain version
-     on 8 of them (per strand, the two multi-strip pairs of reads with
-     qualities and the two of reads without that have the fewest rows);
+     on 4 of them (per strand, the multi-strip pair of reads with
+     qualities and the one of reads without that have the fewest rows);
      times, in-envelope cells/s, the bound.  Per gap order two batches: the
      64 widest pairs (7211 lanes: the cluster route) and the 64 widest
      pairs that the warp route takes, on the warp route and on the cluster
@@ -72,7 +73,7 @@ failure exits non-zero before the final line is printed.
      width and each route's share of the in-envelope cells, K1's device
      time by route and the device's busy share (torch.profiler); each
      warp-route chunk with the cluster route forced on the same inputs;
-     the first 32 reads again on the CPU (plain version) must give the
+     the first 16 reads again on the CPU (plain version) must give the
      same text; then the cluster route on the run's largest cluster-route
      chunk against its plain version, the block route forced beside it
      and every other cluster tiling timed alike, with the errors of
@@ -81,10 +82,14 @@ failure exits non-zero before the final line is printed.
      cluster route's widest): a seeded 20 kb genome and 4 reads of 2-3 kb
      through the CLI on cuda, every K1 launch on the block route, which is
      then held against its plain version on the run's chunk; `count -fast
-     -kmatchoff` on the same reads (W up to 22882: K2's and K3's block
-     routes' path), every K2/K3 launch on the block routes, held against
-     the plain versions on its smaller chunk's 2 pairs with the fewest
-     rows
+     -kmatchoff` on the same reads (W up to 22882: K2's and K3's two-level
+     cluster routes' path), every K2/K3 launch on the two-level fold, held
+     against the plain versions on its smaller chunk's 2 pairs with the
+     fewest rows, timed against the block routes forced on the same
+     inputs and every other two-level tiling swept; then `count -fast
+     -kmatchoff` of one read against a 34 kb genome (W past 32768: the
+     block routes' path), every K2/K3 launch on the block routes, which
+     are then held against the plain versions on its pair
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches by
      route, each chunk's (B, W, routes, K2 and K3 device ms) from the
@@ -92,7 +97,7 @@ failure exits non-zero before the final line is printed.
      rise; `count -fast` on all 128 reads twice, the second time while a
      tensor holds most of the card's free memory, byte for byte the same
      (the E-step's chunk plan reads no free memory); `count -fast` on the
-     first 8 reads against the parity count; then K2/K3 (the warp,
+     first 4 reads against the parity count; then K2/K3 (the warp,
      cluster and block routes forced) and the reduction timed on the run's
      largest chunk, held against their plain versions on its 8 pairs with
      the fewest rows
@@ -114,8 +119,8 @@ failure exits non-zero before the final line is printed.
      (each chunk on ov_route's route, the warp route launched) and each
      route's share of the in-envelope cells, each chunk's (B, W, route,
      device ms), where the host time goes and the device's busy share; the
-     first 32 reads' text must equal the port's sequential float64 route
-     (no kernel pruning) on the same reads, and the first 8 reads' run on
+     first 16 reads' text must equal the port's sequential float64 route
+     (no kernel pruning) on the same reads, and the first 6 reads' run on
      the CPU (plain K4, in a process of its own beside the reference) the
      GPU's; each warp-route chunk with the cluster route forced on the
      same inputs, and each cluster-route chunk at every tiling it can
@@ -127,14 +132,14 @@ failure exits non-zero before the final line is printed.
      it against the cluster route (the warp route's cutover)
   7  `server` and its backends: (a) the port's `server align` in a thread
      of this process on cuda, and `align -remote` against it through the
-     CLI on 128 of phase 4's reads against a 12 kb genome (an align job
+     CLI on 64 of phase 4's reads against a 12 kb genome (an align job
      refills the winner's whole envelope in float64, as the JAX package's
      does: on phase 4's 200 kb genome that is gigabytes a read, logged),
      byte for byte the local align; K1's launches by the server's jobs (at
      least one a read, each on fill_route's route by the profiler's
      kernel names), requests/s, the median and p90 request, K1's device
-     time; the jobs' K1 launches at the widest band, the most rows and on
-     each route taken against the plain version, rerun bit for bit; (b)
+     time; the jobs' K1 launches at the widest band and on each route
+     taken against the plain version, rerun bit for bit; (b)
      the same with two ports and two client workers, the same blocks in
      reply order; (c) `server count` and `count -remote` on phase 5's
      first read against its genome window, against the plain float64
@@ -204,9 +209,9 @@ RTOL, ATOL = 1e-5, 1e-3  # K1's parity tolerance (tests/test_pallas_v2.py)
 # and 1-nat pair slacks
 OV_RTOL, OV_ATOL = 1e-5, 0.05
 # phase 6 holds the text of the first N_REF reads' all-vs-all against the
-# sequential float64 route: all 64 reads took 276.6 s on an H100 host, over
-# the 120 s this phase may spend on it
-N_REF = 32
+# sequential float64 route: all 64 reads took 276.6 s on an H100 host, 32
+# reads 78.3 s, over what this phase may spend on it
+N_REF = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -381,14 +386,19 @@ def _time(fn, variants):
     return statistics.median(_times(fn, variants))
 
 
-def _sweep_tilings(W, lpts, max_warps):
+def _sweep_tilings(W, lpts, max_warps, two_level=False):
     """The cluster tilings (CTAs a pair, warps a CTA, lanes a thread) a
     band of W lanes can take: for each lanes-a-thread whose tiles (at most
     32) cover it, the fewest CTAs of at most 4, 8 and 16 warps (as the
-    kernel allows), spread evenly, up to 8 CTAs.  Timed beside the route
+    kernel allows), spread evenly, up to 8 CTAs; with two_level (K2's and
+    K3's two-level fold) also, for each lanes-a-thread whose more than 32
+    tiles the kernel's warps cover over 16 CTAs, the fewest CTAs that
+    hold them at each count of warps a CTA, from the kernel's most down
+    to where 16 CTAs are needed.  Timed beside the route
     table's pick on the cluster-route chunks of the paths: the
     measurement the tables (fill_v2.FILL_CLUSTER_TABLE,
-    ov_fill.OV_CLUSTER_TABLE) are set from."""
+    ov_fill.OV_CLUSTER_TABLE and estep.ESTEP_CLUSTER_TABLE) are set
+    from."""
     out = []
     for lpt in lpts:
         tiles = -(-W // (32 * lpt))
@@ -398,6 +408,13 @@ def _sweep_tilings(W, lpts, max_warps):
             if (tiles <= 32 and cap <= max_warps(lpt) and nct <= 8
                     and t not in out):
                 out.append(t)
+        if two_level and tiles > 32:
+            seen = set()
+            for nct in range(-(-tiles // max_warps(lpt)), 17):
+                t = (nct, -(-tiles // nct), lpt)
+                if t[1] not in seen and t not in out:
+                    seen.add(t[1])
+                    out.append(t)
     return out
 
 
@@ -490,14 +507,15 @@ def _key_variants(keys, n):
 
 def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None,
              also=()):
-    """K1 and its plain version on one batch: agreement and times."""
+    """K1 and its plain version (once) on one batch: agreement and
+    times."""
     from quaff_tpu_torch.dp import fill_v2
     from quaff_tpu_torch.dp.engine import to_device
 
     v2 = fill_v2.V2Tables.from_tables(tables, "cuda")
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
     return fill_case(f"phase 2: {name}", inp, v2, mode, local, card, n_runs,
-                     route, fill_v2.batch_max_prop(pb), also=also)
+                     route, fill_v2.batch_max_prop(pb), n_plain=1, also=also)
 
 
 FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
@@ -807,7 +825,7 @@ def _fill_time(kw, route, n_runs=3):
     return _time(kern, vs[1:]) * 1e3
 
 
-def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=32):
+def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=16):
     from torch.profiler import ProfilerActivity, profile
 
     from quaff_tpu_torch.dp import fill_v2
@@ -953,11 +971,12 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
     route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
     CLI on cuda; every launch must take the block route; then the block
     route on the run's chunk against its plain version (once).  Then
-    `count -fast -kmatchoff` on the same reads, K2's and K3's block routes'
-    path (bands past the cluster routes' widest): every launch on the
-    block routes, the counts finite.  Returns K1's launches and result,
-    and the count run's E-step launches and its chunk with the fewest
-    pairs."""
+    `count -fast -kmatchoff` on the same reads, K2's and K3's two-level
+    cluster routes' path (bands past 16384 lanes): every launch on the
+    two-level fold, the counts finite; and of one read against a 34 kb
+    genome, the block routes' path (past 32768 lanes).  Returns K1's
+    launches and result, and each count run's E-step launches and its
+    chunk with the fewest pairs."""
     from quaff_tpu_torch.dp import fill_v2
 
     with tempfile.TemporaryDirectory() as d:
@@ -994,10 +1013,11 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
         e_counts = _estep_launches()
         routes = _check_routes("phase 4b count -fast -kmatchoff", chunks,
                                e_counts)
-        check(all(0 < e_counts[k]["block_launches"] == e_counts[k]["launches"]
-                  for k in ESTEP),
+        check(all(0 < e_counts[k]["two_level_launches"]
+                  == e_counts[k]["cluster_launches"]
+                  == e_counts[k]["launches"] for k in ESTEP),
               f"phase 4b: count -fast -kmatchoff's K2/K3 launches by route "
-              f"{e_counts}, want all on the block routes")
+              f"{e_counts}, want all on the two-level cluster routes")
         json.loads(fast)
         check(not re.search(r"nan|inf", fast.lower()),
               "phase 4b: count -fast -kmatchoff's counts are not finite")
@@ -1006,12 +1026,39 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
             f"{[c['rows'] for c in chunks]}); launches {e_counts} [{card}]")
         e_chunk = min(chunks, key=lambda c: c["B"])
         del chunks
+        # the block routes' path: one read against a genome wider than the
+        # cluster routes' widest band
+        (tmp / "wide").mkdir()
+        g2, r2, _, _, _ = _workload(tmp / "wide", seed=10, n_reads=1,
+                                    genome_len=34_000, min_len=1500,
+                                    max_len=1500, n_head=1)
+        _reset_launches()
+        with _estep_chunks() as chunks:
+            t0 = time.perf_counter()
+            fast = _cli(["count", str(g2), str(r2), "-kmatchoff", "-fast"],
+                        "cuda")
+            wall = time.perf_counter() - t0
+        b_counts = _estep_launches()
+        routes = _check_routes("phase 4b count -fast -kmatchoff (34 kb)",
+                               chunks, b_counts)
+        check(all(0 < b_counts[k]["block_launches"] == b_counts[k]["launches"]
+                  for k in ESTEP),
+              f"phase 4b: the 34 kb count's K2/K3 launches by route "
+              f"{b_counts}, want all on the block routes")
+        json.loads(fast)
+        check(not re.search(r"nan|inf", fast.lower()),
+              "phase 4b: the 34 kb count's counts are not finite")
+        log(f"phase 4b: count -fast -kmatchoff of one read against 34 kb on "
+            f"cuda: {wall:.2f} s wall; chunks {_route_text(chunks, routes)}; "
+            f"launches {b_counts} [{card}]")
+        b_chunk = min(chunks, key=lambda c: c["B"])
+        del chunks
     res = fill_case("phase 4b: the -kmatchoff chunk",
                     {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
                                         "seg_start", "seg_width")},
                     kw["tables"], kw["mode"], kw["local"], card,
                     route="block", mp=kw["max_prop"], n_plain=1)
-    return counts, res, e_counts, e_chunk
+    return counts, res, e_counts, e_chunk, b_counts, b_chunk
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -1059,8 +1106,8 @@ def _estep_routes(W, kernel):
     lpt = estep.warp_lpt(W)
     out = [] if lpt is None else [("warp", lpt)]
     if W <= estep.ESTEP_CLUSTER_MAX_LANES:
-        out.append(("cluster",
-                    cluster_tiling(W, estep.ESTEP_CLUSTER_TABLE)))
+        out.append(("cluster", cluster_tiling(
+            W, estep.ESTEP_CLUSTER_TABLE[kernel])))
     return out + [("block", 0)]
 
 
@@ -1088,7 +1135,7 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
     held against them there, while the kernels' times are the whole
     batch's.  With sweep, every other cluster tiling of each kernel
     (_sweep_tilings) is timed alike on the whole batch and its error
-    against the plain version logged (the measurement ESTEP_CLUSTER_TABLE
+    against the plain version logged (the measurement the E-step tables
     is set from; only the table's tiling is held to the tolerance).
     Returns, per kernel and route kind, the kernels line's numbers, and
     the sweep {kernel: {label: (ms, max abs err, within tolerance)}}."""
@@ -1183,7 +1230,7 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
     # each other cluster tiling's error on the same inputs (timed below)
     tilings = {k: [t for t in _sweep_tilings(
                        W, estep.ESTEP_CLUSTER_LPTS,
-                       estep.ESTEP_CLUSTER_MAX_WARPS[k].get)
+                       estep.ESTEP_CLUSTER_MAX_WARPS[k].get, two_level=True)
                    if ("cluster", t) not in routes[k]]
                if sweep and W <= estep.ESTEP_CLUSTER_MAX_LANES else []
                for k in ESTEP}
@@ -1381,6 +1428,7 @@ def phase2b_estep(card):
         (DATA / "params-gaporder1.json").read_text()))
 
     def case(name, pb, tt, local, **kw):
+        kw.setdefault("n_plain", 1)  # the plain versions once
         return estep_case(name, to_device(pb, "cuda"),
                           V2Tables.from_tables(tt, "cuda"), local, card, **kw)
 
@@ -1421,9 +1469,13 @@ def phase2b_estep(card):
                                   for q in rng.integers(3, 40, 400)))
         wide.append((FastSeq(name="xw", seq=xs), yw, full_envelope(len(xs), 400)))
     wpb = PairBatch.build(wide, tables)
-    check(wpb.member.shape[1] > max(limit, estep.ESTEP_CLUSTER_MAX_LANES),
-          "wide case fits shared memory or a cluster route")
-    case(f"wide (W > {limit} smem lanes)", wpb, tables, True)
+    check(wpb.member.shape[1] > max(limit, estep.ESTEP_WIDE_LANES),
+          "wide case fits shared memory or the train path's widest band")
+    # the cluster routes (wide arithmetic, two levels) take it, every other
+    # tiling swept beside them (ESTEP_CLUSTER_TABLE's rows past 4096
+    # lanes); the block routes, forced beside them, keep their row state
+    # in global scratch
+    case(f"wide (W > {limit} smem lanes)", wpb, tables, True, sweep=True)
     # the c8f30 self pair of `train c8f30 c8f30 -kmatchmb 10 -fwdstrand`
     y = read_fast_seqs(str(DATA / "c8f30.fastq.gz"))[0]
     x = read_fast_seqs(str(DATA / "c8f30.fastq.gz"))[0]
@@ -1472,7 +1524,8 @@ def _estep_launches():
     """The E-step wrappers' launch counts: K2's and K3's by route."""
     from quaff_tpu_torch.dp import estep
 
-    out = {k: {c: getattr(getattr(estep, k), c) for c in ROUTE_COUNTS}
+    out = {k: {c: getattr(getattr(estep, k), c)
+               for c in ROUTE_COUNTS + ("two_level_launches",)}
            for k in ESTEP}
     out["estep_reduce"] = {"launches": estep.estep_reduce.launches}
     return out
@@ -1486,7 +1539,7 @@ def _reset_launches():
     for k in OV_COUNTS:
         setattr(ov_fill.ov_fill, k, 0)
     for k in ESTEP:
-        for c in ROUTE_COUNTS:
+        for c in ROUTE_COUNTS + ("two_level_launches",):
             setattr(getattr(estep, k), c, 0)
     estep.estep_reduce.launches = 0
 
@@ -1652,7 +1705,7 @@ def phase3b_train_goldens(card):
 # ---------------------------------------------------------------- phase 5
 
 
-def phase5_train(card, n_reads=128, genome_len=200_000, n_check=8):
+def phase5_train(card, n_reads=128, genome_len=200_000, n_check=4):
     """`train -maxiter 2` on a size users run, through the CLI on the card;
     returns the main path's launches and its largest E-step chunk."""
     import torch
@@ -2132,8 +2185,8 @@ def phase2c_overlap_kernel(card):
                    + [j for j in ok if j[2]][:32])
 
             # the plain version's pairs (its row loop takes ~5 ms a row,
-            # so all 64 would be ~45 s): for each strand, the two pairs of
-            # reads with qualities and the two of reads without that have
+            # so all 64 would be ~45 s): for each strand, the pair of
+            # reads with qualities and the one of reads without that have
             # the fewest live rows, multi-strip pairs first, among the 64
             # widest (the warp-route batch: among all it takes); they lead
             # the chunk, the widest others fill it to 32 of each strand
@@ -2149,7 +2202,7 @@ def phase2c_overlap_kernel(card):
             for key in [(yc, q, q) for yc in (False, True)
                         for q in (True, False)]:
                 sub += sorted((j for j in pool if kind(j) == key),
-                              key=fewest_rows)[:2]
+                              key=fewest_rows)[:1]
             check(len({kind(j) for j in sub}) == 4,
                   f"{name}: the plain version's pairs miss a strand or kind")
             chunk = list(sub)
@@ -2306,7 +2359,7 @@ def phase3c_overlap_goldens():
 # ---------------------------------------------------------------- phase 6
 
 
-def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=8,
+def phase6_overlap(card, n_reads=64, genome_len=100_000, n_check=6,
                    n_ref=N_REF):
     """`overlap` at a size users run, through the CLI on the card; returns
     K4's launches by route and the inputs of its largest chunk on each
@@ -2650,17 +2703,15 @@ def _refill_cells(gpath, rpath, origins):
 
 
 def _server_k1_cases(calls, card):
-    """The server path's K1 launches at the widest band, at the most rows
-    and the widest on each route taken, each against the plain version on
-    its recorded inputs (fill_case: phase 2's tolerance, a rerun bit for
-    bit, times, the bound).  Returns {route: the fill_case result of the
+    """The server path's K1 launches at the widest band and the widest on
+    each route taken, each against the plain version on its recorded
+    inputs (fill_case: phase 2's tolerance, a rerun bit for bit, times,
+    the bound).  Returns {route: the fill_case result of the
     route's widest case, its "max_abs_err" the worst of the route's
     cases}."""
     n = range(len(calls.calls))
     width = lambda i: calls.calls[i][1]
     picks = {max(n, key=width): "the widest band"}
-    picks.setdefault(max(n, key=lambda i: calls.inputs[i]["keys"].shape[1]),
-                     "the most rows")
     for r in sorted({c[0][0] for c in calls.calls}):
         picks.setdefault(max((i for i in n if calls.calls[i][0][0] == r),
                              key=width), f"the widest on the {r} route")
@@ -2678,7 +2729,7 @@ def _server_k1_cases(calls, card):
             for r, cs in by_route.items()}
 
 
-def phase7_server(card, n_align=128, n_count=1, n_overlap=8, n_launch=2,
+def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=2,
                   n_profile=8, genome_len=12_000):
     """`server` and the remote, ssh and qsub backends on the card: the
     port's `server align` in a thread here, `align -remote` against it on
@@ -3018,6 +3069,10 @@ def _profiled_cli(argv):
     coll = gather_floats.seconds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a kernel of PyTorch's before the CLI's (the tally skips it): the
+        # records torch.profiler has lost were of a run's first kernels
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = _cli(argv, "cuda")
         wall = time.perf_counter() - t0
@@ -3048,17 +3103,38 @@ def _trace_short(res):
     return None if traced == counted else (traced, counted)
 
 
+def _fresh_profiled_cli(argv_json):
+    """_profiled_cli of json.loads(argv_json), its result printed as JSON
+    on the last line (run by _profiled_job in a process of its own)."""
+    out, wall, counts, tally, coll = _profiled_cli(json.loads(argv_json))
+    sys.stdout.write("\n" + json.dumps([out, wall, counts, tally, coll]) + "\n")
+
+
+def _profiled_in_fresh_process(argv):
+    """_profiled_cli in a process of its own: the same result."""
+    p = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke as cs; "
+         "cs._fresh_profiled_cli(sys.argv[1])", json.dumps(argv)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(p.returncode == 0, f"{' '.join(argv)} in a process of its own "
+          f"exited {p.returncode}: {p.stderr[-2000:]}")
+    return tuple(json.loads(p.stdout.rstrip("\n").rsplit("\n", 1)[-1]))
+
+
 def _profiled_job(argv, what, *recorders):
     """_profiled_cli, its trace held to the wrappers' counts by kernel name.
-    torch.profiler has lost a kernel's record once in a run whose output
-    and counts were whole, so a run whose trace disagrees is run once more
-    (logged) and the second must agree.  The recorders (context managers)
-    are active in the first run alone: (its result, what each yielded)."""
+    torch.profiler has lost a kernel's record in a long process whose run's
+    output and counts were whole (once in both in-process runs of one
+    job), never in a fresh one, so a run whose trace disagrees is
+    run once more in a process of its own (logged) and that run must
+    agree.  The recorders (context managers) are active in the first run
+    alone: (its result, what each yielded)."""
     for attempt in (1, 2):
         with contextlib.ExitStack() as stack:
             got = [stack.enter_context(r) for r in recorders]
             recorders = ()
-            res = _profiled_cli(argv)
+            res = (_profiled_cli(argv) if attempt == 1
+                   else _profiled_in_fresh_process(argv))
         if attempt == 1:
             kept = got
         short = _trace_short(res)
@@ -3066,7 +3142,8 @@ def _profiled_job(argv, what, *recorders):
             return res, kept
         log(f"{what}: torch.profiler traced {short[0]}, the wrappers "
             f"counted {short[1]}"
-            + ("; run once more" if attempt == 1 else ""))
+            + ("; run once more in a process of its own" if attempt == 1
+               else ""))
     raise SmokeFailure(f"{what}: the trace disagrees with the wrappers' "
                        "counts in two runs")
 
@@ -3541,17 +3618,43 @@ def main() -> int:
         f"{k1_wide['also']['block route']:.3f} ms "
         f"({k1_wide['also']['block route'] / k1_wide['ms']:.2f}x) [{card}]")
     del inp, k1_chunk
-    k1_block_counts, k1_block, e_block_counts, e_chunk = \
-        phase4b_kmatchoff(card)
-    # K2's and K3's block routes at the chunk of their path (count -fast
-    # -kmatchoff), the plain versions on its 2 pairs with the fewest rows
-    estep_block = estep_case("phase 4b: the count -fast -kmatchoff chunk",
-                             e_chunk["batch"], e_chunk["v2"],
-                             e_chunk["local"], card, n_plain=1, check_n=2)
-    check(all(set(estep_block[k]) == {"block"} for k in ESTEP),
-          "the count -fast -kmatchoff chunk is narrow enough for a cluster "
-          "route")
+    (k1_block_counts, k1_block, e_two_counts, e_chunk, e_block_counts,
+     b_chunk) = phase4b_kmatchoff(card)
+    from quaff_tpu_torch.dp import estep
+
+    # K2's and K3's two-level cluster routes at the chunk of their path
+    # (count -fast -kmatchoff), the block routes forced beside them and the
+    # other two-level tilings swept, the plain versions on its 2 pairs with
+    # the fewest rows
+    estep_two = estep_case("phase 4b: the count -fast -kmatchoff chunk",
+                           e_chunk["batch"], e_chunk["v2"], e_chunk["local"],
+                           card, n_plain=1, check_n=2, sweep=True)
+    check(all(set(estep_two[k]) == {"cluster", "block"}
+              and estep.cluster_mode(e_chunk["W"],
+                                     estep_two[k]["cluster"]["route"][1])
+              == estep.TWO_FOLD for k in ESTEP),
+          "the count -fast -kmatchoff chunk does not take the two-level "
+          "cluster routes")
+    log(f"phase 4b: the count -fast -kmatchoff chunk (W="
+        f"{e_chunk['W']}): " + "; ".join(
+            f"{k} two-level cluster route "
+            f"{_route_name(estep_two[k]['cluster']['route'])} "
+            f"{estep_two[k]['cluster']['ms']:.3f} ms against its block "
+            f"route's {estep_two[k]['block']['ms']:.3f} ms "
+            f"({estep_two[k]['block']['ms'] / estep_two[k]['cluster']['ms']:.2f}"
+            f"x), bound {estep_two[k]['cluster']['bound_ms']:.4f} ms "
+            f"({estep_two[k]['cluster']['bound_by']})" for k in ESTEP)
+        + f" [{card}]")
     del e_chunk
+    # K2's and K3's block routes at the chunk of their path (the count of
+    # one read against 34 kb), against the plain versions on its pair with
+    # the fewest rows
+    estep_blk = estep_case("phase 4b: the 34 kb count's chunk",
+                           b_chunk["batch"], b_chunk["v2"], b_chunk["local"],
+                           card, n_plain=1, check_n=1)
+    check(all(set(estep_blk[k]) == {"block"} for k in ESTEP),
+          "the 34 kb count's chunk is narrow enough for a cluster route")
+    del b_chunk
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
     # chunk, each of K2's and K3's routes forced on the same inputs, the
@@ -3569,20 +3672,20 @@ def main() -> int:
 
     # K4 at the overlap path's largest warp-route chunk (the warp route;
     # the cluster route forced on the same inputs), its plain version on
-    # the chunk's first 128 pairs (a whole chunk is minutes)
+    # the chunk's first 32 pairs (a whole chunk is minutes)
     W = k4_chunks["warp"]["doff"].shape[1]
     k4 = ov_case("phase 6: the largest warp-route chunk", k4_chunks["warp"],
-                 card, n_plain=128, routes=(
+                 card, n_plain=32, routes=(
                      None, ("cluster",
                             cluster_tiling(W, ov_fill.OV_CLUSTER_TABLE))))
-    log(f"phase 6: the largest warp-route chunk, first 128 pairs: warp route "
+    log(f"phase 6: the largest warp-route chunk, first 32 pairs: warp route "
         f"{k4[0]['ms']:.3f} ms, cluster route {k4[1]['ms']:.3f} ms "
         f"({k4[1]['ms'] / k4[0]['ms']:.2f}x); whole chunk "
         f"{k4[0]['full']['ms']:.3f} / {k4[1]['full']['ms']:.3f} ms [{card}]")
     # the cluster route at the path's largest cluster-route chunk, its
-    # plain version on the chunk's last 4 pairs (the fewest rows)
+    # plain version on the chunk's last 2 pairs (the fewest rows)
     k4_cl = ov_case("phase 6: the largest cluster-route chunk",
-                    k4_chunks["cluster"], card, n_plain=4, last=True)[0]
+                    k4_chunks["cluster"], card, n_plain=2, last=True)[0]
     # the warp route's cutover: the warp route forced on the same chunk of
     # OV_WARP_MAX_LANES + 1 to twice as many lanes, against the cluster
     # route
@@ -3591,7 +3694,7 @@ def main() -> int:
         lpt = next(n for n in fill_v2.WARP_LPTS if 32 * n >= W)
         warp, clu = ov_case(f"phase 6: the {ov_fill.OV_WARP_MAX_LANES + 1}-"
                             f"{2 * ov_fill.OV_WARP_MAX_LANES}-lane chunk",
-                            k4_chunks["cutover"], card, n_plain=2, last=True,
+                            k4_chunks["cutover"], card, n_plain=1, last=True,
                             routes=(("warp", lpt), None))
         log(f"phase 6: the warp route's cutover: at B={B} W={W}, {lpt} lanes "
             f"a thread {warp['full']['ms']:.3f} ms against the cluster "
@@ -3652,8 +3755,11 @@ def main() -> int:
             **{k: res[k] for k in k1_keys}))
     # K2 and K3: the warp routes on phase 5's path (train), timed on its
     # largest chunk; the cluster routes on phase 5b's (train with a wide
-    # read), timed on its wide chunk; the block routes on phase 4b's count
-    # -fast -kmatchoff, timed on that run's chunk
+    # read), timed on its wide chunk; the two-level cluster routes on phase
+    # 4b's count -fast -kmatchoff, timed on that run's chunk; the block
+    # routes on phase 4b's count of one read against 34 kb, timed on that
+    # run's chunk (phase 4b logs them forced on the -kmatchoff chunk too,
+    # beside the two-level routes)
     e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     for name, rep_at, cluster_src, block_src in (
@@ -3669,8 +3775,11 @@ def main() -> int:
                 ("_cluster", cluster_src,
                  cluster_launches[name]["cluster_launches"], "cluster",
                  estep_w),
+                ("_cluster_two_level", cluster_src,
+                 e_two_counts[name]["two_level_launches"], "cluster",
+                 estep_two),
                 ("_block", block_src, e_block_counts[name]["block_launches"],
-                 "block", estep_block)):
+                 "block", estep_blk)):
             check(n > 0, f"{name}'s {kind} route was not launched on its path")
             kernels.append(dict(name=name + suffix, route="cuda",
                                 source=source, replaces=rep_at, launches=n,

@@ -39,7 +39,24 @@
 //      writes the row's three cells of its lanes).
 //
 // Lanes outside the envelope carry c = -inf, which stops the chain at
-// strip seams exactly as the TPU kernel's masking does.  The end row's
+// strip seams exactly as the TPU kernel's masking does.
+//
+// WIDE (K2 past dp/estep.ESTEP_WIDE_LANES): each thread composes and
+// replays its lanes relative to r, its largest opening term b of the row
+// (wide_chain_ref), and forms each lane's cell as r + comb(x - r + c_k,
+// b_k) from its inclusive map (c_k, b_k) instead of the sequential replay
+// x = comb(x + c, b).  On global bands with long deletion runs the
+// posterior's path lies hundreds to ~1300 nats below the row's largest
+// cell, where a float32 step is 6e-5-1.2e-4 nats; the sequential replay
+// adds the same d2d to values of one binade LPT times, so its rounding
+// errors do not cancel, and over ~1000 rows they put the Forward score
+// 7.7e-3 (8192 lanes, LPT 8) to 1.8e-2 (16384 lanes, LPT 16) off the
+// exact one, where the plain version's doubling scan stays within
+// 1.7e-3 (quaff_tpu_torch/prof/f32_chain.py emulates both on the CPU).
+// Relative to r every value the thread composes is within a few nats of
+// 0, and each lane's cell takes one rounding at the path's magnitude.
+// Narrower bands keep the sequential replay (the train path's outputs,
+// bit for bit).  The end row's
 // match cells reduce to the pair score (max, or log-sum-exp) and to the
 // per-strip maxima, written straight to out[B + B*S].  Rows past a pair's
 // read length are neither filled nor stored.
@@ -68,6 +85,13 @@ __device__ __forceinline__ float comb(float a, float b) {
   const float m = fmaxf(a, b);
   if (VIT) return m;
   return m < -1e38f ? m : m + log1pf(expf(-fabsf(a - b)));
+}
+
+// WIDE: the reference a thread's lanes compose relative to, its largest
+// opening term of the row (0 where it has none, so that a thread of
+// invalid lanes composes exactly as the sequential chain)
+__device__ __forceinline__ float wide_chain_ref(float bmax) {
+  return bmax > -FLT_MAX / 2 ? bmax : 0.f;
 }
 
 // inclusive scan over a warp of recurrence steps (C, B): x -> comb(x + C, B)
@@ -150,7 +174,7 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
-template <bool VIT, bool STORE>
+template <bool VIT, bool STORE, bool WIDE = false>
 __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     const int8_t* __restrict__ x_tok, int Lx,
     const int4* __restrict__ keys, int Ly,
@@ -239,25 +263,45 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     __syncthreads();
 
     // B: compose this thread's delete-chain steps, then scan across threads
+    float r = 0.f;  // WIDE: the thread's reference
+    if (WIDE) {
+      float bmax = NEG;
+      for (int w = w0; w < w1; ++w) {
+        const int idx = dof[w] + j - 1;
+        if (dof[w] != kSentinel && idx >= 0 && idx < xlen)
+          bmax = fmaxf(bmax, (w > 0 ? matc[w - 1] : NEG) + m2d);
+      }
+      r = wide_chain_ref(bmax);
+    }
     float c_acc = 0.f, b_acc = neg_inf();  // the identity step
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       const float c = v ? d2d : NEG;
       const float bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
-      b_acc = comb<VIT>(b_acc + c, bb);
+      b_acc = comb<VIT>(b_acc + c, WIDE ? bb - r : bb);
       c_acc = c_acc + c;
     }
+    if (WIDE) b_acc = r + b_acc;
     float x = block_scan_in<VIT>(c_acc, b_acc, warp_c, warp_b);
 
-    // C: replay this thread's lanes from its incoming delete value
+    // C: replay this thread's lanes from its incoming delete value (WIDE:
+    // each lane's inclusive map applied to it, relative to r)
     float top = NEG;
+    const float xr = x - r;
+    float pc = 0.f, pb = neg_inf();
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       const float c = v ? d2d : NEG;
       const float bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
-      x = comb<VIT>(x + c, bb);
+      if (WIDE) {
+        pb = comb<VIT>(pb + c, bb - r);
+        pc = pc + c;
+        x = r + comb<VIT>(xr + pc, pb);
+      } else {
+        x = comb<VIT>(x + c, bb);
+      }
       del[w] = v ? x : NEG;
       if (STORE) top = fmaxf(top, fmaxf(fmaxf(matc[w], insc[w]), del[w]));
     }
@@ -350,7 +394,7 @@ inline int fill_threads(int W) {
   return padded < kMaxThreads ? padded : kMaxThreads;
 }
 
-template <bool VIT, bool STORE>
+template <bool VIT, bool STORE, bool WIDE = false>
 cudaError_t launch_fill(const int8_t* x_tok, int Lx, const int4* keys, int Ly,
                         const int4* meta, const int* doff, int W,
                         const int* seg_start, const int* seg_width, int S,
@@ -366,11 +410,11 @@ cudaError_t launch_fill(const int8_t* x_tok, int Lx, const int4* keys, int Ly,
   // 48 KB or just under still need it
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        band_fill_kernel<VIT, STORE>,
+        band_fill_kernel<VIT, STORE, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  band_fill_kernel<VIT, STORE><<<B, threads, smem, stream>>>(
+  band_fill_kernel<VIT, STORE, WIDE><<<B, threads, smem, stream>>>(
       x_tok, Lx, keys, Ly, meta, doff, W, seg_start, seg_width, S, match,
       match_noq, insert, insert_noq, Km, Q, ik, n_ik, trans, B, local,
       lanes_per_thread, scratch, out, rows, offs);

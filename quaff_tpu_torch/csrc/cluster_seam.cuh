@@ -35,6 +35,31 @@ namespace {
 
 // tiles a pair: the fold gives each tile one lane of a warp
 constexpr int kMaxTiles = 32;
+// CTAs a pair with the two-level fold (kTwoFold): past the portable 8,
+// clusters of up to 16 CTAs, which Hopper allows once the kernel opts in
+// (cudaFuncAttributeNonPortableClusterSizeAllowed); tiles of up to 16
+// warps a CTA over them
+constexpr int kMaxClusterCtas = 16;
+constexpr int kMaxTiles2 = kMaxClusterCtas * 16;
+
+// The E-step cluster routes' arithmetic and fold (the MODE of K2's and
+// K3's cluster kernels): kOneFold, the one-level row (K1's, K4's and the
+// E-step's up to dp/estep.ESTEP_WIDE_LANES and 32 tiles); kTwoFold, the
+// WIDE chain (band_fill.cuh) with K3's row shift at its posterior mode
+// (estep.cu) and the two-level fold of up to kMaxTiles2 tiles:
+//   - each tile posts its slot to its own CTA's shared memory; after a
+//     block barrier every warp folds its CTA's tiles (lane h takes tile h,
+//     one warp scan), and warp 0 posts the CTA's slot, the composite of
+//     its tiles with its first tile's first lane apart, to every CTA;
+//   - after the row's one cluster barrier lane q folds CTA q's slot as
+//     the one-level fold folds a tile's, and each tile takes the value
+//     entering its CTA and applies its CTA's composite of the tiles
+//     before it;
+// a CTA's slot has a tile slot's form, so level 2 is the one-level fold
+// over at most 16 CTAs (clusters past 8 are opted in to).  The
+// association order still depends only on the tiling: reruns are
+// bit-identical.
+enum { kOneFold = 0, kTwoFold = 1 };
 
 __device__ __forceinline__ int cluster_rank() {
   unsigned r;
@@ -99,8 +124,8 @@ struct SeamSlot {
 // tile g's slot of this row's buffer `buf` in every CTA of the cluster:
 // thread r writes CTA r's copy (a plain store where the cluster is one
 // CTA).
-template <int NF>
-__device__ __forceinline__ void seam_post(SeamSlot<NF> (*slots)[kMaxTiles],
+template <int NF, int N>
+__device__ __forceinline__ void seam_post(SeamSlot<NF> (*slots)[N],
                                           int buf, int g, const float (&v)[NF],
                                           int t, int nct) {
   if (t < nct) {
@@ -118,9 +143,24 @@ __device__ __forceinline__ void seam_post(SeamSlot<NF> (*slots)[kMaxTiles],
   }
 }
 
+// kTwoFold: tile g's slot of buffer `buf` in its own CTA (lane 0 stores)
+template <int NF, int N>
+__device__ __forceinline__ void seam_post_local(SeamSlot<NF> (*slots)[N],
+                                                int buf, int g,
+                                                const float (&v)[NF], int t) {
+  if (t == 0) {
+#pragma unroll
+    for (int q = 0; q < SeamSlot<NF>::kWords; ++q)
+      slots[buf][g].w[q] =
+          make_float4(v[4 * q], 4 * q + 1 < NF ? v[4 * q + 1] : 0.f,
+                      4 * q + 2 < NF ? v[4 * q + 2] : 0.f,
+                      4 * q + 3 < NF ? v[4 * q + 3] : 0.f);
+  }
+}
+
 // tile h's slot of buffer `buf`, read from this CTA's copy
-template <int NF>
-__device__ __forceinline__ void seam_read(const SeamSlot<NF> (*slots)[kMaxTiles],
+template <int NF, int N>
+__device__ __forceinline__ void seam_read(const SeamSlot<NF> (*slots)[N],
                                           int buf, int h, float (&v)[NF]) {
 #pragma unroll
   for (int q = 0; q < SeamSlot<NF>::kWords; ++q) {
@@ -207,17 +247,23 @@ inline cudaLaunchConfig_t cluster_config(int B, int nct, int warps,
 // cudaErrorLaunchOutOfResources; a refused launch returns its error.
 // Either is also taken off the runtime's last error, so that the next
 // launch's check does not report it again.
+// With non_portable (the E-step's two-level fold) the kernel first opts
+// in to clusters of more than 8 CTAs.
 template <typename... KArgs, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(KArgs...), int B, int nct,
                            int warps, size_t smem, cudaStream_t stream,
-                           Args... args) {
+                           bool non_portable, Args... args) {
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(B, nct, warps, smem, stream, attr);
+  cudaError_t e = cudaSuccess;
+  if (non_portable)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   // clusters of this shape the card holds at once (they must fit inside a
   // GPC): none means the launch could never run
   int n = 0;
-  cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   if (e == cudaSuccess && n < 1) e = cudaErrorLaunchOutOfResources;
   if (e != cudaSuccess) {
     cudaGetLastError();

@@ -16,10 +16,11 @@
 //                  thread, no block barrier in the row loop;
 //   cluster route  wider bands up to dp/estep.ESTEP_CLUSTER_MAX_LANES:
 //                  K1's cluster fill with STORE set
-//                  (band_fill_cluster_kernel<false, true, LPT>) and
-//                  bwd_counts_cluster_kernel<LPT>, a pair's band tiled
-//                  over the warps of a thread-block cluster
-//                  (estep_cluster.cu, with their entries);
+//                  (band_fill_cluster_kernel<false, true, LPT, MODE>) and
+//                  bwd_counts_cluster_kernel<LPT, MODE>, a pair's band
+//                  tiled over the warps of a thread-block cluster, past 32
+//                  tiles folded in two levels (estep_cluster.cu, with
+//                  their entries);
 //   block route    wider bands still: K1's block fill with STORE set
 //                  (band_fill_kernel<false, true>, band_fill.cuh) and
 //                  bwd_counts_kernel below, one block per pair, the row in
@@ -69,6 +70,26 @@
 // would not fit shared memory anyway).  E = 4*Km*Q (match, symbol-major) +
 // 4*Q (insert) + 4*n_ik (m2m, m2i, m2d, m2e per indel context).
 //
+// Past dp/estep.ESTEP_WIDE_LANES the block routes are WIDE
+// (band_fill_kernel<false, true, true>, bwd_counts_kernel<true>): the
+// delete chains compose relative to each thread's largest opening term
+// (band_fill.cuh), and K3 scales each backward row not by its largest
+// cell but by its backward match cell at the row's posterior mode, the
+// valid lane with the largest forward + backward match cell (ties: the
+// largest backward cell).  On a global band whose read needs thousands of
+// deletions, the largest backward cell of a row lies near the end
+// diagonal while the posterior's path runs up to ~1300 nats below it;
+// scaled by the largest cell, every float32 operation on the path rounds
+// at 6e-5-1.2e-4 nats, and over ~1000 rows the backward total drifts
+// 6.4e-3 (8192 lanes), 1.9e-2 (16384) and 0.64 nats (32768) off the
+// float64 one with the sequential chain, 4.0e-3 to 4.0e-2 with the WIDE
+// chain alone.  Scaled at the mode, the path's cells sit near 0 and with
+// the WIDE chain the backward total lands within 2.4e-4, 3.1e-4 and
+// 2.4e-4 of the float64 one (quaff_tpu_torch/prof/f32_chain.py).  Any
+// per-row shift is exact in the offset; only the rounding moves.
+// Narrower bands keep the largest cell (the train path's outputs, bit
+// for bit).
+//
 // What bounds K3's block route: like K1's, the per-row barriers (the
 // reverse scan's two, the reduction's two) and the dependent loads of the
 // row keys, table entries and stored rows; it reads the 12 bytes a cell K2
@@ -113,6 +134,19 @@ __device__ __forceinline__ void block_sum15(float (&v)[kStats], float* red,
   __syncthreads();
 }
 
+// WIDE: the row's shift from each thread's posterior-mode candidate
+// (key: forward + backward match cell, val: the backward cell there):
+// the val of the largest key over the block (the largest val among equal
+// keys), or `top`, the largest cell, where no lane has a finite key
+__device__ __forceinline__ float mode_shift(float key, float val, float top,
+                                            float* red) {
+  const float NEG = neg_big();
+  const float km = block_reduce<true>(key, red);
+  if (km <= NEG / 2) return top > NEG / 2 ? top : 0.f;
+  return block_reduce<true>(key == km ? val : NEG, red);
+}
+
+template <bool WIDE>
 __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
     const int8_t* __restrict__ x_tok, int Lx,
     const int4* __restrict__ keys, int Ly,
@@ -206,7 +240,19 @@ __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
     const float* mrow = hq ? match + (size_t)kk.x * Q + kk.y : match_noq + kk.x;
 
     // B: the reverse delete chain over mirrored lanes v = W-1-w, so that
-    // thread order runs from the high lanes down
+    // thread order runs from the high lanes down (WIDE: relative to the
+    // thread's largest opening term, as in band_fill.cuh)
+    float r = 0.f;
+    if (WIDE) {
+      float bmax = NEG;
+      for (int v = w0; v < w1; ++v) {
+        const int w = W - 1 - v;
+        const int idx = dof[w] + j - 1;
+        if (dof[w] != kSentinel && idx >= 0 && idx < xlen)
+          bmax = fmaxf(bmax, d2m + (me_n[w] + bm_n[w]));
+      }
+      r = wide_chain_ref(bmax);
+    }
     float c_acc = 0.f, b_acc = neg_inf();
     for (int v = w0; v < w1; ++v) {
       const int w = W - 1 - v;
@@ -214,17 +260,26 @@ __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
       const bool ok = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       const float c = ok ? d2d : NEG;
       const float bb = ok ? d2m + (me_n[w] + bm_n[w]) : NEG;
-      b_acc = comb<false>(b_acc + c, bb);
+      b_acc = comb<false>(b_acc + c, WIDE ? bb - r : bb);
       c_acc = c_acc + c;
     }
+    if (WIDE) b_acc = r + b_acc;
     float x = block_scan_in<false>(c_acc, b_acc, warp_c, warp_b);
+    const float xr = x - r;
+    float pc = 0.f, pb = neg_inf();
     for (int v = w0; v < w1; ++v) {
       const int w = W - 1 - v;
       const int idx = dof[w] + j - 1;
       const bool ok = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       const float c = ok ? d2d : NEG;
       const float bb = ok ? d2m + (me_n[w] + bm_n[w]) : NEG;
-      x = comb<false>(x + c, bb);
+      if (WIDE) {
+        pb = comb<false>(pb + c, bb - r);
+        pc = pc + c;
+        x = r + comb<false>(xr + pc, pb);
+      } else {
+        x = comb<false>(x + c, bb);
+      }
       bd[w] = ok ? x : NEG;
     }
     __syncthreads();
@@ -235,6 +290,7 @@ __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
 #pragma unroll
     for (int k = 0; k < kStats; ++k) acc[k] = 0.f;
     float top = NEG;
+    float mkey = NEG, mval = NEG;  // WIDE: the thread's posterior mode
     const size_t cur = ((size_t)b * Ly + (j - 1)) * W;
     const size_t prv = cur - W;  // row j-1, read only when j >= 2
     for (int w = w0; w < w1; ++w) {
@@ -251,6 +307,14 @@ __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
             comb<false>(m2i_c + ie_n + bi_lo, m2d_c + bd_hi));
         biv = comb<false>(i2m + from_match, i2i + ie_n + bi_lo);
         top = fmaxf(top, fmaxf(bmv, biv));
+        if (WIDE) {
+          const float fmv = __ldg(fm + cur + w);
+          const float key = fmv > NEG / 2 ? fmv + bmv : NEG;
+          if (key > mkey || (key == mkey && bmv > mval)) {
+            mkey = key;
+            mval = bmv;
+          }
+        }
         const int tok = xb[idx];
         mev = mrow[(size_t)tok * sym_stride];
 
@@ -320,7 +384,8 @@ __global__ void __launch_bounds__(kMaxThreads) bwd_counts_kernel(
     }
     // scale the backward row carried to the next one
     top = block_reduce<true>(top, red);
-    const float shift = top > NEG / 2 ? top : 0.f;
+    const float shift = WIDE ? mode_shift(mkey, mval, top, red)
+                             : (top > NEG / 2 ? top : 0.f);
     offb += shift;
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
@@ -408,20 +473,22 @@ extern "C" {
 
 // Launches K2's block route on `stream`: the scaled Forward fill of K1
 // with rows[3][B][Ly][W] and their offsets offs[B][Ly] stored (rows past a
-// pair's read length are left untouched).  out[b] is the pair's Forward
-// score (out is sized [B + B*S] as K1's; the strip slots are not written);
-// scratch is null or B*6*W floats.
+// pair's read length are left untouched); `wide` selects the WIDE chain.
+// out[b] is the pair's Forward score (out is sized [B + B*S] as K1's; the
+// strip slots are not written); scratch is null or B*6*W floats.
 int quaff_fwd_store(const void* x_tok, int Lx, const void* keys, int Ly,
                     const void* meta, const void* doff, int W,
                     const void* seg_start, const void* seg_width, int S,
                     const void* match, const void* match_noq,
                     const void* insert, const void* insert_noq, int Km, int Q,
                     const void* ik, int n_ik, const void* trans, int B,
-                    int local, void* scratch, void* out, void* rows,
-                    void* offs, void* stream) {
+                    int local, int wide, void* scratch, void* out,
+                    void* rows, void* offs, void* stream) {
   if (B <= 0) return 0;
   if (W < 1 || S < 1 || S > kMaxSegs || n_ik < 1) return (int)cudaErrorInvalidValue;
-  return (int)launch_fill<false, true>(
+  auto launch = wide ? launch_fill<false, true, true>
+                     : launch_fill<false, true, false>;
+  return (int)launch(
       static_cast<const int8_t*>(x_tok), Lx, static_cast<const int4*>(keys),
       Ly, static_cast<const int4*>(meta), static_cast<const int*>(doff), W,
       static_cast<const int*>(seg_start), static_cast<const int*>(seg_width),
@@ -436,14 +503,15 @@ int quaff_fwd_store(const void* x_tok, int Lx, const void* keys, int Ly,
 
 // Launches K3's block route on `stream`: partial[B][E] per-pair count
 // tables and d_sc[5][B] (i2i, i2m, d2d, d2m, back-start posterior per
-// pair).  scratch is null (state in shared memory) or B*8*W floats.
+// pair); `wide` selects the WIDE chain and row shift.  scratch is null
+// (state in shared memory) or B*8*W floats.
 int quaff_bwd_counts(const void* x_tok, int Lx, const void* keys, int Ly,
                      const void* meta, const void* doff, int W,
                      const void* match, const void* match_noq,
                      const void* insert, const void* insert_noq, int Km,
                      int Q, const void* ik, int n_ik, const void* trans,
                      const void* wrow, const void* rows, const void* offs,
-                     int B, int local,
+                     int B, int local, int wide,
                      void* scratch, void* partial, void* d_sc,
                      void* stream) {
   if (B <= 0) return 0;
@@ -451,15 +519,15 @@ int quaff_bwd_counts(const void* x_tok, int Lx, const void* keys, int Ly,
   const int threads = fill_threads(W);
   const int lanes_per_thread = (W + threads - 1) / threads;
   const size_t smem = scratch != nullptr ? 0 : (size_t)8 * W * sizeof(float);
+  auto kernel = wide ? bwd_counts_kernel<true> : bwd_counts_kernel<false>;
   // the opt-in covers the kernel's static arrays too: dynamic bytes of
   // 48 KB or just under still need it
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bwd_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bwd_counts_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x_tok), Lx, static_cast<const int4*>(keys),
       Ly, static_cast<const int4*>(meta), static_cast<const int*>(doff), W,
       static_cast<const float*>(match), static_cast<const float*>(match_noq),

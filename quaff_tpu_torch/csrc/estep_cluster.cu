@@ -10,9 +10,9 @@
 // ::bwd_counts_reference.  dp/estep.estep_route sends a band here past each
 // kernel's warp route (ESTEP_WARP_MAX_LANES) up to
 // ESTEP_CLUSTER_MAX_LANES, with the tiling (CTAs a pair, warps a CTA, LPT)
-// of its ESTEP_CLUSTER_TABLE row; the same inputs and outputs as the warp
-// and block routes (estep.cu), so any route's K2 store feeds any route's
-// K3.
+// of its ESTEP_CLUSTER_TABLE row and the mode dp/estep.cluster_mode picks;
+// the same inputs and outputs as the warp and block routes (estep.cu), so
+// any route's K2 store feeds any route's K3.
 //
 // Why.  The block routes give a pair one block, the row in shared memory
 // or global scratch, and pass 7 (K2) and 9 (K3) block barriers a row over
@@ -54,6 +54,20 @@
 //     table entries and its 5 per-pair sums, each entry always by the same
 //     lane, in row order, a row late.  One more exchange after row 1 brings
 //     its statistics.
+// MODE (cluster_seam.cuh) as K2's: kOneFold up to ESTEP_WIDE_LANES and
+// 32 tiles; past either kTwoFold, the reverse chain's maps relative to
+// each thread's largest opening term and the row shifted at its posterior
+// mode (each tile's largest forward + backward match cell and its
+// backward cell there ride on the slot with its maximum, estep.cu's
+// mode_shift over the tiles), and the two-level fold: each CTA folds its
+// tiles' maps from its
+// last tile down after a block barrier, warp 0 posts the CTA's map, its
+// last tile's insert cell, maximum and mode to every CTA, the CTAs fold
+// from the last down at the barrier, and each tile enters from its CTA's
+// value through the CTA's tiles after it; the statistics of up to 128
+// tiles go to CTA 0, tile 0's lane h summing tiles h, h + 32, .. in order
+// before the butterfly.  Past 8 CTAs (up to 16) the launch opts in to a
+// non-portable cluster size.
 // No float atomics: every sum's association order depends only on the
 // pair and the tiling (a function of W), so reruns are bit-identical.  The
 // count table lives in CTA 0's shared memory while kWarpsPerBlock of them
@@ -78,18 +92,21 @@ constexpr int kBwdClusterWarps = 8;
 
 // a tile's slot, to every CTA: its reverse delete-chain map (c, b) over its
 // lanes, its last lane's backward insert cell of this row (unshifted, NEG
-// where invalid), its largest backward cell of the previous row
-enum { kBC, kBB, kBBiL, kBTop, kBSlot };
+// where invalid), its largest backward cell of the previous row; WIDE adds
+// the previous row's posterior-mode candidate, the largest forward +
+// backward match cell of its lanes (key) and the backward cell there (val)
+enum { kBC, kBB, kBBiL, kBTop, kBSlot, kBKey = kBSlot, kBVal, kBSlotW };
 
 // the 16 values of each tile's row statistics (15 and a 0), CTA 0's copy
 using BwdStats = float[2][kMaxTiles][16];
 
 // Post the tile's statistics (lane 2s holds statistic s) to CTA 0's copy
-// of this row's buffer.
-__device__ __forceinline__ void post_stats(BwdStats& st, int buf, int g,
-                                           float stat, int t, int nct) {
+// of this row's buffer: st[buf][g] of stats of `ntiles` tiles a buffer.
+__device__ __forceinline__ void post_stats(float* st, int ntiles, int buf,
+                                           int g, float stat, int t,
+                                           int nct) {
   if ((t & 1) == 0) {
-    float* p = &st[buf][g][t >> 1];
+    float* p = st + ((size_t)buf * ntiles + g) * 16 + (t >> 1);
     if (nct > 1)
       remote_store(remote_addr(p, 0), stat);
     else
@@ -97,26 +114,40 @@ __device__ __forceinline__ void post_stats(BwdStats& st, int buf, int g,
   }
 }
 
-// Tile 0: one row's table update from the T tiles' statistics in `buf`:
-// lane h takes tile h's, one reduce-scatter butterfly sums the tiles, and
-// lane 2s adds statistic s (1 <= s <= 9) times the row's factor to its
-// table entry and statistics 10-14 to sc (as the warp route's bwd_row).
-// key and ctxp are the row's key and its previous row's indel context.
-__device__ __forceinline__ void bwd_table_add(const BwdStats& st, int buf,
-                                              int T, int t, int4 key,
-                                              int ctxp, const FillTables& tb,
+__device__ __forceinline__ void load_stats(const float* p, float (&v)[16]) {
+  const auto* q4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 x = q4[q];
+    v[4 * q] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
+}
+
+// Tile 0: one row's table update from the T tiles' statistics in buffer
+// `buf` of st (stats of `ntiles` tiles a buffer): lane h takes tile h's
+// (and, past 32 tiles, adds tiles h + 32, h + 64, .. in order), one
+// reduce-scatter butterfly sums the lanes, and lane 2s adds statistic s
+// (1 <= s <= 9) times the row's factor to its table entry and statistics
+// 10-14 to sc (as the warp route's bwd_row).  key and ctxp are the row's
+// key and its previous row's indel context.
+__device__ __forceinline__ void bwd_table_add(const float* st, int ntiles,
+                                              int buf, int T, int t,
+                                              int4 key, int ctxp,
+                                              const FillTables& tb,
                                               float w_pair, float* tab,
                                               float& sc) {
   float v[16];
+  const float* base = st + (size_t)buf * ntiles * 16;
   if (t < T) {
-    const auto* p = reinterpret_cast<const float4*>(st[buf][t]);
+    load_stats(base + (size_t)t * 16, v);
+    for (int h = t + 32; h < T; h += 32) {
+      float u[16];
+      load_stats(base + (size_t)h * 16, u);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 x = p[q];
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
+      for (int q = 0; q < 16; ++q) v[q] += u[q];
     }
   } else {
 #pragma unroll
@@ -137,7 +168,30 @@ __device__ __forceinline__ void bwd_table_add(const BwdStats& st, int buf,
   sc += q < 14 ? add : stat;  // read on lanes 20, 22, .., 28 alone
 }
 
-template <int LPT>
+// WIDE: of the n (key, val) candidates in the slots' lanes, the val of
+// the largest key (the largest val among equal keys), every lane; NEG
+// where no key is finite
+template <int NS>
+__device__ __forceinline__ float mode_of(const float (&v)[NS], int n, int t) {
+  const float NEG = neg_big();
+  const float key = t < n ? v[kBKey] : NEG;
+  const float km = warp_max(key);
+  if (km <= NEG / 2) return NEG;
+  return warp_max(t < n && key == km ? v[kBVal] : NEG);
+}
+
+// dynamic shared memory of K3's cluster route: its count table (CTA 0,
+// when smem_table) and, with kTwoFold, the tile slots of each CTA, double
+// buffered, and the statistics of each of the T tiles at CTA 0
+__host__ __device__ constexpr size_t bwd_table_floats(size_t E) {
+  return (E + 3) / 4 * 4;  // the slots after it 16-byte aligned
+}
+constexpr size_t bwd_two_smem(int T) {
+  return sizeof(SeamSlot<kBSlotW>) * 2 * kMaxTiles2 +
+         sizeof(float) * 2 * T * 16;
+}
+
+template <int LPT, int MODE = kOneFold>
 __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
     bwd_counts_cluster_kernel(
         const int8_t* __restrict__ x_tok, int Lx,
@@ -151,8 +205,11 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
         int B, int local, int smem_table,
         float* __restrict__ partial,  // [B][E]
         float* __restrict__ d_sc) {   // [5][B]
+  constexpr bool TWO = MODE == kTwoFold;
+  constexpr bool WIDE = TWO;  // the wide arithmetic comes with the two levels
+  constexpr int NS = WIDE ? kBSlotW : kBSlot;  // a slot's floats
   extern __shared__ float tab_smem[];
-  __shared__ SeamSlot<kBSlot> slots[2][kMaxTiles];
+  __shared__ SeamSlot<NS> slots[2][kMaxTiles];
   __shared__ __align__(16) BwdStats stats;
 
   const int nct = cluster_ctas();
@@ -160,11 +217,20 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
   const int nw = blockDim.x >> 5;
   const int t = threadIdx.x & 31;
   const int T = nct * nw;
-  const int g = rank * nw + (threadIdx.x >> 5);
+  const int wi = threadIdx.x >> 5;  // the tile's warp in its CTA
+  const int g = rank * nw + wi;
   const int b = blockIdx.x / nct;
   const float NEG = neg_big();
   const int4 pm = meta[b];
   const int E = 4 * tb.Km * tb.Q + 4 * tb.Q + 4 * tb.n_ik;
+  // kTwoFold: this CTA's tile slots (indexed by tile) and CTA 0's tile
+  // statistics, after the count table
+  float* two = tab_smem + (smem_table ? bwd_table_floats(E) : 0);
+  auto* lslots = reinterpret_cast<SeamSlot<NS>(*)[kMaxTiles2]>(two);
+  float* stats2 = two + 2 * kMaxTiles2 * 4 * SeamSlot<NS>::kWords;
+  float* st = TWO ? stats2 : &stats[0][0][0];
+  const int ntiles = TWO ? T : kMaxTiles;
+  const int nslots = TWO ? nct : T;  // the slots the fold reads
   const size_t plane = (size_t)B * Ly * W;
   BwdPair P;
   P.tb = tb;
@@ -239,6 +305,8 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
     c.ie_n = 0.f;
     float bi_in = NEG;  // thread 0: row j+1's insert cell of lane base - 1
     float top = NEG;    // the tile's largest cell of row j+1
+    float mkey = NEG;   // WIDE: the tile's posterior-mode candidate of
+    float mval = NEG;   // row j+1
     float stat = 0.f;   // lane 2s: the tile's statistic s of row j+1
     int4 key_p = {};    // row j+1's key and previous context (tile 0)
     int ctxp_p = 0;
@@ -278,13 +346,13 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
 
       // before the barrier: the backward insert cells (no delete term)
       // and the tile's reverse delete-chain map, from row j+1's unshifted
-      // cells
+      // cells (WIDE: relative to the thread's largest opening term r)
       bool v[LPT];
 #pragma unroll
       for (int k = 0; k < LPT; ++k) v[k] = lv && in_ref(s.dg[k], j, P.xlen);
       float bik[LPT], pc[LPT], pb[LPT];
-      float c_acc = 0.f, b_acc = neg_inf(), bi_l = NEG;
-      float post[kBSlot];
+      float c_acc = 0.f, b_acc = neg_inf(), bi_l = NEG, r0 = 0.f;
+      float post[NS];
       if (lv) {
         bi_l = __shfl_up_sync(kFull, s.bi[LPT - 1], 1);
         if (t == 0) bi_l = bi_in;
@@ -292,11 +360,18 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
         for (int k = 0; k < LPT; ++k)
           bik[k] = lse2(P.tr.i2m + s.fmx[k],
                         P.tr.i2i + c.ie_n + lane_lo(s.bi, k, bi_l));
+        if constexpr (WIDE) {
+          float bmax = NEG;
+#pragma unroll
+          for (int k = 0; k < LPT; ++k)
+            if (v[k]) bmax = fmaxf(bmax, P.tr.d2m + s.fmx[k]);
+          r0 = wide_chain_ref(bmax);
+        }
 #pragma unroll
         for (int q = 0; q < LPT; ++q) {
           const int k = LPT - 1 - q;
           const float cv = v[k] ? P.tr.d2d : NEG;
-          const float bv = v[k] ? P.tr.d2m + s.fmx[k] : NEG;
+          const float bv = v[k] ? P.tr.d2m + s.fmx[k] - r0 : NEG;
           if (q == 0) {
             pc[k] = cv;
             pb[k] = bv;
@@ -307,7 +382,7 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
           }
         }
         c_acc = pc[0];
-        b_acc = pb[0];
+        b_acc = WIDE ? r0 + pb[0] : pb[0];
         scan_maps<false>(c_acc, b_acc, t, 32);
         post[kBC] = __shfl_sync(kFull, c_acc, 0);
         post[kBB] = __shfl_sync(kFull, b_acc, 0);
@@ -319,58 +394,121 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
         post[kBBiL] = NEG;
       }
       post[kBTop] = top;
+      if constexpr (WIDE) {
+        post[kBKey] = mkey;
+        post[kBVal] = mval;
+      }
       const int buf = j & 1;
-      seam_post<kBSlot>(slots, buf, g, post, t, nct);
-      if (!end) post_stats(stats, buf, g, stat, t, nct);
+      // kTwoFold: the composite of the tiles after this one in its CTA
+      float sfc = 0.f, sfb = neg_inf();
+      if constexpr (TWO) {
+        seam_post_local<NS>(lslots, buf, g, post, t);
+        if (!end) post_stats(st, ntiles, buf, g, stat, t, nct);
+        __syncthreads();
+        if (wi == 0 || lv) {
+          // lane h takes the CTA's tile h; composed from its last tile
+          // down, lane h holds tiles h .. nw - 1
+          float lv_[NS], cpost[NS];
+          if (t < nw) {
+            seam_read<NS>(lslots, buf, rank * nw + t, lv_);
+          } else {
+#pragma unroll
+            for (int q = 0; q < NS; ++q) lv_[q] = NEG;
+          }
+          float lc = 0.f, lb = neg_inf();
+          if (t < nw) {
+            lc = lv_[kBC];
+            lb = lv_[kBB];
+          }
+          scan_maps<false>(lc, lb, t, 32);
+          sfc = __shfl_sync(kFull, lc, min(wi + 1, 31));
+          sfb = __shfl_sync(kFull, lb, min(wi + 1, 31));
+          if (wi == 0) {
+            cpost[kBC] = __shfl_sync(kFull, lc, 0);
+            cpost[kBB] = __shfl_sync(kFull, lb, 0);
+            cpost[kBBiL] = __shfl_sync(kFull, lv_[kBBiL], nw - 1);
+            cpost[kBTop] = warp_max(t < nw ? lv_[kBTop] : NEG);
+            if constexpr (WIDE) {
+              const float key = t < nw ? lv_[kBKey] : NEG;
+              const float km = warp_max(key);
+              cpost[kBKey] = km;
+              cpost[kBVal] = warp_max(t < nw && key == km ? lv_[kBVal] : NEG);
+            }
+            seam_post<NS>(slots, buf, rank, cpost, t, nct);
+          }
+        }
+      } else {
+        seam_post<NS>(slots, buf, g, post, t, nct);
+        if (!end) post_stats(st, ntiles, buf, g, stat, t, nct);
+      }
       seam_arrive(nct);
       seam_wait(nct);
 
-      // row j+1's shift (the largest of the tiles' maxima), row j's
-      // backward offset, and the previous tile's last insert cell of row j
-      // (less the shift) for row j-1
-      float sv[kBSlot];
+      // row j+1's shift (the largest of the tiles' maxima; WIDE: the
+      // backward cell at the row's posterior mode), row j's backward
+      // offset, and the previous tile's last insert cell of row j (less
+      // the shift) for row j-1
+      float sv[NS];
       float tm = NEG;
-      if (t < T) {
-        seam_read<kBSlot>(slots, buf, t, sv);
+      if (t < nslots) {
+        seam_read<NS>(slots, buf, t, sv);
         tm = sv[kBTop];
+      } else {
+#pragma unroll
+        for (int q = 0; q < NS; ++q) sv[q] = NEG;
       }
       tm = warp_max(tm);
-      const float shift = tm > NEG / 2 ? tm : 0.f;
+      float shift = tm > NEG / 2 ? tm : 0.f;
+      if constexpr (WIDE) {
+        const float mv = mode_of<NS>(sv, nslots, t);
+        if (mv > NEG / 2) shift = mv;
+      }
       const double offb = c.offb + shift;
       float bi_next = NEG;
-      if (g > 0) {
-        float pv[kBSlot];
-        seam_read<kBSlot>(slots, buf, g - 1, pv);
+      if (TWO ? (wi > 0 || rank > 0) : g > 0) {
+        float pv[NS];
+        if (!TWO)
+          seam_read<NS>(slots, buf, g - 1, pv);
+        else if (wi > 0)
+          seam_read<NS>(lslots, buf, g - 1, pv);
+        else
+          seam_read<NS>(slots, buf, rank - 1, pv);
         bi_next = pv[kBBiL] - shift;
       }
 
-      float top_j = NEG, stat_j = 0.f;
+      float top_j = NEG, stat_j = 0.f, key_j = NEG, val_j = NEG;
       if (lv) {
-        // the fold: lane h holds tile h's map; composed from the last tile
-        // down, lane h+1's value is the one entering tile h from the right
+        // the fold: lane h holds slot h's map; composed from the last slot
+        // down, lane h+1's value is the one entering slot h from the right
+        // (kTwoFold: CTA h's; then the tiles after this one in its CTA)
         float fc = 0.f, fb = neg_inf();
-        if (t < T) {
+        if (t < nslots) {
           fc = sv[kBC];
           fb = sv[kBB];
         }
         scan_maps<false>(fc, fb, t, 32);
         float xt = __shfl_down_sync(kFull, fb, 1);
         if (t == 31) xt = neg_inf();
-        const float x_in = __shfl_sync(kFull, xt, g);
+        float x_in = __shfl_sync(kFull, xt, TWO ? rank : g);
+        if (TWO && wi + 1 < nw) x_in = lse2(x_in + sfc, sfb);
         // the value entering the thread, then each lane's delete cell
         const float cn = __shfl_down_sync(kFull, c_acc, 1);
         const float bn = __shfl_down_sync(kFull, b_acc, 1);
         const float x = t == 31 ? x_in : lse2(x_in + cn, bn);
         float bd[LPT];
+        const float xr = x - r0;
 #pragma unroll
-        for (int k = 0; k < LPT; ++k)
-          bd[k] = v[k] ? lse2(x + pc[k], pb[k]) : NEG;
+        for (int k = 0; k < LPT; ++k) {
+          const float d = WIDE ? r0 + lse2(xr + pc[k], pb[k])
+                               : lse2(x + pc[k], pb[k]);
+          bd[k] = v[k] ? d : NEG;
+        }
         float bd_r = __shfl_down_sync(kFull, bd[0], 1);
         if (t == 31) bd_r = x_in;
 
         // the backward match cells; row j's cells less row j+1's shift;
-        // the tile's largest
-        float bm[LPT], me[LPT], tmx = NEG;
+        // the tile's largest (WIDE: and its posterior-mode candidate)
+        float bm[LPT], me[LPT], tmx = NEG, kx = NEG, vx = NEG;
 #pragma unroll
         for (int k = 0; k < LPT; ++k) {
           const bool end_ok = end && (P.local || s.dg[k] + j == P.xlen - 1);
@@ -382,8 +520,20 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
           bd[k] = v[k] ? bd[k] - shift : NEG;
           tmx = fmaxf(tmx, v[k] ? fmaxf(bm[k], bik[k]) : NEG);
           me[k] = pick(r.e, tok[k]);
+          if constexpr (WIDE) {
+            const float key = v[k] && s.fm_c[k] > NEG / 2 ? s.fm_c[k] + bm[k]
+                                                          : NEG;
+            if (key > kx || (key == kx && bm[k] > vx)) {
+              kx = key;
+              vx = bm[k];
+            }
+          }
         }
         top_j = warp_max(tmx);
+        if constexpr (WIDE) {
+          key_j = warp_max(kx);
+          val_j = warp_max(kx == key_j ? vx : NEG);
+        }
         // row constants: forward offset of rows j and j-1 plus the
         // backward offset, minus fwd_total, in float64 once a row
         const float cc = (float)(c.o_c + offb - P.fnorm);
@@ -469,11 +619,13 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
       // tile 0: row j+1's table update, from the statistics the tiles
       // posted with this row
       if (g == 0 && !end)
-        bwd_table_add(stats, buf, T, t, key_p, ctxp_p, P.tb, P.w_pair, tab,
-                      c.sc);
+        bwd_table_add(st, ntiles, buf, T, t, key_p, ctxp_p, P.tb, P.w_pair,
+                      tab, c.sc);
       key_p = make_int4(r.kx, r.ky, r.kz, r.ctx);
       ctxp_p = r.ctxp;
       top = top_j;
+      mkey = key_j;
+      mval = val_j;
       stat = stat_j;
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
@@ -490,10 +642,11 @@ __global__ void __launch_bounds__(kBwdClusterWarps * 32, 1)
       c.kn = kq;
     }
     // row 1's statistics by one more exchange
-    post_stats(stats, 0, g, stat, t, nct);
+    post_stats(st, ntiles, 0, g, stat, t, nct);
     cluster_sync(nct);
     if (g == 0)
-      bwd_table_add(stats, 0, T, t, key_p, ctxp_p, P.tb, P.w_pair, tab, c.sc);
+      bwd_table_add(st, ntiles, 0, T, t, key_p, ctxp_p, P.tb, P.w_pair, tab,
+                    c.sc);
   } else {
     cluster_sync(nct);
   }
@@ -514,9 +667,10 @@ extern "C" {
 
 // Launches K2's cluster route on `stream`: each pair's band tiled over nct
 // CTAs (a thread-block cluster) of `warps` warps, lpt lanes a thread (one
-// of 4, 8, 16), at most kMaxTiles tiles, which must cover the band.  The
-// same outputs as quaff_fwd_store; returns the cudaError_t of the launch,
-// or of the card's refusal of the cluster shape.
+// of 4, 8, 16), which must cover the band, in `mode` (cluster_seam.cuh):
+// kOneFold with at most kMaxTiles tiles, kTwoFold with at most
+// kMaxTiles2.  The same outputs as quaff_fwd_store; returns the
+// cudaError_t of the launch, or of the card's refusal of the cluster shape.
 int quaff_fwd_store_cluster(const void* x_tok, int Lx, const void* keys,
                             int Ly, const void* meta, const void* doff, int W,
                             const void* seg_start, const void* seg_width,
@@ -524,12 +678,11 @@ int quaff_fwd_store_cluster(const void* x_tok, int Lx, const void* keys,
                             const void* insert, const void* insert_noq,
                             int Km, int Q, const void* ik, int n_ik,
                             const void* trans, int B, int local, int lpt,
-                            int nct, int warps, void* out, void* rows,
-                            void* offs, void* stream) {
+                            int nct, int warps, int mode, void* out,
+                            void* rows, void* offs, void* stream) {
   if (B <= 0) return 0;
-  if (W < 1 || nct < 1 || warps < 1 || nct * warps > kMaxTiles ||
-      W > nct * warps * 32 * lpt || S < 1 || S > kMaxSegs || n_ik < 1 ||
-      Lx < 1)
+  if (W < 1 || nct < 1 || warps < 1 || W > nct * warps * 32 * lpt ||
+      S < 1 || S > kMaxSegs || n_ik < 1 || Lx < 1)
     return (int)cudaErrorInvalidValue;
   const FillTables tb{static_cast<const float*>(match),
                       static_cast<const float*>(match_noq),
@@ -543,10 +696,10 @@ int quaff_fwd_store_cluster(const void* x_tok, int Lx, const void* keys,
       static_cast<const int*>(seg_width), S, tb,
       static_cast<const float*>(trans), B, local, static_cast<float*>(out),
       static_cast<cudaStream_t>(stream), static_cast<float*>(rows),
-      static_cast<double*>(offs));
+      static_cast<double*>(offs), mode);
 }
 
-// Launches K3's cluster route on `stream` (the tiling as
+// Launches K3's cluster route on `stream` (the tiling and mode as
 // quaff_fwd_store_cluster's, at most kBwdClusterWarps warps a CTA): the
 // same outputs as quaff_bwd_counts, no scratch.
 int quaff_bwd_counts_cluster(const void* x_tok, int Lx, const void* keys,
@@ -556,12 +709,14 @@ int quaff_bwd_counts_cluster(const void* x_tok, int Lx, const void* keys,
                              int Km, int Q, const void* ik, int n_ik,
                              const void* trans, const void* wrow,
                              const void* rows, const void* offs, int B,
-                             int local, int lpt, int nct, int warps,
+                             int local, int lpt, int nct, int warps, int mode,
                              void* partial, void* d_sc, void* stream) {
   if (B <= 0) return 0;
   if (W < 1 || nct < 1 || warps < 1 || warps > kBwdClusterWarps ||
-      nct * warps > kMaxTiles || W > nct * warps * 32 * lpt || n_ik < 1 ||
-      Lx < 1)
+      nct * warps > (mode == kTwoFold ? kMaxTiles2 : kMaxTiles) ||
+      (mode == kTwoFold && nct > kMaxClusterCtas) ||
+      W > nct * warps * 32 * lpt || n_ik < 1 || Lx < 1 ||
+      (mode != kOneFold && mode != kTwoFold))
     return (int)cudaErrorInvalidValue;
   const FillTables tb{static_cast<const float*>(match),
                       static_cast<const float*>(match_noq),
@@ -569,22 +724,35 @@ int quaff_bwd_counts_cluster(const void* x_tok, int Lx, const void* keys,
                       static_cast<const float*>(insert_noq),
                       static_cast<const float*>(ik), Km, Q, n_ik};
   const size_t E = (size_t)4 * Km * Q + 4 * Q + 4 * n_ik;
-  // the warp route's choice of the table's home
+  // the warp route's choice of the table's home; with kTwoFold only while
+  // it fits beside the tile slots and statistics under 40 KB (the static
+  // arrays take the rest of the 48 KB a block has without opting in)
   const int smem_table =
-      kWarpsPerBlock * E * sizeof(float) <= (size_t)kTableSmemBytes;
-  const size_t smem = smem_table ? E * sizeof(float) : 0;
+      kWarpsPerBlock * E * sizeof(float) <= (size_t)kTableSmemBytes &&
+      (mode != kTwoFold || bwd_table_floats(E) * sizeof(float) +
+                                   bwd_two_smem(nct * warps) <= 40 * 1024);
+  const size_t table = smem_table ? E * sizeof(float) : 0;
+  const size_t smem =
+      mode == kTwoFold
+          ? (smem_table ? bwd_table_floats(E) * sizeof(float) : 0) +
+                bwd_two_smem(nct * warps)
+          : table;
+#define QUAFF_BWD_CLUSTER_LAUNCH(N, M)                                     \
+  launch_cluster(                                                          \
+      bwd_counts_cluster_kernel<N, (M)>, B, nct, warps, smem,              \
+      static_cast<cudaStream_t>(stream), (M) == kTwoFold,                  \
+      static_cast<const int8_t*>(x_tok), Lx,                               \
+      static_cast<const int4*>(keys), Ly, static_cast<const int4*>(meta),  \
+      static_cast<const int*>(doff), W, tb,                                \
+      static_cast<const float*>(trans), static_cast<const float*>(wrow),   \
+      static_cast<const float*>(rows), static_cast<const double*>(offs),   \
+      B, local, smem_table, static_cast<float*>(partial),                  \
+      static_cast<float*>(d_sc))
 #define QUAFF_BWD_CLUSTER_CASE(N)                                          \
   case N:                                                                  \
-    return (int)launch_cluster(                                            \
-        bwd_counts_cluster_kernel<N>, B, nct, warps, smem,                 \
-        static_cast<cudaStream_t>(stream),                                 \
-        static_cast<const int8_t*>(x_tok), Lx,                             \
-        static_cast<const int4*>(keys), Ly, static_cast<const int4*>(meta), \
-        static_cast<const int*>(doff), W, tb,                              \
-        static_cast<const float*>(trans), static_cast<const float*>(wrow), \
-        static_cast<const float*>(rows), static_cast<const double*>(offs), \
-        B, local, smem_table, static_cast<float*>(partial),                \
-        static_cast<float*>(d_sc));
+    if (mode == kTwoFold)                                                  \
+      return (int)QUAFF_BWD_CLUSTER_LAUNCH(N, kTwoFold);                   \
+    return (int)QUAFF_BWD_CLUSTER_LAUNCH(N, kOneFold);
   switch (lpt) {
     QUAFF_BWD_CLUSTER_CASE(4)
     QUAFF_BWD_CLUSTER_CASE(8)
@@ -593,6 +761,7 @@ int quaff_bwd_counts_cluster(const void* x_tok, int Lx, const void* keys,
       return (int)cudaErrorInvalidValue;
   }
 #undef QUAFF_BWD_CLUSTER_CASE
+#undef QUAFF_BWD_CLUSTER_LAUNCH
 }
 
 }  // extern "C"

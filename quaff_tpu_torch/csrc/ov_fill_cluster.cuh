@@ -269,7 +269,7 @@ cudaError_t launch_ov_cluster(int lpt, int nct, int warps, const float* bank,
   case N:                                                                    \
     if (warps > ov_cluster_max_warps<N>()) return cudaErrorInvalidValue;     \
     return launch_cluster(ov_fill_cluster_kernel<IK, N>, B, nct, warps, 0,   \
-                          stream, bank, L, meta, doff, W, seg_start,         \
+                          stream, false, bank, L, meta, doff, W, seg_start,  \
                           seg_width, S, ins_xy, trans, B, out);
   switch (lpt) {
     QUAFF_OV_CLUSTER_CASE(2)

@@ -26,11 +26,15 @@ each, picked by estep_route from the band's width: the warp route
 (csrc/estep_warp.cuh, one warp per pair) up to the kernel's measured
 cutover, the cluster route (csrc/estep_cluster.cu: a pair's band tiled
 over the warps of a thread-block cluster, K2's as K1's cluster fill with
-STORE in csrc/band_fill_cluster.cuh) up to ESTEP_CLUSTER_MAX_LANES, the
-block route (K1's block fill with STORE in csrc/band_fill.cuh,
+STORE in csrc/band_fill_cluster.cuh; past ESTEP_WIDE_LANES or 32 tiles
+its fold takes two levels) up to ESTEP_CLUSTER_MAX_LANES, the block
+route (K1's block fill with STORE in csrc/band_fill.cuh,
 bwd_counts_kernel in estep.cu) past it; `warp_launches`,
-`cluster_launches` and `block_launches` count each.  All routes keep one
-layout, so any route's K2 store feeds any route's K3.  All take
+`cluster_launches` and `block_launches` count each, and
+`two_level_launches` the cluster launches with the two-level fold.  Past
+ESTEP_WIDE_LANES the cluster and block routes run the wide arithmetic
+(see there).  All routes keep one layout, so any route's K2 store feeds
+any route's K3.  All take
 fill_v2.kernel_inputs's layout.  Count tables are flat:
 E = 4*Km*Q match counts (symbol-major, then k-mer, then quality) + 4*Q
 insert counts (token, quality) + 4*Ki transition counts (m2m, m2i, m2d,
@@ -49,6 +53,7 @@ import torch
 
 from ..device import one_thread_on_cpu
 from .engine import _shift_left, _shift_right, doubling_scan
+from . import fill_v2
 from .fill_v2 import (
     D_SENTINEL,
     NEG_INF,
@@ -57,7 +62,6 @@ from .fill_v2 import (
     _lse2,
     band_fill_reference,
     check_tensors,
-    cluster_route_ok,
     cluster_tiling,
     kernel_inputs,
     table_specs,
@@ -78,19 +82,34 @@ from .fill_v2 import (
 ESTEP_WARP_MAX_LANES = {"fwd_store": 512, "bwd_counts": 256}
 # K2's and K3's cluster routes (csrc/estep_cluster.cu), for bands past the
 # warp routes: a pair's band tiled over the warps of a thread-block
-# cluster, 32 * lpt lanes a tile, at most fill_v2.MAX_TILES tiles over at
-# most fill_v2.MAX_CLUSTER_CTAS CTAs; the lanes a thread of their
-# instantiations, and the warps a CTA each build takes at each (K2's is K1's
-# cluster kernel with STORE: 16 warps below 8 lanes a thread, where 128
-# registers do; K3's row state takes up to 255 registers a thread at 8)
+# cluster, 32 * lpt lanes a tile, over at most fill_v2.MAX_CLUSTER_CTAS
+# CTAs; the lanes a thread of their instantiations, and the warps a CTA
+# each build takes at each (K2's is K1's cluster kernel with STORE: 16
+# warps below 8 lanes a thread, where 128 registers do; K3's row state
+# takes up to 255 registers a thread at 8)
 ESTEP_CLUSTER_LPTS = (4, 8, 16)
 ESTEP_CLUSTER_MAX_WARPS = {"fwd_store": {4: 16, 8: 8, 16: 8},
                            "bwd_counts": {4: 8, 8: 8, 16: 8}}
-# The cluster tiling by width, K2's and K3's alike, as
-# fill_v2.FILL_CLUSTER_TABLE's: (widest band, lanes a thread, warps a CTA
-# at most), the tiles spread evenly over the fewest CTAs that hold them.
-# From chip_smoke.py's sweeps of every tiling (median of 3, NVIDIA H100
-# 80GB HBM3 at 700 W; PERF.md §6), each tiling within the tolerance:
+# Bands wider than this run the wide arithmetic on the cluster and block
+# routes (csrc/band_fill.cuh, csrc/estep.cu): each thread's delete-chain
+# steps relative to its largest opening term, and K3's backward rows
+# scaled at their posterior mode instead of their largest cell.  On global
+# bands of reads that need thousands of deletions the posterior's path
+# runs up to ~1300 nats below a row's largest cell, where float32 rounds
+# at 6e-5-1.2e-4 nats a step; scaled there, K3's backward total drifted
+# 6.4e-3 (8192 lanes) to 1.9e-2 (16384) off the float64 one
+# (prof/f32_chain.py, a CPU emulation of each step).  The
+# trainer's ESTEP_LANE_CAP: every band of the train path keeps its
+# narrow-band arithmetic, so its outputs are unchanged bit for bit.
+ESTEP_WIDE_LANES = 4096
+# Each kernel's cluster tiling by width, as fill_v2.FILL_CLUSTER_TABLE's:
+# (widest band, lanes a thread, warps a CTA at most), the tiles spread
+# evenly over the fewest CTAs that hold them.  Up to ESTEP_WIDE_LANES
+# (the train path) at most fill_v2.MAX_TILES tiles folded once a row over
+# at most fill_v2.MAX_CLUSTER_CTAS CTAs (cluster_seam.cuh); past it the
+# wide arithmetic with the two-level fold over up to MAX_CLUSTER_CTAS2.
+# From chip_smoke.py's and prof/estep_sweep.py's sweeps of every tiling
+# (median of 3, NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6):
 #   - phase 5b's wide chunk (B=14, W=4038, Ly=8540): K2 8 x 4 x 4 50.093
 #     ms (4 x 8 x 4 54.757, 2 x 16 x 4 64.434, 4 x 4 x 8 88.253, 2 x 8 x
 #     8 106.006, 1 x 8 x 16 181.012; its block route 105.675), K3 8 x 4 x
@@ -102,17 +121,39 @@ ESTEP_CLUSTER_MAX_WARPS = {"fwd_store": {4: 16, 8: 8, 16: 8},
 #     2 x 8 2.751, 1 x 1 x 16 5.044, its warp route 3.261;
 #   - phase 3b's chunk (B=12, W=606): 2 x 3 x 4 1.708 ms (K2) and 1.043
 #     (K3), 1 x 5 x 4 1.720 and 1.057; there K2's block route took 1.395,
-#     the one width measured where it beat the cluster route.
-# The route stops at 4096 lanes, the trainer's ESTEP_LANE_CAP and the
-# widest band 32 tiles of 4 lanes a thread cover: wider bands take the
-# block routes, and estep_route_ok refuses a cluster tiling there.  Past
-# it, on global bands of reads of ~1000 rows with ~3300 deletions each,
-# the cluster routes at 8 and 16 lanes a thread put the back-start
-# posterior up to 7.4e-3 off 1 (tolerance 5e-3), and the block routes
-# miss it too (6.8e-3 at 8192 lanes): an open fault, ROADMAP queue 3.
-ESTEP_CLUSTER_TABLE = ((4096, 4, 4),)
+#     the one width measured where it beat the cluster route;
+#   - phase 2b's wide recipe (B=8, Ly=400) at 6000-16384 lanes
+#     (prof/estep_sweep.py): K2 at 4 lanes a thread 3.3-4.4 ms, at 8
+#     4.7-6.2 and at 16 7.8-11.2, but for the two-wave tilings below (6 x
+#     8 x 4 3.456 ms at 6000, 8 x 8 x 4 3.527 at 8192, 12 x 8 x 4 4.145
+#     at 12070, 16 x 8 x 4 4.068 at 16384); K3 at 4
+#     lanes a thread up to 8192 (12 x 4 x 4 2.050, 16 x 4 x 4 2.093), at
+#     8 past it (12 x 4 x 8 2.703, 16 x 4 x 8 2.730); the one-fold rows
+#     these replace (32 tiles of 16 lanes a thread, 6 x 4 x 16 at 12070)
+#     took 8.004 and 4.020 ms (chip_smoke.py phase 2b).  A CTA of
+#     more than 8 warps at 4 lanes a thread (K2) or 4 at 8 (K3) takes an
+#     SM of its own, and clusters of 10-15 such CTAs ran the batch in two
+#     waves (10 x 13 x 4 8.066 ms at 16384), so up to 16384 lanes the rows
+#     keep to those warps;
+#   - phase 4b's count -fast -kmatchoff chunk (B=2, W=22136, Ly=2135): K2
+#     16 x 11 x 4 21.046 ms, 15 x 12 x 4 21.691, 11 x 16 x 4 23.211, 11 x
+#     8 x 8 31.448, 8 x 6 x 16 52.331 (its block route 534.146); K3 15 x 6
+#     x 8 13.903, 11 x 8 x 8 13.979, 15 x 3 x 16 21.063 (block 514.341);
+#     16 lanes a thread spill in both kernels.
+ESTEP_CLUSTER_TABLE = {
+    "fwd_store": ((4096, 4, 4), (16384, 4, 8), (24576, 4, 12),
+                  (32768, 4, 16)),
+    "bwd_counts": ((4096, 4, 4), (8192, 4, 4), (16384, 8, 4),
+                   (32768, 8, 8))}
 # the widest band the cluster routes take; wider ones take the block routes
-ESTEP_CLUSTER_MAX_LANES = ESTEP_CLUSTER_TABLE[-1][0]
+ESTEP_CLUSTER_MAX_LANES = 32768
+# the two-level fold: clusters of up to 16 CTAs (past the portable 8 the
+# launch opts in to the card's non-portable size) of up to 16 warps
+MAX_CLUSTER_CTAS2 = 16
+MAX_TILES2 = MAX_CLUSTER_CTAS2 * 16
+# the cluster kernels' modes (csrc/cluster_seam.cuh): the narrow-band
+# arithmetic with one fold; the wide arithmetic with two levels
+ONE_FOLD, TWO_FOLD = 0, 1
 
 
 def table_size(tables: V2Tables) -> int:
@@ -132,21 +173,32 @@ def estep_route(W: int, kernel: str) -> tuple:
     """The route of K2 (kernel "fwd_store") or K3 ("bwd_counts") for a band
     of W lanes, a function of W alone: ("warp", warp_lpt(W)) up to
     ESTEP_WARP_MAX_LANES[kernel] lanes; ("cluster", (nct, warps, lpt)) of
-    ESTEP_CLUSTER_TABLE up to ESTEP_CLUSTER_MAX_LANES; else
-    ("block", 0): one block per pair."""
+    ESTEP_CLUSTER_TABLE[kernel] up to ESTEP_CLUSTER_MAX_LANES (in
+    cluster_mode's fold); else ("block", 0): one block per pair."""
     lpt = warp_lpt(W)
     if lpt is not None and 32 * lpt <= ESTEP_WARP_MAX_LANES[kernel]:
         return "warp", lpt
     if W <= ESTEP_CLUSTER_MAX_LANES:
-        return "cluster", cluster_tiling(W, ESTEP_CLUSTER_TABLE)
+        return "cluster", cluster_tiling(W, ESTEP_CLUSTER_TABLE[kernel])
     return "block", 0
+
+
+def cluster_mode(W: int, tiling) -> int:
+    """The cluster kernels' mode for a band of W lanes on `tiling` (nct,
+    warps, lpt): TWO_FOLD (the wide arithmetic, two levels) past
+    ESTEP_WIDE_LANES or fill_v2.MAX_TILES tiles, else ONE_FOLD."""
+    nct, warps = tiling[0], tiling[1]
+    return (TWO_FOLD if W > ESTEP_WIDE_LANES or nct * warps > fill_v2.MAX_TILES
+            else ONE_FOLD)
 
 
 def estep_route_ok(W: int, route, kernel: str) -> bool:
     """Whether `route` is one `kernel` has that covers a band of W lanes:
-    ("warp", lpt) with 32 * lpt >= W, ("cluster", (nct, warps, lpt)) of
-    fill_v2.cluster_route_ok at the kernel's lanes a thread and warps a
-    CTA for a band of at most ESTEP_CLUSTER_MAX_LANES, or ("block", 0)."""
+    ("warp", lpt) with 32 * lpt >= W; ("cluster", (nct, warps, lpt)) for a
+    band of at most ESTEP_CLUSTER_MAX_LANES, at a lanes a thread the
+    kernel has, at most ESTEP_CLUSTER_MAX_WARPS warps a CTA, tiles that
+    cover the band, over at most fill_v2.MAX_CLUSTER_CTAS CTAs with one
+    fold, MAX_CLUSTER_CTAS2 with two (cluster_mode); or ("block", 0)."""
     try:
         kind, arg = route
     except (TypeError, ValueError):
@@ -154,8 +206,17 @@ def estep_route_ok(W: int, route, kernel: str) -> bool:
     if kind == "warp":
         return arg in WARP_LPTS and W <= 32 * arg
     if kind == "cluster":
-        return W <= ESTEP_CLUSTER_MAX_LANES and cluster_route_ok(
-            W, arg, ESTEP_CLUSTER_LPTS, ESTEP_CLUSTER_MAX_WARPS[kernel].get)
+        try:
+            nct, warps, lpt = (int(v) for v in arg)
+        except (TypeError, ValueError):
+            return False
+        two = cluster_mode(W, (nct, warps, lpt)) == TWO_FOLD
+        return (W <= ESTEP_CLUSTER_MAX_LANES and lpt in ESTEP_CLUSTER_LPTS
+                and 1 <= nct <= (MAX_CLUSTER_CTAS2 if two
+                                 else fill_v2.MAX_CLUSTER_CTAS)
+                and 1 <= warps <= ESTEP_CLUSTER_MAX_WARPS[kernel][lpt]
+                and nct * warps <= MAX_TILES2
+                and W <= 32 * lpt * warps * nct)
     return kind == "block" and arg == 0
 
 
@@ -170,9 +231,10 @@ def _check_route(name, route, W):
     return route
 
 
-def _count(fn, kind):
+def _count(fn, kind, two_level=False):
     fn.launches += 1
     setattr(fn, f"{kind}_launches", getattr(fn, f"{kind}_launches") + 1)
+    fn.two_level_launches += int(two_level)
 
 
 def _raise_on(err, name, kernels, B, W, Ly, kind=None):
@@ -253,13 +315,14 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
                 doff.data_ptr(), W, *tabs, B, int(bool(local)), lpt,
                 out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
         elif kind == "cluster":
+            mode = cluster_mode(W, lpt)
             nct, warps, lpt = lpt
             err = lib.quaff_fwd_store_cluster(
                 x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
                 doff.data_ptr(), W, seg_start.data_ptr(),
                 seg_width.data_ptr(), S, *tabs, B, int(bool(local)), lpt, nct,
-                warps, out.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
-                stream)
+                warps, mode, out.data_ptr(), rows.data_ptr(),
+                offsets.data_ptr(), stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0):
@@ -269,10 +332,11 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
                 x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
                 doff.data_ptr(), W, seg_start.data_ptr(),
                 seg_width.data_ptr(), S, *tabs, B, int(bool(local)),
+                int(W > ESTEP_WIDE_LANES),
                 0 if scratch is None else scratch.data_ptr(),
                 out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
     _raise_on(err, "fwd_store", kernels, B, W, Ly, kind)
-    _count(fwd_store, kind)
+    _count(fwd_store, kind, kind == "cluster" and mode == TWO_FOLD)
     return out[:B], rows, offsets
 
 
@@ -280,6 +344,7 @@ fwd_store.launches = 0
 fwd_store.warp_launches = 0
 fwd_store.cluster_launches = 0
 fwd_store.block_launches = 0
+fwd_store.two_level_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -478,20 +543,22 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
             err = lib.quaff_bwd_counts_warp(
                 *args, lpt, partial.data_ptr(), d_sc.data_ptr(), stream)
         elif kind == "cluster":
+            mode = cluster_mode(W, lpt)
             nct, warps, lpt = lpt
             err = lib.quaff_bwd_counts_cluster(
-                *args, lpt, nct, warps, partial.data_ptr(), d_sc.data_ptr(),
-                stream)
+                *args, lpt, nct, warps, mode, partial.data_ptr(),
+                d_sc.data_ptr(), stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0, "bwd_counts"):
                 scratch = torch.empty(B * 8 * W, dtype=torch.float32,
                                       device=dev)
             err = lib.quaff_bwd_counts(
-                *args, 0 if scratch is None else scratch.data_ptr(),
+                *args, int(W > ESTEP_WIDE_LANES),
+                0 if scratch is None else scratch.data_ptr(),
                 partial.data_ptr(), d_sc.data_ptr(), stream)
     _raise_on(err, "bwd_counts", kernels, B, W, Ly, kind)
-    _count(bwd_counts, kind)
+    _count(bwd_counts, kind, kind == "cluster" and mode == TWO_FOLD)
     return partial, d_sc
 
 
@@ -499,6 +566,7 @@ bwd_counts.launches = 0
 bwd_counts.warp_launches = 0
 bwd_counts.cluster_launches = 0
 bwd_counts.block_launches = 0
+bwd_counts.two_level_launches = 0
 
 
 # warps of the count reduction's column tile (csrc/estep.cu kRedWarps)

@@ -90,7 +90,7 @@ def library() -> ctypes.CDLL:
             p, p,  # out, stream
         ]
         lib.quaff_fwd_store.argtypes = fill_args + [
-            i, i,  # B, local
+            i, i, i,  # B, local, wide
             p, p, p, p, p,  # scratch, out, rows, offs, stream
         ]
         lib.quaff_fwd_store_warp.argtypes = [
@@ -114,12 +114,12 @@ def library() -> ctypes.CDLL:
             p, i,  # doff, W
             p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
             p, i, p,  # ik, n_ik, trans
-            p, p, p, i, i,  # wrow, rows, offs, B, local
+            p, p, p, i, i, i,  # wrow, rows, offs, B, local, wide
             p, p, p, p,  # scratch, partial, d_sc, stream
         ]
         lib.quaff_fwd_store_cluster.argtypes = fill_args + [
             i, i,  # B, local
-            i, i, i,  # lpt, nct, warps
+            i, i, i, i,  # lpt, nct, warps, mode
             p, p, p, p,  # out, rows, offs, stream
         ]
         lib.quaff_bwd_counts_cluster.argtypes = [
@@ -128,7 +128,7 @@ def library() -> ctypes.CDLL:
             p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
             p, i, p,  # ik, n_ik, trans
             p, p, p, i, i,  # wrow, rows, offs, B, local
-            i, i, i,  # lpt, nct, warps
+            i, i, i, i,  # lpt, nct, warps, mode
             p, p, p,  # partial, d_sc, stream
         ]
         lib.quaff_estep_reduce.argtypes = [p, i, i, p, p]

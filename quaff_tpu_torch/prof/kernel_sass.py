@@ -44,9 +44,10 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # The port's kernels by their __global__ function: (part of the demangled
 # name, (the wrapper that launches it, its route)), the first match wins.
 # K1 and K2 share band_fill_kernel and band_fill_cluster_kernel: their
-# STORE instantiations are K2's block and cluster routes.
+# STORE instantiations (<false, true, ...>, each mode) are K2's block and
+# cluster routes.
 KERNEL_NAMES = (
-    ("band_fill_kernel<false, true>", ("fwd_store", "block")),
+    ("band_fill_kernel<false, true", ("fwd_store", "block")),
     ("band_fill_cluster_kernel<false, true,", ("fwd_store", "cluster")),
     ("band_fill_kernel<", ("band_fill", "block")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),

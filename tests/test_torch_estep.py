@@ -187,7 +187,8 @@ def test_wrappers_route_by_device():
 
 
 def _cluster_route(W, kernel):
-    return "cluster", fill_v2.cluster_tiling(W, estep.ESTEP_CLUSTER_TABLE)
+    return "cluster", fill_v2.cluster_tiling(W,
+                                             estep.ESTEP_CLUSTER_TABLE[kernel])
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
@@ -198,7 +199,8 @@ def test_estep_route_table(kernel, lpt):
     with the smallest lanes-a-thread whose warp (32 * lpt lanes) covers it
     (the widths 16*lpt+1 .. 32*lpt), every wider band up to
     ESTEP_CLUSTER_MAX_LANES the cluster route at the tiling of the first
-    row of ESTEP_CLUSTER_TABLE that covers it, every band past that the
+    row of the kernel's ESTEP_CLUSTER_TABLE that covers it, every band
+    past that the
     block route (lpt None: the 4096 widths past the cutover)."""
     cut = estep.ESTEP_WARP_MAX_LANES[kernel]
     assert cut in (256, 512)
@@ -242,19 +244,25 @@ def test_warp_lpt(W, lpt):
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
 def test_estep_cluster_table(kernel):
-    """ESTEP_CLUSTER_TABLE, K2's and K3's: rows of growing width up to
-    ESTEP_CLUSTER_MAX_LANES (the trainer's ESTEP_LANE_CAP) at lanes a
-    thread the kernels have, and at every width from the kernel's warp
-    route's cutover to the last row the tiling it gives is one the kernel
-    takes (at most MAX_TILES tiles over at most MAX_CLUSTER_CTAS CTAs of
-    at most ESTEP_CLUSTER_MAX_WARPS warps) that covers the band, with its
-    tiles spread evenly (no CTA idle)."""
+    """The kernel's ESTEP_CLUSTER_TABLE: rows of growing width up to
+    ESTEP_CLUSTER_MAX_LANES at lanes a thread the kernels have, and at
+    every width from the kernel's warp route's cutover to the last row the
+    tiling it gives is one the kernel takes (at most
+    ESTEP_CLUSTER_MAX_WARPS warps a CTA) that covers the band, with its
+    tiles spread evenly (no CTA idle): one fold of at most MAX_TILES tiles
+    over at most MAX_CLUSTER_CTAS CTAs up to ESTEP_WIDE_LANES, the
+    trainer's ESTEP_LANE_CAP (the train path keeps its narrow-band
+    arithmetic), and past it the wide arithmetic with two levels over at
+    most MAX_CLUSTER_CTAS2 CTAs."""
     from quaff_tpu_torch import trainer
 
-    table = estep.ESTEP_CLUSTER_TABLE
+    table = estep.ESTEP_CLUSTER_TABLE[kernel]
+    assert set(estep.ESTEP_CLUSTER_TABLE) == {"fwd_store", "bwd_counts"}
     widths = [row[0] for row in table]
     assert widths == sorted(widths)
-    assert widths[-1] == estep.ESTEP_CLUSTER_MAX_LANES == trainer.ESTEP_LANE_CAP
+    assert widths[-1] == estep.ESTEP_CLUSTER_MAX_LANES == 32768
+    assert estep.ESTEP_WIDE_LANES == trainer.ESTEP_LANE_CAP == widths[0]
+    assert table[0] == (4096, 4, 4)
     assert all(lpt in estep.ESTEP_CLUSTER_LPTS for _, lpt, _ in table)
     max_warps = estep.ESTEP_CLUSTER_MAX_WARPS[kernel]
     assert set(max_warps) == set(estep.ESTEP_CLUSTER_LPTS)
@@ -264,39 +272,102 @@ def test_estep_cluster_table(kernel):
         assert route[0] == "cluster" and estep.estep_route_ok(W, route,
                                                               kernel)
         assert W <= nct * warps * 32 * lpt
-        assert nct <= fill_v2.MAX_CLUSTER_CTAS and warps <= max_warps[lpt]
-        assert nct * warps <= fill_v2.MAX_TILES
+        assert warps <= max_warps[lpt]
+        narrow = W <= estep.ESTEP_WIDE_LANES
+        assert nct * warps <= fill_v2.MAX_TILES or not narrow
+        assert nct <= (fill_v2.MAX_CLUSTER_CTAS if narrow
+                       else estep.MAX_CLUSTER_CTAS2)
+        assert nct * warps <= estep.MAX_TILES2
         assert (nct - 1) * warps * 32 * lpt < W  # every CTA holds lanes
+        assert estep.cluster_mode(W, route[1]) == (
+            estep.ONE_FOLD if narrow else estep.TWO_FOLD)
+
+
+@pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
+@pytest.mark.parametrize("W", [4096, 4097, 16384, 16385, 32768, 32769])
+def test_estep_route_bounds(W, kernel):
+    """The routes at each bound: 4096 lanes the last of the narrow-band
+    row (8 x 4 x 4, one fold, the narrow-band arithmetic); 4097-16384 the
+    wide arithmetic and two levels over CTAs that share an SM (K2: 4
+    lanes a thread, up to 8 warps a CTA; K3: 4 lanes a thread and 4 warps
+    up to 8192 lanes, then 8 and 4); 16385-32768 K2 at 4 lanes a thread
+    and up to 16 warps a CTA, K3 at 8 and 8, over up to 16 CTAs; past
+    32768 the block route (wide).  estep_route_ok takes each route's
+    tiling and refuses a one-fold tiling past 8 CTAs, a two-level one
+    past 16 CTAs or the kernel's warps, a tiling that does not cover the
+    band, any cluster tiling past ESTEP_CLUSTER_MAX_LANES, and a fourth
+    element."""
+    ok = estep.estep_route_ok
+    kind, tiling = estep.estep_route(W, kernel)
+    if W > estep.ESTEP_CLUSTER_MAX_LANES:
+        assert (kind, tiling) == ("block", 0)
+        for t in ((16, 8, 8), (16, 16, 4), (8, 8, 32)):
+            assert not ok(W, ("cluster", t), kernel)
+        assert ok(W, ("block", 0), kernel)
+        return
+    want = {4096: (8, 4, 4),
+            4097: {"fwd_store": (5, 7, 4), "bwd_counts": (9, 4, 4)},
+            16384: {"fwd_store": (16, 8, 4), "bwd_counts": (16, 4, 8)},
+            16385: {"fwd_store": (11, 12, 4), "bwd_counts": (9, 8, 8)},
+            32768: {"fwd_store": (16, 16, 4), "bwd_counts": (16, 8, 8)}}[W]
+    if isinstance(want, dict):
+        want = want[kernel]
+    assert (kind, tiling) == ("cluster", want)
+    assert ok(W, ("cluster", want), kernel)
+    assert estep.cluster_mode(W, want) == (
+        estep.ONE_FOLD if W == 4096 else estep.TWO_FOLD)
+    nct, warps, lpt = want
+    assert not ok(W, ("cluster", want + (2,)), kernel)
+    if W == 4096:
+        assert not ok(W, ("cluster", (9, 3, 16)), kernel)  # one fold, 9
+        assert ok(W, ("cluster", (9, 4, lpt)), kernel)  # 36 tiles: two
+    else:
+        assert ok(W, ("cluster", (nct, 4, 16)), kernel)  # fewer tiles
+    assert not ok(W, ("cluster", (17, warps, lpt)), kernel)
+    assert not ok(W, ("cluster", (nct, 17, 4)), kernel)
+    assert not ok(W + 32 * lpt * warps * nct, ("cluster", want), kernel)
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
 def test_estep_cluster_route_ok_refuses(kernel):
     """A forced cluster tiling must be one the kernel has and cover the
     band: estep_route_ok refuses a tiling whose tiles do not cover W, one
-    of more than MAX_CLUSTER_CTAS CTAs or MAX_TILES tiles, more warps a CTA
-    than the kernel takes (K3: 8 at any lanes a thread; K2: 8 from 8 lanes
-    a thread up, 16 below), lanes a thread the kernel has no instantiation
-    of, a band wider than ESTEP_CLUSTER_MAX_LANES, and anything that is not
-    a (CTAs, warps, lanes) triple; the wrappers raise on it before any
-    launch, CPU tensors too."""
+    of more than MAX_CLUSTER_CTAS CTAs folded once (up to ESTEP_WIDE_LANES
+    and MAX_TILES tiles) or MAX_CLUSTER_CTAS2 in two levels, more warps a
+    CTA than the kernel takes (K3: 8 at any lanes a thread; K2: 8 from 8
+    lanes a thread up, 16 below), lanes a thread the kernel has no
+    instantiation of, a band wider than ESTEP_CLUSTER_MAX_LANES, and
+    anything that is not a (CTAs, warps, lanes) tuple; the wrappers raise
+    on it before any launch, CPU tensors too.  Past ESTEP_WIDE_LANES every
+    cluster tiling takes two levels, so up to 16 CTAs."""
     ok = estep.estep_route_ok
     assert ok(2048, ("cluster", (1, 4, 16)), kernel)
     assert ok(2048, ("cluster", (2, 2, 16)), kernel)
     assert not ok(2049, ("cluster", (1, 4, 16)), kernel)  # does not cover
     assert not ok(600, ("cluster", (1, 1, 4)), kernel)
-    assert not ok(600, ("cluster", (9, 1, 4)), kernel)  # CTAs
-    assert not ok(600, ("cluster", (8, 5, 4)), kernel)  # tiles
+    assert not ok(600, ("cluster", (9, 1, 4)), kernel)  # CTAs, one fold
+    # more than 32 tiles: two levels
+    assert ok(600, ("cluster", (8, 5, 4)), kernel)
+    assert ok(600, ("cluster", (12, 3, 4)), kernel)  # 12 CTAs, 36 tiles
+    assert not ok(600, ("cluster", (17, 2, 4)), kernel)  # past 16 CTAs
     assert not ok(600, ("cluster", (1, 20, 2)), kernel)  # no lpt 2
     assert not ok(600, ("cluster", (1, 9, 16)), kernel)  # warps at lpt 16
     assert ok(600, ("cluster", (1, 10, 4)), kernel) == (kernel == "fwd_store")
     assert ok(600, ("cluster", (1, 9, 8)), kernel) is False  # warps at lpt 8
+    assert ok(4096, ("cluster", (8, 4, 4)), kernel)
+    assert ok(4096, ("cluster", (2, 4, 16)), kernel)
+    # past 4096 lanes: two levels, up to 16 CTAs, of few tiles too
+    for W, tiling in ((4097, (8, 4, 8)), (8192, (8, 2, 16)),
+                      (16384, (8, 4, 16)), (8192, (16, 1, 16))):
+        assert ok(W, ("cluster", tiling), kernel)
+        assert estep.cluster_mode(W, tiling) == estep.TWO_FOLD
     top = estep.ESTEP_CLUSTER_MAX_LANES
-    assert ok(top, ("cluster", (8, 4, 4)), kernel)
-    assert ok(top, ("cluster", (2, 4, 16)), kernel)
-    for W, tiling in ((top + 1, (8, 4, 8)), (8192, (8, 2, 16)),
-                      (16384, (8, 4, 16))):  # covered, but past the cap
-        assert not ok(W, ("cluster", tiling), kernel)
+    assert ok(top, ("cluster", (16, 8, 8)), kernel)
+    assert ok(top, ("cluster", (8, 8, 16)), kernel)  # two levels, 8 CTAs
+    for W, tiling in ((top + 1, (16, 8, 8)), (top + 1, (8, 16, 16))):
+        assert not ok(W, ("cluster", tiling), kernel)  # past the cap
     for bad in (("cluster", None), ("cluster", (1, 4)), ("cluster", 0),
+                ("cluster", (1, 4, 4, 2)), ("cluster", (12, 1, 4, 2)),
                 None, ("warp",)):
         assert not ok(600, bad, kernel)
     from test_torch_kernel_cuda import _tables, random_fill_inputs
@@ -394,7 +465,7 @@ def test_estep_forced_route_on_cpu():
               for f in ("fwd_store", "bwd_counts")}
     for route in (None, ("warp", 2), ("warp", 16), ("cluster", (1, 1, 4)),
                   ("cluster", (2, 1, 8)), ("cluster", (1, 3, 16)),
-                  ("block", 0)):
+                  ("cluster", (9, 4, 4)), ("block", 0)):
         got = estep.fwd_store(**inp, tables=v2, route=route)
         assert all(torch.equal(a, b) for a, b in zip(got, (fwd, rows, offs)))
         got = estep.bwd_counts(*base, route=route)
@@ -404,7 +475,7 @@ def test_estep_forced_route_on_cpu():
     for bad in (("warp", 1), ("warp", 3), ("block", None), ("block", 8),
                 ("tile", 0), ("cluster", (1, 1, 1)), ("cluster", (9, 1, 4)),
                 ("cluster", (1, 1, 2)), ("cluster", (1, 40, 4)),
-                ("cluster", 4)):
+                ("cluster", (1, 1, 4, 2)), ("cluster", 4)):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=bad)
         with pytest.raises(ValueError, match="no route"):
@@ -415,10 +486,12 @@ def test_chip_smoke_route_helpers():
     """chip_smoke.py's E-step route helpers, pure functions of the width:
     the routes it holds against each other (the warp route where 512
     lanes cover the band, the cluster route at the table's tiling up to
-    4096 lanes, then the block route), and the check that a run's
-    launch counts by route match its chunks' estep_route (a 423-lane
-    chunk runs K2's warp route and K3's cluster route, a 4038-lane one
-    both cluster routes, a 22882-lane one both block routes)."""
+    32768 lanes, then the block route), the two-level tilings its sweep
+    times at phase 4b's width, and the check that a run's launch counts
+    by route match its chunks' estep_route (a 423-lane chunk runs K2's
+    warp route and K3's cluster route, a 4038-lane one both cluster
+    routes, a 22882-lane one both two-level cluster routes, a 35000-lane
+    one both block routes)."""
     import chip_smoke
 
     assert chip_smoke._estep_routes(3, "fwd_store") == [
@@ -428,15 +501,29 @@ def test_chip_smoke_route_helpers():
     assert chip_smoke._estep_routes(512, "fwd_store") == [
         ("warp", 16), _cluster_route(512, "fwd_store"), ("block", 0)]
     for k in ("fwd_store", "bwd_counts"):
-        assert chip_smoke._estep_routes(4038, k) == [
-            _cluster_route(4038, k), ("block", 0)]
-        assert chip_smoke._estep_routes(22882, k) == [("block", 0)]
-        assert chip_smoke._estep_routes(4097, k) == [("block", 0)]
+        for W in (4038, 4097, 22882):
+            assert chip_smoke._estep_routes(W, k) == [
+                _cluster_route(W, k), ("block", 0)]
+        assert chip_smoke._estep_routes(35000, k) == [("block", 0)]
+        mw = estep.ESTEP_CLUSTER_MAX_WARPS[k].get
+        swept = chip_smoke._sweep_tilings(22136, estep.ESTEP_CLUSTER_LPTS,
+                                          mw, two_level=True)
+        assert _cluster_route(22136, k)[1] == {
+            "fwd_store": (15, 12, 4), "bwd_counts": (11, 8, 8)}[k]
+        assert {(11, 8, 8), (13, 7, 8), (15, 6, 8), (6, 8, 16),
+                (8, 6, 16)} <= set(swept)
+        for nct, warps, lpt in swept:
+            assert 32 < nct * warps <= estep.MAX_TILES2
+            assert estep.estep_route_ok(22136, ("cluster", (nct, warps, lpt)),
+                                        k)
+        assert len({t[1:] for t in swept}) == len(swept)
+        assert chip_smoke._sweep_tilings(22136, estep.ESTEP_CLUSTER_LPTS,
+                                         mw) == []
     chunks = [{"B": 4, "W": 168}, {"B": 2, "W": 423}, {"B": 14, "W": 4038},
-              {"B": 8, "W": 22882}]
-    n = {"fwd_store": {"warp_launches": 2, "cluster_launches": 1,
+              {"B": 8, "W": 22882}, {"B": 1, "W": 35000}]
+    n = {"fwd_store": {"warp_launches": 2, "cluster_launches": 2,
                        "block_launches": 1},
-         "bwd_counts": {"warp_launches": 1, "cluster_launches": 2,
+         "bwd_counts": {"warp_launches": 1, "cluster_launches": 3,
                         "block_launches": 1}}
     routes = chip_smoke._check_routes("a run", chunks, n)
     assert routes == [
@@ -444,12 +531,13 @@ def test_chip_smoke_route_helpers():
         {"fwd_store": ("warp", 16),
          "bwd_counts": _cluster_route(423, "bwd_counts")},
         {k: _cluster_route(4038, k) for k in ("fwd_store", "bwd_counts")},
+        {k: _cluster_route(22882, k) for k in ("fwd_store", "bwd_counts")},
         {"fwd_store": ("block", 0), "bwd_counts": ("block", 0)}]
     t423 = "{} x {} x {}".format(*_cluster_route(423, "bwd_counts")[1])
     assert chip_smoke._route_text(chunks[:2], routes[:2]) == (
         "(B=4, W=168: K2 warp 8, K3 warp 8); "
         f"(B=2, W=423: K2 warp 16, K3 cluster {t423})")
-    n["bwd_counts"] = {"warp_launches": 2, "cluster_launches": 1,
+    n["bwd_counts"] = {"warp_launches": 2, "cluster_launches": 2,
                        "block_launches": 1}
     with pytest.raises(chip_smoke.SmokeFailure, match="bwd_counts"):
         chip_smoke._check_routes("a run", chunks, n)

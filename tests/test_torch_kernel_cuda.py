@@ -5,8 +5,10 @@ tiling its route table chooses and at forced ones, and its block route),
 K2 and K3 (csrc/estep.cu, csrc/estep_cluster.cu: their warp routes at every
 lanes-a-thread instantiation, their cluster routes at the tilings their
 route tables choose up to 2048 lanes and at each table row's widest band,
-at forced tilings and against their own one-tile tiling, their block
-routes, and each pairing of a K2 route with a K3 route), the count
+at forced tilings and against their own one-tile tiling, the two-level
+fold past 32 tiles and forced on a few, their block routes on global
+long-deletion bands, and each pairing of a K2 route with a K3 route), the
+count
 reduction (bit for bit), K4 (csrc/ov_fill.cu: its warp route at every
 lanes-a-thread instantiation, its cluster route as K1's) and the probes'
 chain kernel (csrc/sol_probe.cu).  Needs an NVIDIA GPU and skips without
@@ -15,7 +17,8 @@ one.  This file imports no JAX, so it also runs on a host that has none:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernel_cuda.py
 
-(`-k cluster` selects the cluster routes' tests.)
+(`-k cluster` selects the cluster routes' tests, `-k two_level` the
+two-level fold's.)
 
 Tolerances, the TPU kernels' own: scores rtol 1e-5 / atol 1e-3 (the
 kernels sum their delete chains and Forward end reductions in another
@@ -382,22 +385,34 @@ def _estep_plain(variant, W, seed, **kw):
     return _plain_case(inp, v2, local)
 
 
-def _plain_case(inp, v2, local):
-    """(inp, v2, local, fwd_p, wrow, part_p, sc_p): the plain versions'
-    outputs on K2's and K3's inputs; wrow's weights are 0.5 and its
-    normalisers the plain forward scores."""
+def _plain_case(inp, v2, local, exact=False):
+    """(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32): the plain
+    versions' outputs on K2's and K3's inputs; wrow's weights are 0.5 and
+    its normalisers the plain forward scores, or with `exact` the float64
+    forward fill's (band_fill_reference in float64), which fwd_p then
+    holds, and fwd32 the plain float32 forward scores (else None): past
+    16384 lanes the plain float32 forward fill drifts 2e-2 to 5e-2 nats
+    off it on global long-deletion bands (PERF.md §6), too far to
+    normalise the back-start posterior by."""
     fwd_p, rows_p, offs_p = estep.fwd_store_reference(**inp, tables=v2,
                                                       local=local)
+    fwd32 = None
+    if exact:
+        B = fwd_p.shape[0]
+        fwd32, fwd_p = fwd_p, fill_v2.band_fill_reference(
+            **inp, tables=v2, mode="forward", local=local,
+            dtype=torch.float64)[:B]
     fin = fwd_p > fill_v2.NEG_INF / 2
     wrow = torch.stack([torch.full_like(fwd_p, 0.5),
-                        torch.where(fin, fwd_p, 0.0)]).contiguous()
+                        torch.where(fin, fwd_p, 0.0)]).float().contiguous()
     part_p, sc_p = estep.bwd_counts_reference(
         inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow,
         rows_p, offs_p, local=local)
-    return inp, v2, local, fwd_p, wrow, part_p, sc_p
+    return inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32
 
 
-def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
+def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
+                        routes):
     """Each (K2 route, K3 route) pair against the plain versions: forward
     scores rtol 1e-5 / atol 1e-3, tables and d_sc rtol 3e-3 / atol 5e-3,
     the back-start posterior of every finite pair within 5e-3 of 1, both
@@ -406,9 +421,20 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
     normalisers are the plain forward scores, as the JAX package's test
     runs its kernels (tests/test_pallas_counts.py): the back-start
     posterior then also holds K2's forward scores to the plain version's
-    within about 5e-3 nats."""
+    within about 5e-3 nats.  In an exact case (fwd32, the plain float32
+    forward scores, given by _plain_case(..., exact=True)) fwd_p and the
+    normalisers are the float64 forward fill's, the back-start posterior
+    is held to 1 alone, not to the plain K3's (whose float32 backward fill
+    drifts with its forward fill there), and the other per-pair sums and
+    the tables to the plain K3's.  The E-step itself divides by K2's own
+    forward score, so there K2's forward score is held to the float64
+    fill's: each pair's no farther off it than the plain float32 version's
+    plus the back-start posterior's 5e-3, and the back-start posterior on
+    K2's own forward score, exp(K3's backward total - K2's forward score),
+    is printed beside it (what the E-step's posterior would read)."""
     counts = ("launches", "warp_launches", "cluster_launches",
               "block_launches")
+    exact = fwd32 is not None
     fin = fwd_p > fill_v2.NEG_INF / 2
     assert bool(fin.any())
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
@@ -432,12 +458,27 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, routes):
                  for k, n in zip(counts, before)]
         assert moved == [1] + [int(r3[0] == k)
                                for k in ("warp", "cluster", "block")]
-        for got, want in ((part, part_p), (sc, sc_p)):
+        for got, want in ((part, part_p), (sc[:4] if exact else sc,
+                                           sc_p[:4] if exact else sc_p)):
             np.testing.assert_allclose(got.double().cpu(),
                                        want.double().cpu(),
                                        rtol=3e-3, atol=5e-3)
         bsp = sc[4][fin].double().cpu()
         assert float((bsp - 1).abs().max()) < 5e-3
+        if exact:
+            f64 = fwd_p[fin].double().cpu()
+            k2_off = fwd[fin].double().cpu() - f64
+            plain_off = fwd32[fin].double().cpu() - f64
+            # exp(back - fwd) = exp(back - f64) * exp(f64 - fwd)
+            own = bsp * torch.exp(-k2_off)
+            print(f"exact W={inp['doff'].shape[1]} K2 {r2} K3 {r3}: K2's "
+                  f"forward - float64 fill {float(k2_off.abs().max()):.3g} "
+                  f"nats (plain float32 "
+                  f"{float(plain_off.abs().max()):.3g}); back-start "
+                  f"posterior on K2's own forward within "
+                  f"{float((own - 1).abs().max()):.3g} of 1, on the float64 "
+                  f"fill's {float((bsp - 1).abs().max()):.3g}")
+            assert bool((k2_off.abs() <= plain_off.abs() + 5e-3).all())
         fwd2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
                                              route=r2)
         part2, sc2 = estep.bwd_counts(*base, rows2, offs2, local=local,
@@ -463,7 +504,7 @@ def _kernel_routes(W, kernel):
     routes = [("block", 0)]
     if W <= estep.ESTEP_CLUSTER_MAX_LANES:
         routes.insert(0, ("cluster", fill_v2.cluster_tiling(
-            W, estep.ESTEP_CLUSTER_TABLE)))
+            W, estep.ESTEP_CLUSTER_TABLE[kernel])))
     if estep.warp_lpt(W) is not None:
         routes.insert(0, ("warp", estep.warp_lpt(W)))
     return routes
@@ -934,12 +975,12 @@ def _stored_rows_check(inp, v2, local, rows, offs):
 def _estep_table_tilings(kernel):
     """(kernel, tiling, W): each tiling estep_route chooses for the kernel
     past its warp route up to 2048 lanes, with the widest band it takes
-    there, and at each row of ESTEP_CLUSTER_TABLE the row's widest
-    band."""
+    there, and at each row of the kernel's ESTEP_CLUSTER_TABLE the row's
+    widest band."""
     widest = {}
     for W in range(estep.ESTEP_WARP_MAX_LANES[kernel] + 1, 2049):
         widest[estep.estep_route(W, kernel)[1]] = W
-    for W, _, _ in estep.ESTEP_CLUSTER_TABLE:
+    for W, _, _ in estep.ESTEP_CLUSTER_TABLE[kernel]:
         widest[estep.estep_route(W, kernel)[1]] = W
     return [(kernel, t, W) for t, W in sorted(widest.items())]
 
@@ -963,45 +1004,150 @@ def test_estep_cluster_table_tilings(kernel, tiling, W, variant):
         kw = dict(Lx=W + 64, Ly=120)
     else:
         kw = dict(Lx=W // 2 + 64, Ly=min(W // 4, 1024))
-    case = _estep_plain(variant, W, W + 7, B=4, **kw)
+    # global bands past ESTEP_WIDE_LANES take the float64 normaliser
+    exact = variant == "global" and W > estep.ESTEP_WIDE_LANES
+    local, tables = ESTEP_VARIANTS[variant]
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
+                                 _tables(tables), W, B=4, local=local, **kw)
+    case = _plain_case(inp, v2, local, exact=exact)
     r = ("cluster", tiling)
     if kernel == "fwd_store":
         pair = (r, estep.estep_route(W, "bwd_counts"))
     else:
         pair = (estep.estep_route(W, "fwd_store"), r)
     _estep_routes_check(*case, [pair])
-    inp, v2, local = case[:3]
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local, route=pair[0])[1:])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [estep.ESTEP_CLUSTER_MAX_LANES + 1, 8192, 16384])
+@pytest.mark.parametrize("W", [4097, 8192, 16384])
 def test_estep_block_routes_past_the_cluster_routes(W):
-    """Past ESTEP_CLUSTER_MAX_LANES both kernels take their block routes,
-    and a cluster tiling that covers the band is refused before any
-    launch.  The block routes on global bands of reads of up to 1024 rows
-    over refs of up to W / 2 + 64 bases (at 8192 and 16384 lanes the input
-    on which the cluster routes at 8 and 16 lanes a thread put the
-    back-start posterior 7.4e-3 off 1), against the plain versions; K2's
-    stored rows against the plain version's.  At 8192 and 16384 lanes the
-    block routes miss the back-start posterior's tolerance as well (an
-    open fault, ROADMAP queue 3)."""
+    """The block routes on global bands of reads of up to 1024 rows over
+    refs of up to W / 2 + 64 bases, about 3300 deletions a read, against
+    the plain versions (K3 normalised by the plain forward scores): the
+    back-start posterior within 5e-3 of 1; K2's stored rows against the
+    plain version's.  Past ESTEP_WIDE_LANES they run the wide arithmetic
+    (each thread's delete chain relative to its largest opening term, K3's
+    rows scaled at their posterior mode); on this input the former
+    arithmetic put the back-start posterior 6.8e-3 off 1 (8192 lanes) and
+    the per-pair sums 2.2e-2 off the plain version's (16384).  The cluster
+    routes take these bands, so the block routes are forced."""
     _need_card()
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
-    assert routes == (("block", 0), ("block", 0))
+    assert all(r[0] == "cluster" for r in routes)
     case = _estep_plain("global", W, W + 7, B=4, Lx=W // 2 + 64,
                         Ly=min(W // 4, 1024))
     inp, v2, local = case[:3]
-    tiling = (8, 4, 16)
-    assert W <= 32 * 16 * 4 * 8
-    with pytest.raises(ValueError, match="no route"):
-        estep.fwd_store(**inp, tables=v2, local=local,
-                        route=("cluster", tiling))
+    routes = (("block", 0), ("block", 0))
     _estep_routes_check(*case, [routes])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
+        **inp, tables=v2, local=local, route=routes[0])[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["local", "global"])
+def test_estep_block_routes_past_the_widest_band(variant):
+    """Past ESTEP_CLUSTER_MAX_LANES both kernels take their block routes
+    (wide arithmetic), and a cluster tiling that covers the band is
+    refused before any launch: on random strips over a ref as wide as the
+    band, against the plain versions; on the global long-deletion recipe
+    (reads of up to 1024 rows over refs of W / 2 + 64 bases), with the
+    float64 forward fill as the normaliser (_plain_case's exact)."""
+    _need_card()
+    W = estep.ESTEP_CLUSTER_MAX_LANES + 1
+    routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
+                                                      "bwd_counts"))
+    assert routes == (("block", 0), ("block", 0))
+    local = variant == "local"
+    kw = (dict(Lx=W + 64, Ly=120) if local
+          else dict(Lx=W // 2 + 64, Ly=1024))
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
+                                 _tables("packed"), W, B=4, local=local, **kw)
+    for tiling in ((8, 8, 32), (8, 16, 16)):
+        assert W <= 32 * tiling[2] * tiling[1] * 8
+        with pytest.raises(ValueError, match="no route"):
+            estep.fwd_store(**inp, tables=v2, local=local,
+                            route=("cluster", tiling))
+    _estep_routes_check(*_plain_case(inp, v2, local, exact=not local),
+                        [routes])
+    _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local)[1:])
+
+
+# phase 4b's count -fast -kmatchoff chunk's width, and the widest band of
+# the two-level tilings
+TWO_LEVEL_WIDTHS = (22136, estep.ESTEP_CLUSTER_MAX_LANES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["local", "global"])
+@pytest.mark.parametrize("W", TWO_LEVEL_WIDTHS)
+def test_estep_two_level_fold_matches_plain(W, variant):
+    """K2's and K3's two-level tiling (more than 32 tiles: each CTA folds
+    its warps' tiles, then the CTAs fold) at phase 4b's width and at the
+    widest band, each paired with itself and with the other kernel's
+    block route (the layout they share), against the plain versions (K3
+    normalised by the plain forward scores): local, random strips over a
+    ref as wide as the band and strips seamed on tile and CTA boundaries;
+    global, one strip over every diagonal of reads of up to 1024 rows and
+    refs of W / 2 + 64 bases, normalised by the float64 forward fill
+    (_plain_case's exact).  K2's stored rows against the plain version's;
+    both kernels bit for bit on a rerun; each launch counted as a
+    two-level one."""
+    _need_card()
+    r2, r3 = (estep.estep_route(W, k) for k in ("fwd_store", "bwd_counts"))
+    for r in (r2, r3):
+        nct, warps, lpt = r[1]
+        assert r[0] == "cluster" and nct * warps > fill_v2.MAX_TILES
+        assert estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
+    if variant == "local":
+        kws = [dict(Lx=W + 64, Ly=120),
+               dict(Lx=W + 64, Ly=120, seams=_tile_seams(W, r2[1]))]
+    else:
+        kws = [dict(Lx=W // 2 + 64, Ly=min(W // 4, 1024))]
+    bl = ("block", 0)
+    exact = variant == "global"
+    for kw in kws:
+        local, tables = ESTEP_VARIANTS[variant]
+        inp, v2 = random_fill_inputs(np.random.default_rng(W + 11),
+                                     _tables(tables), W, B=3, local=local,
+                                     **kw)
+        case = _plain_case(inp, v2, local, exact=exact)
+        before = [estep.fwd_store.two_level_launches,
+                  estep.bwd_counts.two_level_launches]
+        _estep_routes_check(*case, [(r2, r3), (r2, bl), (bl, r3)])
+        # each pairing runs each kernel twice, twice on the cluster route
+        assert [estep.fwd_store.two_level_launches,
+                estep.bwd_counts.two_level_launches] == [
+            before[0] + 4, before[1] + 4]
+        inp, v2, local = case[:3]
+        _stored_rows_check(inp, v2, local, *estep.fwd_store(
+            **inp, tables=v2, local=local, route=r2)[1:])
+
+
+@pytest.mark.cuda
+def test_estep_two_level_long_deletions():
+    """K2's and K3's routes at the widest band (two-level) on the global
+    long-deletion input (reads of up to 1024 rows over refs of W / 2 + 64
+    bases, up to ~16000 deletions a read) on which the former arithmetic
+    missed the back-start posterior at 8192 and 16384 lanes: both routed
+    kernels and both block routes forced, the back-start posterior, with
+    the float64 forward fill as the normaliser, within 5e-3 of 1, the
+    forward scores within rtol 1e-5 of the float64 fill's, the tables and
+    the other per-pair sums against the plain versions."""
+    _need_card()
+    W = estep.ESTEP_CLUSTER_MAX_LANES
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
+                                 _tables("packed"), W, B=4,
+                                 Lx=W // 2 + 64, Ly=1024, local=False)
+    routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
+                                                      "bwd_counts"))
+    assert all(estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
+               for r in routes)
+    _estep_routes_check(*_plain_case(inp, v2, False, exact=True),
+                        [routes, (("block", 0), ("block", 0))])
 
 
 @pytest.mark.cuda
@@ -1018,8 +1164,10 @@ def test_estep_cluster_forced_tilings(tiling, variant):
     variants with strips seamed on tile and CTA boundaries (the last ending
     on a member lane at the last CTA's last lane), global ones over long
     reads whose tiles are dead in most rows; each paired with itself and
-    with the block route of the other kernel, against the plain versions;
-    K2's stored rows against the plain version's."""
+    with the block route of the other kernel, against the plain versions
+    (global bands past ESTEP_WIDE_LANES with the float64 forward fill as
+    K3's normaliser, _plain_case's exact); K2's stored rows against the
+    plain version's."""
     _need_card()
     nct, warps, lpt = tiling
     W = nct * warps * 32 * lpt
@@ -1033,7 +1181,10 @@ def test_estep_cluster_forced_tilings(tiling, variant):
                                      Lx=W // 2 + 64, Ly=min(W // 4, 1024),
                                      local=False)
     cl, bl = ("cluster", tiling), ("block", 0)
-    _estep_routes_check(*_plain_case(inp, v2, local),
+    # global bands past ESTEP_WIDE_LANES take the float64 normaliser: on
+    # (8, 2, 16)'s gap-order-1 band the plain forward fill is 9.3e-3 off it
+    exact = not local and W > estep.ESTEP_WIDE_LANES
+    _estep_routes_check(*_plain_case(inp, v2, local, exact=exact),
                         [(cl, cl), (cl, bl), (bl, cl)])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local, route=cl)[1:])
@@ -1109,17 +1260,108 @@ def test_estep_cluster_seams_match_one_tile(tiling, local):
     assert float((s1 - s2).abs().max()) <= 3e-5 * float(s1.abs().max())
 
 
+def _two_level_seam_lanes(W, tiling, ylen=100):
+    """The band lanes of _seam_pairs' paths for `tiling` on a band of W
+    lanes: either side of its first tile boundary and of each boundary
+    between CTAs that hold lanes, within the lanes a read of ylen rows can
+    start on."""
+    nct, warps, lpt = tiling
+    tile, cta = 32 * lpt, 32 * lpt * warps
+    lanes = {tile - 1, tile}
+    for c in range(1, nct):
+        if c * cta < W - ylen:
+            lanes |= {c * cta - 1, c * cta}
+    return sorted(v for v in lanes if ylen <= v <= W - 2 * ylen - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("tiling", [(5, 7, 4), (6, 6, 4), (9, 4, 4),
+                                    (8, 5, 4), (16, 3, 4), (5, 7, 8)],
+                         ids=str)
+def test_estep_two_level_seams_match_one_fold(tiling, local):
+    """K2's and K3's two-level fold (more than 32 tiles or 4096 lanes:
+    each CTA folds its warps' tiles, then the CTAs fold), up to 16 CTAs,
+    4 and 8 lanes a thread, some CTAs past the band, on bands of reads
+    copied from their refs (_seam_pairs) whose alignment diagonals lie
+    either side of its tile and CTA boundaries, against a route without
+    its seams on the same inputs, at the bounds of
+    test_estep_cluster_seams_match_one_tile: a wrong first-level prefix, a
+    lost seam between CTAs, a wrong composite of the tiles after a tile
+    or a lost insert cell from the previous CTA each moved the forward
+    scores past 1e-3 or the tables past 1e-5 (measured on a CPU host with
+    one of each broken), while a right fold changes only the order of
+    float32 sums.  Local: 4096 lanes, K2 and K3 against the one-fold table
+    tiling (8 x 4 x 4, whose own seams that test holds to the one-tile
+    run).  Global: 4480 lanes (every path crosses every seam; ~4300
+    deletions a read, where the one-fold route's narrow-band arithmetic
+    parts from the wide one by 2e-3-3e-3 nats of a forward score), K2
+    against the block route, in the same arithmetic; K3 is held there by
+    the exact tests alone, since on these bands any two right routes'
+    tables (the block route, six two-level tilings) differ by up to
+    1.8e-5 of their largest entry, the order of float32 sums over the
+    deletion chains (measured on the card), past the bound that tells a
+    right fold from a wrong one."""
+    _need_card()
+    W = estep.ESTEP_WIDE_LANES if local else 4480
+    nct, warps, lpt = tiling
+    assert nct * warps > fill_v2.MAX_TILES and W <= nct * warps * 32 * lpt
+    assert estep.cluster_mode(W, tiling) == estep.TWO_FOLD
+    if local:
+        ref = estep.estep_route(W, "fwd_store")
+        assert ref == estep.estep_route(W, "bwd_counts") == ("cluster",
+                                                             (8, 4, 4))
+        assert estep.cluster_mode(W, ref[1]) == estep.ONE_FOLD
+    else:
+        ref = ("block", 0)
+    lanes = _two_level_seam_lanes(W, tiling)
+    assert len(lanes) >= 4
+    pb = _seam_pairs(np.random.default_rng(17), lanes, W=W)
+    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
+    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
+    two = ("cluster", tiling)
+    f1, rows1, offs1 = estep.fwd_store(**inp, tables=v2, local=local,
+                                       route=ref)
+    n = estep.fwd_store.two_level_launches
+    f2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
+                                       route=two)
+    assert estep.fwd_store.two_level_launches == n + 1
+    fin = f1 > fill_v2.NEG_INF / 2
+    assert bool(fin.all()) and torch.equal(f2 > fill_v2.NEG_INF / 2, fin)
+    assert float((f1 - f2).abs().max()) <= 1e-3
+    live = rows1 > fill_v2.NEG_INF / 2
+    assert torch.equal(rows2 > fill_v2.NEG_INF / 2, live)
+    a1 = rows1.double() + offs1[None, :, :, None]
+    a2 = rows2.double() + offs2[None, :, :, None]
+    assert float((a1 - a2).abs()[live].max()) <= 1e-2
+    if not local:
+        return
+    wrow = torch.stack([torch.full_like(f1, 0.5), f1]).contiguous()
+    p1, s1 = estep.bwd_counts(*base, wrow, rows1, offs1, local=local,
+                              route=ref)
+    n = estep.bwd_counts.two_level_launches
+    p2, s2 = estep.bwd_counts(*base, wrow, rows1, offs1, local=local,
+                              route=two)
+    assert estep.bwd_counts.two_level_launches == n + 1
+    assert float((p1 - p2).abs().max()) <= 1e-5 * float(p1.abs().max())
+    assert float((s1 - s2).abs().max()) <= 3e-5 * float(s1.abs().max())
+
+
 @pytest.mark.cuda
 def test_estep_cluster_refused_launch_raises():
-    """K2's and K3's cluster routes at 16 CTAs are refused by the card: the
-    entries return an error, which the wrappers' launch check raises.  The
-    wrappers themselves take no cluster of more than MAX_CLUSTER_CTAS, nor
-    a tiling that cannot cover the band or has more warps a CTA than the
-    kernel: they raise before any launch."""
+    """K2's and K3's cluster routes at 16 CTAs with one fold are refused
+    by the card, at 32 CTAs with two by the entries: they return an error,
+    which the wrappers' launch check raises.  The wrappers themselves take
+    no cluster of more than MAX_CLUSTER_CTAS CTAs with one fold or
+    MAX_CLUSTER_CTAS2 with two, nor a tiling that cannot cover the band,
+    has more warps a CTA than the kernel or is not (CTAs, warps, lanes):
+    they raise before any launch."""
     _need_card()
     from quaff_tpu_torch import kernels
 
-    inp, v2, local, fwd_p, wrow, part_p, sc_p = _estep_plain("local", 2048, 3)
+    inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32 = _estep_plain(
+        "local", 2048, 3)
     B, W = inp["doff"].shape
     Ly, Lx, S = inp["keys"].shape[1], inp["x_tok"].shape[1], \
         inp["seg_start"].shape[1]
@@ -1135,33 +1377,43 @@ def test_estep_cluster_refused_launch_raises():
     d_sc = torch.empty((5, B), device="cuda")
     before = [estep.fwd_store.launches, estep.bwd_counts.launches]
     lib = kernels.library()
-    err = lib.quaff_fwd_store_cluster(
-        inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
-        inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
-        inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(), S, *tabs,
-        B, int(local), 4, 16, 1, out.data_ptr(), rows.data_ptr(),
-        offs.data_ptr(), stream)
-    assert err != 0
-    with pytest.raises(RuntimeError, match="cluster route"):
-        kernels.check_launch(err, "fwd_store", ("cluster", (16, 1, 4)), "")
-    err = lib.quaff_bwd_counts_cluster(
-        inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
-        inp["meta"].data_ptr(), inp["doff"].data_ptr(), W, *tabs,
-        wrow.data_ptr(), rows.data_ptr(), offs.data_ptr(), B, int(local), 4,
-        16, 1, part.data_ptr(), d_sc.data_ptr(), stream)
-    assert err != 0
-    with pytest.raises(RuntimeError, match="cluster route"):
-        kernels.check_launch(err, "bwd_counts", ("cluster", (16, 1, 4)), "")
+    # one fold: 16 CTAs, past the portable 8 (refused by the card); two
+    # levels: 32 CTAs, past the 16 its launch opts in to (refused by the
+    # entry)
+    for mode, nct in ((estep.ONE_FOLD, 16), (estep.TWO_FOLD, 32)):
+        err = lib.quaff_fwd_store_cluster(
+            inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+            inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
+            inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(), S,
+            *tabs, B, int(local), 4, nct, 1, mode, out.data_ptr(),
+            rows.data_ptr(), offs.data_ptr(), stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="cluster route"):
+            kernels.check_launch(err, "fwd_store", ("cluster", (nct, 1, 4)),
+                                 "")
+        err = lib.quaff_bwd_counts_cluster(
+            inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+            inp["meta"].data_ptr(), inp["doff"].data_ptr(), W, *tabs,
+            wrow.data_ptr(), rows.data_ptr(), offs.data_ptr(), B, int(local),
+            4, nct, 1, mode, part.data_ptr(), d_sc.data_ptr(), stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="cluster route"):
+            kernels.check_launch(err, "bwd_counts", ("cluster", (nct, 1, 4)),
+                                 "")
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
-    for bad in ((16, 1, 4), (1, 2, 4), (1, 16, 16)):
+    # too many CTAs (one fold: 8; two levels: 16), too few tiles, too many
+    # warps a CTA, a fourth element
+    for bad in ((16, 1, 4), (9, 3, 16), (17, 2, 4), (1, 2, 4), (1, 16, 16),
+                (8, 9, 16), (8, 5, 4, 2)):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=("cluster", bad))
-    for bad in ((16, 1, 4), (1, 2, 4), (2, 16, 4)):
+    for bad in ((16, 1, 4), (9, 3, 16), (17, 2, 4), (1, 2, 4), (2, 16, 4),
+                (8, 9, 8), (8, 5, 4, 2)):
         with pytest.raises(ValueError, match="no route"):
             estep.bwd_counts(*base, rows, offs, route=("cluster", bad))
     assert [estep.fwd_store.launches, estep.bwd_counts.launches] == before
     # the card runs on: the tables' routes on the same inputs
-    _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p,
+    _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
                         [(estep.estep_route(W, "fwd_store"),
                           estep.estep_route(W, "bwd_counts"))])
 
@@ -1233,16 +1485,16 @@ def test_fill_cluster_widest_band_long_reads(mode):
 
 @pytest.mark.cuda
 def test_estep_cluster_widest_band_long_reads():
-    """K2's and K3's cluster routes at their table's widest row (4096
-    lanes, 8 x 4 x 4) on reads of 8600 and 8200 rows copied from their
-    refs, in bands of 4096 live lanes with the paths starting on a CTA
-    boundary (lane 2048) and inside a tile (lane 1151): phase 5b's wide
-    read at the table's widest band.  Against the plain versions at their
-    tolerances (forward scores rtol 1e-5 / atol 1e-3, counts rtol 3e-3 /
-    atol 5e-3, the back-start posterior 5e-3); K2's stored rows against
-    the plain version's."""
+    """K2's and K3's cluster routes at the train path's widest band
+    (ESTEP_WIDE_LANES, 4096 lanes, 8 x 4 x 4) on reads of 8600 and 8200
+    rows copied from their refs, in bands of 4096 live lanes with the
+    paths starting on a CTA boundary (lane 2048) and inside a tile (lane
+    1151): phase 5b's wide read at the table's widest band of the train
+    path.  Against the plain versions at their tolerances (forward scores
+    rtol 1e-5 / atol 1e-3, counts rtol 3e-3 / atol 5e-3, the back-start
+    posterior 5e-3); K2's stored rows against the plain version's."""
     _need_card()
-    W = estep.ESTEP_CLUSTER_MAX_LANES
+    W = estep.ESTEP_WIDE_LANES
     pb = _long_read_pairs(np.random.default_rng(102), W, [2048, 1151])
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
     v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
@@ -1252,7 +1504,7 @@ def test_estep_cluster_widest_band_long_reads():
     local = True
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
-    assert all(r[0] == "cluster" for r in routes)
+    assert routes == (("cluster", (8, 4, 4)), ("cluster", (8, 4, 4)))
     _estep_routes_check(*case, [routes])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local)[1:])

@@ -221,7 +221,10 @@ def test_kernel_sass_parsers():
 @pytest.mark.parametrize("name, owner", [
     ("void (anonymous namespace)::band_fill_kernel<false, true>(signed char "
      "const*, int, int4 const*, int)", ("fwd_store", "block")),
+    ("void (anonymous namespace)::band_fill_kernel<false, true, true>(signed "
+     "char const*, int)", ("fwd_store", "block")),
     ("void band_fill_kernel<true, false>", ("band_fill", "block")),
+    ("void band_fill_kernel<false, false, false>", ("band_fill", "block")),
     ("void band_fill_warp_kernel<false, 8>", ("band_fill", "warp")),
     ("void (anonymous namespace)::band_fill_cluster_kernel<true, 16>(signed "
      "char const*, int)", ("band_fill", "cluster")),
@@ -231,6 +234,12 @@ def test_kernel_sass_parsers():
      "signed char const*, int)", ("fwd_store", "cluster")),
     ("void (anonymous namespace)::bwd_counts_cluster_kernel<4>(signed char "
      "const*, int)", ("bwd_counts", "cluster")),
+    ("void (anonymous namespace)::band_fill_cluster_kernel<false, true, 16, "
+     "1>(signed char const*, int)", ("fwd_store", "cluster")),
+    ("void (anonymous namespace)::bwd_counts_cluster_kernel<16, 1>(signed "
+     "char const*, int)", ("bwd_counts", "cluster")),
+    ("(anonymous namespace)::bwd_counts_kernel<true>(signed char const*, "
+     "int)", ("bwd_counts", "block")),
     ("void (anonymous namespace)::fwd_store_warp_kernel<8>(signed char "
      "const*, int)", ("fwd_store", "warp")),
     ("void fwd_store_warp_kernel<16>", ("fwd_store", "warp")),
@@ -284,3 +293,78 @@ def test_kernel_sass_stall_cycles():
     instrs = kernel_sass.parse_sass(SASS_CTRL)["_Z4loopv"]
     assert kernel_sass.loop_span(instrs) == (0x10, 0x30)
     assert kernel_sass.row_loop(instrs) == (3, 0)
+
+
+def test_f32_chain_global_band_is_the_card_tests_recipe():
+    """prof/f32_chain.py's inputs are the card tests' global long-deletion
+    bands (random_fill_inputs drawn in the same order), so its errors are
+    the card tests' inputs' errors."""
+    import numpy as np
+    import torch
+
+    from quaff_tpu_torch.prof import f32_chain
+    from test_torch_kernel_cuda import _tables, random_fill_inputs
+
+    W = 600
+    got, _ = f32_chain.global_band(W, W + 7)
+    want, _ = random_fill_inputs(np.random.default_rng(W + 7),
+                                 _tables("packed"), W, B=4, Lx=W // 2 + 64,
+                                 Ly=min(W // 4, 1024), local=False,
+                                 device="cpu")
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["seq", "wide"])
+def test_f32_chain_block_chain_is_the_chain(wide):
+    """The probe's block-route delete chain (1024 threads of 3 lanes: each
+    thread's composition, the warp scan, the scan of the warp totals, the
+    replay) computes x[w] = lse(x[w-1] + c[w], b[w]) with invalid lanes
+    resetting it, within float32 rounding of the chain run lane by lane in
+    float64, in both its forms."""
+    import numpy as np
+    import torch
+
+    from quaff_tpu_torch.dp import fill_v2
+    from quaff_tpu_torch.prof import f32_chain
+
+    rng = np.random.default_rng(3)
+    B, W = 2, 3000
+    valid = rng.random((B, W)) > 0.01
+    b = np.where(valid, rng.normal(-5.0, 3.0, (B, W)), fill_v2.NEG_INF)
+    c = np.where(valid, -0.53, fill_v2.NEG_INF)
+    got = f32_chain.block_chain(torch.tensor(c, dtype=torch.float32),
+                                torch.tensor(b, dtype=torch.float32), wide)
+    x = np.full(B, -np.inf)
+    want = np.empty((B, W))
+    for w in range(W):
+        x = np.where(valid[:, w], np.logaddexp(x + c[:, w], b[:, w]),
+                     fill_v2.NEG_INF)
+        want[:, w] = x
+    g = got.double().numpy()
+    assert np.array_equal(g[valid] > fill_v2.NEG_INF / 2,
+                          np.ones(int(valid.sum()), bool))
+    np.testing.assert_allclose(g[valid], want[valid], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("W", [4097, 6000, 12070, 16384, 22136])
+def test_estep_sweep_tilings_take_the_table_row(W):
+    """prof/estep_sweep.py's tilings at a band past 4096 lanes: each one
+    the kernel takes (two levels), one a count of warps a CTA at each
+    lanes a thread, the table's own tiling among them; its batch is phase
+    2b's wide recipe (8 pairs whose bands span all W lanes)."""
+    from quaff_tpu_torch.dp import estep
+    from quaff_tpu_torch.prof import estep_sweep
+
+    for k in ("fwd_store", "bwd_counts"):
+        ts = estep_sweep.tilings(W, k)
+        assert estep.estep_route(W, k)[1] in ts
+        assert len({t[1:] for t in ts}) == len(ts)
+        for t in ts:
+            assert estep.estep_route_ok(W, ("cluster", t), k)
+            assert estep.cluster_mode(W, t) == estep.TWO_FOLD
+    if W == 4097:
+        pb, _ = estep_sweep.wide_batch(1000)
+        assert pb.member.shape == (8, 1000)
+        assert bool(pb.member[:, 1:-1].all())  # all but the halo lanes
