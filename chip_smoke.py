@@ -8,8 +8,9 @@ failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
   1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster and
-     block routes, K2's and K3's warp, cluster and block routes, the count
-     reduction, K4's warp and cluster routes and the probes' chain kernel;
+     block routes, K2's and K3's warp, cluster, smem and block routes, the
+     count reduction, K4's warp and cluster routes and the probes' chain
+     kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
      and the host library libquaffio (native/*.cpp, one g++ per source),
      both at once
@@ -27,15 +28,16 @@ failure exits non-zero before the final line is printed.
      W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
      (the warp routes' cutover: lanes-a-thread 16 against the cluster and
      block routes), a band wider than shared memory and than the train
-     path's 4096 lanes (W=12070: the cluster routes' two-level fold, and
-     the block routes, their row state in global scratch), and the c8f30
-     self pair; each of K2's and K3's routes (the warp route where 512
-     lanes cover the band, the cluster route at the table's tiling up to
-     32768 lanes, the block route) forced on the same inputs, K3 on each
-     of K2's routes' stores, each against the plain versions and repeated
-     bit for bit, timed (CUDA events, median of 3); on the cutover and
-     wide cases every other cluster tiling of each kernel timed alike and
-     its error logged; the reduction bit for bit; two runs must
+     path's 4096 lanes (W=12070: K2's smem route, K3's two-level cluster
+     fold, and the block routes, their row state in global scratch), and
+     the c8f30 self pair; each of K2's and K3's routes (the warp route
+     where 512 lanes cover the band, the cluster route at the table's
+     tiling up to the kernel's widest, else the smem route up to 65536
+     lanes, the block route) forced on the same inputs, K3 on each of K2's
+     routes' stores, each against the plain versions and repeated bit for
+     bit, timed (CUDA events, median of 3); on the cutover and wide cases
+     every other cluster or smem tiling of each kernel timed alike and its
+     error logged; the reduction bit for bit; two runs must
      give bit-identical count tables; the reduction and torch.sum timed alike
      (device time from a CUDA graph of 100 calls, the eager 100 back to
      back, one call with host launch)
@@ -82,14 +84,20 @@ failure exits non-zero before the final line is printed.
      cluster route's widest): a seeded 20 kb genome and 4 reads of 2-3 kb
      through the CLI on cuda, every K1 launch on the block route, which is
      then held against its plain version on the run's chunk; `count -fast
-     -kmatchoff` on the same reads (W up to 22882: K2's and K3's two-level
-     cluster routes' path), every K2/K3 launch on the two-level fold, held
-     against the plain versions on its smaller chunk's 2 pairs with the
-     fewest rows, timed against the block routes forced on the same
-     inputs and every other two-level tiling swept; then `count -fast
-     -kmatchoff` of one read against a 34 kb genome (W past 32768: the
-     block routes' path), every K2/K3 launch on the block routes, which
-     are then held against the plain versions on its pair
+     -kmatchoff` on the same reads (W up to 22882: K2's smem route's and
+     K3's two-level cluster route's path), every K2 launch on the smem
+     route and K3 launch on the two-level fold, held against the plain
+     versions on its smaller chunk's 2 pairs with the fewest rows, timed
+     against the block routes forced on the same inputs and every other
+     tiling swept; then `count -fast -kmatchoff` of one read against a
+     34 kb genome (W=35506 past 32768: the smem routes' path), every
+     K2/K3 launch on the smem routes, held against the plain versions on
+     its pair and timed against the block routes forced on the same
+     inputs (each must be faster); of one read against a genome of phage
+     lambda's length (48.5 kb, near the smem routes' widest band), on the
+     smem routes, held against the plain versions; and of one read
+     against 66 kb (past 65536 lanes: the block routes' path), every
+     K2/K3 launch on the block routes, held against the plain versions
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches by
      route, each chunk's (B, W, routes, K2 and K3 device ms) from the
@@ -110,9 +118,7 @@ failure exits non-zero before the final line is printed.
      against their block routes forced on the same inputs (median of 3,
      CUDA events) and every other tiling swept, the bound from its inputs,
      the counts held to the plain versions on its 2 pairs with the fewest
-     rows and on read 369's pair, the one whose band spans every tile and
-     CTA (full rows; its error and back-start posterior logged apart),
-     two runs bit for bit
+     rows, two runs bit for bit
   6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
      genome (phase 4's recipe), all-vs-all with reverse complements (6048
      pairs) through the CLI on cuda; wall, pairs/s, K4 launches by route
@@ -174,7 +180,9 @@ reruns the kernel on the same inputs and requires the same bits.
 Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
 -kmatchoff for its block route, phase 5 for K2's and K3's warp routes and
 the reduction, phase 5b's train with a wide read for their cluster
-routes, phase 4b's count -fast -kmatchoff for their block routes,
+routes, phase 4b's count -fast -kmatchoff for K3's two-level cluster
+route, its count against 34 kb for their smem routes and against 66 kb
+for their block routes,
 phase 6 for K4's two routes, the probes' run in phase 2d for the chain
 kernel, phase 7's `align -remote` runs for K1 on the server's path, phase
 8 (a)'s `-mesh` runs for K1, K2, K3, the reduction and K4 on the mesh
@@ -212,6 +220,10 @@ OV_RTOL, OV_ATOL = 1e-5, 0.05
 # sequential float64 route: all 64 reads took 276.6 s on an H100 host, 32
 # reads 78.3 s, over what this phase may spend on it
 N_REF = 16
+# the plain K2 and K3 take a few ms a row on the card whatever the batch:
+# on a long local chunk they run on its pairs with the fewest rows, each
+# read cut to its first CHECK_ROWS bases (estep_case's check_rows)
+CHECK_ROWS = 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -535,8 +547,8 @@ def _route_label(route):
     kind, arg = route
     if kind == "warp":
         return f"warp route, {arg} lanes a thread"
-    if kind == "cluster":
-        return "cluster route, {} x {} x {}".format(*arg)
+    if kind in ("cluster", "smem"):
+        return "{} route, {} x {} x {}".format(kind, *arg)
     return "block route"
 
 
@@ -971,12 +983,13 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
     route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
     CLI on cuda; every launch must take the block route; then the block
     route on the run's chunk against its plain version (once).  Then
-    `count -fast -kmatchoff` on the same reads, K2's and K3's two-level
-    cluster routes' path (bands past 16384 lanes): every launch on the
-    two-level fold, the counts finite; and of one read against a 34 kb
-    genome, the block routes' path (past 32768 lanes).  Returns K1's
-    launches and result, and each count run's E-step launches and its
-    chunk with the fewest pairs."""
+    `count -fast -kmatchoff` on the same reads, K2's smem route's and K3's
+    two-level cluster route's path (bands past 16384 lanes), the counts
+    finite; and of one read against a 34 kb genome and one against 48.5
+    kb, the smem routes' path (past 32768 lanes), and one against 66 kb,
+    the block routes' path (past 65536 lanes).  Returns K1's launches and
+    result, the first count run's E-step launches and its chunk with the
+    fewest pairs, and {genome: (launches, chunk)} of the others."""
     from quaff_tpu_torch.dp import fill_v2
 
     with tempfile.TemporaryDirectory() as d:
@@ -1013,11 +1026,13 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
         e_counts = _estep_launches()
         routes = _check_routes("phase 4b count -fast -kmatchoff", chunks,
                                e_counts)
-        check(all(0 < e_counts[k]["two_level_launches"]
-                  == e_counts[k]["cluster_launches"]
-                  == e_counts[k]["launches"] for k in ESTEP),
+        k2n, k3n = e_counts["fwd_store"], e_counts["bwd_counts"]
+        check(0 < k2n["smem_launches"] == k2n["launches"]
+              and 0 < k3n["two_level_launches"] == k3n["cluster_launches"]
+              == k3n["launches"],
               f"phase 4b: count -fast -kmatchoff's K2/K3 launches by route "
-              f"{e_counts}, want all on the two-level cluster routes")
+              f"{e_counts}, want K2's all on the smem route, K3's on the "
+              f"two-level cluster route")
         json.loads(fast)
         check(not re.search(r"nan|inf", fast.lower()),
               "phase 4b: count -fast -kmatchoff's counts are not finite")
@@ -1026,39 +1041,53 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
             f"{[c['rows'] for c in chunks]}); launches {e_counts} [{card}]")
         e_chunk = min(chunks, key=lambda c: c["B"])
         del chunks
-        # the block routes' path: one read against a genome wider than the
-        # cluster routes' widest band
-        (tmp / "wide").mkdir()
-        g2, r2, _, _, _ = _workload(tmp / "wide", seed=10, n_reads=1,
-                                    genome_len=34_000, min_len=1500,
-                                    max_len=1500, n_head=1)
-        _reset_launches()
-        with _estep_chunks() as chunks:
-            t0 = time.perf_counter()
-            fast = _cli(["count", str(g2), str(r2), "-kmatchoff", "-fast"],
-                        "cuda")
-            wall = time.perf_counter() - t0
-        b_counts = _estep_launches()
-        routes = _check_routes("phase 4b count -fast -kmatchoff (34 kb)",
-                               chunks, b_counts)
-        check(all(0 < b_counts[k]["block_launches"] == b_counts[k]["launches"]
-                  for k in ESTEP),
-              f"phase 4b: the 34 kb count's K2/K3 launches by route "
-              f"{b_counts}, want all on the block routes")
-        json.loads(fast)
-        check(not re.search(r"nan|inf", fast.lower()),
-              "phase 4b: the 34 kb count's counts are not finite")
-        log(f"phase 4b: count -fast -kmatchoff of one read against 34 kb on "
-            f"cuda: {wall:.2f} s wall; chunks {_route_text(chunks, routes)}; "
-            f"launches {b_counts} [{card}]")
-        b_chunk = min(chunks, key=lambda c: c["B"])
-        del chunks
+        # the smem routes' path: one read against a genome wider than the
+        # register cluster routes' widest band (34 kb), and one against a
+        # genome of phage lambda's length (48.5 kb), near the smem routes'
+        # widest band; the block routes' path past it (66 kb)
+        wide = {label: _count_kmatchoff(tmp, label, seed, glen, rlen, kind,
+                                        card)
+                for label, seed, glen, rlen, kind in (
+                    ("34 kb", 10, 34_000, 1500, "smem"),
+                    ("48.5 kb", 11, 48_502, 1000, "smem"),
+                    ("66 kb", 12, 66_000, 400, "block"))}
     res = fill_case("phase 4b: the -kmatchoff chunk",
                     {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
                                         "seg_start", "seg_width")},
                     kw["tables"], kw["mode"], kw["local"], card,
                     route="block", mp=kw["max_prop"], n_plain=1)
-    return counts, res, e_counts, e_chunk, b_counts, b_chunk
+    return counts, res, e_counts, e_chunk, wide
+
+
+def _count_kmatchoff(tmp, label, seed, genome_len, read_len, kind, card):
+    """`count -fast -kmatchoff` of one seeded read of read_len bases
+    against a seeded genome of genome_len bases through the CLI on cuda:
+    every K2 and K3 launch must take the `kind` route, the counts be
+    finite.  Returns the run's launches and its chunk."""
+    d = tmp / label.replace(" ", "")
+    d.mkdir()
+    g, r, _, _, _ = _workload(d, seed=seed, n_reads=1, genome_len=genome_len,
+                              min_len=read_len, max_len=read_len, n_head=1)
+    _reset_launches()
+    with _estep_chunks() as chunks:
+        t0 = time.perf_counter()
+        fast = _cli(["count", str(g), str(r), "-kmatchoff", "-fast"], "cuda")
+        wall = time.perf_counter() - t0
+    counts = _estep_launches()
+    routes = _check_routes(f"phase 4b count -fast -kmatchoff ({label})",
+                           chunks, counts)
+    check(all(0 < counts[k][f"{kind}_launches"] == counts[k]["launches"]
+              for k in ESTEP),
+          f"phase 4b: the {label} count's K2/K3 launches by route {counts}, "
+          f"want all on the {kind} routes")
+    json.loads(fast)
+    check(not re.search(r"nan|inf", fast.lower()),
+          f"phase 4b: the {label} count's counts are not finite")
+    log(f"phase 4b: count -fast -kmatchoff of one {read_len}-base read "
+        f"against {label} on cuda: {wall:.2f} s wall; chunks "
+        f"{_route_text(chunks, routes)} (Ly {[c['rows'] for c in chunks]}); "
+        f"launches {counts} [{card}]")
+    return counts, min(chunks, key=lambda c: c["B"])
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -1091,24 +1120,47 @@ def _max_prop(bdev):
     return p if m > 0 else None
 
 
-ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: warp, cluster, block routes
+ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: warp, cluster, smem, block
 
 
 def _estep_routes(W, kernel):
     """The routes of K2 or K3 (`kernel`) held against each other on a band
     of W lanes: the warp route at estep.warp_lpt(W) where a warp covers W
     (up to 512 lanes), the cluster route at the kernel's
-    ESTEP_CLUSTER_TABLE tiling up to ESTEP_CLUSTER_MAX_LANES, then the
-    block route."""
+    ESTEP_CLUSTER_TABLE tiling up to its ESTEP_CLUSTER_MAX_LANES, else the
+    smem route at its ESTEP_SMEM_TABLE tiling up to ESTEP_SMEM_MAX_LANES,
+    then the block route."""
     from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
 
     lpt = estep.warp_lpt(W)
     out = [] if lpt is None else [("warp", lpt)]
-    if W <= estep.ESTEP_CLUSTER_MAX_LANES:
+    if W <= estep.ESTEP_CLUSTER_MAX_LANES[kernel]:
         out.append(("cluster", cluster_tiling(
             W, estep.ESTEP_CLUSTER_TABLE[kernel])))
+    elif W <= estep.ESTEP_SMEM_MAX_LANES:
+        out.append(("smem", cluster_tiling(
+            W, estep.ESTEP_SMEM_TABLE[kernel])))
     return out + [("block", 0)]
+
+
+def _smem_tilings(W):
+    """The smem tilings (CTAs a pair, warps a CTA, lanes a thread) a band
+    of W lanes can take: for each lanes a thread up to SMEM_MAX_LPT and 8
+    or 16 warps a CTA, the fewest CTAs (up to 16) that hold its tiles,
+    spread evenly.  Timed beside the table's pick on the smem routes'
+    chunks: the measurement estep.ESTEP_SMEM_TABLE is set from."""
+    from quaff_tpu_torch.dp import estep
+
+    out = []
+    for lpt in range(1, estep.SMEM_MAX_LPT + 1):
+        tiles = -(-W // (32 * lpt))
+        for cap in (8, 16):
+            nct = -(-tiles // cap)
+            t = (nct, -(-tiles // nct), lpt)
+            if nct <= estep.MAX_CLUSTER_CTAS2 and t not in out:
+                out.append(t)
+    return out
 
 
 def _estep_wrow(fwd):
@@ -1123,34 +1175,38 @@ def _estep_wrow(fwd):
 
 
 def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
-               check_n=None, widest=False, sweep=False):
+               check_n=None, check_rows=None, sweep=False, forced=True):
     """K2, K3 and the count reduction against their plain versions on one
     batch, each of K2's and K3's routes (_estep_routes) forced on the same
     inputs, K3 on each of K2's routes' stores: agreement, the back-start
     posterior, bitwise repeatability, times and bounds.  With check_n, the
     plain versions run on the batch's check_n pairs with the fewest rows
-    (_estep_subset, at the batch's band width, so at its routes), with
-    widest also on the pair whose live lanes span the most of the band
-    (its error and back-start posterior logged apart), and the kernels are
-    held against them there, while the kernels' times are the whole
-    batch's.  With sweep, every other cluster tiling of each kernel
-    (_sweep_tilings) is timed alike on the whole batch and its error
+    (_estep_subset, at the batch's band width, so at its routes), and the
+    kernels are held against them there, while the kernels' times are the
+    whole batch's; with check_rows too, those pairs' reads are cut to
+    their first check_rows bases (local batches only).  With sweep, every
+    other cluster or smem tiling of each kernel (_sweep_tilings,
+    _smem_tilings) is timed alike on the whole batch and its error
     against the plain version logged (the measurement the E-step tables
     is set from; only the table's tiling is held to the tolerance).
-    Returns, per kernel and route kind, the kernels line's numbers, and
-    the sweep {kernel: {label: (ms, max abs err, within tolerance)}}."""
+    Without forced, estep_route's routes alone (no route forced beside
+    them).  Returns, per kernel and route kind, the kernels line's
+    numbers, and the sweep {kernel: {label: (ms, max abs err, within
+    tolerance)}}."""
     import torch
 
     from quaff_tpu_torch.dp import estep, fill_v2
 
+    check(check_rows is None or (local and check_n is not None),
+          f"{name}: reads cut short only in a subset of a local batch")
     inp = fill_v2.kernel_inputs(bdev)
     chk = inp if check_n is None else fill_v2.kernel_inputs(
-        _estep_subset(bdev, check_n, widest))
+        _estep_subset(bdev, check_n, check_rows))
     mp = _max_prop(bdev)
     B, W = inp["doff"].shape
     Ly = inp["keys"].shape[1]
-    routes = {k: _estep_routes(W, k) for k in ESTEP}
     auto = {k: estep.estep_route(W, k) for k in ESTEP}
+    routes = {k: _estep_routes(W, k) if forced else [auto[k]] for k in ESTEP}
 
     def k2(x, keys, route=None):
         return estep.fwd_store(**dict(x, keys=keys), tables=v2, local=local,
@@ -1177,21 +1233,6 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
     fwd, rows, offs = stores[auto["fwd_store"][0]]
     fin = fwd > fill_v2.NEG_INF / 2
     wrow = _estep_wrow(fwd)
-    # the widest pair: the only one whose band spans every tile and CTA of
-    # a cluster route, so the only one on its seams
-    wide = None
-    if widest:
-        live = chk["doff"] != fill_v2.D_SENTINEL
-        first, span = _live_span(live)
-        iw = int(span.argmax())
-        wide = {"at": iw, "lanes": int(live[iw].sum()),
-                "from": int(first[iw]), "to": int(first[iw] + span[iw] - 1),
-                "fwd": 0.0, "counts": 0.0, "bsp": 0.0}
-        check(bool(fin[iw]), f"{name}: the widest pair has no finite "
-              "forward score")
-        for r in routes["fwd_store"]:
-            wide["fwd"] = max(wide["fwd"], abs(
-                float(stores[r[0]][0][iw]) - float(ref_fwd[iw])))
 
     def p3(w):
         return estep.bwd_counts_reference(
@@ -1202,8 +1243,6 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
     # share), against the plain version on estep_route's store
     (part_p, sc_p), t_p3 = _timed(p3, wrow)
     want = torch.cat([part_p.ravel(), sc_p.ravel()])
-    if wide is not None:
-        want_w = torch.cat([part_p[iw], sc_p[:, iw]])
     del part_p, sc_p
     err_c, bsp_err = {}, 0.0
     for r3 in routes["bwd_counts"]:
@@ -1211,11 +1250,6 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
             part, sc = k3(chk, wrow, stores[r2[0]][1:], r3)
             err = _compare_counts(torch.cat([part.ravel(), sc.ravel()]), want)
             err_c[r3[0]] = max(err_c.get(r3[0], 0.0), err)
-            if wide is not None:
-                got_w = torch.cat([part[iw], sc[:, iw]])
-                wide["counts"] = max(wide["counts"], float(
-                    (got_w.double() - want_w.double()).abs().max()))
-                wide["bsp"] = max(wide["bsp"], abs(float(sc[4][iw]) - 1))
             # each finite pair's back-start posterior exp(back - fwd) is 1
             # in exact arithmetic (rtol 5e-3, tests/test_pallas_counts.py)
             bsp = sc[4][fin].double().cpu()
@@ -1227,19 +1261,33 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
             check(torch.equal(part, part2) and torch.equal(sc, sc2),
                   f"{name}: two runs of K3's {r3[0]} route differ")
             del part, sc, part2, sc2
-    # each other cluster tiling's error on the same inputs (timed below)
-    tilings = {k: [t for t in _sweep_tilings(
-                       W, estep.ESTEP_CLUSTER_LPTS,
-                       estep.ESTEP_CLUSTER_MAX_WARPS[k].get, two_level=True)
-                   if ("cluster", t) not in routes[k]]
-               if sweep and W <= estep.ESTEP_CLUSTER_MAX_LANES else []
-               for k in ESTEP}
+    # each other cluster or smem tiling's error on the same inputs (timed
+    # below)
+    def others(k):
+        if not sweep:
+            return []
+        if W <= estep.ESTEP_CLUSTER_MAX_LANES[k]:
+            cand = [("cluster", t) for t in _sweep_tilings(
+                W, estep.ESTEP_CLUSTER_LPTS,
+                estep.ESTEP_CLUSTER_MAX_WARPS[k].get, two_level=True)]
+            if W > estep.ESTEP_WIDE_LANES:
+                # K3's smem route beside its two-level cluster route: the
+                # measurement ESTEP_CLUSTER_MAX_LANES is set from
+                cand += [("smem", t) for t in _smem_tilings(W)]
+        elif W <= estep.ESTEP_SMEM_MAX_LANES:
+            cand = [("smem", t) for t in _smem_tilings(W)]
+        else:
+            return []
+        return [r for r in cand
+                if r not in routes[k] and estep.estep_route_ok(W, r, k)]
+
+    tilings = {k: others(k) for k in ESTEP}
     swept = {k: {} for k in ESTEP}
     for t in tilings["fwd_store"]:
-        e, ok = _errors(k2(chk, chk["keys"], ("cluster", t))[0], ref_fwd)
+        e, ok = _errors(k2(chk, chk["keys"], t)[0], ref_fwd)
         swept["fwd_store"][t] = [None, e, ok]
     for t in tilings["bwd_counts"]:
-        part, sc = k3(chk, wrow, (rows, offs), ("cluster", t))
+        part, sc = k3(chk, wrow, (rows, offs), t)
         g = torch.cat([part.ravel(), sc.ravel()]).double().cpu()
         r = want.double().cpu()
         err = (g - r).abs()
@@ -1280,21 +1328,19 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
     # each route and swept tiling on the same inputs (CUDA events, median of
     # n_runs)
     t = {"fwd_store": {}, "bwd_counts": {}}
-    for r in routes["fwd_store"] + [("cluster", x) for x in
-                                    tilings["fwd_store"]]:
+    for r in routes["fwd_store"] + tilings["fwd_store"]:
         k2(inp, variants[0], r)  # warm
         ms = _time(lambda k, r=r: k2(inp, k, r), variants[1:])
         if r in routes["fwd_store"]:
             t["fwd_store"][r[0]] = ms
         else:
-            swept["fwd_store"][r[1]][0] = ms * 1e3
-    for r in routes["bwd_counts"] + [("cluster", x) for x in
-                                     tilings["bwd_counts"]]:
+            swept["fwd_store"][r][0] = ms * 1e3
+    for r in routes["bwd_counts"] + tilings["bwd_counts"]:
         ms = _time(lambda w, r=r: k3(inp, w, (rows, offs), r), wv)
         if r in routes["bwd_counts"]:
             t["bwd_counts"][r[0]] = ms
         else:
-            swept["bwd_counts"][r[1]][0] = ms * 1e3
+            swept["bwd_counts"][r][0] = ms * 1e3
     # the reduction and torch.sum, timed alike: device time (a graph of
     # 100 back-to-back calls), the eager 100, one call with host launch
     red = {}
@@ -1332,13 +1378,14 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
         "plain_ms": t_red_p * 1e3, "bound_ms": bounds["estep_reduce"][0],
         "bound_by": bounds["estep_reduce"][1],
         "library_ms": red["torch.sum"]["device"] * 1e3}
-    out["sweep"] = {k: {_route_label(("cluster", x)): tuple(v)
+    out["sweep"] = {k: {_route_label(x): tuple(v)
                         for x, v in swept[k].items()} for k in ESTEP}
     at = "" if name.startswith("phase") else "phase 2b: "
     on = ("" if check_n is None else
           f"; the plain versions on its {chk['doff'].shape[0]} pairs: the "
           f"{check_n} with the fewest rows"
-          + (" and the widest" if widest else "")
+          + ("" if check_rows is None else
+             f", cut to their first {check_rows} rows")
           + f" (Ly={chk['keys'].shape[1]})")
     log(f"{at}{name}: B={B} W={W} Ly={Ly} "
         f"{'local' if local else 'global'}, {cells} in-envelope cells{on}; "
@@ -1350,13 +1397,6 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
         f"reduce bitwise equal to its plain version; back-start posterior "
         f"within {bsp_err:.3g} of 1; tables bit-identical over two runs "
         f"[{card}]")
-    if wide is not None:
-        log(f"{at}{name}: the widest pair ({wide['lanes']} live lanes of "
-            f"{W}, from lane {wide['from']} to {wide['to']}, "
-            f"{int(chk['meta'][wide['at'], 1])} rows), each route "
-            f"against the plain versions: max abs err fwd "
-            f"{wide['fwd']:.3g}, counts {wide['counts']:.3g}; back-start "
-            f"posterior within {wide['bsp']:.3g} of 1 [{card}]")
     for k in ESTEP:
         v = out[k]
         times = ", ".join(f"{_route_label(r)} {v[r[0]]['ms']:.3f} ms"
@@ -1366,11 +1406,11 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
             f"{n_plain}{on and ', on its pairs'}), "
             f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}) [{card}]")
         if swept[k]:
-            log(f"{at}{name}: {k}: each other cluster tiling on the "
-                f"same inputs (ms, median of {n_runs}; max abs err against "
-                f"the plain version): " + "; ".join(
+            log(f"{at}{name}: {k}: each other tiling on the same inputs "
+                f"(ms, median of {n_runs}; max abs err against the plain "
+                f"version): " + "; ".join(
                     "{}: {:.3f} ({:.3g}{})".format(
-                        "{} x {} x {}".format(*x), ms, e,
+                        _route_name(x), ms, e,
                         "" if ok else ", outside the tolerance")
                     for x, (ms, e, ok) in swept[k].items()) + f" [{card}]")
     log(f"{at}{name}: estep_reduce [{B}, {E}]: device time (graph of "
@@ -1419,8 +1459,8 @@ def phase2b_estep(card):
     from quaff_tpu_torch.dp.engine import PairBatch, to_device
     from quaff_tpu_torch.dp.fill_v2 import V2Tables
     from quaff_tpu_torch.dp.scores import ScoreTables
-    from quaff_tpu_torch.envelope import full_envelope, make_envelope
-    from quaff_tpu_torch.io.fastseq import FastSeq, KmerIndex, read_fast_seqs
+    from quaff_tpu_torch.envelope import full_envelope
+    from quaff_tpu_torch.io.fastseq import FastSeq
     from quaff_tpu_torch.model.params import QuaffParams, default_params
 
     tables = ScoreTables.from_params(default_params())
@@ -1471,19 +1511,11 @@ def phase2b_estep(card):
     wpb = PairBatch.build(wide, tables)
     check(wpb.member.shape[1] > max(limit, estep.ESTEP_WIDE_LANES),
           "wide case fits shared memory or the train path's widest band")
-    # the cluster routes (wide arithmetic, two levels) take it, every other
-    # tiling swept beside them (ESTEP_CLUSTER_TABLE's rows past 4096
-    # lanes); the block routes, forced beside them, keep their row state
-    # in global scratch
+    # K2's smem route and K3's cluster route (wide arithmetic, two levels)
+    # take it, every other tiling swept beside them (ESTEP_SMEM_TABLE's
+    # and ESTEP_CLUSTER_TABLE's rows past 4096 lanes); the block routes,
+    # forced beside them, keep their row state in global scratch
     case(f"wide (W > {limit} smem lanes)", wpb, tables, True, sweep=True)
-    # the c8f30 self pair of `train c8f30 c8f30 -kmatchmb 10 -fwdstrand`
-    y = read_fast_seqs(str(DATA / "c8f30.fastq.gz"))[0]
-    x = read_fast_seqs(str(DATA / "c8f30.fastq.gz"))[0]
-    x.qual = ""
-    env = make_envelope(x, KmerIndex(y, 6), kmer_threshold=-1, cell_size=48,
-                        max_size=10 << 20)
-    case("c8f30 self pair", PairBatch.build_packed([(x, y, env)], tables),
-         tables, True, n_plain=1)
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1517,7 +1549,7 @@ def _json_close(mine, want, rtol, atol, skip=()):
 
 
 ROUTE_COUNTS = ("launches", "warp_launches", "cluster_launches",
-                "block_launches")
+                "smem_launches", "block_launches")
 
 
 def _estep_launches():
@@ -1573,10 +1605,10 @@ def _check_routes(what, chunks, n):
 
     routes = [{k: estep.estep_route(c["W"], k) for k in ESTEP}
               for c in chunks]
+    kinds = ("warp", "cluster", "smem", "block")
     for k in ESTEP:
-        want = {r: sum(c[k][0] == r for c in routes)
-                for r in ("warp", "cluster", "block")}
-        got = {r: n[k][f"{r}_launches"] for r in ("warp", "cluster", "block")}
+        want = {r: sum(c[k][0] == r for c in routes) for r in kinds}
+        got = {r: n[k].get(f"{r}_launches", 0) for r in kinds}
         check(got == want, f"{what}: {k} launches by route {got}, the "
               f"chunks' estep_route {want}")
     return routes
@@ -1639,10 +1671,10 @@ def _route_text(chunks, routes):
 
 def _route_name(route):
     """A route as the chunk logs name it: "warp 8", "cluster 1 x 16 x 8",
-    "block"."""
+    "smem 13 x 16 x 5", "block"."""
     kind, arg = route
-    if kind == "cluster":
-        return "cluster {} x {} x {}".format(*arg)
+    if kind in ("cluster", "smem"):
+        return "{} {} x {} x {}".format(kind, *arg)
     return kind if kind == "block" else f"{kind} {arg}"
 
 
@@ -1705,7 +1737,7 @@ def phase3b_train_goldens(card):
 # ---------------------------------------------------------------- phase 5
 
 
-def phase5_train(card, n_reads=128, genome_len=200_000, n_check=4):
+def phase5_train(card, n_reads=128, genome_len=200_000, n_check=2):
     """`train -maxiter 2` on a size users run, through the CLI on the card;
     returns the main path's launches and its largest E-step chunk."""
     import torch
@@ -2729,16 +2761,16 @@ def _server_k1_cases(calls, card):
             for r, cs in by_route.items()}
 
 
-def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=2,
-                  n_profile=8, genome_len=12_000):
+def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=1,
+                  n_profile=8, genome_len=12_000, n_count_pool=8):
     """`server` and the remote, ssh and qsub backends on the card: the
     port's `server align` in a thread here, `align -remote` against it on
     phase 4's reads against a `genome_len` genome (byte for byte the local
     align; K1 launched by the server's jobs, each on fill_route's route,
     and held against its plain version), the same with two ports, `server
-    count` and `count -remote` on phase 5's first reads, `server overlap`
-    and `overlap -remote` on phase 6's, an ssh-launched (stub ssh) and a
-    qsub (/bin/sh) align, and `align -profile`.  Returns K1's launches on
+    count` and `count -remote` on the shortest of phase 5's first reads,
+    `server overlap` and `overlap -remote` on phase 6's, an ssh-launched
+    (stub ssh) and a qsub (/bin/sh) align, and `align -profile`.  Returns K1's launches on
     the server path by route, and _server_k1_cases's results."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -2849,9 +2881,9 @@ def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=2,
             f"{calls.counts['launches']} launches [{card}]")
         del calls
 
-        # (c) count: phase 5's first n_count reads, each against its genome
-        # window (+-200 bp, its strand; the exact engine fills a pair's
-        # bounding band).  `server count` loads reads without qualities, as
+        # (c) count: the n_count shortest of phase 5's first n_count_pool
+        # reads, each against its genome window (+-200 bp, its strand; the
+        # exact engine fills a pair's bounding band, row by row).  `server count` loads reads without qualities, as
         # the JAX package's does (quaff_tpu/server.py:293-296), and counts
         # in float64 by the exact engine on its device: held to the plain
         # count (float64, the host) of the reads without qualities, through
@@ -2861,12 +2893,14 @@ def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=2,
         ctmp = tmp / "count"
         ctmp.mkdir()
         _, crpath, _, genome, origins = _workload(
-            ctmp, seed=2, n_reads=n_count, genome_len=200_000, n_head=1)
+            ctmp, seed=2, n_reads=n_count_pool, genome_len=200_000,
+            n_head=1)
         acgt = np.frombuffer(b"ACGT", np.uint8)
         lines = crpath.read_text().splitlines()
         t_remote = t_plain = 0.0
         worst = 0.0
-        picked = range(n_count)
+        picked = sorted(range(n_count_pool),
+                        key=lambda i: origins[i][1])[:n_count]
         for i in picked:
             s0, n, rev = origins[i]
             w = genome[max(s0 - 200, 0):s0 + n + 200]
@@ -3188,35 +3222,25 @@ def _ov_chunks():
         ov_fill.prepare = orig
 
 
-def _live_span(member):
-    """Each pair's first live lane and the span from it to its last, of a
-    [B, W] lane mask (0 where a pair has none)."""
-    import torch
-
-    W = member.shape[1]
-    m = member.bool()
-    first = m.int().argmax(1)
-    last = W - 1 - m.flip(1).int().argmax(1)
-    return first, torch.where(m.any(1), last - first + 1, 0)
-
-
-def _estep_subset(bdev, n, widest=False):
-    """The n pairs of a fused E-step chunk with the fewest rows, with
-    widest also the pair whose live lanes span the most of the band, the
-    rows cut to theirs (the plain K2 and K3 step row by row); the band's
-    width stays the chunk's."""
+def _estep_subset(bdev, n, max_rows=None):
+    """The n pairs of a fused E-step chunk with the fewest rows, the rows
+    cut to theirs (the plain K2 and K3 step row by row, a few ms a row);
+    with max_rows, each read cut to its first max_rows bases (a local pair
+    stays a pair).  The band's width stays the chunk's."""
     import torch
 
     B = bdev["y_len"].shape[0]
-    keep = torch.argsort(bdev["y_len"].long())[:n]
-    if widest:
-        keep = torch.cat([keep, _live_span(bdev["member"])[1].argmax()[None]])
-    keep = keep.unique()
-    ly = int(bdev["y_len"][keep].max())
+    keep = torch.argsort(bdev["y_len"].long())[:n].unique()
+    y_len = bdev["y_len"][keep]
+    if max_rows is not None:
+        y_len = y_len.clamp(max=max_rows)
+    ly = int(y_len.max())
     out = {}
     for k, v in bdev.items():
         v = v[keep] if v.dim() and v.shape[0] == B else v
-        if k in ("y_tok", "y_match_kmer", "y_qual"):
+        if k == "y_len":
+            v = y_len
+        elif k in ("y_tok", "y_match_kmer", "y_qual"):
             v = v[:, :ly]
         elif k == "y_indel_kmer_pad":
             v = v[:, : ly + 1]
@@ -3443,7 +3467,8 @@ def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
         chunk = min(e_chunks, key=lambda c: int(c["batch"]["y_len"].max()))
         e = estep_case("phase 8: train -mesh's chunk, its 2 shortest pairs",
                        _estep_subset(chunk["batch"], 2), chunk["v2"],
-                       chunk["local"], card, n_plain=1)
+                       chunk["local"], card, n_plain=1, check_n=2,
+                       check_rows=CHECK_ROWS)
         e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms")
         launched = mesh["train"][2]
@@ -3582,13 +3607,26 @@ def main() -> int:
                          "this check needs one CUDA card\n")
         return 1
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what):
+        # each phase's wall time, for the script's time limit
+        now = time.perf_counter()
+        log(f"{what}: {now - t_lap[0]:.1f} s wall")
+        t_lap[0] = now
+
     card = phase0_card()
     phase1_build()
+    lap("phases 0-1")
     k1 = phase2_kernel(card)
+    lap("phase 2")
     phase2b_estep(card)
+    lap("phase 2b")
     phase2c_overlap_kernel(card)
+    lap("phase 2c")
     probes = phase2d_sol_probes(card)
     phase3_goldens()
+    lap("phases 2d-3")
     wide = phase3b_train_goldens(card)
     # K2's and K3's cluster routes at the chunk of count -fast -kmatchband
     # 600, the block routes forced beside them and the other tilings swept,
@@ -3599,6 +3637,7 @@ def main() -> int:
           "the -kmatchband 600 chunk is narrow enough for a warp route")
     del wide, est
     phase3c_overlap_goldens()
+    lap("phases 3b-3c")
     k1_counts, k1_chunk = phase4_workload(card)
     check(k1_counts["cluster_launches"] > 0 and k1_chunk is not None,
           f"phase 4: the align path launched no K1 on the cluster route: "
@@ -3618,67 +3657,104 @@ def main() -> int:
         f"{k1_wide['also']['block route']:.3f} ms "
         f"({k1_wide['also']['block route'] / k1_wide['ms']:.2f}x) [{card}]")
     del inp, k1_chunk
-    (k1_block_counts, k1_block, e_two_counts, e_chunk, e_block_counts,
-     b_chunk) = phase4b_kmatchoff(card)
+    lap("phase 4")
+    (k1_block_counts, k1_block, e_two_counts, e_chunk,
+     e_wide) = phase4b_kmatchoff(card)
     from quaff_tpu_torch.dp import estep
 
-    # K2's and K3's two-level cluster routes at the chunk of their path
-    # (count -fast -kmatchoff), the block routes forced beside them and the
-    # other two-level tilings swept, the plain versions on its 2 pairs with
-    # the fewest rows
+    # K2's smem route and K3's two-level cluster route at the chunk of
+    # their path (count -fast -kmatchoff), the block routes forced beside
+    # them and the other tilings swept, the plain versions on its 2 pairs
+    # with the fewest rows, cut to their first 1024 rows
     estep_two = estep_case("phase 4b: the count -fast -kmatchoff chunk",
                            e_chunk["batch"], e_chunk["v2"], e_chunk["local"],
-                           card, n_plain=1, check_n=2, sweep=True)
-    check(all(set(estep_two[k]) == {"cluster", "block"}
-              and estep.cluster_mode(e_chunk["W"],
-                                     estep_two[k]["cluster"]["route"][1])
-              == estep.TWO_FOLD for k in ESTEP),
-          "the count -fast -kmatchoff chunk does not take the two-level "
-          "cluster routes")
+                           card, n_plain=1, check_n=2, check_rows=CHECK_ROWS,
+                           sweep=True)
+    check(set(estep_two["fwd_store"]) == {"smem", "block"}
+          and set(estep_two["bwd_counts"]) == {"cluster", "block"}
+          and estep.cluster_mode(e_chunk["W"],
+                                 estep_two["bwd_counts"]["cluster"]["route"][1])
+          == estep.TWO_FOLD,
+          "the count -fast -kmatchoff chunk does not take K2's smem route "
+          "and K3's two-level cluster route")
     log(f"phase 4b: the count -fast -kmatchoff chunk (W="
         f"{e_chunk['W']}): " + "; ".join(
-            f"{k} two-level cluster route "
-            f"{_route_name(estep_two[k]['cluster']['route'])} "
-            f"{estep_two[k]['cluster']['ms']:.3f} ms against its block "
+            f"{k} {_route_name(estep_two[k][r]['route'])} "
+            f"{estep_two[k][r]['ms']:.3f} ms against its block "
             f"route's {estep_two[k]['block']['ms']:.3f} ms "
-            f"({estep_two[k]['block']['ms'] / estep_two[k]['cluster']['ms']:.2f}"
-            f"x), bound {estep_two[k]['cluster']['bound_ms']:.4f} ms "
-            f"({estep_two[k]['cluster']['bound_by']})" for k in ESTEP)
+            f"({estep_two[k]['block']['ms'] / estep_two[k][r]['ms']:.2f}"
+            f"x), bound {estep_two[k][r]['bound_ms']:.4f} ms "
+            f"({estep_two[k][r]['bound_by']})"
+            for k, r in (("fwd_store", "smem"), ("bwd_counts", "cluster")))
         + f" [{card}]")
     del e_chunk
-    # K2's and K3's block routes at the chunk of their path (the count of
-    # one read against 34 kb), against the plain versions on its pair with
-    # the fewest rows
-    estep_blk = estep_case("phase 4b: the 34 kb count's chunk",
+    # K2's and K3's smem routes at the chunk of their path (the count of
+    # one read against 34 kb), the block routes forced beside them, against
+    # the plain versions on its pair; then at the lambda-length band
+    # (estep_route's routes alone) and the block routes at the chunk of
+    # their path (66 kb), each against the plain versions on its pair
+    e_counts_s, s_chunk = e_wide["34 kb"]
+    estep_smem = estep_case("phase 4b: the 34 kb count's chunk",
+                            s_chunk["batch"], s_chunk["v2"],
+                            s_chunk["local"], card, n_plain=1, check_n=1)
+    check(all(set(estep_smem[k]) == {"smem", "block"} for k in ESTEP),
+          "the 34 kb count's chunk does not take the smem routes")
+    for k in ESTEP:
+        sm, bl = estep_smem[k]["smem"]["ms"], estep_smem[k]["block"]["ms"]
+        check(sm < bl, f"phase 4b: the 34 kb count's chunk: {k}'s smem "
+              f"route {sm:.3f} ms, not below its block route's {bl:.3f} ms")
+    log(f"phase 4b: the 34 kb count's chunk (W={s_chunk['W']}, Ly="
+        f"{s_chunk['rows']}): " + "; ".join(
+            f"{k} smem route {_route_name(estep_smem[k]['smem']['route'])} "
+            f"{estep_smem[k]['smem']['ms']:.3f} ms against its block route's "
+            f"{estep_smem[k]['block']['ms']:.3f} ms "
+            f"({estep_smem[k]['block']['ms'] / estep_smem[k]['smem']['ms']:.2f}"
+            f"x), bound {estep_smem[k]['smem']['bound_ms']:.4f} ms "
+            f"({estep_smem[k]['smem']['bound_by']})" for k in ESTEP)
+        + f" [{card}]")
+    del s_chunk
+    _, l_chunk = e_wide["48.5 kb"]
+    estep_l = estep_case("phase 4b: the lambda-length band",
+                         l_chunk["batch"], l_chunk["v2"], l_chunk["local"],
+                         card, n_plain=1, check_n=1, forced=False)
+    check(all(set(estep_l[k]) == {"smem"} for k in ESTEP),
+          "the lambda-length band does not take the smem routes")
+    del l_chunk
+    e_block_counts, b_chunk = e_wide["66 kb"]
+    estep_blk = estep_case("phase 4b: the 66 kb count's chunk",
                            b_chunk["batch"], b_chunk["v2"], b_chunk["local"],
                            card, n_plain=1, check_n=1)
     check(all(set(estep_blk[k]) == {"block"} for k in ESTEP),
-          "the 34 kb count's chunk is narrow enough for a cluster route")
-    del b_chunk
+          "the 66 kb count's chunk is narrow enough for an smem route")
+    del b_chunk, e_wide
+    lap("phase 4b")
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
     # chunk, each of K2's and K3's routes forced on the same inputs, the
-    # plain versions on its 8 pairs with the fewest rows (once: the whole
-    # chunk's took 75 s)
+    # plain versions on its 8 pairs with the fewest rows, cut to their
+    # first 1024 rows (once: the whole chunk's took 75 s)
     estep_k = estep_case("phase-5 chunk", chunk["batch"], chunk["v2"],
-                         chunk["local"], card, n_plain=1, check_n=8)
+                         chunk["local"], card, n_plain=1, check_n=8,
+                         check_rows=CHECK_ROWS)
     check(all(set(estep_k[k]) == {"warp", "cluster", "block"}
               for k in ESTEP),
           "the phase-5 chunk is too wide for the warp routes")
     del chunk
+    lap("phase 5")
     k4_launches, k4_chunks = phase6_overlap(card)
     from quaff_tpu_torch.dp import fill_v2, ov_fill
     from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
 
     # K4 at the overlap path's largest warp-route chunk (the warp route;
     # the cluster route forced on the same inputs), its plain version on
-    # the chunk's first 32 pairs (a whole chunk is minutes)
+    # the chunk's last 32 pairs, the fewest rows (a whole chunk is minutes,
+    # its first 32 pairs 40 s)
     W = k4_chunks["warp"]["doff"].shape[1]
     k4 = ov_case("phase 6: the largest warp-route chunk", k4_chunks["warp"],
-                 card, n_plain=32, routes=(
+                 card, n_plain=32, last=True, routes=(
                      None, ("cluster",
                             cluster_tiling(W, ov_fill.OV_CLUSTER_TABLE))))
-    log(f"phase 6: the largest warp-route chunk, first 32 pairs: warp route "
+    log(f"phase 6: the largest warp-route chunk, last 32 pairs: warp route "
         f"{k4[0]['ms']:.3f} ms, cluster route {k4[1]['ms']:.3f} ms "
         f"({k4[1]['ms'] / k4[0]['ms']:.2f}x); whole chunk "
         f"{k4[0]['full']['ms']:.3f} / {k4[1]['full']['ms']:.3f} ms [{card}]")
@@ -3702,19 +3778,22 @@ def main() -> int:
             f"({clu['full']['ms'] / warp['full']['ms']:.2f}x); "
             f"OV_WARP_MAX_LANES is {ov_fill.OV_WARP_MAX_LANES} [{card}]")
     del k4_chunks
+    lap("phase 6")
     k1_server_counts, k1_server = phase7_server(card)
+    lap("phase 7")
     mesh_rows = phase8_mesh(card)
+    lap("phase 8")
     # phase 5b after phase 8: its profiled 512-read train would otherwise
     # come between the profiled runs of phases 5-7 and phase 8's, whose
     # traces are held to the wrappers' counts kernel by kernel
     cluster_launches, wide = phase5b_train_wide(card)
     # K2's and K3's cluster routes at the train path's wide chunk, the
     # block routes forced on the same inputs and every other tiling swept,
-    # the plain versions on its 2 pairs with the fewest rows and on its
-    # widest pair, the one whose band spans every tile (full rows)
+    # the plain versions on its 2 pairs with the fewest rows, cut to their
+    # first 1024 rows (their 8410 rows took 93 s)
     estep_w = estep_case("phase 5b: the wide chunk", wide["batch"], wide["v2"],
                          wide["local"], card, n_plain=1, check_n=2,
-                         widest=True, sweep=True)
+                         check_rows=CHECK_ROWS, sweep=True)
     check(all(set(estep_w[k]) == {"cluster", "block"} for k in ESTEP),
           "phase 5b's wide chunk is narrow enough for a warp route")
     log(f"phase 5b: the wide chunk (B={wide['B']}, W={wide['W']}, "
@@ -3726,6 +3805,7 @@ def main() -> int:
             f"({estep_w[k]['cluster']['bound_by']})" for k in ESTEP)
         + f" [{card}]")
     del wide
+    lap("phase 5b")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [dict(name="band_fill", route="cuda",
@@ -3754,21 +3834,22 @@ def main() -> int:
             launches=k1_server_counts[f"{r}_launches"], library_ms=None,
             **{k: res[k] for k in k1_keys}))
     # K2 and K3: the warp routes on phase 5's path (train), timed on its
-    # largest chunk; the cluster routes on phase 5b's (train with a wide
-    # read), timed on its wide chunk; the two-level cluster routes on phase
-    # 4b's count -fast -kmatchoff, timed on that run's chunk; the block
-    # routes on phase 4b's count of one read against 34 kb, timed on that
-    # run's chunk (phase 4b logs them forced on the -kmatchoff chunk too,
-    # beside the two-level routes)
+    # largest chunk; the cluster routes (one fold) on phase 5b's (train
+    # with a wide read), timed on its wide chunk; K3's two-level cluster
+    # route on phase 4b's count -fast -kmatchoff, timed on that run's
+    # chunk; the smem routes on phase 4b's count of one read against 34
+    # kb, timed on that run's chunk (the block routes forced beside them);
+    # the block routes on phase 4b's count of one read against 66 kb
     e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
-    for name, rep_at, cluster_src, block_src in (
+    for name, rep_at, cluster_src, block_src, rows in (
             ("fwd_store", "quaff_tpu/dp/pallas_counts.py:507",
              "quaff_tpu_torch/csrc/band_fill_cluster.cuh",
-             "quaff_tpu_torch/csrc/band_fill.cuh"),
+             "quaff_tpu_torch/csrc/band_fill.cuh", ("", "_cluster")),
             ("bwd_counts", "quaff_tpu/dp/pallas_counts.py:561",
              "quaff_tpu_torch/csrc/estep_cluster.cu",
-             "quaff_tpu_torch/csrc/estep.cu")):
+             "quaff_tpu_torch/csrc/estep.cu",
+             ("", "_cluster", "_cluster_two_level"))):
         for suffix, source, n, kind, res in (
                 ("", "quaff_tpu_torch/csrc/estep_warp.cuh",
                  launches[name]["warp_launches"], "warp", estep_k),
@@ -3778,8 +3859,12 @@ def main() -> int:
                 ("_cluster_two_level", cluster_src,
                  e_two_counts[name]["two_level_launches"], "cluster",
                  estep_two),
+                ("_smem", "quaff_tpu_torch/csrc/estep_smem.cu",
+                 e_counts_s[name]["smem_launches"], "smem", estep_smem),
                 ("_block", block_src, e_block_counts[name]["block_launches"],
                  "block", estep_blk)):
+            if suffix not in rows + ("_smem", "_block"):
+                continue
             check(n > 0, f"{name}'s {kind} route was not launched on its path")
             kernels.append(dict(name=name + suffix, route="cuda",
                                 source=source, replaces=rep_at, launches=n,

@@ -41,22 +41,20 @@
 // Lanes outside the envelope carry c = -inf, which stops the chain at
 // strip seams exactly as the TPU kernel's masking does.
 //
-// WIDE (K2 past dp/estep.ESTEP_WIDE_LANES): each thread composes and
-// replays its lanes relative to r, its largest opening term b of the row
-// (wide_chain_ref), and forms each lane's cell as r + comb(x - r + c_k,
-// b_k) from its inclusive map (c_k, b_k) instead of the sequential replay
-// x = comb(x + c, b).  On global bands with long deletion runs the
-// posterior's path lies hundreds to ~1300 nats below the row's largest
-// cell, where a float32 step is 6e-5-1.2e-4 nats; the sequential replay
-// adds the same d2d to values of one binade LPT times, so its rounding
-// errors do not cancel, and over ~1000 rows they put the Forward score
-// 7.7e-3 (8192 lanes, LPT 8) to 1.8e-2 (16384 lanes, LPT 16) off the
-// exact one, where the plain version's doubling scan stays within
-// 1.7e-3 (quaff_tpu_torch/prof/f32_chain.py emulates both on the CPU).
-// Relative to r every value the thread composes is within a few nats of
-// 0, and each lane's cell takes one rounding at the path's magnitude.
-// Narrower bands keep the sequential replay (the train path's outputs,
-// bit for bit).  The end row's
+// WIDE (K2 past dp/estep.ESTEP_WIDE_LANES): the cells are float64, every
+// sum is a float64 one and a log-add-exp takes its one transcendental,
+// log1p(exp(-|a - b|)), in float32 (comb on doubles below); each row is
+// shifted by its largest match or insert cell.  On global bands with long
+// deletion runs the path that ends the read lies hundreds to ~10^4 nats
+// below the row's largest cell, where a float32 step rounds at 6e-5 to
+// 5e-4 nats: float32 cells, even composed relative to each thread's
+// largest opening term, put the Forward score up to 3.7e-2 nats off the
+// float64 fill at 32769 lanes (quaff_tpu_torch/prof/f32_chain.py
+// emulates the steps on the CPU).  The row state (5 doubles and the
+// diagonal a lane) lives in the global scratch row set, the scans'
+// float64 partials in 768 bytes of dynamic shared memory.
+// Narrower bands keep float32 (the train path's outputs, bit for bit).
+// The end row's
 // match cells reduce to the pair score (max, or log-sum-exp) and to the
 // per-strip maxima, written straight to out[B + B*S].  Rows past a pair's
 // read length are neither filled nor stored.
@@ -67,6 +65,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -87,20 +86,45 @@ __device__ __forceinline__ float comb(float a, float b) {
   return m < -1e38f ? m : m + log1pf(expf(-fabsf(a - b)));
 }
 
-// WIDE: the reference a thread's lanes compose relative to, its largest
-// opening term of the row (0 where it has none, so that a thread of
-// invalid lanes composes exactly as the sequential chain)
+// K2's wide log-add-exp on float64 cells: the max in float64, the
+// correction log1p(exp(-|a - b|)) in float32 (its absolute error ~1e-7
+// whatever the cells' magnitude); the max alone below -1e38, as above
+template <bool VIT>
+__device__ __forceinline__ double comb(double a, double b) {
+  const double m = fmax(a, b);
+  if (VIT) return m;
+  const double r = m + (double)log1pf(expf((float)(-fabs(a - b))));
+  return m < -1e38 ? m : r;
+}
+
+__device__ __forceinline__ float vmax2(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double vmax2(double a, double b) {
+  return fmax(a, b);
+}
+
+// a cell as a stored float32 one: float64 cells rounded once, NEG and
+// below as NEG
+__device__ __forceinline__ float to_row(float x) { return x; }
+__device__ __forceinline__ float to_row(double x) {
+  return x <= -(double)FLT_MAX ? -FLT_MAX : (float)x;
+}
+
+// K3's wide arithmetic: the reference a thread's lanes compose relative
+// to, its largest opening term of the row (0 where it has none, so that a
+// thread of invalid lanes composes exactly as the sequential chain)
 __device__ __forceinline__ float wide_chain_ref(float bmax) {
   return bmax > -FLT_MAX / 2 ? bmax : 0.f;
 }
 
 // inclusive scan over a warp of recurrence steps (C, B): x -> comb(x + C, B)
-template <bool VIT>
-__device__ __forceinline__ void warp_scan(float& c, float& b, int lane) {
+template <bool VIT, typename T>
+__device__ __forceinline__ void warp_scan(T& c, T& b, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float co = __shfl_up_sync(kFull, c, off);
-    const float bo = __shfl_up_sync(kFull, b, off);
+    const T co = __shfl_up_sync(kFull, c, off);
+    const T bo = __shfl_up_sync(kFull, b, off);
     if (lane >= off) {
       b = comb<VIT>(bo + c, b);  // earlier step (co, bo), then (c, b)
       c = co + c;
@@ -112,14 +136,14 @@ __device__ __forceinline__ void warp_scan(float& c, float& b, int lane) {
 // thread order: returns the value entering this thread's first step (the
 // chain starts at -inf before thread 0).  Two barriers; warp_c/warp_b are
 // 32-float shared arrays.
-template <bool VIT>
-__device__ __forceinline__ float block_scan_in(float c_acc, float b_acc,
-                                               float* warp_c, float* warp_b) {
+template <bool VIT, typename T>
+__device__ __forceinline__ T block_scan_in(T c_acc, T b_acc, T* warp_c,
+                                           T* warp_b) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   warp_scan<VIT>(c_acc, b_acc, lane);
-  float c_ex = __shfl_up_sync(kFull, c_acc, 1);
-  float b_ex = __shfl_up_sync(kFull, b_acc, 1);
+  T c_ex = __shfl_up_sync(kFull, c_acc, 1);
+  T b_ex = __shfl_up_sync(kFull, b_acc, 1);
   if (lane == 0) {
     c_ex = 0.f;
     b_ex = neg_inf();
@@ -130,11 +154,11 @@ __device__ __forceinline__ float block_scan_in(float c_acc, float b_acc,
   }
   __syncthreads();
   if (warp == 0) {
-    float c = lane < nwarps ? warp_c[lane] : 0.f;
-    float bv = lane < nwarps ? warp_b[lane] : neg_inf();
+    T c = lane < nwarps ? warp_c[lane] : T(0);
+    T bv = lane < nwarps ? warp_b[lane] : T(neg_inf());
     warp_scan<VIT>(c, bv, lane);
-    float ce = __shfl_up_sync(kFull, c, 1);
-    float be = __shfl_up_sync(kFull, bv, 1);
+    T ce = __shfl_up_sync(kFull, c, 1);
+    T be = __shfl_up_sync(kFull, bv, 1);
     if (lane == 0) {
       ce = 0.f;
       be = neg_inf();
@@ -148,28 +172,28 @@ __device__ __forceinline__ float block_scan_in(float c_acc, float b_acc,
   return comb<VIT>(warp_b[warp] + c_ex, b_ex);
 }
 
-template <bool IS_MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
+template <bool IS_MAX, typename T>
+__device__ __forceinline__ T block_reduce(T v, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(kFull, v, off);
-    v = IS_MAX ? fmaxf(v, o) : v + o;
+    const T o = __shfl_xor_sync(kFull, v, off);
+    v = IS_MAX ? vmax2(v, o) : v + o;
   }
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < nwarps ? red[lane] : (IS_MAX ? neg_big() : 0.f);
+    v = lane < nwarps ? red[lane] : (IS_MAX ? T(neg_big()) : T(0));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(kFull, v, off);
-      v = IS_MAX ? fmaxf(v, o) : v + o;
+      const T o = __shfl_xor_sync(kFull, v, off);
+      v = IS_MAX ? vmax2(v, o) : v + o;
     }
     if (lane == 0) red[0] = v;
   }
   __syncthreads();
-  const float r = red[0];
+  const T r = red[0];
   __syncthreads();  // red is reused by the next reduction
   return r;
 }
@@ -190,19 +214,35 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     int B, int local, int lanes_per_thread,
     float* __restrict__ scratch, float* __restrict__ out,
     float* __restrict__ rows, double* __restrict__ offs) {
+  static_assert(!WIDE || (STORE && !VIT), "the wide arithmetic is K2's");
+  // the cells' type: float64 with the wide arithmetic
+  using V = typename std::conditional<WIDE, double, float>::type;
   extern __shared__ float smem[];
   __shared__ float warp_c[32], warp_b[32], red[32];
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  const float NEG = neg_big();
+  const V NEG = neg_big();
 
-  float* st = scratch != nullptr ? scratch + (size_t)b * 6 * W : smem;
-  float* matp = st;
-  float* matc = st + W;
-  float* insp = st + 2 * W;
-  float* insc = st + 3 * W;
-  float* del = st + 4 * W;
+  // the row state and the scans' partials: WIDE's in the scratch row set
+  // (12 floats a lane a pair) and in dynamic shared memory
+  V *st, *wc, *wb, *wr;
+  if constexpr (WIDE) {
+    st = reinterpret_cast<V*>(scratch + (size_t)b * 12 * W);
+    wc = reinterpret_cast<V*>(smem);
+    wb = wc + 32;
+    wr = wb + 32;
+  } else {
+    st = scratch != nullptr ? scratch + (size_t)b * 6 * W : smem;
+    wc = warp_c;
+    wb = warp_b;
+    wr = red;
+  }
+  V* matp = st;
+  V* matc = st + W;
+  V* insp = st + 2 * W;
+  V* insc = st + 3 * W;
+  V* del = st + 4 * W;
   int* dof = reinterpret_cast<int*>(st + 5 * W);
 
   const int w0 = min(t * lanes_per_thread, W);
@@ -247,14 +287,13 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     for (int w = w0; w < w1; ++w) {
       const int d = dof[w];
       const int idx = d + j - 1;  // i - 1
-      float mc = NEG, ic = NEG;
+      V mc = NEG, ic = NEG;
       if (d != kSentinel && idx >= 0 && idx < xlen) {
-        float a = comb<VIT>(comb<VIT>(matp[w] + m2m, del[w] + d2m),
-                            insp[w] + i2m);
-        if (j == 1 && (local || idx == 0)) a = comb<VIT>(a, 0.f);
+        V a = comb<VIT>(comb<VIT>(matp[w] + m2m, del[w] + d2m), insp[w] + i2m);
+        if (j == 1 && (local || idx == 0)) a = comb<VIT>(a, V(0));
         mc = a + mrow[(size_t)xb[idx] * sym_stride];
-        const float ih = w + 1 < W ? insp[w + 1] : NEG;
-        const float mh = w + 1 < W ? matp[w + 1] : NEG;
+        const V ih = w + 1 < W ? insp[w + 1] : NEG;
+        const V mh = w + 1 < W ? matp[w + 1] : NEG;
         ic = ins_emit + comb<VIT>(ih + i2i, mh + m2i);
       }
       matc[w] = mc;
@@ -263,73 +302,57 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     __syncthreads();
 
     // B: compose this thread's delete-chain steps, then scan across threads
-    float r = 0.f;  // WIDE: the thread's reference
-    if (WIDE) {
-      float bmax = NEG;
-      for (int w = w0; w < w1; ++w) {
-        const int idx = dof[w] + j - 1;
-        if (dof[w] != kSentinel && idx >= 0 && idx < xlen)
-          bmax = fmaxf(bmax, (w > 0 ? matc[w - 1] : NEG) + m2d);
-      }
-      r = wide_chain_ref(bmax);
-    }
-    float c_acc = 0.f, b_acc = neg_inf();  // the identity step
+    V c_acc = 0.f, b_acc = neg_inf();  // the identity step
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-      const float c = v ? d2d : NEG;
-      const float bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
-      b_acc = comb<VIT>(b_acc + c, WIDE ? bb - r : bb);
+      const V c = v ? V(d2d) : NEG;
+      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
+      b_acc = comb<VIT>(b_acc + c, bb);
       c_acc = c_acc + c;
     }
-    if (WIDE) b_acc = r + b_acc;
-    float x = block_scan_in<VIT>(c_acc, b_acc, warp_c, warp_b);
+    V x = block_scan_in<VIT>(c_acc, b_acc, wc, wb);
 
-    // C: replay this thread's lanes from its incoming delete value (WIDE:
-    // each lane's inclusive map applied to it, relative to r)
-    float top = NEG;
-    const float xr = x - r;
-    float pc = 0.f, pb = neg_inf();
+    // C: replay this thread's lanes from its incoming delete value
+    V top = NEG;
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-      const float c = v ? d2d : NEG;
-      const float bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
-      if (WIDE) {
-        pb = comb<VIT>(pb + c, bb - r);
-        pc = pc + c;
-        x = r + comb<VIT>(xr + pc, pb);
-      } else {
-        x = comb<VIT>(x + c, bb);
-      }
+      const V c = v ? V(d2d) : NEG;
+      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
+      x = comb<VIT>(x + c, bb);
       del[w] = v ? x : NEG;
-      if (STORE) top = fmaxf(top, fmaxf(fmaxf(matc[w], insc[w]), del[w]));
+      if (STORE) {
+        // WIDE: the row's largest match or insert cell
+        const V mi = vmax2(matc[w], insc[w]);
+        top = vmax2(top, WIDE ? (v ? mi : NEG) : vmax2(mi, del[w]));
+      }
     }
     if (STORE) {
       // scale the row and store it (after the reduction's barriers no
       // thread reads this row's unscaled cells any more)
-      top = block_reduce<true>(top, red);
-      const float shift = top > NEG / 2 ? top : 0.f;
+      top = block_reduce<true>(top, wr);
+      const V shift = top > NEG / 2 ? top : V(0);
       off += shift;
       const size_t row = ((size_t)b * Ly + (j - 1)) * W;
       for (int w = w0; w < w1; ++w) {
         const int idx = dof[w] + j - 1;
         const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-        const float mc = v ? matc[w] - shift : NEG;
-        const float ic = v ? insc[w] - shift : NEG;
-        const float dc = v ? del[w] - shift : NEG;
+        const V mc = v ? matc[w] - shift : NEG;
+        const V ic = v ? insc[w] - shift : NEG;
+        const V dc = v ? del[w] - shift : NEG;
         matc[w] = mc;
         insc[w] = ic;
         del[w] = dc;
-        rows[row + w] = mc;
-        rows[plane + row + w] = ic;
-        rows[2 * plane + row + w] = dc;
+        rows[row + w] = to_row(mc);
+        rows[plane + row + w] = to_row(ic);
+        rows[2 * plane + row + w] = to_row(dc);
       }
       if (t == 0) offs[(size_t)b * Ly + (j - 1)] = off;
       __syncthreads();  // the next row reads neighbouring lanes
     }
     ik_prev = kk.w;
-    float* tmp = matp;
+    V* tmp = matp;
     matp = matc;
     matc = tmp;
     tmp = insp;
@@ -338,35 +361,39 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
   }
 
   // end row: pair score and per-strip maxima (matp holds row ylen)
-  float vmax = NEG;
+  V vmax = NEG;
   float smax[kMaxSegs];
 #pragma unroll
-  for (int k = 0; k < kMaxSegs; ++k) smax[k] = NEG;
+  for (int k = 0; k < kMaxSegs; ++k) smax[k] = -FLT_MAX;
   if (ylen >= 1) {
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + ylen - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       if (!v || !(local || idx == xlen - 1)) continue;
-      const float e = matp[w] + m2e;
-      vmax = fmaxf(vmax, e);
+      const V e = matp[w] + m2e;
+      vmax = vmax2(vmax, e);
+      if (!STORE) {
 #pragma unroll
-      for (int k = 0; k < kMaxSegs; ++k) {
-        if (k < S) {
-          const int s0 = seg_start[b * S + k];
-          if (w >= s0 && w < s0 + seg_width[b * S + k]) smax[k] = fmaxf(smax[k], e);
+        for (int k = 0; k < kMaxSegs; ++k) {
+          if (k < S) {
+            const int s0 = seg_start[b * S + k];
+            if (w >= s0 && w < s0 + seg_width[b * S + k])
+              smax[k] = fmaxf(smax[k], (float)e);
+          }
         }
       }
     }
   }
-  const float m = block_reduce<true>(vmax, red);
-  float score = m;
+  const V m = block_reduce<true>(vmax, wr);
+  V score = m;
   if (!VIT && m > NEG / 2) {
     float sum = 0.f;
     if (ylen >= 1) {
       for (int w = w0; w < w1; ++w) {
         const int idx = dof[w] + ylen - 1;
         const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-        if (v && (local || idx == xlen - 1)) sum += expf(matp[w] + m2e - m);
+        if (v && (local || idx == xlen - 1))
+          sum += expf((float)(matp[w] + m2e - m));
       }
     }
     sum = block_reduce<false>(sum, red);
@@ -374,7 +401,8 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
   }
   if (STORE) {
     // K2: the absolute Forward score; strip maxima are K1's alone
-    if (t == 0) out[b] = score > NEG / 2 ? (float)(off + (double)score) : score;
+    if (t == 0)
+      out[b] = score > NEG / 2 ? (float)(off + (double)score) : (float)score;
     return;
   }
   if (t == 0) out[b] = score;
@@ -405,7 +433,12 @@ cudaError_t launch_fill(const int8_t* x_tok, int Lx, const int4* keys, int Ly,
                         float* rows, double* offs, cudaStream_t stream) {
   const int threads = fill_threads(W);
   const int lanes_per_thread = (W + threads - 1) / threads;
-  const size_t smem = scratch != nullptr ? 0 : (size_t)6 * W * sizeof(float);
+  // WIDE: the row state in scratch (12 floats a lane), the scans' float64
+  // partials in shared memory
+  if (WIDE && scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = WIDE ? 3 * 32 * sizeof(double)
+                           : scratch != nullptr ? 0
+                                                : (size_t)6 * W * sizeof(float);
   // the opt-in covers the kernel's static arrays too: dynamic bytes of
   // 48 KB or just under still need it
   if (smem > 0) {

@@ -5,8 +5,7 @@
 // band_fill_cluster_kernel<VIT, false, LPT> (K1) computes what the warp
 // route (band_fill_warp.cuh) computes, on the same inputs and into the same
 // [B + B*S] output, for bands too wide for one warp: up to 32 tiles of
-// 32 * LPT lanes, so 16384 lanes at LPT 16 (K2 up to kMaxTiles2 with the
-// two-level fold: 32768 lanes at 16 CTAs of 16 warps at LPT 4).  band_fill.cu launches it and
+// 32 * LPT lanes, so 16384 lanes at LPT 16.  band_fill.cu launches it and
 // dp/fill_v2.fill_route picks the tiling (CTAs a pair, warps a CTA, LPT)
 // from the band's width alone.  <false, true, LPT> (K2, STORE) is the same
 // Forward fill kept scaled, every row's M/I/D cells stored to
@@ -59,17 +58,9 @@
 // cells stay within one row's shift of 0, and one exchange after the
 // last row stores it.  Reruns repeat bit for bit, as K1's.
 //
-// K2's MODE (cluster_seam.cuh): kOneFold up to dp/estep.ESTEP_WIDE_LANES
-// and 32 tiles, the row above; past either kTwoFold, the WIDE chain of
-// band_fill.cuh (fill_cells / fill_apply <WIDE>) and the two-level fold:
-// each tile's slot goes
-// to its own CTA, fold_cta composes the CTA's tiles (its first tile
-// without its first lane) into the CTA's slot, which warp 0 posts to
-// every CTA; after the barrier fold_slots folds the CTAs as the one-level
-// fold folds tiles, and a tile's first lane takes its CTA's first lane's
-// delete cell through its CTA's tiles before it.  The row shift is the
-// largest of the CTAs' maxima; the end values go to CTA 0 by tile, lane h
-// reducing tiles h, h + 32, .. in order.  K1 has kOneFold alone.
+// K2 takes this route up to dp/estep.ESTEP_WIDE_LANES (the train path,
+// in float32 cells); its wider bands take the smem route (estep_smem.cu,
+// float64 cells).
 
 #pragma once
 
@@ -91,13 +82,13 @@ constexpr int fill_cluster_max_warps() {
 // cell; with STORE its largest cell of the previous row
 enum { kFC, kFB, kFC0, kFMat0, kFIns0, kFMatL, kFTop, kFSlot };
 
-template <bool VIT, int LPT, bool FIRST, bool WIDE>
+template <bool VIT, int LPT, bool FIRST>
 __device__ __forceinline__ void fill_cluster_cells(
     RowWork<LPT>& w, const Lanes<LPT>& s, const RowIn& r, const Trans& tr,
     int j, int t, bool local, float seam_m, float seam_i, float (&post)[kFSlot],
     float& ce, float& be) {
-  fill_cells<VIT, LPT, FIRST, true, WIDE>(w, s, r, tr, j, t, local, seam_m,
-                                          seam_i);
+  fill_cells<VIT, LPT, FIRST, true>(w, s, r, tr, j, t, local, seam_m,
+                                    seam_i);
   float c = w.c_acc, b = w.b_acc;
   warp_scan<VIT>(c, b, t);
   ce = __shfl_up_sync(kFull, c, 1);
@@ -141,8 +132,8 @@ __device__ __forceinline__ float fold_shift(
   return m > neg_big() / 2 ? m : 0.f;
 }
 
-// The one-level fold over the n slots of `slots` (tiles, or with kTwoFold
-// CTAs): lane h builds slot h's whole step, its first lane's from slot
+// The one-level fold over the n slots of `slots` (tiles): lane h builds
+// slot h's whole step, its first lane's from slot
 // h-1's last lane, one warp scan composes them, and lane h returns slot
 // h's first lane's delete cell; v holds slot h's values.
 template <bool VIT>
@@ -171,56 +162,10 @@ __device__ __forceinline__ float fold_slots(
   return comb<VIT>(xin + c0, b0);
 }
 
-// kTwoFold's first level (K2), after the block barrier: lane h takes the
-// slot of its CTA's tile h (the CTA's first tile is g0, it has nw) and
-// builds its step, tile 0's without its first lane (which joins at the
-// second level); one warp scan leaves in (fc, fb) the composite from tile
-// 0's second lane through tile h, in (c0, b0) tile h's first lane's step
-// and in v tile h's slot.  cpost: the CTA's slot, the composite of its
-// tiles, its first tile's first lane, its last tile's last lane and its
-// largest cell of the previous row.
-template <bool VIT>
-__device__ __forceinline__ void fold_cta(
-    const SeamSlot<kFSlot> (*lslots)[kMaxTiles2], int buf, int g0, int nw,
-    float m2d, int t, float (&v)[kFSlot], float& fc, float& fb, float& c0,
-    float& b0, float (&cpost)[kFSlot]) {
-  const float NEG = neg_big();
-  if (t < nw) {
-    seam_read<kFSlot>(lslots, buf, g0 + t, v);
-  } else {
-#pragma unroll
-    for (int q = 0; q < kFSlot; ++q) v[q] = NEG;
-  }
-  const float mprev = __shfl_up_sync(kFull, v[kFMatL], 1);
-  c0 = v[kFC0];
-  b0 = c0 > NEG / 2 ? mprev + m2d : NEG;
-  fc = 0.f;
-  fb = neg_inf();
-  if (t == 0) {
-    fc = v[kFC];
-    fb = v[kFB];
-  } else if (t < nw) {
-    fc = c0 + v[kFC];
-    fb = comb<VIT>(b0 + v[kFC], v[kFB]);
-  }
-  warp_scan<VIT>(fc, fb, t);
-  cpost[kFC] = __shfl_sync(kFull, fc, nw - 1);
-  cpost[kFB] = __shfl_sync(kFull, fb, nw - 1);
-  cpost[kFC0] = __shfl_sync(kFull, v[kFC0], 0);
-  cpost[kFMat0] = __shfl_sync(kFull, v[kFMat0], 0);
-  cpost[kFIns0] = __shfl_sync(kFull, v[kFIns0], 0);
-  cpost[kFMatL] = __shfl_sync(kFull, v[kFMatL], nw - 1);
-  cpost[kFTop] = warp_max(t < nw ? v[kFTop] : NEG);
-}
-
-// dynamic shared memory of kTwoFold (K2): the tile slots, double
-// buffered, and each tile's end values
+// each tile's end values: its maximum, its Forward sum, its strip maxima
 constexpr int kFillEndValues = 2 + kMaxSegs;
-constexpr size_t kFillTwoSmem =
-    sizeof(SeamSlot<kFSlot>) * 2 * kMaxTiles2 +
-    sizeof(float) * kMaxTiles2 * kFillEndValues;
 
-template <bool VIT, bool STORE, int LPT, int MODE = kOneFold>
+template <bool VIT, bool STORE, int LPT>
 __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
     band_fill_cluster_kernel(const int8_t* __restrict__ x_tok, int Lx,
                              const int4* __restrict__ keys, int Ly,
@@ -233,19 +178,9 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
                              float* __restrict__ rows,
                              double* __restrict__ offs) {
   static_assert(!(VIT && STORE), "K2 stores the Forward fill");
-  static_assert(MODE == kOneFold || STORE, "K1 has the one-level fold");
-  constexpr bool TWO = MODE == kTwoFold;
-  constexpr bool WIDE = TWO;  // the WIDE chain comes with the two levels
   constexpr int NR = kFillEndValues;  // end maximum, Forward sum, strips
   __shared__ SeamSlot<kFSlot> slots[2][kMaxTiles];
   __shared__ float red[kMaxTiles][NR];
-  extern __shared__ float4 fill_two_smem[];
-  // kTwoFold: the tile slots of this CTA (indexed by tile) and, at CTA 0,
-  // every tile's end values
-  auto* lslots =
-      reinterpret_cast<SeamSlot<kFSlot>(*)[kMaxTiles2]>(fill_two_smem);
-  auto* red2 = reinterpret_cast<float(*)[NR]>(
-      fill_two_smem + 2 * kMaxTiles2 * SeamSlot<kFSlot>::kWords);
 
   const int nct = cluster_ctas();
   const int rank = cluster_rank();
@@ -326,13 +261,11 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
       float ce = 0.f, be = neg_inf();
       if (lv) {
         if (j == 1)
-          fill_cluster_cells<VIT, LPT, true, WIDE>(w, s, r, tr, j, t, local,
-                                                   seam_m, seam_i, post, ce,
-                                                   be);
+          fill_cluster_cells<VIT, LPT, true>(w, s, r, tr, j, t, local, seam_m,
+                                             seam_i, post, ce, be);
         else
-          fill_cluster_cells<VIT, LPT, false, WIDE>(w, s, r, tr, j, t, local,
-                                                    seam_m, seam_i, post, ce,
-                                                    be);
+          fill_cluster_cells<VIT, LPT, false>(w, s, r, tr, j, t, local,
+                                              seam_m, seam_i, post, ce, be);
       } else {
 #pragma unroll
         for (int q = 0; q < kFSlot; ++q) post[q] = NEG;
@@ -348,28 +281,7 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
       post[kFTop] = top;
       const float m2d = r.m2d;
       const int buf = j & 1;
-      // kTwoFold: the tile's composite within its CTA before it (pf), its
-      // first lane's step (c0, b0), the next tile's first lane of its CTA
-      float pfc = 0.f, pfb = neg_inf(), tc0 = NEG, tb0 = NEG;
-      float nm_l = NEG, ni_l = NEG;
-      if constexpr (TWO) {
-        seam_post_local<kFSlot>(lslots, buf, g, post, t);
-        __syncthreads();
-        if (wi == 0 || lv || lv_next) {
-          float v[kFSlot], cpost[kFSlot], fc, fb, c0, b0;
-          fold_cta<VIT>(lslots, buf, rank * nw, nw, m2d, t, v, fc, fb, c0, b0,
-                        cpost);
-          if (wi == 0) seam_post<kFSlot>(slots, buf, rank, cpost, t, nct);
-          pfc = __shfl_sync(kFull, fc, max(wi - 1, 0));
-          pfb = __shfl_sync(kFull, fb, max(wi - 1, 0));
-          tc0 = __shfl_sync(kFull, c0, wi);
-          tb0 = __shfl_sync(kFull, b0, wi);
-          nm_l = __shfl_sync(kFull, v[kFMat0], min(wi + 1, 31));
-          ni_l = __shfl_sync(kFull, v[kFIns0], min(wi + 1, 31));
-        }
-      } else {
-        seam_post<kFSlot>(slots, buf, g, post, t, nct);
-      }
+      seam_post<kFSlot>(slots, buf, g, post, t, nct);
       seam_arrive(nct);
       ctx = indel_ctx(tb, kn);
       kn = kn2;
@@ -383,7 +295,7 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
       // K2: row j-1's shift; row j-1 stored less it, with its offset
       float shift = 0.f;
       if (STORE) {
-        shift = fold_shift(slots, buf, TWO ? nct : T, t);
+        shift = fold_shift(slots, buf, T, t);
         if (j >= 2) {
           off += shift;
           store_cluster_row<LPT>(prow + (size_t)(j - 2) * W, plane, s, j - 1,
@@ -392,33 +304,18 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
         }
       }
       if (lv || lv_next) {
-        // the fold: lane h builds tile h's step (kTwoFold: CTA h's), its
-        // first lane's from the one before's last lane, then the rest of
-        // its lanes'; the first lane's delete cell of each
+        // the fold: lane h builds tile h's step, its first lane's from the
+        // one before's last lane, then the rest of its lanes'; the first
+        // lane's delete cell of each
         float v[kFSlot];
-        const float del0 = fold_slots<VIT>(slots, buf, TWO ? nct : T, m2d, t, v);
-        float d0, nm, ni;
-        if constexpr (TWO) {
-          // the tile's first lane: its CTA's first lane's delete cell,
-          // then the CTA's tiles before it
-          const float dc = __shfl_sync(kFull, del0, rank);
-          d0 = wi == 0 ? dc
-                       : comb<VIT>(comb<VIT>(dc + pfc, pfb) + tc0, tb0);
-          const int n = min(rank + 1, 31);
-          const float cm = __shfl_sync(kFull, v[kFMat0], n);
-          const float cn = __shfl_sync(kFull, v[kFIns0], n);
-          const bool last = rank + 1 >= nct;
-          nm = wi + 1 < nw ? nm_l : (last ? NEG : cm);
-          ni = wi + 1 < nw ? ni_l : (last ? NEG : cn);
-        } else {
-          d0 = __shfl_sync(kFull, del0, g);
-          const int n = min(g + 1, 31);
-          nm = g + 1 >= T ? NEG : __shfl_sync(kFull, v[kFMat0], n);
-          ni = g + 1 >= T ? NEG : __shfl_sync(kFull, v[kFIns0], n);
-        }
+        const float del0 = fold_slots<VIT>(slots, buf, T, m2d, t, v);
+        const float d0 = __shfl_sync(kFull, del0, g);
+        const int n = min(g + 1, 31);
+        const float nm = g + 1 >= T ? NEG : __shfl_sync(kFull, v[kFMat0], n);
+        const float ni = g + 1 >= T ? NEG : __shfl_sync(kFull, v[kFIns0], n);
         if (lv) {
           const float x = t == 0 ? d0 : comb<VIT>(d0 + ce, be);
-          fill_apply<VIT, LPT, true, WIDE>(s, w, x, t);
+          fill_apply<VIT, LPT, true>(s, w, x, t);
         }
         seam_m = nm <= NEG / 2 ? NEG : nm - shift;
         seam_i = ni <= NEG / 2 ? NEG : ni - shift;
@@ -445,20 +342,9 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
       for (int q = 0; q < kFSlot; ++q) post[q] = NEG;
       post[kFTop] = top;
       const int buf = (ylen + 1) & 1;
-      if constexpr (TWO) {
-        seam_post_local<kFSlot>(lslots, buf, g, post, t);
-        __syncthreads();
-        if (wi == 0) {
-          float v[kFSlot], cpost[kFSlot], fc, fb, c0, b0;
-          fold_cta<VIT>(lslots, buf, rank * nw, nw, 0.f, t, v, fc, fb, c0, b0,
-                        cpost);
-          seam_post<kFSlot>(slots, buf, rank, cpost, t, nct);
-        }
-      } else {
-        seam_post<kFSlot>(slots, buf, g, post, t, nct);
-      }
+      seam_post<kFSlot>(slots, buf, g, post, t, nct);
       cluster_sync(nct);
-      const float shift = fold_shift(slots, buf, TWO ? nct : T, t);
+      const float shift = fold_shift(slots, buf, T, t);
       off += shift;
       store_cluster_row<LPT>(prow + (size_t)(ylen - 1) * W, plane, s, ylen,
                              shift, w0, W);
@@ -504,25 +390,6 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
     }
     e[2 + q] = warp_max(sk);
   }
-  if constexpr (TWO) {
-    // K2 (STORE): the score alone; lane h takes tiles h, h + 32, ... in
-    // order
-    seam_gather<NR>(red2, g, e, t, nct);
-    if (rank == 0 && threadIdx.x < 32) {
-      float mt = NEG;
-      for (int h = t; h < T; h += 32) mt = fmaxf(mt, red2[h][0]);
-      const float m = warp_max(mt);
-      float score = m;
-      if (m > NEG / 2) {
-        float part = 0.f;
-        for (int h = t; h < T; h += 32)
-          if (red2[h][0] > NEG / 2) part += red2[h][1] * expf(red2[h][0] - m);
-        score = m + logf(warp_sum(part));
-      }
-      if (t == 0) out[b] = score > NEG / 2 ? (float)(off + (double)score) : score;
-    }
-    return;
-  }
   seam_gather<NR>(red, g, e, t, nct);
   if (rank == 0 && threadIdx.x < 32) {
     const float mt = t < T ? red[t][0] : NEG;
@@ -546,8 +413,7 @@ __global__ void __launch_bounds__(fill_cluster_max_warps<LPT, STORE>() * 32, 1)
 }
 
 // the cluster route's instantiations: LPT 4, 8 and 16 lanes a thread,
-// K1's in kOneFold; K2 (STORE) passes its rows and offsets, in `mode`
-// kOneFold or kTwoFold
+// one fold (`mode` kOneFold: K2's rows and offsets with STORE)
 template <bool VIT, bool STORE>
 cudaError_t launch_fill_cluster(int lpt, int nct, int warps,
                                 const int8_t* x_tok, int Lx, const int4* keys,
@@ -558,24 +424,15 @@ cudaError_t launch_fill_cluster(int lpt, int nct, int warps,
                                 int B, int local, float* out,
                                 cudaStream_t stream, float* rows = nullptr,
                                 double* offs = nullptr, int mode = kOneFold) {
-  if (!STORE && mode != kOneFold) return cudaErrorInvalidValue;
-  if (nct * warps > (mode == kTwoFold ? kMaxTiles2 : kMaxTiles) ||
-      (mode == kTwoFold && nct > kMaxClusterCtas))
-    return cudaErrorInvalidValue;
-#define QUAFF_FILL_CLUSTER_LAUNCH(N, M, SMEM)                                \
-  launch_cluster(band_fill_cluster_kernel<VIT, STORE, N, (M)>, B, nct, warps,\
-                 SMEM, stream, (M) == kTwoFold, x_tok, Lx, keys, Ly, meta,   \
-                 doff, W, seg_start, seg_width, S, tb, trans, B, local, out, \
-                 rows, offs)
+  if (mode != kOneFold || nct * warps > kMaxTiles) return cudaErrorInvalidValue;
 #define QUAFF_FILL_CLUSTER_CASE(N)                                           \
   case N:                                                                    \
     if (warps > fill_cluster_max_warps<N, STORE>())                          \
       return cudaErrorInvalidValue;                                          \
-    if (!STORE || mode == kOneFold)                                          \
-      return QUAFF_FILL_CLUSTER_LAUNCH(N, kOneFold, 0);                      \
-    if (mode != kTwoFold) return cudaErrorInvalidValue;                      \
-    return QUAFF_FILL_CLUSTER_LAUNCH(N, STORE ? kTwoFold : kOneFold,         \
-                                     kFillTwoSmem);
+    return launch_cluster(band_fill_cluster_kernel<VIT, STORE, N>, B, nct,   \
+                          warps, 0, stream, false, x_tok, Lx, keys, Ly,      \
+                          meta, doff, W, seg_start, seg_width, S, tb, trans, \
+                          B, local, out, rows, offs);
   switch (lpt) {
     QUAFF_FILL_CLUSTER_CASE(4)
     QUAFF_FILL_CLUSTER_CASE(8)
@@ -584,7 +441,6 @@ cudaError_t launch_fill_cluster(int lpt, int nct, int warps,
       return cudaErrorInvalidValue;
   }
 #undef QUAFF_FILL_CLUSTER_CASE
-#undef QUAFF_FILL_CLUSTER_LAUNCH
 }
 
 }  // namespace

@@ -128,7 +128,6 @@ struct RowWork {
   bool v[LPT];
   float mc[LPT], ic[LPT], cc[LPT], bb[LPT];
   float c_acc, b_acc;
-  float r;  // WIDE: the thread's chain reference (band_fill.cuh)
 };
 
 // The first half of row j from row j-1's cells in s (FIRST: j == 1, where
@@ -137,10 +136,8 @@ struct RowWork {
 // w+1 of the previous row is (seam_m, seam_i): NEG past the warp route's
 // band, the next tile's first lane in a cluster route.  TILE: the first
 // lane of thread 0 stays out of the thread's step; it reads the tile
-// before's last lane and joins at the cross-tile fold.  WIDE: the steps
-// compose relative to the thread's largest opening term w.r (band_fill.cuh),
-// and w.b_acc is r plus the relative composition.
-template <bool VIT, int LPT, bool FIRST, bool TILE, bool WIDE = false>
+// before's last lane and joins at the cross-tile fold.
+template <bool VIT, int LPT, bool FIRST, bool TILE>
 __device__ __forceinline__ void fill_cells(RowWork<LPT>& w,
                                            const Lanes<LPT>& s,
                                            const RowIn& r, const Trans& tr,
@@ -173,66 +170,31 @@ __device__ __forceinline__ void fill_cells(RowWork<LPT>& w,
   if (t == 0) ml = NEG;
   w.c_acc = 0.f;
   w.b_acc = neg_inf();  // the identity step
-  if constexpr (WIDE) {
-    float bmax = NEG;
 #pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const float mprev = k > 0 ? w.mc[k > 0 ? k - 1 : 0] : ml;
-      w.cc[k] = w.v[k] ? tr.d2d : NEG;
-      w.bb[k] = w.v[k] ? mprev + r.m2d : NEG;
-      const bool skip = TILE && k == 0 && t == 0;
-      if (!skip && w.v[k]) bmax = fmaxf(bmax, w.bb[k]);
-    }
-    w.r = wide_chain_ref(bmax);
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const bool skip = TILE && k == 0 && t == 0;
-      w.b_acc = skip ? w.b_acc : comb<VIT>(w.b_acc + w.cc[k], w.bb[k] - w.r);
-      w.c_acc = skip ? w.c_acc : w.c_acc + w.cc[k];
-    }
-    w.b_acc = w.r + w.b_acc;
-  } else {
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const float mprev = k > 0 ? w.mc[k > 0 ? k - 1 : 0] : ml;
-      w.cc[k] = w.v[k] ? tr.d2d : NEG;
-      w.bb[k] = w.v[k] ? mprev + r.m2d : NEG;
-      const bool skip = TILE && k == 0 && t == 0;
-      w.b_acc = skip ? w.b_acc : comb<VIT>(w.b_acc + w.cc[k], w.bb[k]);
-      w.c_acc = skip ? w.c_acc : w.c_acc + w.cc[k];
-    }
+  for (int k = 0; k < LPT; ++k) {
+    const float mprev = k > 0 ? w.mc[k > 0 ? k - 1 : 0] : ml;
+    w.cc[k] = w.v[k] ? tr.d2d : NEG;
+    w.bb[k] = w.v[k] ? mprev + r.m2d : NEG;
+    const bool skip = TILE && k == 0 && t == 0;
+    w.b_acc = skip ? w.b_acc : comb<VIT>(w.b_acc + w.cc[k], w.bb[k]);
+    w.c_acc = skip ? w.c_acc : w.c_acc + w.cc[k];
   }
 }
 
 // The second half of row j: C, replay the thread's lanes from x, the
 // chain's value entering them (an invalid lane's step (NEG, NEG) leaves
 // exactly NEG there); TILE: thread 0's x is already its first lane's
-// delete cell.  WIDE: each lane's cell is r + comb(x - r + c_k, b_k) from
-// its inclusive map relative to w.r, not the sequential replay.
-template <bool VIT, int LPT, bool TILE, bool WIDE = false>
+// delete cell.
+template <bool VIT, int LPT, bool TILE>
 __device__ __forceinline__ void fill_apply(Lanes<LPT>& s, const RowWork<LPT>& w,
                                            float x, int t) {
-  if constexpr (WIDE) {
-    const float xr = x - w.r;
-    float pc = 0.f, pb = neg_inf();
 #pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const bool keep = TILE && k == 0 && t == 0;
-      pb = keep ? pb : comb<VIT>(pb + w.cc[k], w.bb[k] - w.r);
-      pc = keep ? pc : pc + w.cc[k];
-      s.del[k] = keep ? x : w.r + comb<VIT>(xr + pc, pb);
-      s.mat[k] = w.mc[k];
-      s.ins[k] = w.ic[k];
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const bool keep = TILE && k == 0 && t == 0;
-      x = keep ? x : comb<VIT>(x + w.cc[k], w.bb[k]);
-      s.del[k] = x;
-      s.mat[k] = w.mc[k];
-      s.ins[k] = w.ic[k];
-    }
+  for (int k = 0; k < LPT; ++k) {
+    const bool keep = TILE && k == 0 && t == 0;
+    x = keep ? x : comb<VIT>(x + w.cc[k], w.bb[k]);
+    s.del[k] = x;
+    s.mat[k] = w.mc[k];
+    s.ins[k] = w.ic[k];
   }
 }
 

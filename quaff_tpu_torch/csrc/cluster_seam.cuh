@@ -42,11 +42,13 @@ constexpr int kMaxTiles = 32;
 constexpr int kMaxClusterCtas = 16;
 constexpr int kMaxTiles2 = kMaxClusterCtas * 16;
 
-// The E-step cluster routes' arithmetic and fold (the MODE of K2's and
-// K3's cluster kernels): kOneFold, the one-level row (K1's, K4's and the
-// E-step's up to dp/estep.ESTEP_WIDE_LANES and 32 tiles); kTwoFold, the
-// WIDE chain (band_fill.cuh) with K3's row shift at its posterior mode
-// (estep.cu) and the two-level fold of up to kMaxTiles2 tiles:
+// The E-step cluster routes' arithmetic and fold (the MODE of K3's cluster
+// kernel; K2's has kOneFold alone): kOneFold, the one-level row (K1's,
+// K4's and the E-step's up to dp/estep.ESTEP_WIDE_LANES and 32 tiles);
+// kTwoFold, K3's wide arithmetic (its reverse chain relative to each
+// thread's largest opening term, its row shift at its posterior mode,
+// estep.cu) and the two-level fold of up to kMaxTiles2 tiles, which the
+// smem routes (estep_smem.cu) share:
 //   - each tile posts its slot to its own CTA's shared memory; after a
 //     block barrier every warp folds its CTA's tiles (lane h takes tile h,
 //     one warp scan), and warp 0 posts the CTA's slot, the composite of

@@ -7,7 +7,7 @@
 // PyTorch versions are quaff_tpu_torch/dp/estep.py::fwd_store_reference
 // and ::bwd_counts_reference; the input layout is fill_v2.kernel_inputs.
 //
-// Three routes each, picked by dp/estep.estep_route from the band's width
+// Four routes each, picked by dp/estep.estep_route from the band's width
 // W (and each kernel's measured cutover):
 //
 //   warp route     fwd_store_warp_kernel<LPT> and
@@ -16,11 +16,15 @@
 //                  thread, no block barrier in the row loop;
 //   cluster route  wider bands up to dp/estep.ESTEP_CLUSTER_MAX_LANES:
 //                  K1's cluster fill with STORE set
-//                  (band_fill_cluster_kernel<false, true, LPT, MODE>) and
-//                  bwd_counts_cluster_kernel<LPT, MODE>, a pair's band
-//                  tiled over the warps of a thread-block cluster, past 32
-//                  tiles folded in two levels (estep_cluster.cu, with
-//                  their entries);
+//                  (band_fill_cluster_kernel<false, true, LPT>, to
+//                  ESTEP_WIDE_LANES) and bwd_counts_cluster_kernel<LPT,
+//                  MODE>, a pair's band tiled over the warps of a
+//                  thread-block cluster, K3's past 32 tiles folded in two
+//                  levels (estep_cluster.cu, with their entries);
+//   smem route     wider bands up to dp/estep.ESTEP_SMEM_MAX_LANES:
+//                  fwd_store_smem_kernel and bwd_counts_smem_kernel
+//                  (estep_smem.cu), the two-level fold over up to 16 CTAs
+//                  with each thread's lanes in shared memory;
 //   block route    wider bands still: K1's block fill with STORE set
 //                  (band_fill_kernel<false, true>, band_fill.cuh) and
 //                  bwd_counts_kernel below, one block per pair, the row in
@@ -71,17 +75,17 @@
 // 4*Q (insert) + 4*n_ik (m2m, m2i, m2d, m2e per indel context).
 //
 // Past dp/estep.ESTEP_WIDE_LANES the block routes are WIDE
-// (band_fill_kernel<false, true, true>, bwd_counts_kernel<true>): the
-// delete chains compose relative to each thread's largest opening term
-// (band_fill.cuh), and K3 scales each backward row not by its largest
-// cell but by its backward match cell at the row's posterior mode, the
-// valid lane with the largest forward + backward match cell (ties: the
-// largest backward cell).  On a global band whose read needs thousands of
-// deletions, the largest backward cell of a row lies near the end
-// diagonal while the posterior's path runs up to ~1300 nats below it;
-// scaled by the largest cell, every float32 operation on the path rounds
-// at 6e-5-1.2e-4 nats, and over ~1000 rows the backward total drifts
-// 6.4e-3 (8192 lanes), 1.9e-2 (16384) and 0.64 nats (32768) off the
+// (band_fill_kernel<false, true, true>, bwd_counts_kernel<true>): K2's
+// cells are float64 (band_fill.cuh), K3's delete chain composes relative to
+// each thread's largest opening term, and K3 scales each backward row not
+// by its largest cell but by its backward match cell at the row's posterior
+// mode, the valid lane with the largest forward + backward match cell
+// (ties: the largest backward cell). On a global band whose read needs
+// thousands of deletions, the largest backward cell of a row lies near the
+// end diagonal while the posterior's path runs up to ~1300 nats below it;
+// scaled by the largest cell, every float32 operation on the path rounds at
+// 6e-5-1.2e-4 nats, and over ~1000 rows the backward total drifts 6.4e-3
+// (8192 lanes), 1.9e-2 (16384) and 0.64 nats (32768) off the
 // float64 one with the sequential chain, 4.0e-3 to 4.0e-2 with the WIDE
 // chain alone.  Scaled at the mode, the path's cells sit near 0 and with
 // the WIDE chain the backward total lands within 2.4e-4, 3.1e-4 and

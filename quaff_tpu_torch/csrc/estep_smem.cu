@@ -1,0 +1,963 @@
+// K2's and K3's shared-memory cluster routes ("smem routes"): the training
+// E-step's forward fill with stored rows and its backward sweep with
+// posterior counts for the widest bands, each pair's band spread over the
+// CTAs of a thread-block cluster with every lane's row state in shared
+// memory, for NVIDIA Hopper (sm_90a).
+//
+// With estep.cu and estep_cluster.cu, replaces the TPU kernels
+// quaff_tpu/dp/pallas_counts.py::_fwd_store (kernel _fwd_kernel) and
+// ::_bwd_counts (kernel _bwd_kernel); the plain PyTorch versions are
+// quaff_tpu_torch/dp/estep.py::fwd_store_reference and
+// ::bwd_counts_reference.  dp/estep.estep_route sends K2's bands past
+// ESTEP_WIDE_LANES and K3's past its two-level cluster route here, up to
+// ESTEP_SMEM_MAX_LANES, with the tiling (CTAs a pair, warps a CTA, lanes a
+// thread) of the kernel's ESTEP_SMEM_TABLE row; the same inputs and
+// outputs as the other routes, so any route's K2 store feeds any route's
+// K3.
+//
+// Why.  The register-lane cluster routes (band_fill_cluster.cuh,
+// estep_cluster.cu) hold a thread's lanes in registers: at 16 CTAs a pair
+// (the most a cluster takes) of 16 warps (K2) or 8 (K3), 32768 lanes need
+// 4 or 8 lanes a thread, and 16 spill.  Past that the block routes gave a
+// pair one SM, its row in global scratch and block reductions every row:
+// 841 ms (K2) and 869 ms (K3) at phase 4b's 34 kb count (B=2, W=35506,
+// 1505 rows; PERF.md §6).  Here a tile is still a warp of 32 threads that
+// own consecutive runs of lanes, and the tiles meet as in the two-level
+// fold (cluster_seam.cuh kTwoFold): each tile posts its slot to its CTA,
+// every warp folds its CTA's tiles after a block barrier, warp 0 posts the
+// CTA's slot to every CTA, and the CTAs fold after the row's one cluster
+// barrier.  What changes is where a thread's lanes live: a run of `lpt`
+// lanes (a runtime count, so no register array grows with it) in the CTA's
+// dynamic shared memory, laid out [lane of the run][thread] so that a
+// warp's accesses fall on 32 banks.  At 65536 lanes, 16 CTAs of 16 warps
+// take 8 lanes a thread: K2's 28 bytes a lane are 112 KB of a CTA's 227,
+// K3's 24 bytes 96 KB.
+//
+// K2 here runs the wide arithmetic of dp/estep.ESTEP_WIDE_LANES in float64
+// cells.  On global bands of reads that need thousands of deletions the
+// path that ends the read lies hundreds to ~10^4 nats below its row's
+// largest cell, where a float32 step rounds at 6e-5 to 5e-4 nats; float32
+// cells put the forward score up to 3.7e-2 nats off the float64 fill at
+// 32769 lanes (PERF.md §7).  So a lane's match, insert and delete cells
+// are doubles, every sum is a double, and a log-add-exp takes its one
+// transcendental, log1p(exp(-|a - b|)) of the doubles' difference, in
+// float32, whose absolute error (~1e-7 nats) does not grow with the
+// cells' magnitude.  The row's shift is its largest match or insert cell
+// (known before the fold, so it rides on the row's own exchange and row j
+// is stored as soon as its delete cells are: no row of lag, no second
+// copy of a row), added to the pair's float64 offset; the stored rows stay
+// float32 relative to it, one rounding a cell.
+//
+// K3 runs the float32 arithmetic of its two-level route (estep_cluster.cu
+// kTwoFold): each thread's reverse chain relative to its largest opening
+// term, the row shifted at its posterior mode (the tiles' candidates ride
+// on the slot with their maxima), the row statistics to CTA 0 a row late.
+// Its per-lane loop reads the stored forward cells it needs (row j and
+// j-1, lanes w-1, w, w+1) straight from global memory.
+//
+// No float atomics: every sum's association order depends only on the pair
+// and the tiling, so reruns are bit-identical.
+//
+// What bounds them: per row the longest live tile's run (lpt lanes of
+// shared-memory reads and writes, ~5 log-add-exps a lane, float64 in K2)
+// plus the block barrier, the cluster barrier and the folds' scans; the
+// bytes (12 a cell K2 stores and K3 reads) are an order of magnitude
+// below.
+
+#include "estep_cluster.cuh"
+
+namespace {
+
+// warps a CTA of the smem routes (128 registers a thread)
+constexpr int kSmemMaxWarps = 16;
+
+// ---------------------------------------------------------------- K2
+
+__device__ __forceinline__ double warp_max_d(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmax(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// a tile's (or with level 2 a CTA's) slot, float64: its delete-chain map
+// without its first lane (c, b), the first lane's c (NEG where it is
+// invalid), match and insert cells, the last lane's match cell, and its
+// largest match or insert cell of the row
+enum { kDC, kDB, kDC0, kDM0, kDI0, kDML, kDTop, kDSlot };
+constexpr int kDWords = 8;  // a slot's doubles, two to a 16-byte store
+
+struct __align__(16) DSlot {
+  double v[kDWords];
+};
+
+__device__ __forceinline__ void remote_store2d(uint32_t addr, double x,
+                                               double y) {
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};" ::"r"(addr),
+               "d"(x), "d"(y)
+               : "memory");
+}
+
+// `v` as slot `h` of buffer `buf` in every CTA of the cluster: thread r
+// writes CTA r's copy (a plain store where the cluster is one CTA)
+__device__ __forceinline__ void post_d(DSlot (*slots)[kMaxClusterCtas],
+                                       int buf, int h,
+                                       const double (&v)[kDWords], int t,
+                                       int nct) {
+  if (t < nct) {
+    if (nct > 1) {
+      const uint32_t a = remote_addr(&slots[buf][h], t);
+#pragma unroll
+      for (int q = 0; q < kDWords / 2; ++q)
+        remote_store2d(a + 16u * q, v[2 * q], v[2 * q + 1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kDWords; ++q) slots[buf][h].v[q] = v[q];
+    }
+  }
+}
+
+__device__ __forceinline__ void read_d(const DSlot& s,
+                                       double (&v)[kDWords]) {
+#pragma unroll
+  for (int q = 0; q < kDWords; ++q) v[q] = s.v[q];
+}
+
+// level 1, after the block barrier: lane h takes the CTA's tile h (of nw)
+// and builds its step, tile 0's without its first lane (which joins at
+// level 2); one warp scan leaves in (fc, fb) the composite from tile 0's
+// second lane through tile h, in (c0, b0) tile h's first lane's step and
+// in v tile h's slot; cpost is the CTA's slot.
+__device__ __forceinline__ void fold_cta_d(const DSlot* lslots, int nw,
+                                           double m2d, int t,
+                                           double (&v)[kDWords], double& fc,
+                                           double& fb, double& c0,
+                                           double& b0,
+                                           double (&cpost)[kDWords]) {
+  const double NEG = (double)neg_big();
+  if (t < nw) {
+    read_d(lslots[t], v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kDWords; ++q) v[q] = NEG;
+  }
+  const double mprev = __shfl_up_sync(kFull, v[kDML], 1);
+  c0 = v[kDC0];
+  b0 = c0 > NEG / 2 ? mprev + m2d : NEG;
+  fc = 0.0;
+  fb = -INFINITY;
+  if (t == 0) {
+    fc = v[kDC];
+    fb = v[kDB];
+  } else if (t < nw) {
+    fc = c0 + v[kDC];
+    fb = comb<false>(b0 + v[kDC], v[kDB]);
+  }
+  warp_scan<false>(fc, fb, t);
+  cpost[kDC] = __shfl_sync(kFull, fc, nw - 1);
+  cpost[kDB] = __shfl_sync(kFull, fb, nw - 1);
+  cpost[kDC0] = __shfl_sync(kFull, v[kDC0], 0);
+  cpost[kDM0] = __shfl_sync(kFull, v[kDM0], 0);
+  cpost[kDI0] = __shfl_sync(kFull, v[kDI0], 0);
+  cpost[kDML] = __shfl_sync(kFull, v[kDML], nw - 1);
+  cpost[kDTop] = warp_max_d(t < nw ? v[kDTop] : NEG);
+  cpost[kDSlot] = 0.0;
+}
+
+// level 2, after the cluster barrier: lane q takes CTA q's slot (of nct),
+// builds its whole step, its first lane's from CTA q-1's last lane, one
+// warp scan composes them; lane q returns CTA q's first lane's delete
+// cell, v CTA q's slot
+__device__ __forceinline__ double fold_ctas_d(const DSlot* slots, int nct,
+                                              double m2d, int t,
+                                              double (&v)[kDWords]) {
+  const double NEG = (double)neg_big();
+  if (t < nct) {
+    read_d(slots[t], v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kDWords; ++q) v[q] = NEG;
+  }
+  double mprev = __shfl_up_sync(kFull, v[kDML], 1);
+  if (t == 0) mprev = NEG;
+  const double c0 = v[kDC0];
+  const double b0 = c0 > NEG / 2 ? mprev + m2d : NEG;
+  double fc = 0.0, fb = -INFINITY;
+  if (t < nct) {
+    fc = c0 + v[kDC];
+    fb = comb<false>(b0 + v[kDC], v[kDB]);
+  }
+  warp_scan<false>(fc, fb, t);
+  const double xe = __shfl_up_sync(kFull, fb, 1);
+  const double xin = t == 0 ? -INFINITY : xe;
+  return comb<false>(xin + c0, b0);
+}
+
+// K2: the scaled Forward fill of K1 with float64 cells, storing every
+// row's cells to rows[3][B][Ly][W] relative to the row's offset offs[B][Ly]
+// and each pair's Forward score to out[b].  Dynamic shared memory: the
+// previous row's match, insert and delete cells (float64) and the
+// diagonal - 1 of each of the CTA's lanes, [lane of the run][thread].
+__global__ void __launch_bounds__(kSmemMaxWarps * 32, 1) fwd_store_smem_kernel(
+    const int8_t* __restrict__ x_tok, int Lx, const int4* __restrict__ keys,
+    int Ly, const int4* __restrict__ meta, const int* __restrict__ doff,
+    int W, const int* __restrict__ seg_start,
+    const int* __restrict__ seg_width, int S, FillTables tb,
+    const float* __restrict__ trans, int B, int local, int lpt,
+    float* __restrict__ out, float* __restrict__ rows,
+    double* __restrict__ offs) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  __shared__ DSlot lslots[2][kSmemMaxWarps];
+  __shared__ DSlot cslots[2][kMaxClusterCtas];
+  __shared__ double ends[kMaxClusterCtas * kSmemMaxWarps][2];
+
+  const int NT = blockDim.x, tid = threadIdx.x;
+  const int nct = cluster_ctas(), rank = cluster_rank();
+  const int nw = NT >> 5, t = tid & 31, wi = tid >> 5;
+  const int T = nct * nw, g = rank * nw + wi;
+  const int b = blockIdx.x / nct;
+  const float NEGF = neg_big();
+  const double NEG = (double)NEGF;
+  double* Mc = reinterpret_cast<double*>(fwd_smem);
+  double* Ic = Mc + (size_t)lpt * NT;
+  double* Dc = Ic + (size_t)lpt * NT;
+  int* dgs = reinterpret_cast<int*>(Dc + (size_t)lpt * NT);
+  const int4 pm = meta[b];
+  const int xlen = pm.x, ylen = __shfl_sync(kFull, min(pm.y, Ly), 0);
+  const bool hq = pm.z != 0;
+  const double d2d = trans[0], d2m = trans[1], i2i = trans[2], i2m = trans[3];
+  const auto* xb = reinterpret_cast<const uint8_t*>(x_tok) + (size_t)b * Lx;
+  const int xmax = Lx - 1;
+  const int4* kb = keys + (size_t)b * Ly;
+  const int wb = pair_extent(seg_start, seg_width, b, S, W);
+  const int w0 = (g * 32 + t) * lpt;  // the thread's first lane
+
+  int lo = 1 << 30, hi = -(1 << 30);
+  for (int k = 0; k < lpt; ++k) {
+    const int w = w0 + k, a = k * NT + tid;
+    const int d = w < wb ? doff[(size_t)b * W + w] : kSentinel;
+    const int l = max(1, 1 - d), h = min(ylen, xlen - d);
+    if (d != kSentinel && h >= l) {
+      lo = min(lo, l);
+      hi = max(hi, h);
+    }
+    dgs[a] = d - 1;
+    Mc[a] = NEG;
+    Ic[a] = NEG;
+    Dc[a] = NEG;
+  }
+  // the tile's live rows: a row outside them has no valid lane of it
+  const int tlo = warp_min_i(lo), thi = warp_max_i(hi);
+  // every CTA of the cluster has started before a peer's first post
+  // stores into its shared memory
+  cluster_sync(nct);
+
+  double M0 = NEG, I0 = NEG;          // the thread's first lane, last row
+  double seam_m = NEG, seam_i = NEG;  // thread 31: the next tile's
+  double off = 0.0;
+  const size_t plane = (size_t)B * Ly * W;
+  float* prow = rows + (size_t)b * Ly * W;
+  RowIn r{};
+  if (ylen >= 1) {
+    int4 kn = kb[0];
+    r = load_row(tb, hq, kn, 0);
+    int ctx = indel_ctx(tb, kn);
+    kn = kb[min(1, ylen - 1)];
+    for (int j = 1; j <= ylen; ++j) {
+      const bool lv = tlo <= j && j <= thi;
+      // row j+1's inputs, a row ahead (past the last row they stay on its
+      // key, whose m2e the end row reads)
+      const RowIn rn = load_row(tb, hq, kn, ctx);
+      const int4 kn2 = kb[min(j + 1, ylen - 1)];
+      const double m2d = r.m2d;
+      double post[kDWords];
+#pragma unroll
+      for (int q = 0; q < kDWords; ++q) post[q] = NEG;
+      double ce = 0.0, be = -INFINITY, ml = NEG;
+      if (lv) {
+        // A: the match and insert cells in place of the previous row's
+        // (lane w+1's of the previous row read first), the thread's delete
+        // chain over its lanes but the first, whose opening term needs the
+        // previous thread's last match cell
+        double mr = __shfl_down_sync(kFull, M0, 1);
+        double ir = __shfl_down_sync(kFull, I0, 1);
+        if (t == 31) {
+          mr = seam_m;
+          ir = seam_i;
+        }
+        double m_nx = Mc[tid], i_nx = Ic[tid];
+        double mprev = NEG, C = 0.0, Bc = -INFINITY, top = NEG;
+        double c0 = NEG, mc0 = NEG, ic0 = NEG;
+        bool v0 = false;
+        for (int k = 0; k < lpt; ++k) {
+          const int a = k * NT + tid;
+          const double m_o = m_nx, i_o = i_nx, d_o = Dc[a];
+          if (k + 1 < lpt) {
+            m_nx = Mc[a + NT];
+            i_nx = Ic[a + NT];
+          } else {
+            m_nx = mr;
+            i_nx = ir;
+          }
+          const int dg = dgs[a];
+          const bool v = in_ref(dg, j, xlen);
+          double s = comb<false>(comb<false>(m_o + (double)r.m2m, d_o + d2m),
+                                 i_o + i2m);
+          if (j == 1 && (local || dg == -1)) s = comb<false>(s, 0.0);
+          const float e = pick(r.e, token(xb, dg + j, xmax));
+          const double mc = v ? s + (double)e : NEG;
+          const double ic =
+              v ? (double)r.ins +
+                      comb<false>(i_nx + i2i, m_nx + (double)r.m2i)
+                : NEG;
+          Mc[a] = mc;
+          Ic[a] = ic;
+          if (v) top = fmax(top, fmax(mc, ic));
+          if (k == 0) {
+            v0 = v;
+            c0 = v ? d2d : NEG;
+            mc0 = mc;
+            ic0 = ic;
+          } else {
+            const double c = v ? d2d : NEG;
+            const double bb = v ? mprev + m2d : NEG;
+            Bc = comb<false>(Bc + c, bb);
+            C += c;
+          }
+          mprev = mc;
+        }
+        ml = __shfl_up_sync(kFull, mprev, 1);
+        // the thread's step: its first lane's, then the rest (thread 0's
+        // first lane is the tile's, which joins at the fold)
+        double cc = C, bc = Bc;
+        if (t > 0) {
+          const double b0 = v0 ? ml + m2d : NEG;
+          bc = comb<false>(b0 + C, Bc);
+          cc = c0 + C;
+        }
+        warp_scan<false>(cc, bc, t);
+        ce = __shfl_up_sync(kFull, cc, 1);
+        be = __shfl_up_sync(kFull, bc, 1);
+        post[kDC] = __shfl_sync(kFull, cc, 31);
+        post[kDB] = __shfl_sync(kFull, bc, 31);
+        post[kDC0] = __shfl_sync(kFull, c0, 0);
+        post[kDM0] = __shfl_sync(kFull, mc0, 0);
+        post[kDI0] = __shfl_sync(kFull, ic0, 0);
+        post[kDML] = __shfl_sync(kFull, mprev, 31);
+        post[kDTop] = warp_max_d(top);
+      }
+      const int buf = j & 1;
+      if (t == 0) {
+#pragma unroll
+        for (int q = 0; q < kDWords; ++q) lslots[buf][wi].v[q] = post[q];
+      }
+      __syncthreads();
+      // level 1: every warp folds its CTA's tiles; warp 0 posts the CTA's
+      // slot to every CTA
+      double v1[kDWords], cpost[kDWords], fc, fb, tc0, tb0;
+      fold_cta_d(lslots[buf], nw, m2d, t, v1, fc, fb, tc0, tb0, cpost);
+      if (wi == 0) post_d(cslots, buf, rank, cpost, t, nct);
+      const double pfc = __shfl_sync(kFull, fc, max(wi - 1, 0));
+      const double pfb = __shfl_sync(kFull, fb, max(wi - 1, 0));
+      const double c0w = __shfl_sync(kFull, tc0, wi);
+      const double b0w = __shfl_sync(kFull, tb0, wi);
+      const double nm_l = __shfl_sync(kFull, v1[kDM0], min(wi + 1, 31));
+      const double ni_l = __shfl_sync(kFull, v1[kDI0], min(wi + 1, 31));
+      seam_arrive(nct);
+      ctx = indel_ctx(tb, kn);
+      kn = kn2;
+      seam_wait(nct);
+
+      // level 2: the CTAs' slots; the row's shift, the delete cell entering
+      // the tile's first lane, the next tile's first cells
+      double v2[kDWords];
+      const double del0 = fold_ctas_d(cslots[buf], nct, m2d, t, v2);
+      const double tm = warp_max_d(t < nct ? v2[kDTop] : NEG);
+      const double shift = tm > NEG / 2 ? tm : 0.0;
+      const double dc = __shfl_sync(kFull, del0, rank);
+      const double d0 =
+          wi == 0 ? dc : comb<false>(comb<false>(dc + pfc, pfb) + c0w, b0w);
+      const int n = min(rank + 1, 31);
+      const double cm = __shfl_sync(kFull, v2[kDM0], n);
+      const double cn = __shfl_sync(kFull, v2[kDI0], n);
+      const bool last = rank + 1 >= nct;
+      const double nm = wi + 1 < nw ? nm_l : (last ? NEG : cm);
+      const double ni = wi + 1 < nw ? ni_l : (last ? NEG : cn);
+      seam_m = nm <= NEG / 2 ? NEG : nm - shift;
+      seam_i = ni <= NEG / 2 ? NEG : ni - shift;
+
+      // C: the delete cells from the value entering the thread, the row
+      // less its shift, kept and stored
+      float* row = prow + (size_t)(j - 1) * W;
+      if (lv) {
+        double x = t == 0 ? d0 : comb<false>(d0 + ce, be);
+        double mprev = ml;
+        for (int k = 0; k < lpt; ++k) {
+          const int a = k * NT + tid, w = w0 + k;
+          const double mc = Mc[a], ic = Ic[a];
+          const bool v = in_ref(dgs[a], j, xlen);
+          if (k > 0 || t > 0)
+            x = comb<false>(x + (v ? d2d : NEG), v ? mprev + m2d : NEG);
+          mprev = mc;
+          const double ms = v ? mc - shift : NEG;
+          const double is = v ? ic - shift : NEG;
+          const double ds = v ? x - shift : NEG;
+          Mc[a] = ms;
+          Ic[a] = is;
+          Dc[a] = ds;
+          if (k == 0) {
+            M0 = ms;
+            I0 = is;
+          }
+          if (w < W) {
+            row[w] = to_row(ms);
+            row[plane + w] = to_row(is);
+            row[2 * plane + w] = to_row(ds);
+          }
+        }
+      } else {
+        for (int k = 0; k < lpt; ++k) {
+          const int w = w0 + k;
+          if (w < W) {
+            row[w] = NEGF;
+            row[plane + w] = NEGF;
+            row[2 * plane + w] = NEGF;
+          }
+        }
+      }
+      off += shift;
+      if (g == 0 && t == 0) offs[(size_t)b * Ly + j - 1] = off;
+      r = rn;
+    }
+  }
+
+  // end row: each tile's largest end cell and its sum of exponentials to
+  // CTA 0, which reduces them in tile order (lane h: tiles h, h + 32, ..)
+  double vmax = NEG;
+  for (int k = 0; k < lpt; ++k) {
+    const int a = k * NT + tid, dg = dgs[a];
+    const bool at_end = ylen >= 1 && in_ref(dg, ylen, xlen) &&
+                        (local || dg + ylen == xlen - 1);
+    if (at_end) vmax = fmax(vmax, Mc[a] + (double)r.m2e);
+  }
+  const double em = warp_max_d(vmax);
+  float sum = 0.f;
+  if (em > NEG / 2) {
+    for (int k = 0; k < lpt; ++k) {
+      const int a = k * NT + tid, dg = dgs[a];
+      const bool at_end = ylen >= 1 && in_ref(dg, ylen, xlen) &&
+                          (local || dg + ylen == xlen - 1);
+      if (at_end) sum += expf((float)(Mc[a] + (double)r.m2e - em));
+    }
+  }
+  sum = warp_sum(sum);
+  if (t == 0) {
+    if (nct > 1)
+      remote_store2d(remote_addr(&ends[g][0], 0), em, (double)sum);
+    else {
+      ends[g][0] = em;
+      ends[g][1] = sum;
+    }
+  }
+  cluster_sync(nct);
+  if (rank == 0 && tid < 32) {
+    double mt = NEG;
+    for (int h = t; h < T; h += 32) mt = fmax(mt, ends[h][0]);
+    const double m = warp_max_d(mt);
+    double score = NEG;
+    if (m > NEG / 2) {
+      float part = 0.f;
+      for (int h = t; h < T; h += 32)
+        if (ends[h][0] > NEG / 2)
+          part += (float)ends[h][1] * expf((float)(ends[h][0] - m));
+      score = m + (double)logf(warp_sum(part));
+    }
+    if (t == 0) out[b] = score > NEG / 2 ? (float)(off + score) : NEGF;
+  }
+}
+
+// ---------------------------------------------------------------- K3
+
+// K3: the backward sweep and posterior counts of bwd_counts_cluster_kernel
+// <LPT, kTwoFold> with each thread's lanes in shared memory.  Dynamic
+// shared memory: the count table (CTA 0, smem_table), the tiles' row
+// statistics (CTA 0), then [lane of the run][thread] arrays of the
+// diagonal - 1, row j+1's from_match (backward match cell plus emission),
+// the backward insert cells of rows j+1 and j, and the reverse chain's
+// inclusive maps (c, b) from the thread's high end.
+__global__ void __launch_bounds__(kSmemMaxWarps * 32, 1)
+    bwd_counts_smem_kernel(
+        const int8_t* __restrict__ x_tok, int Lx,
+        const int4* __restrict__ keys, int Ly,
+        const int4* __restrict__ meta, const int* __restrict__ doff, int W,
+        FillTables tb, const float* __restrict__ trans,
+        const float* __restrict__ wrow,   // [2][B]: pair weight, fwd normaliser
+        const float* __restrict__ rows,   // K2's [3][B][Ly][W], relative
+        const double* __restrict__ offs,  // K2's row offsets [B][Ly]
+        int B, int local, int lpt, int smem_table,
+        float* __restrict__ partial,  // [B][E]
+        float* __restrict__ d_sc) {   // [5][B]
+  constexpr int NS = kBSlotW;
+  extern __shared__ __align__(16) float bwd_smem[];
+  __shared__ SeamSlot<NS> lslots[2][kSmemMaxWarps];
+  __shared__ SeamSlot<NS> slots[2][kMaxClusterCtas];
+
+  const int NT = blockDim.x, tid = threadIdx.x;
+  const int nct = cluster_ctas(), rank = cluster_rank();
+  const int nw = NT >> 5, t = tid & 31, wi = tid >> 5;
+  const int T = nct * nw, g = rank * nw + wi;
+  const int b = blockIdx.x / nct;
+  const float NEG = neg_big();
+  const int E = 4 * tb.Km * tb.Q + 4 * tb.Q + 4 * tb.n_ik;
+  float* st = bwd_smem + (smem_table ? bwd_table_floats(E) : 0);
+  float* lanes = st + (size_t)2 * T * 16;
+  const size_t run = (size_t)lpt * NT;
+  int* dgs = reinterpret_cast<int*>(lanes);
+  float* fmx = lanes + run;
+  float* bio = lanes + 2 * run;  // row j+1's backward insert cells
+  float* bin = lanes + 3 * run;  // row j's
+  float* pcs = lanes + 4 * run;
+  float* pbs = lanes + 5 * run;
+  const int4 pm = meta[b];
+  const size_t plane = (size_t)B * Ly * W;
+  const float* fm = rows + (size_t)b * Ly * W;
+  const float* fi = fm + plane;
+  const float* fd = fm + 2 * plane;
+  const double* ob = offs + (size_t)b * Ly;
+  const int4* kb = keys + (size_t)b * Ly;
+  const auto* xb = reinterpret_cast<const uint8_t*>(x_tok) + (size_t)b * Lx;
+  const double fnorm = wrow[B + b];
+  const float w_pair = wrow[b];
+  const int xlen = pm.x, xmax = Lx - 1;
+  const int ylen = __shfl_sync(kFull, min(pm.y, Ly), 0);
+  const bool hq = pm.z != 0, lcl = local != 0;
+  const Trans tr{trans[0], trans[1], trans[2], trans[3]};
+  const int w0 = (g * 32 + t) * lpt;  // the thread's first lane
+  float* tab = smem_table ? bwd_smem : partial + (size_t)b * E;  // tile 0's
+
+  if (g == 0) {
+    for (int e = t; e < E; e += 32) tab[e] = 0.f;
+    __syncwarp();
+  }
+  int lo = 1 << 30, hi = -(1 << 30);
+  for (int k = 0; k < lpt; ++k) {
+    const int w = w0 + k, a = k * NT + tid;
+    const int d = w < W ? doff[(size_t)b * W + w] : kSentinel;
+    const int l = max(1, 1 - d), h = min(ylen, xlen - d);
+    if (d != kSentinel && h >= l) {
+      lo = min(lo, l);
+      hi = max(hi, h);
+    }
+    dgs[a] = d - 1;
+    fmx[a] = NEG;  // row ylen+1: no backward match cell, emission 0
+    bio[a] = NEG;
+    bin[a] = NEG;
+  }
+  const int tlo = warp_min_i(lo), thi = warp_max_i(hi);
+  cluster_sync(nct);
+
+  float sc = 0.f;  // lanes 20, 22, .., 28: i2i, i2m, d2d, d2m, back start
+  if (ylen >= 1) {
+    int4 kc = kb[ylen - 1], kn = kb[max(ylen - 2, 0)];
+    double o_c = ob[ylen - 1], offb = 0.0;
+    float ie_n = 0.f;
+    float bi_in = NEG;  // thread 0: row j+1's insert cell of lane w0 - 1
+    float top = NEG;    // the tile's largest cell of row j+1
+    float mkey = NEG;   // its posterior-mode candidate of row j+1
+    float mval = NEG;
+    float stat = 0.f;   // lane 2s: the tile's statistic s of row j+1
+    int4 key_p = {};    // row j+1's key and previous context (tile 0)
+    int ctxp_p = 0;
+    for (int j = ylen; j >= 1; --j) {
+      const bool lv = tlo <= j && j <= thi;
+      const bool end = j == ylen;
+      const BwdRowIn r = load_bwd_row(tb, hq, kc, j >= 2 ? kn.w : 0);
+      const int4 kq = kb[max(j - 3, 0)];
+      const double o_p = j >= 2 ? ob[j - 2] : 0.0;
+
+      // before the barrier: the backward insert cells (no delete term)
+      // and the thread's reverse delete-chain maps, relative to its
+      // largest opening term r0, from row j+1's unshifted cells
+      float c_acc = 0.f, b_acc = neg_inf(), bi_l = NEG, r0 = 0.f;
+      float post[NS];
+      if (lv) {
+        bi_l = __shfl_up_sync(kFull, bio[(lpt - 1) * NT + tid], 1);
+        if (t == 0) bi_l = bi_in;
+        float bmax = NEG, bprev = bi_l, bik_l = NEG;
+        bool v_l = false;
+        for (int k = 0; k < lpt; ++k) {
+          const int a = k * NT + tid;
+          const float f = fmx[a];
+          const bool v = in_ref(dgs[a], j, xlen);
+          const float bik = lse2(tr.i2m + f, tr.i2i + ie_n + bprev);
+          bprev = bio[a];
+          bin[a] = bik;
+          if (v) bmax = fmaxf(bmax, tr.d2m + f);
+          v_l = v;
+          bik_l = bik;
+        }
+        r0 = wide_chain_ref(bmax);
+        float pc = 0.f, pb = neg_inf();
+        for (int k = lpt - 1; k >= 0; --k) {
+          const int a = k * NT + tid;
+          const bool v = in_ref(dgs[a], j, xlen);
+          const float cv = v ? tr.d2d : NEG;
+          const float bv = v ? tr.d2m + fmx[a] - r0 : NEG;
+          if (k == lpt - 1) {
+            pc = cv;
+            pb = bv;
+          } else {
+            pb = lse2(pb + cv, bv);
+            pc = pc + cv;
+          }
+          pcs[a] = pc;
+          pbs[a] = pb;
+        }
+        c_acc = pc;
+        b_acc = r0 + pb;
+        scan_maps<false>(c_acc, b_acc, t, 32);
+        post[kBC] = __shfl_sync(kFull, c_acc, 0);
+        post[kBB] = __shfl_sync(kFull, b_acc, 0);
+        post[kBBiL] = __shfl_sync(kFull, v_l ? bik_l : NEG, 31);
+      } else {
+        post[kBC] = NEG;
+        post[kBB] = NEG;
+        post[kBBiL] = NEG;
+      }
+      post[kBTop] = top;
+      post[kBKey] = mkey;
+      post[kBVal] = mval;
+      const int buf = j & 1;
+      seam_post_local<NS>(lslots, buf, wi, post, t);
+      if (!end) post_stats(st, T, buf, g, stat, t, nct);
+      __syncthreads();
+      // level 1: lane h takes the CTA's tile h; composed from its last
+      // tile down, lane h holds tiles h .. nw - 1
+      float lv_[NS];
+      if (t < nw) {
+        seam_read<NS>(lslots, buf, t, lv_);
+      } else {
+#pragma unroll
+        for (int q = 0; q < NS; ++q) lv_[q] = NEG;
+      }
+      float lc = 0.f, lb = neg_inf();
+      if (t < nw) {
+        lc = lv_[kBC];
+        lb = lv_[kBB];
+      }
+      scan_maps<false>(lc, lb, t, 32);
+      const float sfc = __shfl_sync(kFull, lc, min(wi + 1, 31));
+      const float sfb = __shfl_sync(kFull, lb, min(wi + 1, 31));
+      if (wi == 0) {
+        float cpost[NS];
+        cpost[kBC] = __shfl_sync(kFull, lc, 0);
+        cpost[kBB] = __shfl_sync(kFull, lb, 0);
+        cpost[kBBiL] = __shfl_sync(kFull, lv_[kBBiL], nw - 1);
+        cpost[kBTop] = warp_max(t < nw ? lv_[kBTop] : NEG);
+        const float key = t < nw ? lv_[kBKey] : NEG;
+        const float km = warp_max(key);
+        cpost[kBKey] = km;
+        cpost[kBVal] = warp_max(t < nw && key == km ? lv_[kBVal] : NEG);
+        seam_post<NS>(slots, buf, rank, cpost, t, nct);
+      }
+      seam_arrive(nct);
+      seam_wait(nct);
+
+      // row j+1's shift (the backward cell at the row's posterior mode,
+      // else its largest cell), row j's backward offset, and the previous
+      // tile's last insert cell of row j (less the shift) for row j-1
+      float sv[NS];
+      if (t < nct) {
+        seam_read<NS>(slots, buf, t, sv);
+      } else {
+#pragma unroll
+        for (int q = 0; q < NS; ++q) sv[q] = NEG;
+      }
+      const float tm = warp_max(sv[kBTop]);
+      float shift = tm > NEG / 2 ? tm : 0.f;
+      const float mv = mode_of<NS>(sv, nct, t);
+      if (mv > NEG / 2) shift = mv;
+      offb += shift;
+      float bi_next = NEG;
+      if (wi > 0 || rank > 0) {
+        float pv[NS];
+        if (wi > 0)
+          seam_read<NS>(lslots, buf, wi - 1, pv);
+        else
+          seam_read<NS>(slots, buf, rank - 1, pv);
+        bi_next = pv[kBBiL] - shift;
+      }
+
+      float top_j = NEG, stat_j = 0.f, key_j = NEG, val_j = NEG;
+      if (lv) {
+        // the value entering the thread from the right: CTA `rank`'s, then
+        // the tiles after this one in its CTA, then the threads after it
+        float fc = 0.f, fb = neg_inf();
+        if (t < nct) {
+          fc = sv[kBC];
+          fb = sv[kBB];
+        }
+        scan_maps<false>(fc, fb, t, 32);
+        float xt = __shfl_down_sync(kFull, fb, 1);
+        if (t == 31) xt = neg_inf();
+        float x_in = __shfl_sync(kFull, xt, rank);
+        if (wi + 1 < nw) x_in = lse2(x_in + sfc, sfb);
+        const float cn = __shfl_down_sync(kFull, c_acc, 1);
+        const float bn = __shfl_down_sync(kFull, b_acc, 1);
+        const float x = t == 31 ? x_in : lse2(x_in + cn, bn);
+        const float xr = x - r0;
+        // lane w+1's delete cell (unshifted): the next thread's first
+        const float bd_first = in_ref(dgs[tid], j, xlen)
+                                   ? r0 + lse2(xr + pcs[tid], pbs[tid])
+                                   : NEG;
+        float bd_hi = __shfl_down_sync(kFull, bd_first, 1);
+        if (t == 31) bd_hi = x_in;
+        // row constants: forward offset of rows j and j-1 plus the
+        // backward offset, minus fwd_total, in float64 once a row
+        const float cc = (float)(o_c + offb - fnorm);
+        const float cp = (float)(o_p + offb - fnorm);
+        const float c0 = (float)(offb - fnorm);
+        const float* fm_c = fm + (size_t)(j - 1) * W;  // row j
+        const float* fd_c = fd + (size_t)(j - 1) * W;
+        const float* fm_p = fm + (size_t)(j >= 2 ? j - 2 : 0) * W;  // row j-1
+        const float* fi_p = fi + (size_t)(j >= 2 ? j - 2 : 0) * W;
+        const float* fd_p = fd + (size_t)(j >= 2 ? j - 2 : 0) * W;
+        const int wh = w0 + lpt;  // lane w+1 of the thread's last lane
+        float fmp_hi = j >= 2 && wh < W ? __ldg(fm_p + wh) : NEG;
+        float fip_hi = j >= 2 && wh < W ? __ldg(fi_p + wh) : NEG;
+        float fmc_w = wh - 1 < W ? __ldg(fm_c + wh - 1) : NEG;
+        float acc[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) acc[q] = 0.f;
+        float tmx = NEG, kx = NEG, vx = NEG;
+        // from the thread's last lane down: each lane's delete cell, then
+        // its backward match cell, the row's cells less row j+1's shift,
+        // its posterior weights (the warp route's), row j's cells carried
+        for (int k = lpt - 1; k >= 0; --k) {
+          const int a = k * NT + tid, w = w0 + k;
+          const int dg = dgs[a];
+          const bool v = in_ref(dg, j, xlen);
+          const float f = fmx[a];
+          const float bo_lo = k > 0 ? bio[a - NT] : bi_l;
+          const float bdu = v ? r0 + lse2(xr + pcs[a], pbs[a]) : NEG;
+          const bool end_ok = end && (lcl || dg + j == xlen - 1);
+          const float m = lse2(lse2(end_ok ? r.m2e_c : NEG, r.m2m_c + f),
+                               lse2(r.m2i_c + ie_n + bo_lo, r.m2d_c + bd_hi));
+          const float bm = m - shift;
+          const float bik = bin[a] - shift;
+          const float bd = v ? bdu - shift : NEG;
+          tmx = fmaxf(tmx, v ? fmaxf(bm, bik) : NEG);
+          const float me = pick(r.e, token(xb, dg + j, xmax));
+          const float fmc = fmc_w;  // row j's forward match cell at w
+          const float key = v && fmc > NEG / 2 ? fmc + bm : NEG;
+          if (key > kx || (key == kx && bm > vx)) {
+            kx = key;
+            vx = bm;
+          }
+          const bool in = w < W;
+          const float fmp = j >= 2 && in ? __ldg(fm_p + w) : NEG;
+          const float fip = j >= 2 && in ? __ldg(fi_p + w) : NEG;
+          const float fdp = j >= 2 && in ? __ldg(fd_p + w) : NEG;
+          const bool lo_in = w >= 1 && w - 1 < W;
+          const float fml = lo_in ? __ldg(fm_c + w - 1) : NEG;
+          const float fdl = lo_in ? __ldg(fd_c + w - 1) : NEG;
+          // an invalid lane's base and insert cell are NEG, so each of its
+          // weights is exp(-inf) = 0 exactly
+          const float base_k = v ? me + bm : NEG;
+          const float bi_v = v ? bik : NEG;
+          const float w_m2m = post_fast(fmp + r.m2m_p + base_k, cp);
+          const float w_d2m = post_fast(fdp + tr.d2m + base_k, cp);
+          const float w_i2m = post_fast(fip + tr.i2m + base_k, cp);
+          float w_s2m = 0.f;
+          if (j == 1) {
+            const float ws = post_fast(base_k, c0);
+            w_s2m = lcl || dg + j == 0 ? ws : 0.f;
+          }
+          const float mc = w_m2m + w_d2m + w_i2m + w_s2m;
+          const float w_m2i = post_fast(fmp_hi + r.m2i_p + r.ins + bi_v, cp);
+          const float w_i2i = post_fast(fip_hi + tr.i2i + r.ins + bi_v, cp);
+          const float w_m2d = post_fast(fml + r.m2d_c + bd, cc);
+          const float w_d2d = post_fast(fdl + tr.d2d + bd, cc);
+          acc[0] += mc + w_m2i + w_i2i;
+          const int tk = token(xb, dg + j, xmax);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[1 + q] += tk == q ? mc : 0.f;
+          acc[5] += w_m2i + w_i2i;
+          acc[6] += w_m2m;
+          acc[7] += w_m2i;
+          acc[8] += w_m2d;
+          acc[10] += w_i2i;
+          acc[11] += w_i2m;
+          acc[12] += w_d2d;
+          acc[13] += w_d2m;
+          acc[14] += w_s2m;
+          if (end) {  // the end row (uniform over the cluster): m2e weights
+            const bool e_ok = lcl || dg + j == xlen - 1;
+            const float we = post_fast(fmc + r.m2e_c, cc);
+            acc[9] += v && e_ok ? we : 0.f;
+          }
+          // carry row j's cells to row j-1 (its shift comes with it)
+          fmx[a] = v ? me + bm : NEG;
+          bin[a] = v ? bik : NEG;
+          bd_hi = bdu;
+          fmp_hi = fmp;
+          fip_hi = fip;
+          fmc_w = fml;
+        }
+        top_j = warp_max(tmx);
+        key_j = warp_max(kx);
+        val_j = warp_max(kx == key_j ? vx : NEG);
+        stat_j = reduce_scatter16(acc, t);
+      }
+      // tile 0: row j+1's table update, from the statistics the tiles
+      // posted with this row
+      if (g == 0 && !end)
+        bwd_table_add(st, T, buf, T, t, key_p, ctxp_p, tb, w_pair, tab, sc);
+      key_p = make_int4(r.kx, r.ky, r.kz, r.ctx);
+      ctxp_p = r.ctxp;
+      top = top_j;
+      mkey = key_j;
+      mval = val_j;
+      stat = stat_j;
+      bi_in = bi_next;
+      ie_n = r.ins;
+      o_c = o_p;
+      kc = kn;
+      kn = kq;
+      float* tmp = bio;
+      bio = bin;
+      bin = tmp;
+    }
+    // row 1's statistics by one more exchange
+    post_stats(st, T, 0, g, stat, t, nct);
+    cluster_sync(nct);
+    if (g == 0)
+      bwd_table_add(st, T, 0, T, t, key_p, ctxp_p, tb, w_pair, tab, sc);
+  } else {
+    cluster_sync(nct);
+  }
+  if (g == 0) {
+    if ((t & 1) == 0 && t >= 20 && t <= 28)
+      d_sc[(size_t)(t / 2 - 10) * B + b] = sc;
+    if (smem_table) {
+      __syncwarp();
+      float* part = partial + (size_t)b * E;
+      for (int e = t; e < E; e += 32) part[e] = tab[e];
+    }
+  }
+}
+
+// dynamic shared memory of each smem kernel for a tiling, bytes
+inline size_t fwd_smem_bytes(int lpt, int warps) {
+  return (size_t)lpt * warps * 32 * (3 * sizeof(double) + sizeof(int));
+}
+
+inline size_t bwd_smem_bytes(int lpt, int nct, int warps, size_t table) {
+  return table * sizeof(float) + sizeof(float) * 2 * (size_t)nct * warps * 16 +
+         (size_t)lpt * warps * 32 * 6 * sizeof(float);
+}
+
+// The launch of a smem kernel: the tiling's checks, the opt-in to its
+// dynamic shared memory and to clusters past 8 CTAs (launch_cluster), the
+// card's refusal of the cluster shape returned as an error.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_smem(void (*kernel)(KArgs...), int B, int nct, int warps,
+                        size_t smem, cudaStream_t stream, Args... args) {
+  if (nct < 1 || nct > kMaxClusterCtas || warps < 1 || warps > kSmemMaxWarps)
+    return cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess && smem > (size_t)optin) e = cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  return launch_cluster(kernel, B, nct, warps, smem, stream, true, args...);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K2's smem route on `stream`: each pair's band over nct CTAs (a
+// thread-block cluster, at most 16) of `warps` warps (at most 16), lpt
+// lanes a thread, which must cover the band.  The same outputs as
+// quaff_fwd_store; returns the cudaError_t of the launch, or of the card's
+// refusal of the cluster shape or its shared memory.
+int quaff_fwd_store_smem(const void* x_tok, int Lx, const void* keys, int Ly,
+                         const void* meta, const void* doff, int W,
+                         const void* seg_start, const void* seg_width, int S,
+                         const void* match, const void* match_noq,
+                         const void* insert, const void* insert_noq, int Km,
+                         int Q, const void* ik, int n_ik, const void* trans,
+                         int B, int local, int lpt, int nct, int warps,
+                         void* out, void* rows, void* offs, void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || lpt < 1 || nct < 1 || warps < 1 ||
+      (long long)W > (long long)nct * warps * 32 * lpt || S < 1 ||
+      S > kMaxSegs || n_ik < 1 || Lx < 1)
+    return (int)cudaErrorInvalidValue;
+  const FillTables tb{static_cast<const float*>(match),
+                      static_cast<const float*>(match_noq),
+                      static_cast<const float*>(insert),
+                      static_cast<const float*>(insert_noq),
+                      static_cast<const float*>(ik), Km, Q, n_ik};
+  return (int)launch_smem(
+      fwd_store_smem_kernel, B, nct, warps, fwd_smem_bytes(lpt, warps),
+      static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(x_tok),
+      Lx, static_cast<const int4*>(keys), Ly, static_cast<const int4*>(meta),
+      static_cast<const int*>(doff), W, static_cast<const int*>(seg_start),
+      static_cast<const int*>(seg_width), S, tb,
+      static_cast<const float*>(trans), B, local, lpt,
+      static_cast<float*>(out), static_cast<float*>(rows),
+      static_cast<double*>(offs));
+}
+
+// Launches K3's smem route on `stream` (the tiling as
+// quaff_fwd_store_smem's): the same outputs as quaff_bwd_counts.  The
+// count table lives in CTA 0's shared memory where the warp route would
+// keep it there and it fits beside the lanes, else in partial.
+int quaff_bwd_counts_smem(const void* x_tok, int Lx, const void* keys,
+                          int Ly, const void* meta, const void* doff, int W,
+                          const void* match, const void* match_noq,
+                          const void* insert, const void* insert_noq, int Km,
+                          int Q, const void* ik, int n_ik, const void* trans,
+                          const void* wrow, const void* rows,
+                          const void* offs, int B, int local, int lpt,
+                          int nct, int warps, void* partial, void* d_sc,
+                          void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || lpt < 1 || nct < 1 || warps < 1 ||
+      (long long)W > (long long)nct * warps * 32 * lpt || n_ik < 1 || Lx < 1)
+    return (int)cudaErrorInvalidValue;
+  const FillTables tb{static_cast<const float*>(match),
+                      static_cast<const float*>(match_noq),
+                      static_cast<const float*>(insert),
+                      static_cast<const float*>(insert_noq),
+                      static_cast<const float*>(ik), Km, Q, n_ik};
+  const size_t E = (size_t)4 * Km * Q + 4 * Q + 4 * n_ik;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int smem_table =
+      kWarpsPerBlock * E * sizeof(float) <= (size_t)kTableSmemBytes &&
+      bwd_smem_bytes(lpt, nct, warps, bwd_table_floats(E)) <= (size_t)optin;
+  const size_t smem =
+      bwd_smem_bytes(lpt, nct, warps, smem_table ? bwd_table_floats(E) : 0);
+  return (int)launch_smem(
+      bwd_counts_smem_kernel, B, nct, warps, smem,
+      static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(x_tok),
+      Lx, static_cast<const int4*>(keys), Ly, static_cast<const int4*>(meta),
+      static_cast<const int*>(doff), W, tb, static_cast<const float*>(trans),
+      static_cast<const float*>(wrow), static_cast<const float*>(rows),
+      static_cast<const double*>(offs), B, local, lpt, smem_table,
+      static_cast<float*>(partial), static_cast<float*>(d_sc));
+}
+
+}  // extern "C"

@@ -19,22 +19,24 @@ Ported from quaff_tpu/dp/pallas_counts.py:
   estep_kernel                         glue in plain torch: it is not a
                                        Pallas kernel)
 
-Each wrapper runs its CUDA kernel (csrc/estep.cu, csrc/estep_cluster.cu)
-on CUDA tensors, adding one to its `launches` count, and its plain version
-on CPU tensors; any other device raises.  K2 and K3 have three routes
-each, picked by estep_route from the band's width: the warp route
-(csrc/estep_warp.cuh, one warp per pair) up to the kernel's measured
-cutover, the cluster route (csrc/estep_cluster.cu: a pair's band tiled
-over the warps of a thread-block cluster, K2's as K1's cluster fill with
-STORE in csrc/band_fill_cluster.cuh; past ESTEP_WIDE_LANES or 32 tiles
-its fold takes two levels) up to ESTEP_CLUSTER_MAX_LANES, the block
-route (K1's block fill with STORE in csrc/band_fill.cuh,
+Each wrapper runs its CUDA kernel (csrc/estep.cu, csrc/estep_cluster.cu,
+csrc/estep_smem.cu) on CUDA tensors, adding one to its `launches` count,
+and its plain version on CPU tensors; any other device raises.  K2 and K3
+have four routes each, picked by estep_route from the band's width: the
+warp route (csrc/estep_warp.cuh, one warp per pair) up to the kernel's
+measured cutover, the cluster route (csrc/estep_cluster.cu: a pair's band
+tiled over the warps of a thread-block cluster, each thread's lanes in
+registers, K2's as K1's cluster fill with STORE in
+csrc/band_fill_cluster.cuh; K3's fold takes two levels past
+ESTEP_WIDE_LANES or 32 tiles) up to ESTEP_CLUSTER_MAX_LANES[kernel], the
+smem route (csrc/estep_smem.cu: the same two-level fold over up to 16
+CTAs, each thread's lanes in shared memory) up to ESTEP_SMEM_MAX_LANES,
+the block route (K1's block fill with STORE in csrc/band_fill.cuh,
 bwd_counts_kernel in estep.cu) past it; `warp_launches`,
-`cluster_launches` and `block_launches` count each, and
+`cluster_launches`, `smem_launches` and `block_launches` count each, and
 `two_level_launches` the cluster launches with the two-level fold.  Past
-ESTEP_WIDE_LANES the cluster and block routes run the wide arithmetic
-(see there).  All routes keep one layout, so any route's K2 store feeds
-any route's K3.  All take
+ESTEP_WIDE_LANES every route runs the wide arithmetic (see there).  All
+routes keep one layout, so any route's K2 store feeds any route's K3.  All take
 fill_v2.kernel_inputs's layout.  Count tables are flat:
 E = 4*Km*Q match counts (symbol-major, then k-mer, then quality) + 4*Q
 insert counts (token, quality) + 4*Ki transition counts (m2m, m2i, m2d,
@@ -90,24 +92,30 @@ ESTEP_WARP_MAX_LANES = {"fwd_store": 512, "bwd_counts": 256}
 ESTEP_CLUSTER_LPTS = (4, 8, 16)
 ESTEP_CLUSTER_MAX_WARPS = {"fwd_store": {4: 16, 8: 8, 16: 8},
                            "bwd_counts": {4: 8, 8: 8, 16: 8}}
-# Bands wider than this run the wide arithmetic on the cluster and block
-# routes (csrc/band_fill.cuh, csrc/estep.cu): each thread's delete-chain
-# steps relative to its largest opening term, and K3's backward rows
-# scaled at their posterior mode instead of their largest cell.  On global
-# bands of reads that need thousands of deletions the posterior's path
-# runs up to ~1300 nats below a row's largest cell, where float32 rounds
-# at 6e-5-1.2e-4 nats a step; scaled there, K3's backward total drifted
-# 6.4e-3 (8192 lanes) to 1.9e-2 (16384) off the float64 one
-# (prof/f32_chain.py, a CPU emulation of each step).  The
-# trainer's ESTEP_LANE_CAP: every band of the train path keeps its
+# Bands wider than this run the wide arithmetic on every route that takes
+# them, the plain versions too:
+#   - K2's cells are float64 (a log-add-exp's one transcendental,
+#     log1p(exp(-|a - b|)), in float32) and each row is shifted by its
+#     largest match or insert cell.  On global bands of reads that need
+#     thousands of deletions the path that ends the read runs hundreds to
+#     ~10^4 nats below its row's largest cell, where a float32 cell rounds
+#     at 6e-5 to 5e-4 nats a step: float32 cells put the forward score up
+#     to 3.7e-2 nats off the float64 fill at 32769 lanes (PERF.md §7);
+#   - K3's delete-chain steps compose relative to each thread's largest
+#     opening term, and its backward rows are scaled at their posterior
+#     mode instead of their largest cell: scaled there, its backward total
+#     drifted 6.4e-3 (8192 lanes) to 1.9e-2 (16384) off the float64 one
+#     (prof/f32_chain.py, a CPU emulation of each step).
+# The trainer's ESTEP_LANE_CAP: every band of the train path keeps its
 # narrow-band arithmetic, so its outputs are unchanged bit for bit.
 ESTEP_WIDE_LANES = 4096
 # Each kernel's cluster tiling by width, as fill_v2.FILL_CLUSTER_TABLE's:
 # (widest band, lanes a thread, warps a CTA at most), the tiles spread
 # evenly over the fewest CTAs that hold them.  Up to ESTEP_WIDE_LANES
 # (the train path) at most fill_v2.MAX_TILES tiles folded once a row over
-# at most fill_v2.MAX_CLUSTER_CTAS CTAs (cluster_seam.cuh); past it the
-# wide arithmetic with the two-level fold over up to MAX_CLUSTER_CTAS2.
+# at most fill_v2.MAX_CLUSTER_CTAS CTAs (cluster_seam.cuh); past it (K3
+# alone: K2's wide bands take the smem route) the wide arithmetic with the
+# two-level fold over up to MAX_CLUSTER_CTAS2.
 # From chip_smoke.py's and prof/estep_sweep.py's sweeps of every tiling
 # (median of 3, NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6):
 #   - phase 5b's wide chunk (B=14, W=4038, Ly=8540): K2 8 x 4 x 4 50.093
@@ -123,30 +131,25 @@ ESTEP_WIDE_LANES = 4096
 #     (K3), 1 x 5 x 4 1.720 and 1.057; there K2's block route took 1.395,
 #     the one width measured where it beat the cluster route;
 #   - phase 2b's wide recipe (B=8, Ly=400) at 6000-16384 lanes
-#     (prof/estep_sweep.py): K2 at 4 lanes a thread 3.3-4.4 ms, at 8
-#     4.7-6.2 and at 16 7.8-11.2, but for the two-wave tilings below (6 x
-#     8 x 4 3.456 ms at 6000, 8 x 8 x 4 3.527 at 8192, 12 x 8 x 4 4.145
-#     at 12070, 16 x 8 x 4 4.068 at 16384); K3 at 4
-#     lanes a thread up to 8192 (12 x 4 x 4 2.050, 16 x 4 x 4 2.093), at
-#     8 past it (12 x 4 x 8 2.703, 16 x 4 x 8 2.730); the one-fold rows
-#     these replace (32 tiles of 16 lanes a thread, 6 x 4 x 16 at 12070)
-#     took 8.004 and 4.020 ms (chip_smoke.py phase 2b).  A CTA of
-#     more than 8 warps at 4 lanes a thread (K2) or 4 at 8 (K3) takes an
-#     SM of its own, and clusters of 10-15 such CTAs ran the batch in two
-#     waves (10 x 13 x 4 8.066 ms at 16384), so up to 16384 lanes the rows
-#     keep to those warps;
-#   - phase 4b's count -fast -kmatchoff chunk (B=2, W=22136, Ly=2135): K2
-#     16 x 11 x 4 21.046 ms, 15 x 12 x 4 21.691, 11 x 16 x 4 23.211, 11 x
-#     8 x 8 31.448, 8 x 6 x 16 52.331 (its block route 534.146); K3 15 x 6
-#     x 8 13.903, 11 x 8 x 8 13.979, 15 x 3 x 16 21.063 (block 514.341);
-#     16 lanes a thread spill in both kernels.
+#     (prof/estep_sweep.py): K3 at 4 lanes a thread up to 8192 (12 x 4 x 4
+#     2.050 ms, 16 x 4 x 4 2.093), at 8 past it (12 x 4 x 8 2.703, 16 x 4
+#     x 8 2.730); the one-fold rows these replace (32 tiles of 16 lanes a
+#     thread, 6 x 4 x 16 at 12070) took 4.020 ms (chip_smoke.py phase
+#     2b).  A CTA of more than 4 warps at 8 lanes a thread takes an SM of
+#     its own, and clusters of 10-15 such CTAs ran the batch in two waves,
+#     so up to 16384 lanes the rows keep to those warps;
+#   - phase 4b's count -fast -kmatchoff chunk (B=2, W=22136, Ly=2135): K3
+#     15 x 6 x 8 13.903 ms, 11 x 8 x 8 13.979, 15 x 3 x 16 21.063 (block
+#     514.341); 16 lanes a thread spill.
 ESTEP_CLUSTER_TABLE = {
-    "fwd_store": ((4096, 4, 4), (16384, 4, 8), (24576, 4, 12),
-                  (32768, 4, 16)),
+    "fwd_store": ((4096, 4, 4),),
     "bwd_counts": ((4096, 4, 4), (8192, 4, 4), (16384, 8, 4),
                    (32768, 8, 8))}
-# the widest band the cluster routes take; wider ones take the block routes
-ESTEP_CLUSTER_MAX_LANES = 32768
+# the widest band each kernel's cluster route takes.  K2's wide arithmetic
+# keeps its cells in float64, twice the registers of float32 ones, and its
+# register route already took 128 registers a thread at 4 lanes and 16
+# warps a CTA; so K2's bands past ESTEP_WIDE_LANES take the smem route
+ESTEP_CLUSTER_MAX_LANES = {"fwd_store": ESTEP_WIDE_LANES, "bwd_counts": 32768}
 # the two-level fold: clusters of up to 16 CTAs (past the portable 8 the
 # launch opts in to the card's non-portable size) of up to 16 warps
 MAX_CLUSTER_CTAS2 = 16
@@ -154,6 +157,32 @@ MAX_TILES2 = MAX_CLUSTER_CTAS2 * 16
 # the cluster kernels' modes (csrc/cluster_seam.cuh): the narrow-band
 # arithmetic with one fold; the wide arithmetic with two levels
 ONE_FOLD, TWO_FOLD = 0, 1
+# The smem routes (csrc/estep_smem.cu): the two-level fold over up to
+# MAX_CLUSTER_CTAS2 CTAs of up to SMEM_MAX_WARPS warps, lpt lanes a thread
+# (any count up to SMEM_MAX_LPT: they live in shared memory, 28 bytes a
+# lane for K2, 24 for K3).  Each kernel's tiling by width, as
+# ESTEP_CLUSTER_TABLE's: (widest band, lanes a thread, warps a CTA at
+# most), the tiles spread evenly over the fewest CTAs that hold them; rows
+# that spread a pair over up to 16 SMs (lanes a thread grow with the band
+# once 16 CTAs of 16 warps are full).  From chip_smoke.py's sweeps of
+# every smem tiling (median of 3, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# §6): K2 at phase 2b's W=12070 16 x 8 x 3 4.231 ms (8 x 16 x 3 4.359, 12
+# x 8 x 4 4.779, 6 x 16 x 4 4.955, 2 lanes a thread 7.545), at phase 4b's
+# W=22136 15 x 16 x 3 23.561 (11 x 16 x 4 26.457, 9 x 16 x 5 30.716):
+# the fewest lanes a thread that 16 CTAs hold; K3's smem tilings there
+# (16 x 8 x 3 2.989, 15 x 16 x 3 16.346) lost to its cluster route (12 x 4
+# x 8 2.765, 11 x 8 x 8 13.907), which keeps bands up to 32768 lanes.
+SMEM_MAX_WARPS = 16
+SMEM_MAX_LPT = 16
+ESTEP_SMEM_TABLE = {
+    "fwd_store": ((12288, 3, 8), (24576, 3, 16), (32768, 4, 16),
+                  (40960, 5, 16), (49152, 6, 16), (57344, 7, 16),
+                  (65536, 8, 16)),
+    "bwd_counts": ((40960, 5, 16), (49152, 6, 16), (57344, 7, 16),
+                   (65536, 8, 16))}
+# the widest band the smem routes take (a 10 kb read's global band against
+# phage lambda's 48.5 kb); wider ones take the block routes
+ESTEP_SMEM_MAX_LANES = 65536
 
 
 def table_size(tables: V2Tables) -> int:
@@ -173,13 +202,17 @@ def estep_route(W: int, kernel: str) -> tuple:
     """The route of K2 (kernel "fwd_store") or K3 ("bwd_counts") for a band
     of W lanes, a function of W alone: ("warp", warp_lpt(W)) up to
     ESTEP_WARP_MAX_LANES[kernel] lanes; ("cluster", (nct, warps, lpt)) of
-    ESTEP_CLUSTER_TABLE[kernel] up to ESTEP_CLUSTER_MAX_LANES (in
-    cluster_mode's fold); else ("block", 0): one block per pair."""
+    ESTEP_CLUSTER_TABLE[kernel] up to ESTEP_CLUSTER_MAX_LANES[kernel] (in
+    cluster_mode's fold); ("smem", (nct, warps, lpt)) of
+    ESTEP_SMEM_TABLE[kernel] up to ESTEP_SMEM_MAX_LANES; else ("block",
+    0): one block per pair."""
     lpt = warp_lpt(W)
     if lpt is not None and 32 * lpt <= ESTEP_WARP_MAX_LANES[kernel]:
         return "warp", lpt
-    if W <= ESTEP_CLUSTER_MAX_LANES:
+    if W <= ESTEP_CLUSTER_MAX_LANES[kernel]:
         return "cluster", cluster_tiling(W, ESTEP_CLUSTER_TABLE[kernel])
+    if W <= ESTEP_SMEM_MAX_LANES:
+        return "smem", cluster_tiling(W, ESTEP_SMEM_TABLE[kernel])
     return "block", 0
 
 
@@ -195,23 +228,35 @@ def cluster_mode(W: int, tiling) -> int:
 def estep_route_ok(W: int, route, kernel: str) -> bool:
     """Whether `route` is one `kernel` has that covers a band of W lanes:
     ("warp", lpt) with 32 * lpt >= W; ("cluster", (nct, warps, lpt)) for a
-    band of at most ESTEP_CLUSTER_MAX_LANES, at a lanes a thread the
-    kernel has, at most ESTEP_CLUSTER_MAX_WARPS warps a CTA, tiles that
-    cover the band, over at most fill_v2.MAX_CLUSTER_CTAS CTAs with one
-    fold, MAX_CLUSTER_CTAS2 with two (cluster_mode); or ("block", 0)."""
+    band of at most ESTEP_CLUSTER_MAX_LANES[kernel], at a lanes a thread
+    the kernel has, at most ESTEP_CLUSTER_MAX_WARPS warps a CTA, tiles
+    that cover the band, over at most fill_v2.MAX_CLUSTER_CTAS CTAs with
+    one fold, MAX_CLUSTER_CTAS2 with two (cluster_mode; K2 has one fold
+    alone); ("smem", (nct, warps, lpt)) for a band of at most
+    ESTEP_SMEM_MAX_LANES, at most MAX_CLUSTER_CTAS2 CTAs of at most
+    SMEM_MAX_WARPS warps, 1 to SMEM_MAX_LPT lanes a thread, tiles that
+    cover the band; or ("block", 0)."""
     try:
         kind, arg = route
     except (TypeError, ValueError):
         return False
     if kind == "warp":
         return arg in WARP_LPTS and W <= 32 * arg
-    if kind == "cluster":
+    if kind in ("cluster", "smem"):
         try:
             nct, warps, lpt = (int(v) for v in arg)
         except (TypeError, ValueError):
             return False
+        if kind == "smem":
+            return (W <= ESTEP_SMEM_MAX_LANES and 1 <= lpt <= SMEM_MAX_LPT
+                    and 1 <= nct <= MAX_CLUSTER_CTAS2
+                    and 1 <= warps <= SMEM_MAX_WARPS
+                    and W <= 32 * lpt * warps * nct)
         two = cluster_mode(W, (nct, warps, lpt)) == TWO_FOLD
-        return (W <= ESTEP_CLUSTER_MAX_LANES and lpt in ESTEP_CLUSTER_LPTS
+        if two and kernel == "fwd_store":
+            return False
+        return (W <= ESTEP_CLUSTER_MAX_LANES[kernel]
+                and lpt in ESTEP_CLUSTER_LPTS
                 and 1 <= nct <= (MAX_CLUSTER_CTAS2 if two
                                  else fill_v2.MAX_CLUSTER_CTAS)
                 and 1 <= warps <= ESTEP_CLUSTER_MAX_WARPS[kernel][lpt]
@@ -253,7 +298,9 @@ def fwd_store_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     """The plain version of K2: (raw forward scores [B] float32, NEG_INF
     where no path ends; rows [3, B, Ly, W] float32, each row relative to
     its offset; offsets [B, Ly] float64).  The fill is kept scaled
-    (fill_v2.band_fill_reference), so the scores do not drift."""
+    (fill_v2.band_fill_reference), so the scores do not drift; past
+    ESTEP_WIDE_LANES in the wide arithmetic (float64 cells, each row
+    shifted by its largest match or insert cell), as the kernels."""
     B, W = doff.shape
     Ly = keys.shape[1]
     rows = torch.full((3, B, Ly, W), NEG_INF, dtype=torch.float32,
@@ -261,7 +308,8 @@ def fwd_store_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     offsets = torch.zeros((B, Ly), dtype=torch.float64, device=doff.device)
     out = band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
                               tables, mode="forward", local=local,
-                              max_prop=max_prop, rows=rows, offsets=offsets)
+                              max_prop=max_prop, rows=rows, offsets=offsets,
+                              wide=W > ESTEP_WIDE_LANES)
     return out[:B], rows, offsets
 
 
@@ -323,17 +371,28 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
                 seg_width.data_ptr(), S, *tabs, B, int(bool(local)), lpt, nct,
                 warps, mode, out.data_ptr(), rows.data_ptr(),
                 offsets.data_ptr(), stream)
+        elif kind == "smem":
+            nct, warps, lpt = lpt
+            err = lib.quaff_fwd_store_smem(
+                x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
+                doff.data_ptr(), W, seg_start.data_ptr(),
+                seg_width.data_ptr(), S, *tabs, B, int(bool(local)), lpt, nct,
+                warps, out.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
+                stream)
         else:
+            # the row state in shared memory while it fits, else in global
+            # scratch: 6 floats a lane, or with the wide arithmetic's
+            # float64 cells 12 (5 doubles and the diagonal, padded)
+            wide = W > ESTEP_WIDE_LANES
             scratch = None
-            if W > kernels.max_smem_lanes(dev.index or 0):
-                scratch = torch.empty(B * 6 * W, dtype=torch.float32,
-                                      device=dev)
+            if wide or W > kernels.max_smem_lanes(dev.index or 0):
+                scratch = torch.empty(B * (12 if wide else 6) * W,
+                                      dtype=torch.float32, device=dev)
             err = lib.quaff_fwd_store(
                 x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
                 doff.data_ptr(), W, seg_start.data_ptr(),
                 seg_width.data_ptr(), S, *tabs, B, int(bool(local)),
-                int(W > ESTEP_WIDE_LANES),
-                0 if scratch is None else scratch.data_ptr(),
+                int(wide), 0 if scratch is None else scratch.data_ptr(),
                 out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
     _raise_on(err, "fwd_store", kernels, B, W, Ly, kind)
     _count(fwd_store, kind, kind == "cluster" and mode == TWO_FOLD)
@@ -343,6 +402,7 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
 fwd_store.launches = 0
 fwd_store.warp_launches = 0
 fwd_store.cluster_launches = 0
+fwd_store.smem_launches = 0
 fwd_store.block_launches = 0
 fwd_store.two_level_launches = 0
 
@@ -548,6 +608,11 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
             err = lib.quaff_bwd_counts_cluster(
                 *args, lpt, nct, warps, mode, partial.data_ptr(),
                 d_sc.data_ptr(), stream)
+        elif kind == "smem":
+            nct, warps, lpt = lpt
+            err = lib.quaff_bwd_counts_smem(
+                *args, lpt, nct, warps, partial.data_ptr(), d_sc.data_ptr(),
+                stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0, "bwd_counts"):
@@ -565,6 +630,7 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
 bwd_counts.launches = 0
 bwd_counts.warp_launches = 0
 bwd_counts.cluster_launches = 0
+bwd_counts.smem_launches = 0
 bwd_counts.block_launches = 0
 bwd_counts.two_level_launches = 0
 

@@ -260,11 +260,21 @@ def _lse2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(m < -1e38, m, r)
 
 
+def _lse2_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K2's wide log-add-exp (csrc/estep_smem.cu combd): float64 operands
+    and max, the correction log1p(exp(-|a - b|)) in float32, the max alone
+    below -1e38."""
+    m = torch.maximum(a, b)
+    r = m + torch.log1p(torch.exp(-(a - b).abs().float())).double()
+    return torch.where(m < -1e38, m, r)
+
+
 def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
                         tables: V2Tables, mode: str = "viterbi",
                         local: bool = True, max_prop=None,
                         rows=None, offsets=None,
-                        dtype=torch.float32) -> torch.Tensor:
+                        dtype=torch.float32, wide: bool = False
+                        ) -> torch.Tensor:
     """The plain PyTorch version of K1 on the packed layout: returns the
     raw [B + B*S] float32 pair scores and strip maxima.  With dtype
     torch.float64 the row cells and sums are float64 (the float32 tables'
@@ -278,14 +288,19 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
     relative to that row's offset, and the pair scores come back absolute.
     A float32 fill of unscaled log-probabilities drifts: at -2e4 nats a
     float32 step is 2e-3 and small log-add-exp terms round away, enough
-    over the 6604-row c8f30 read to move its printed log-likelihood."""
+    over the 6604-row c8f30 read to move its printed log-likelihood.
+
+    `wide` (K2's wide arithmetic, with `rows`, Forward): the cells are
+    float64 and each log-add-exp takes its correction in float32
+    (_lse2_wide), each row is shifted by its largest match or insert cell,
+    and the stored rows are the float64 cells rounded once."""
     viterbi = mode == "viterbi"
-    combine = torch.maximum if viterbi else _lse2
+    combine = torch.maximum if viterbi else (_lse2_wide if wide else _lse2)
     neg = NEG_INF
     B, W = doff.shape
     Ly = keys.shape[1]
     dev = doff.device
-    f32 = dtype
+    f32 = torch.float64 if wide else dtype
 
     xt = x_tok.long()
     Lx = xt.shape[1]
@@ -354,7 +369,10 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
         out = combine(out, torch.where(end_ok, mat_c + m2e, neg))
 
         if rows is not None:
-            top = torch.maximum(torch.maximum(mat_c, ins_c), del_c).amax(1)
+            top = torch.maximum(mat_c, ins_c)
+            if not wide:
+                top = torch.maximum(top, del_c)
+            top = top.amax(1)
             shift = torch.where(top > neg / 2, top, 0.0)[:, None]
             mat_c = torch.where(valid, mat_c - shift, neg)
             ins_c = torch.where(valid, ins_c - shift, neg)
@@ -362,9 +380,14 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
             out = torch.where(out > neg / 2, out - shift, neg)
             off = off + shift[:, 0].double()
             offsets[:, j - 1] = off
-            rows[0, :, j - 1] = mat_c
-            rows[1, :, j - 1] = ins_c
-            rows[2, :, j - 1] = del_c
+            if wide:  # one rounding a stored cell, NEG at the floor
+                rows[0, :, j - 1] = mat_c.clamp(min=neg)
+                rows[1, :, j - 1] = ins_c.clamp(min=neg)
+                rows[2, :, j - 1] = del_c.clamp(min=neg)
+            else:
+                rows[0, :, j - 1] = mat_c
+                rows[1, :, j - 1] = ins_c
+                rows[2, :, j - 1] = del_c
         mat, ins, dele = mat_c, ins_c, del_c
         ik_prev = ik_cur
 
@@ -382,7 +405,8 @@ def band_fill_reference(x_tok, keys, meta, doff, seg_start, seg_width,
         if rows is not None:
             score = torch.where(score > neg / 2, (off + score.double()).float(),
                                 score)
-    return torch.cat([score, segmax.reshape(-1)])
+    out = torch.cat([score, segmax.reshape(-1)])
+    return out.float() if wide else out
 
 
 def check_tensors(name, tensors, dev):

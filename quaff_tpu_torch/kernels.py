@@ -131,6 +131,20 @@ def library() -> ctypes.CDLL:
             i, i, i, i,  # lpt, nct, warps, mode
             p, p, p,  # partial, d_sc, stream
         ]
+        lib.quaff_fwd_store_smem.argtypes = fill_args + [
+            i, i,  # B, local
+            i, i, i,  # lpt, nct, warps
+            p, p, p, p,  # out, rows, offs, stream
+        ]
+        lib.quaff_bwd_counts_smem.argtypes = [
+            p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
+            p, i,  # doff, W
+            p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
+            p, i, p,  # ik, n_ik, trans
+            p, p, p, i, i,  # wrow, rows, offs, B, local
+            i, i, i,  # lpt, nct, warps
+            p, p, p,  # partial, d_sc, stream
+        ]
         lib.quaff_estep_reduce.argtypes = [p, i, i, p, p]
         lib.quaff_ov_fill_warp.argtypes = [
             p, i, i, p,  # bank, C, L, meta
@@ -153,6 +167,7 @@ def library() -> ctypes.CDLL:
                    "quaff_fwd_store", "quaff_bwd_counts",
                    "quaff_fwd_store_warp", "quaff_bwd_counts_warp",
                    "quaff_fwd_store_cluster", "quaff_bwd_counts_cluster",
+                   "quaff_fwd_store_smem", "quaff_bwd_counts_smem",
                    "quaff_estep_reduce", "quaff_ov_fill_warp",
                    "quaff_ov_fill_cluster",
                    "quaff_sol_chain"):

@@ -1,12 +1,13 @@
-"""K2's and K3's cluster tilings timed against each other on the card: the
-measurement dp/estep.ESTEP_CLUSTER_TABLE's rows past ESTEP_WIDE_LANES are
-set from.
+"""K2's and K3's cluster or smem tilings timed against each other on the
+card: the measurement dp/estep.ESTEP_CLUSTER_TABLE's rows past
+ESTEP_WIDE_LANES and ESTEP_SMEM_TABLE's rows are set from.
 
 At each band width, chip_smoke.py phase 2b's wide recipe (8 reads of 400
 bases drawn from a random ref, each in a full envelope, so every pair's
-band spans W lanes; local), and every tiling estep_route_ok takes there:
-for each lanes a thread, the fewest CTAs that hold the tiles at each
-count of warps a CTA.  Each tiling's K2 and K3 are timed by CUDA events
+band spans W lanes; local), and every tiling of the route estep_route
+picks there (cluster or smem) that estep_route_ok takes: for each lanes
+a thread, the fewest CTAs that hold the tiles at each count of warps a
+CTA.  Each tiling's K2 and K3 are timed by CUDA events
 (median of 3 runs on distinct inputs, after a warm run) and checked
 against the table's tiling on the same inputs (max abs difference of the
 forward scores and of K3's tables: the tilings differ only in the order
@@ -52,18 +53,22 @@ def wide_batch(W: int, seed: int = 8, n: int = 8, ylen: int = 400):
 
 
 def tilings(W: int, kernel: str) -> list:
-    """Every (nct, warps, lpt) estep_route_ok takes for `kernel` at W lanes
+    """Every (nct, warps, lpt) of the route kind estep_route picks for
+    `kernel` at W lanes ("cluster" or "smem") that estep_route_ok takes,
     with its tiles over the fewest CTAs at that many warps a CTA."""
     from ..dp import estep
 
+    kind = estep.estep_route(W, kernel)[0]
+    lpts = (estep.ESTEP_CLUSTER_LPTS if kind == "cluster"
+            else range(1, estep.SMEM_MAX_LPT + 1))
     out = []
-    for lpt in estep.ESTEP_CLUSTER_LPTS:
+    for lpt in lpts:
         tiles = -(-W // (32 * lpt))
         seen = set()
         for nct in range(1, estep.MAX_CLUSTER_CTAS2 + 1):
             t = (nct, -(-tiles // nct), lpt)
             if t[1] not in seen and estep.estep_route_ok(
-                    W, ("cluster", t), kernel):
+                    W, (kind, t), kernel):
                 seen.add(t[1])
                 out.append(t)
     return out
@@ -106,14 +111,15 @@ def sweep(W: int) -> dict:
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
     part = estep.bwd_counts(*base, ws[0], rows, offs)[0]
     out = {"fwd_store": {}, "bwd_counts": {}}
+    kind = {k: estep.estep_route(W, k)[0] for k in out}
     for t in tilings(W, "fwd_store"):
-        r = ("cluster", t)
+        r = (kind["fwd_store"], t)
         err = float((estep.fwd_store(**inp, tables=v2, route=r)[0]
                      - fwd).abs().max())
         out["fwd_store"][t] = (_ms(lambda k: estep.fwd_store(
             **dict(inp, keys=k), tables=v2, route=r), keys), err)
     for t in tilings(W, "bwd_counts"):
-        r = ("cluster", t)
+        r = (kind["bwd_counts"], t)
         err = float((estep.bwd_counts(*base, ws[0], rows, offs, route=r)[0]
                      - part).abs().max())
         out["bwd_counts"][t] = (_ms(lambda w: estep.bwd_counts(
@@ -136,7 +142,7 @@ def main(argv=None) -> int:
         res = sweep(W)
         for k, times in res.items():
             rows = sorted(times.items(), key=lambda kv: kv[1][0])
-            print(f"W={W} {k} (table {estep.estep_route(W, k)[1]}): "
+            print(f"W={W} {k} (table {estep.estep_route(W, k)}): "
                   + "; ".join("{} x {} x {}: {:.3f} ({:.3g})".format(
                       *t, ms, err) for t, (ms, err) in rows)
                   + f" [{card}]", flush=True)

@@ -19,7 +19,12 @@ kernels' forms, in float32 on the CPU:
     each thread's lanes relative to its largest opening term and each
     lane's cell from its inclusive map ("wide");
   - K3's row shift: the row's largest backward cell ("max"), or its
-    backward match cell at the row's posterior mode ("mode").
+    backward match cell at the row's posterior mode ("mode");
+  - K2's cells in float64 with each log-add-exp's correction in float32,
+    rows shifted by their largest match or insert cell ("f64": the wide
+    arithmetic the kernels run past dp/estep.ESTEP_WIDE_LANES, through
+    band_fill_reference(..., wide=True)), with K3's wide chain and mode
+    shift.
 
 and holds each backward total against the float64 forward fill (the
 plain version run in float64).  The kernels' expf / log1pf and
@@ -175,9 +180,10 @@ _K2_SCAN = """        s = 1
 """
 
 
-def k2(inp, v2, chain=None):
-    """K2's plain version (scores, rows, offsets), its delete chain
-    `chain` (None: the doubling scan)."""
+def k2(inp, v2, chain=None, wide=False):
+    """K2's plain version (scores, rows, offsets) in float32 cells, its
+    delete chain `chain` (None: the doubling scan); with wide, its float64
+    cells (the doubling scan)."""
     B, W = inp["doff"].shape
     Ly = inp["keys"].shape[1]
     rows = torch.full((3, B, Ly, W), NEG)
@@ -187,7 +193,7 @@ def k2(inp, v2, chain=None):
         fill = _patched(fill, [(_K2_SCAN, "        b_vec = CHAIN(c_vec, b_vec)\n")],
                         CHAIN=chain)
     out = fill(**inp, tables=v2, mode="forward", local=False, rows=rows,
-               offsets=offs)
+               offsets=offs, **({"wide": True} if wide else {}))
     return out[:B], rows, offs
 
 
@@ -208,11 +214,12 @@ def k3_back_start(inp, v2, store, fnorm, chain=None, mode_shift=False):
 
 
 VARIANTS = {
-    "plain": (None, False),
+    "plain": (None, False),       # float32 cells, the doubling scan
     "seq+max": ("seq", False),    # the block routes' former arithmetic
     "wide+max": ("wide", False),  # the WIDE chain alone
     "seq+mode": ("seq", True),    # the posterior-mode shift alone
-    "wide+mode": ("wide", True),  # the wide arithmetic
+    "wide+mode": ("wide", True),  # K3's wide arithmetic, K2 in float32
+    "f64+mode": ("f64", True),    # the wide arithmetic: K2 in float64
 }
 
 
@@ -231,9 +238,10 @@ def probe(W: int, variants=tuple(VARIANTS), seed=None, pairs=4,
     for name in variants:
         kind, mode = VARIANTS[name]
         chain = None if kind is None else (
-            lambda c, b, wide=(kind == "wide"): block_chain(c, b, wide))
+            lambda c, b, wide=(kind != "seq"): block_chain(c, b, wide))
         if kind not in stores:
-            stores[kind] = k2(inp, v2, chain)
+            stores[kind] = (k2(inp, v2, wide=True) if kind == "f64"
+                            else k2(inp, v2, chain))
         fwd, rows, offs = stores[kind]
         bsp = k3_back_start(inp, v2, (rows, offs), exact, chain, mode)
         fin = torch.isfinite(exact)

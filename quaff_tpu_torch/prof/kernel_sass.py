@@ -55,6 +55,8 @@ KERNEL_NAMES = (
     ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
     ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),
     ("bwd_counts_cluster_kernel<", ("bwd_counts", "cluster")),
+    ("fwd_store_smem_kernel", ("fwd_store", "smem")),
+    ("bwd_counts_smem_kernel", ("bwd_counts", "smem")),
     ("bwd_counts_kernel", ("bwd_counts", "block")),
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("ov_fill_warp_kernel<", ("ov_fill", "warp")),

@@ -125,6 +125,101 @@ def test_scaled_fill_keeps_the_forward_fill():
         assert float(offs[b, ylen[b] - 1]) < -50.0
 
 
+def test_plain_fwd_store_wide_bands_hold_the_float64_fill():
+    """Past ESTEP_WIDE_LANES K2's plain version runs the wide arithmetic
+    (float64 cells, a log-add-exp's correction in float32, rows shifted by
+    their largest match or insert cell), so on a global long-deletion band
+    its forward score stays within 5e-3 nats of the float64 fill: the
+    card tests' gap-order-1 band of 8192 lanes (its first pair: 618 rows
+    over 3421 ref bases, 2800 deletions; prof/f32_chain.global_band, the
+    card tests' recipe), on which the narrow-band arithmetic, float32
+    cells, is 9.3e-3 nats off.  Each stored row's largest match or insert
+    cell is 0 and its offset carries the rest.  One intra-op thread, as
+    the wrappers' CPU paths: under the suite's workers more threads made
+    this row-by-row fill a hundred times slower."""
+    from quaff_tpu_torch.device import one_thread_on_cpu
+    from quaff_tpu_torch.model.params import QuaffParams
+    from quaff_tpu_torch.prof import f32_chain
+
+    with open(pathlib.Path(__file__).parent / "data"
+              / "params-gaporder1.json") as f:
+        params = QuaffParams.from_json(f.read())
+    inp, v2 = f32_chain.global_band(8192, 8209, 3, params)
+    inp = {k: v[:1].contiguous() for k, v in inp.items()}
+    ylen = int(inp["meta"][0, 1])
+    inp["keys"] = inp["keys"][:, :ylen].contiguous()
+    W = inp["doff"].shape[1]
+    assert W > estep.ESTEP_WIDE_LANES and ylen == 618
+    with one_thread_on_cpu(torch.device("cpu")):
+        f64 = fill_v2.band_fill_reference(**inp, tables=v2, mode="forward",
+                                          local=False, dtype=torch.float64)[0]
+        fwd, rows, offs = estep.fwd_store(**inp, tables=v2, local=False)
+        narrow_rows = torch.full_like(rows, fill_v2.NEG_INF)
+        narrow = fill_v2.band_fill_reference(
+            **inp, tables=v2, mode="forward", local=False, rows=narrow_rows,
+            offsets=torch.zeros_like(offs))[0]
+    assert fwd.dtype == torch.float32 and rows.dtype == torch.float32
+    assert abs(float(fwd[0]) - float(f64)) < 5e-3
+    live = rows > fill_v2.NEG_INF / 2
+    top = torch.where(live[:2], rows[:2], float("-inf")).amax(dim=(0, 3))
+    assert bool((top[0, :ylen] == 0).all())
+    assert abs(float(narrow) - float(f64)) > 9e-3
+
+
+# sha256 (first 32 hex digits) of K2's plain outputs (forward scores, rows,
+# offsets) and K3's (tables, per-pair sums) on bands of at most
+# ESTEP_WIDE_LANES, computed by the code before the wide arithmetic went
+# to float64 cells (the narrow-band arithmetic was not touched)
+NARROW_DIGESTS = {
+    (600, True, "packed", 48): "6c810762b7d709ea68f60578ccf1491d",
+    (4096, True, "gaporder1", 40): "fdcc0031728a0c95f7c2c029cea5acc8",
+    (4096, False, "packed", 160): "2bc3b48c1e108bef585c899900f3799a"}
+
+
+@pytest.mark.parametrize("case", sorted(NARROW_DIGESTS), ids=str)
+def test_narrow_bands_keep_their_arithmetic(case):
+    """Bands of at most ESTEP_WIDE_LANES lanes (every band of the train
+    path: the trainer's ESTEP_LANE_CAP) keep the narrow-band arithmetic
+    bit for bit: the plain K2's forward scores, stored rows and offsets
+    and the plain K3's tables and per-pair sums hash to the digests the
+    code gave before the wide arithmetic changed; the wide arithmetic on
+    the same band changes them (so the digest sees the arithmetic)."""
+    import hashlib
+
+    from quaff_tpu_torch.device import one_thread_on_cpu
+    from test_torch_kernel_cuda import _tables, random_fill_inputs
+
+    W, local, tables, Ly = case
+    kw = dict(Lx=W + 64, Ly=Ly) if local else dict(Lx=W // 2 + 64, Ly=Ly)
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 1),
+                                 _tables(tables), W, B=2, local=local,
+                                 device="cpu", **kw)
+
+    def digest(fwd, rows, offs):
+        fin = fwd > fill_v2.NEG_INF / 2
+        wrow = torch.stack([torch.full_like(fwd, 0.5),
+                            torch.where(fin, fwd, 0.0)]).float().contiguous()
+        part, sc = estep.bwd_counts(inp["x_tok"], inp["keys"], inp["meta"],
+                                    inp["doff"], v2, wrow, rows, offs,
+                                    local=local)
+        h = hashlib.sha256()
+        for t in (fwd, rows, offs, part, sc):
+            h.update(t.contiguous().numpy().tobytes())
+        return h.hexdigest()[:32]
+
+    assert W <= estep.ESTEP_WIDE_LANES
+    assert digest(*estep.fwd_store(**inp, tables=v2, local=local)) == \
+        NARROW_DIGESTS[case]
+    B, Lyy = inp["doff"].shape[0], inp["keys"].shape[1]
+    rows = torch.full((3, B, Lyy, W), fill_v2.NEG_INF)
+    offs = torch.zeros((B, Lyy), dtype=torch.float64)
+    with one_thread_on_cpu(torch.device("cpu")):
+        fwd = fill_v2.band_fill_reference(**inp, tables=v2, mode="forward",
+                                          local=local, rows=rows,
+                                          offsets=offs, wide=True)[:B]
+    assert digest(fwd, rows, offs) != NARROW_DIGESTS[case]
+
+
 def _reduce_emulated(part: np.ndarray) -> np.ndarray:
     """The count reduction's order in numpy float32: rows b, b+G, b+2G, ...
     into accumulator b % G, then ((0+1)+(2+3))+((4+5)+(6+7))."""
@@ -191,33 +286,50 @@ def _cluster_route(W, kernel):
                                              estep.ESTEP_CLUSTER_TABLE[kernel])
 
 
+def _smem_route(W, kernel):
+    return "smem", fill_v2.cluster_tiling(W, estep.ESTEP_SMEM_TABLE[kernel])
+
+
+def _wide_route(W, kernel):
+    """estep_route's route past the warp routes: the cluster route up to
+    the kernel's ESTEP_CLUSTER_MAX_LANES, the smem route up to
+    ESTEP_SMEM_MAX_LANES, the block route past it."""
+    if W <= estep.ESTEP_CLUSTER_MAX_LANES[kernel]:
+        return _cluster_route(W, kernel)
+    if W <= estep.ESTEP_SMEM_MAX_LANES:
+        return _smem_route(W, kernel)
+    return "block", 0
+
+
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
 @pytest.mark.parametrize("lpt", [1, 2, 4, 8, 16, None])
 def test_estep_route_table(kernel, lpt):
     """K2's and K3's routes are a pure function of the band's width: every
     width up to the kernel's ESTEP_WARP_MAX_LANES takes the warp route
     with the smallest lanes-a-thread whose warp (32 * lpt lanes) covers it
-    (the widths 16*lpt+1 .. 32*lpt), every wider band up to
+    (the widths 16*lpt+1 .. 32*lpt), every wider band up to the kernel's
     ESTEP_CLUSTER_MAX_LANES the cluster route at the tiling of the first
-    row of the kernel's ESTEP_CLUSTER_TABLE that covers it, every band
-    past that the
-    block route (lpt None: the 4096 widths past the cutover)."""
+    row of its ESTEP_CLUSTER_TABLE that covers it, up to
+    ESTEP_SMEM_MAX_LANES the smem route at the tiling of its
+    ESTEP_SMEM_TABLE, every band past that the block route (lpt None: the
+    4096 widths past the cutover)."""
     cut = estep.ESTEP_WARP_MAX_LANES[kernel]
     assert cut in (256, 512)
     if lpt is None:
         widths = range(cut + 1, cut + 4097)
     else:
         widths = range(16 * lpt + 1 if lpt > 1 else 1, 32 * lpt + 1)
-    top = estep.ESTEP_CLUSTER_MAX_LANES
     for W in widths:
         if lpt is not None and 32 * lpt <= cut:
             want = ("warp", lpt)
-        elif W <= top:
-            want = _cluster_route(W, kernel)
         else:
-            want = ("block", 0)
+            want = _wide_route(W, kernel)
         assert estep.estep_route(W, kernel) == want
+    top = estep.ESTEP_CLUSTER_MAX_LANES[kernel]
     assert estep.estep_route(top, kernel)[0] == "cluster"
+    assert estep.estep_route(top + 1, kernel)[0] == "smem"
+    top = estep.ESTEP_SMEM_MAX_LANES
+    assert estep.estep_route(top, kernel)[0] == "smem"
     assert estep.estep_route(top + 1, kernel) == ("block", 0)
     assert estep.estep_route(12 * top, kernel) == ("block", 0)
 
@@ -229,16 +341,12 @@ def test_estep_route_table(kernel, lpt):
 def test_warp_lpt(W, lpt):
     """The warp routes' lanes a thread: the smallest of 1/2/4/8/16 whose
     warp covers the band, none past 512 lanes; estep_route takes it up to
-    each kernel's cutover, the cluster route past it up to
-    ESTEP_CLUSTER_MAX_LANES, and the block route past that."""
+    each kernel's cutover, past it the cluster route up to the kernel's
+    ESTEP_CLUSTER_MAX_LANES, the smem route up to ESTEP_SMEM_MAX_LANES and
+    the block route past that."""
     assert estep.warp_lpt(W) == lpt
     for kernel, cut in estep.ESTEP_WARP_MAX_LANES.items():
-        if W <= cut:
-            want = ("warp", lpt)
-        elif W <= estep.ESTEP_CLUSTER_MAX_LANES:
-            want = _cluster_route(W, kernel)
-        else:
-            want = ("block", 0)
+        want = ("warp", lpt) if W <= cut else _wide_route(W, kernel)
         assert estep.estep_route(W, kernel) == want
 
 
@@ -252,15 +360,17 @@ def test_estep_cluster_table(kernel):
     tiles spread evenly (no CTA idle): one fold of at most MAX_TILES tiles
     over at most MAX_CLUSTER_CTAS CTAs up to ESTEP_WIDE_LANES, the
     trainer's ESTEP_LANE_CAP (the train path keeps its narrow-band
-    arithmetic), and past it the wide arithmetic with two levels over at
-    most MAX_CLUSTER_CTAS2 CTAs."""
+    arithmetic), and past it (K3's rows alone: K2's float64 cells take the
+    smem route there) the wide arithmetic with two levels over at most
+    MAX_CLUSTER_CTAS2 CTAs."""
     from quaff_tpu_torch import trainer
 
     table = estep.ESTEP_CLUSTER_TABLE[kernel]
     assert set(estep.ESTEP_CLUSTER_TABLE) == {"fwd_store", "bwd_counts"}
     widths = [row[0] for row in table]
     assert widths == sorted(widths)
-    assert widths[-1] == estep.ESTEP_CLUSTER_MAX_LANES == 32768
+    assert widths[-1] == estep.ESTEP_CLUSTER_MAX_LANES[kernel] == {
+        "fwd_store": 4096, "bwd_counts": 32768}[kernel]
     assert estep.ESTEP_WIDE_LANES == trainer.ESTEP_LANE_CAP == widths[0]
     assert table[0] == (4096, 4, 4)
     assert all(lpt in estep.ESTEP_CLUSTER_LPTS for _, lpt, _ in table)
@@ -284,48 +394,101 @@ def test_estep_cluster_table(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
-@pytest.mark.parametrize("W", [4096, 4097, 16384, 16385, 32768, 32769])
+def test_estep_smem_table(kernel):
+    """The kernel's ESTEP_SMEM_TABLE: rows of growing width from past its
+    cluster route up to ESTEP_SMEM_MAX_LANES (65536: a 10 kb read's global
+    band against phage lambda), and at every width there the tiling it
+    gives is one the smem kernels take (at most MAX_CLUSTER_CTAS2 CTAs of
+    SMEM_MAX_WARPS warps, at most SMEM_MAX_LPT lanes a thread) that covers
+    the band with every CTA holding lanes, spreads each pair over more than
+    one SM, and keeps a CTA's lanes (K2 28 bytes a lane, K3 24 and its
+    tiles' row statistics) inside the 227 KB a CTA of an H100 may hold."""
+    table = estep.ESTEP_SMEM_TABLE[kernel]
+    assert set(estep.ESTEP_SMEM_TABLE) == {"fwd_store", "bwd_counts"}
+    widths = [row[0] for row in table]
+    assert widths == sorted(widths)
+    assert widths[0] > estep.ESTEP_CLUSTER_MAX_LANES[kernel]
+    assert widths[-1] == estep.ESTEP_SMEM_MAX_LANES == 65536
+    lane_bytes = {"fwd_store": 28, "bwd_counts": 24}[kernel]
+    for W in range(estep.ESTEP_CLUSTER_MAX_LANES[kernel] + 1, widths[-1] + 1,
+                   97):
+        route = estep.estep_route(W, kernel)
+        nct, warps, lpt = route[1]
+        assert route[0] == "smem" and estep.estep_route_ok(W, route, kernel)
+        assert W <= nct * warps * 32 * lpt
+        assert 1 < nct <= estep.MAX_CLUSTER_CTAS2
+        assert warps <= estep.SMEM_MAX_WARPS and lpt <= estep.SMEM_MAX_LPT
+        assert (nct - 1) * warps * 32 * lpt < W  # every CTA holds lanes
+        stats = 2 * nct * warps * 16 * 4 if kernel == "bwd_counts" else 0
+        assert lpt * warps * 32 * lane_bytes + stats <= 227 * 1024
+
+
+@pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
+@pytest.mark.parametrize("W", [4096, 4097, 16384, 16385, 32768, 32769,
+                               65536, 65537])
 def test_estep_route_bounds(W, kernel):
     """The routes at each bound: 4096 lanes the last of the narrow-band
-    row (8 x 4 x 4, one fold, the narrow-band arithmetic); 4097-16384 the
-    wide arithmetic and two levels over CTAs that share an SM (K2: 4
-    lanes a thread, up to 8 warps a CTA; K3: 4 lanes a thread and 4 warps
-    up to 8192 lanes, then 8 and 4); 16385-32768 K2 at 4 lanes a thread
-    and up to 16 warps a CTA, K3 at 8 and 8, over up to 16 CTAs; past
-    32768 the block route (wide).  estep_route_ok takes each route's
-    tiling and refuses a one-fold tiling past 8 CTAs, a two-level one
-    past 16 CTAs or the kernel's warps, a tiling that does not cover the
-    band, any cluster tiling past ESTEP_CLUSTER_MAX_LANES, and a fourth
-    element."""
+    row (8 x 4 x 4, one fold, the narrow-band arithmetic); past it K2 the
+    smem route (float64 cells: 3 lanes a thread, up to 8 warps a CTA to
+    12288 lanes, 16 to 24576, 4 lanes a thread to 32768, then more), K3
+    the wide
+    arithmetic and two levels (4 lanes a thread and 4 warps up to 8192
+    lanes, then 8 and 4; 16385-32768 8 and 8, over up to 16 CTAs), then
+    its smem route; past 65536 the block route (wide).  estep_route_ok
+    takes each route's tiling and refuses a one-fold tiling past 8 CTAs,
+    a two-level one past 16 CTAs or the kernel's warps or any of K2's, an
+    smem tiling past 16 CTAs, 16 warps or 16 lanes a thread, a tiling that
+    does not cover the band, any cluster tiling past the kernel's
+    ESTEP_CLUSTER_MAX_LANES, any smem tiling past ESTEP_SMEM_MAX_LANES,
+    and a fourth element."""
     ok = estep.estep_route_ok
     kind, tiling = estep.estep_route(W, kernel)
-    if W > estep.ESTEP_CLUSTER_MAX_LANES:
+    if W > estep.ESTEP_SMEM_MAX_LANES:
         assert (kind, tiling) == ("block", 0)
         for t in ((16, 8, 8), (16, 16, 4), (8, 8, 32)):
             assert not ok(W, ("cluster", t), kernel)
+        for t in ((16, 16, 16), (16, 16, 9)):
+            assert not ok(W, ("smem", t), kernel)
         assert ok(W, ("block", 0), kernel)
         return
-    want = {4096: (8, 4, 4),
-            4097: {"fwd_store": (5, 7, 4), "bwd_counts": (9, 4, 4)},
-            16384: {"fwd_store": (16, 8, 4), "bwd_counts": (16, 4, 8)},
-            16385: {"fwd_store": (11, 12, 4), "bwd_counts": (9, 8, 8)},
-            32768: {"fwd_store": (16, 16, 4), "bwd_counts": (16, 8, 8)}}[W]
+    want = {4096: ("cluster", (8, 4, 4)),
+            4097: {"fwd_store": ("smem", (6, 8, 3)),
+                   "bwd_counts": ("cluster", (9, 4, 4))},
+            16384: {"fwd_store": ("smem", (11, 16, 3)),
+                    "bwd_counts": ("cluster", (16, 4, 8))},
+            16385: {"fwd_store": ("smem", (11, 16, 3)),
+                    "bwd_counts": ("cluster", (9, 8, 8))},
+            32768: {"fwd_store": ("smem", (16, 16, 4)),
+                    "bwd_counts": ("cluster", (16, 8, 8))},
+            32769: ("smem", (13, 16, 5)),
+            65536: ("smem", (16, 16, 8))}[W]
     if isinstance(want, dict):
         want = want[kernel]
-    assert (kind, tiling) == ("cluster", want)
-    assert ok(W, ("cluster", want), kernel)
-    assert estep.cluster_mode(W, want) == (
+    assert (kind, tiling) == want
+    assert ok(W, want, kernel)
+    nct, warps, lpt = tiling
+    assert not ok(W, (kind, tiling + (2,)), kernel)
+    assert not ok(W + 32 * lpt * warps * nct, want, kernel)
+    if kind == "smem":
+        assert not ok(W, ("smem", (17, warps, lpt)), kernel)
+        assert not ok(W, ("smem", (nct, 17, lpt)), kernel)
+        assert not ok(W, ("smem", (nct, warps, 17)), kernel)
+        assert ok(W, ("smem", (16, 16, 16)), kernel)
+        assert not ok(W, ("cluster", (16, 8, 8)), kernel) or (
+            kernel == "bwd_counts" and W <= 32768)
+        return
+    assert estep.cluster_mode(W, tiling) == (
         estep.ONE_FOLD if W == 4096 else estep.TWO_FOLD)
-    nct, warps, lpt = want
-    assert not ok(W, ("cluster", want + (2,)), kernel)
     if W == 4096:
         assert not ok(W, ("cluster", (9, 3, 16)), kernel)  # one fold, 9
-        assert ok(W, ("cluster", (9, 4, lpt)), kernel)  # 36 tiles: two
+        # 36 tiles: two levels, K3's alone
+        assert ok(W, ("cluster", (9, 4, lpt)), kernel) == (
+            kernel == "bwd_counts")
+        assert ok(W, ("smem", (9, 4, lpt)), kernel)
     else:
         assert ok(W, ("cluster", (nct, 4, 16)), kernel)  # fewer tiles
     assert not ok(W, ("cluster", (17, warps, lpt)), kernel)
     assert not ok(W, ("cluster", (nct, 17, 4)), kernel)
-    assert not ok(W + 32 * lpt * warps * nct, ("cluster", want), kernel)
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
@@ -333,22 +496,26 @@ def test_estep_cluster_route_ok_refuses(kernel):
     """A forced cluster tiling must be one the kernel has and cover the
     band: estep_route_ok refuses a tiling whose tiles do not cover W, one
     of more than MAX_CLUSTER_CTAS CTAs folded once (up to ESTEP_WIDE_LANES
-    and MAX_TILES tiles) or MAX_CLUSTER_CTAS2 in two levels, more warps a
-    CTA than the kernel takes (K3: 8 at any lanes a thread; K2: 8 from 8
-    lanes a thread up, 16 below), lanes a thread the kernel has no
-    instantiation of, a band wider than ESTEP_CLUSTER_MAX_LANES, and
-    anything that is not a (CTAs, warps, lanes) tuple; the wrappers raise
-    on it before any launch, CPU tensors too.  Past ESTEP_WIDE_LANES every
-    cluster tiling takes two levels, so up to 16 CTAs."""
+    and MAX_TILES tiles) or MAX_CLUSTER_CTAS2 in two levels (K3's alone:
+    K2's cluster route has one fold, its wide bands the smem route), more
+    warps a CTA than the kernel takes (K3: 8 at any lanes a thread; K2: 8
+    from 8 lanes a thread up, 16 below), lanes a thread the kernel has no
+    instantiation of, a band wider than the kernel's
+    ESTEP_CLUSTER_MAX_LANES, and anything that is not a (CTAs, warps,
+    lanes) tuple; the wrappers raise on it before any launch, CPU tensors
+    too.  Past ESTEP_WIDE_LANES every K3 cluster tiling takes two levels,
+    so up to 16 CTAs.  A forced smem tiling takes any width up to
+    ESTEP_SMEM_MAX_LANES, up to 16 CTAs, warps and lanes a thread."""
     ok = estep.estep_route_ok
+    k3 = kernel == "bwd_counts"
     assert ok(2048, ("cluster", (1, 4, 16)), kernel)
     assert ok(2048, ("cluster", (2, 2, 16)), kernel)
     assert not ok(2049, ("cluster", (1, 4, 16)), kernel)  # does not cover
     assert not ok(600, ("cluster", (1, 1, 4)), kernel)
     assert not ok(600, ("cluster", (9, 1, 4)), kernel)  # CTAs, one fold
-    # more than 32 tiles: two levels
-    assert ok(600, ("cluster", (8, 5, 4)), kernel)
-    assert ok(600, ("cluster", (12, 3, 4)), kernel)  # 12 CTAs, 36 tiles
+    # more than 32 tiles: two levels, K3's
+    assert ok(600, ("cluster", (8, 5, 4)), kernel) == k3
+    assert ok(600, ("cluster", (12, 3, 4)), kernel) == k3  # 12 CTAs
     assert not ok(600, ("cluster", (17, 2, 4)), kernel)  # past 16 CTAs
     assert not ok(600, ("cluster", (1, 20, 2)), kernel)  # no lpt 2
     assert not ok(600, ("cluster", (1, 9, 16)), kernel)  # warps at lpt 16
@@ -356,33 +523,44 @@ def test_estep_cluster_route_ok_refuses(kernel):
     assert ok(600, ("cluster", (1, 9, 8)), kernel) is False  # warps at lpt 8
     assert ok(4096, ("cluster", (8, 4, 4)), kernel)
     assert ok(4096, ("cluster", (2, 4, 16)), kernel)
-    # past 4096 lanes: two levels, up to 16 CTAs, of few tiles too
+    # past 4096 lanes: K3's two levels, up to 16 CTAs, of few tiles too
     for W, tiling in ((4097, (8, 4, 8)), (8192, (8, 2, 16)),
                       (16384, (8, 4, 16)), (8192, (16, 1, 16))):
-        assert ok(W, ("cluster", tiling), kernel)
+        assert ok(W, ("cluster", tiling), kernel) == k3
         assert estep.cluster_mode(W, tiling) == estep.TWO_FOLD
-    top = estep.ESTEP_CLUSTER_MAX_LANES
-    assert ok(top, ("cluster", (16, 8, 8)), kernel)
-    assert ok(top, ("cluster", (8, 8, 16)), kernel)  # two levels, 8 CTAs
+    top = estep.ESTEP_CLUSTER_MAX_LANES["bwd_counts"]
+    assert ok(top, ("cluster", (16, 8, 8)), kernel) == k3
+    assert ok(top, ("cluster", (8, 8, 16)), kernel) == k3  # 8 CTAs
     for W, tiling in ((top + 1, (16, 8, 8)), (top + 1, (8, 16, 16))):
         assert not ok(W, ("cluster", tiling), kernel)  # past the cap
+    # the smem route: any lanes a thread up to 16, 16 CTAs of 16 warps
+    for W, tiling in ((600, (1, 2, 16)), (600, (3, 2, 4)),
+                      (4097, (16, 1, 9)), (65536, (16, 16, 8)),
+                      (65536, (8, 16, 16))):
+        assert ok(W, ("smem", tiling), kernel)
+    for W, tiling in ((600, (1, 1, 15)), (600, (17, 1, 16)),
+                      (600, (1, 17, 16)), (600, (1, 2, 17)),
+                      (65537, (16, 16, 16)), (600, (0, 1, 16))):
+        assert not ok(W, ("smem", tiling), kernel)
     for bad in (("cluster", None), ("cluster", (1, 4)), ("cluster", 0),
                 ("cluster", (1, 4, 4, 2)), ("cluster", (12, 1, 4, 2)),
+                ("smem", (1, 4)), ("smem", (1, 4, 4, 2)), ("smem", None),
                 None, ("warp",)):
         assert not ok(600, bad, kernel)
     from test_torch_kernel_cuda import _tables, random_fill_inputs
 
     inp, v2 = random_fill_inputs(np.random.default_rng(4), _tables("packed"),
                                  600, B=1, Lx=60, Ly=8, device="cpu")
-    with pytest.raises(ValueError, match="no route"):
-        if kernel == "fwd_store":
-            estep.fwd_store(**inp, tables=v2, route=("cluster", (1, 1, 4)))
-        else:
-            rows = torch.zeros((3, 1, 8, 600))
-            estep.bwd_counts(inp["x_tok"], inp["keys"], inp["meta"],
-                             inp["doff"], v2, torch.ones((2, 1)), rows,
-                             torch.zeros((1, 8), dtype=torch.float64),
-                             route=("cluster", (1, 1, 4)))
+    for bad in (("cluster", (1, 1, 4)), ("smem", (1, 1, 2))):
+        with pytest.raises(ValueError, match="no route"):
+            if kernel == "fwd_store":
+                estep.fwd_store(**inp, tables=v2, route=bad)
+            else:
+                rows = torch.zeros((3, 1, 8, 600))
+                estep.bwd_counts(inp["x_tok"], inp["keys"], inp["meta"],
+                                 inp["doff"], v2, torch.ones((2, 1)), rows,
+                                 torch.zeros((1, 8), dtype=torch.float64),
+                                 route=bad)
 
 
 def test_wide_read_routes_its_chunk_to_the_cluster_routes():
@@ -460,14 +638,17 @@ def test_estep_forced_route_on_cpu():
             rows, offs)
     part, sc = estep.bwd_counts_reference(*base)
     counts = ("launches", "warp_launches", "cluster_launches",
-              "block_launches")
+              "smem_launches", "block_launches", "two_level_launches")
     before = {f: [getattr(getattr(estep, f), k) for k in counts]
               for f in ("fwd_store", "bwd_counts")}
     for route in (None, ("warp", 2), ("warp", 16), ("cluster", (1, 1, 4)),
                   ("cluster", (2, 1, 8)), ("cluster", (1, 3, 16)),
-                  ("cluster", (9, 4, 4)), ("block", 0)):
-        got = estep.fwd_store(**inp, tables=v2, route=route)
-        assert all(torch.equal(a, b) for a, b in zip(got, (fwd, rows, offs)))
+                  ("cluster", (9, 4, 4)), ("smem", (1, 1, 2)),
+                  ("smem", (2, 1, 1)), ("block", 0)):
+        if route != ("cluster", (9, 4, 4)):  # two levels: K3's alone
+            got = estep.fwd_store(**inp, tables=v2, route=route)
+            assert all(torch.equal(a, b)
+                       for a, b in zip(got, (fwd, rows, offs)))
         got = estep.bwd_counts(*base, route=route)
         assert torch.equal(got[0], part) and torch.equal(got[1], sc)
     assert before == {f: [getattr(getattr(estep, f), k) for k in counts]
@@ -475,7 +656,8 @@ def test_estep_forced_route_on_cpu():
     for bad in (("warp", 1), ("warp", 3), ("block", None), ("block", 8),
                 ("tile", 0), ("cluster", (1, 1, 1)), ("cluster", (9, 1, 4)),
                 ("cluster", (1, 1, 2)), ("cluster", (1, 40, 4)),
-                ("cluster", (1, 1, 4, 2)), ("cluster", 4)):
+                ("cluster", (1, 1, 4, 2)), ("cluster", 4), ("smem", (1, 1, 1)),
+                ("smem", (17, 1, 2)), ("smem", (1, 1, 17))):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=bad)
         with pytest.raises(ValueError, match="no route"):
@@ -486,12 +668,14 @@ def test_chip_smoke_route_helpers():
     """chip_smoke.py's E-step route helpers, pure functions of the width:
     the routes it holds against each other (the warp route where 512
     lanes cover the band, the cluster route at the table's tiling up to
-    32768 lanes, then the block route), the two-level tilings its sweep
-    times at phase 4b's width, and the check that a run's launch counts
-    by route match its chunks' estep_route (a 423-lane chunk runs K2's
-    warp route and K3's cluster route, a 4038-lane one both cluster
-    routes, a 22882-lane one both two-level cluster routes, a 35000-lane
-    one both block routes)."""
+    the kernel's ESTEP_CLUSTER_MAX_LANES, else the smem route up to 65536
+    lanes, then the block route), the tilings its sweep times at phase
+    4b's width (K3's two-level cluster tilings, K2's smem tilings), and the
+    check that a run's launch counts by route match its chunks'
+    estep_route (a 423-lane chunk runs K2's warp route and K3's cluster
+    route, a 4038-lane one both cluster routes, a 22882-lane one K2's smem
+    route and K3's two-level cluster route, a 35000-lane one both smem
+    routes, a 70000-lane one both block routes)."""
     import chip_smoke
 
     assert chip_smoke._estep_routes(3, "fwd_store") == [
@@ -501,43 +685,56 @@ def test_chip_smoke_route_helpers():
     assert chip_smoke._estep_routes(512, "fwd_store") == [
         ("warp", 16), _cluster_route(512, "fwd_store"), ("block", 0)]
     for k in ("fwd_store", "bwd_counts"):
-        for W in (4038, 4097, 22882):
+        for W in (4038, 4097, 22882, 35000):
             assert chip_smoke._estep_routes(W, k) == [
-                _cluster_route(W, k), ("block", 0)]
-        assert chip_smoke._estep_routes(35000, k) == [("block", 0)]
-        mw = estep.ESTEP_CLUSTER_MAX_WARPS[k].get
-        swept = chip_smoke._sweep_tilings(22136, estep.ESTEP_CLUSTER_LPTS,
-                                          mw, two_level=True)
-        assert _cluster_route(22136, k)[1] == {
-            "fwd_store": (15, 12, 4), "bwd_counts": (11, 8, 8)}[k]
-        assert {(11, 8, 8), (13, 7, 8), (15, 6, 8), (6, 8, 16),
-                (8, 6, 16)} <= set(swept)
-        for nct, warps, lpt in swept:
-            assert 32 < nct * warps <= estep.MAX_TILES2
-            assert estep.estep_route_ok(22136, ("cluster", (nct, warps, lpt)),
-                                        k)
-        assert len({t[1:] for t in swept}) == len(swept)
-        assert chip_smoke._sweep_tilings(22136, estep.ESTEP_CLUSTER_LPTS,
-                                         mw) == []
+                _wide_route(W, k), ("block", 0)]
+        assert chip_smoke._estep_routes(65537, k) == [("block", 0)]
+    assert _wide_route(4097, "fwd_store")[0] == "smem"
+    assert _wide_route(22882, "bwd_counts")[0] == "cluster"
+    assert _wide_route(35000, "bwd_counts")[0] == "smem"
+    mw = estep.ESTEP_CLUSTER_MAX_WARPS["bwd_counts"].get
+    swept = chip_smoke._sweep_tilings(22136, estep.ESTEP_CLUSTER_LPTS, mw,
+                                      two_level=True)
+    assert _cluster_route(22136, "bwd_counts")[1] == (11, 8, 8)
+    assert {(11, 8, 8), (13, 7, 8), (15, 6, 8), (6, 8, 16),
+            (8, 6, 16)} <= set(swept)
+    for nct, warps, lpt in swept:
+        assert 32 < nct * warps <= estep.MAX_TILES2
+        assert estep.estep_route_ok(22136, ("cluster", (nct, warps, lpt)),
+                                    "bwd_counts")
+    assert len({t[1:] for t in swept}) == len(swept)
+    assert chip_smoke._sweep_tilings(22136, estep.ESTEP_CLUSTER_LPTS,
+                                     mw) == []
+    smem = chip_smoke._smem_tilings(22136)
+    assert _smem_route(22136, "fwd_store")[1] == (15, 16, 3) in smem
+    for k in ("fwd_store", "bwd_counts"):
+        assert all(estep.estep_route_ok(22136, ("smem", t), k) for t in smem)
+    assert len(set(smem)) == len(smem) and min(t[2] for t in smem) == 3
     chunks = [{"B": 4, "W": 168}, {"B": 2, "W": 423}, {"B": 14, "W": 4038},
-              {"B": 8, "W": 22882}, {"B": 1, "W": 35000}]
-    n = {"fwd_store": {"warp_launches": 2, "cluster_launches": 2,
-                       "block_launches": 1},
+              {"B": 8, "W": 22882}, {"B": 1, "W": 35000},
+              {"B": 1, "W": 70000}]
+    n = {"fwd_store": {"warp_launches": 2, "cluster_launches": 1,
+                       "smem_launches": 2, "block_launches": 1},
          "bwd_counts": {"warp_launches": 1, "cluster_launches": 3,
-                        "block_launches": 1}}
+                        "smem_launches": 1, "block_launches": 1}}
     routes = chip_smoke._check_routes("a run", chunks, n)
     assert routes == [
         {"fwd_store": ("warp", 8), "bwd_counts": ("warp", 8)},
         {"fwd_store": ("warp", 16),
          "bwd_counts": _cluster_route(423, "bwd_counts")},
         {k: _cluster_route(4038, k) for k in ("fwd_store", "bwd_counts")},
-        {k: _cluster_route(22882, k) for k in ("fwd_store", "bwd_counts")},
+        {"fwd_store": _smem_route(22882, "fwd_store"),
+         "bwd_counts": _cluster_route(22882, "bwd_counts")},
+        {k: _smem_route(35000, k) for k in ("fwd_store", "bwd_counts")},
         {"fwd_store": ("block", 0), "bwd_counts": ("block", 0)}]
     t423 = "{} x {} x {}".format(*_cluster_route(423, "bwd_counts")[1])
+    t35 = "{} x {} x {}".format(*_smem_route(35000, "bwd_counts")[1])
     assert chip_smoke._route_text(chunks[:2], routes[:2]) == (
         "(B=4, W=168: K2 warp 8, K3 warp 8); "
         f"(B=2, W=423: K2 warp 16, K3 cluster {t423})")
+    assert chip_smoke._route_text(chunks[4:5], routes[4:5]) == (
+        f"(B=1, W=35000: K2 smem {t35}, K3 smem {t35})")
     n["bwd_counts"] = {"warp_launches": 2, "cluster_launches": 2,
-                       "block_launches": 1}
+                       "smem_launches": 1, "block_launches": 1}
     with pytest.raises(chip_smoke.SmokeFailure, match="bwd_counts"):
         chip_smoke._check_routes("a run", chunks, n)

@@ -390,10 +390,12 @@ def _plain_case(inp, v2, local, exact=False):
     versions' outputs on K2's and K3's inputs; wrow's weights are 0.5 and
     its normalisers the plain forward scores, or with `exact` the float64
     forward fill's (band_fill_reference in float64), which fwd_p then
-    holds, and fwd32 the plain float32 forward scores (else None): past
-    16384 lanes the plain float32 forward fill drifts 2e-2 to 5e-2 nats
-    off it on global long-deletion bands (PERF.md §6), too far to
-    normalise the back-start posterior by."""
+    holds, and fwd32 the plain version's forward scores (else None).  With
+    float32 cells the plain forward fill drifted 2e-2 to 5e-2 nats off the
+    float64 one past 16384 lanes on global long-deletion bands, too far to
+    normalise the back-start posterior by; its wide arithmetic (float64
+    cells past ESTEP_WIDE_LANES) holds it within 5e-3, and the float64
+    fill stays the yardstick."""
     fwd_p, rows_p, offs_p = estep.fwd_store_reference(**inp, tables=v2,
                                                       local=local)
     fwd32 = None
@@ -428,12 +430,12 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
     drifts with its forward fill there), and the other per-pair sums and
     the tables to the plain K3's.  The E-step itself divides by K2's own
     forward score, so there K2's forward score is held to the float64
-    fill's: each pair's no farther off it than the plain float32 version's
-    plus the back-start posterior's 5e-3, and the back-start posterior on
-    K2's own forward score, exp(K3's backward total - K2's forward score),
-    is printed beside it (what the E-step's posterior would read)."""
-    counts = ("launches", "warp_launches", "cluster_launches",
-              "block_launches")
+    fill's: each pair's within 5e-3 nats of it, and the back-start
+    posterior on K2's own forward score, exp(K3's backward total - K2's
+    forward score) (what the E-step's posterior reads), within 5e-3 of
+    1; both are printed beside the plain version's forward drift."""
+    kinds = ("warp", "cluster", "smem", "block")
+    counts = ("launches",) + tuple(f"{k}_launches" for k in kinds)
     exact = fwd32 is not None
     fin = fwd_p > fill_v2.NEG_INF / 2
     assert bool(fin.any())
@@ -445,8 +447,7 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
         torch.cuda.synchronize()
         moved = [getattr(estep.fwd_store, k) - n
                  for k, n in zip(counts, before)]
-        assert moved == [1] + [int(r2[0] == k)
-                               for k in ("warp", "cluster", "block")]
+        assert moved == [1] + [int(r2[0] == k) for k in kinds]
         assert torch.equal(fwd > fill_v2.NEG_INF / 2, fin)
         np.testing.assert_allclose(fwd[fin].double().cpu(),
                                    fwd_p[fin].double().cpu(),
@@ -456,8 +457,7 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
         torch.cuda.synchronize()
         moved = [getattr(estep.bwd_counts, k) - n
                  for k, n in zip(counts, before)]
-        assert moved == [1] + [int(r3[0] == k)
-                               for k in ("warp", "cluster", "block")]
+        assert moved == [1] + [int(r3[0] == k) for k in kinds]
         for got, want in ((part, part_p), (sc[:4] if exact else sc,
                                            sc_p[:4] if exact else sc_p)):
             np.testing.assert_allclose(got.double().cpu(),
@@ -478,7 +478,8 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
                   f"posterior on K2's own forward within "
                   f"{float((own - 1).abs().max()):.3g} of 1, on the float64 "
                   f"fill's {float((bsp - 1).abs().max()):.3g}")
-            assert bool((k2_off.abs() <= plain_off.abs() + 5e-3).all())
+            assert float(k2_off.abs().max()) < 5e-3
+            assert float((own - 1).abs().max()) < 5e-3
         fwd2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
                                              route=r2)
         part2, sc2 = estep.bwd_counts(*base, rows2, offs2, local=local,
@@ -499,12 +500,16 @@ ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256, 1536, 2048}.union(
 def _kernel_routes(W, kernel):
     """The routes of K2 or K3 held against each other on a band of W lanes:
     the warp route at the smallest lanes-a-thread that covers W (up to 512
-    lanes), the cluster route at the table's tiling (up to
-    ESTEP_CLUSTER_MAX_LANES), the block route."""
+    lanes), the cluster route at the table's tiling (up to the kernel's
+    ESTEP_CLUSTER_MAX_LANES) or else the smem route at its table's (up to
+    ESTEP_SMEM_MAX_LANES), the block route."""
     routes = [("block", 0)]
-    if W <= estep.ESTEP_CLUSTER_MAX_LANES:
+    if W <= estep.ESTEP_CLUSTER_MAX_LANES[kernel]:
         routes.insert(0, ("cluster", fill_v2.cluster_tiling(
             W, estep.ESTEP_CLUSTER_TABLE[kernel])))
+    elif W <= estep.ESTEP_SMEM_MAX_LANES:
+        routes.insert(0, ("smem", fill_v2.cluster_tiling(
+            W, estep.ESTEP_SMEM_TABLE[kernel])))
     if estep.warp_lpt(W) is not None:
         routes.insert(0, ("warp", estep.warp_lpt(W)))
     return routes
@@ -955,7 +960,9 @@ def _stored_rows_check(inp, v2, local, rows, offs):
     """K2's stored rows on the card against the plain version's, up to each
     pair's read length: the same cells hold NEG, the others' absolute
     values (cell + the row's offset) within K1's rtol 1e-5 / atol 1e-3 of
-    the plain version's, and each row's largest cell is 0."""
+    the plain version's, and each row's largest cell is 0 (past
+    ESTEP_WIDE_LANES its largest match or insert cell)."""
+    wide = inp["doff"].shape[1] > estep.ESTEP_WIDE_LANES
     _, rows_p, offs_p = estep.fwd_store_reference(**inp, tables=v2,
                                                   local=local)
     floor = fill_v2.NEG_INF / 2
@@ -968,8 +975,10 @@ def _stored_rows_check(inp, v2, local, rows, offs):
         a = got.double() + offs[b, :n].cpu()[None, :, None]
         w = want.double() + offs_p[b, :n].cpu()[None, :, None]
         np.testing.assert_allclose(a[live], w[live], rtol=1e-5, atol=1e-3)
-        top = torch.where(live, got, float("-inf")).amax(dim=(0, 2))
-        assert bool((top[live.any(0).any(-1)] == 0).all())
+        n_top = 2 if wide else 3
+        top = torch.where(live[:n_top], got[:n_top],
+                          float("-inf")).amax(dim=(0, 2))
+        assert bool((top[live[:n_top].any(0).any(-1)] == 0).all())
 
 
 def _estep_table_tilings(kernel):
@@ -1031,15 +1040,20 @@ def test_estep_block_routes_past_the_cluster_routes(W):
     (each thread's delete chain relative to its largest opening term, K3's
     rows scaled at their posterior mode); on this input the former
     arithmetic put the back-start posterior 6.8e-3 off 1 (8192 lanes) and
-    the per-pair sums 2.2e-2 off the plain version's (16384).  The cluster
-    routes take these bands, so the block routes are forced."""
+    the per-pair sums 2.2e-2 off the plain version's (16384).  K2's smem
+    route and K3's cluster route take these bands, so the block routes are
+    forced (K2's there with float64 cells); normalised by the float64
+    forward fill (_plain_case's exact), K2's forward score within 5e-3
+    nats of it."""
     _need_card()
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
-    assert all(r[0] == "cluster" for r in routes)
-    case = _estep_plain("global", W, W + 7, B=4, Lx=W // 2 + 64,
-                        Ly=min(W // 4, 1024))
-    inp, v2, local = case[:3]
+    assert [r[0] for r in routes] == ["smem", "cluster"]
+    local, tables = ESTEP_VARIANTS["global"]
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
+                                 _tables(tables), W, B=4, local=local,
+                                 Lx=W // 2 + 64, Ly=min(W // 4, 1024))
+    case = _plain_case(inp, v2, local, exact=True)
     routes = (("block", 0), ("block", 0))
     _estep_routes_check(*case, [routes])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
@@ -1049,14 +1063,14 @@ def test_estep_block_routes_past_the_cluster_routes(W):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["local", "global"])
 def test_estep_block_routes_past_the_widest_band(variant):
-    """Past ESTEP_CLUSTER_MAX_LANES both kernels take their block routes
-    (wide arithmetic), and a cluster tiling that covers the band is
-    refused before any launch: on random strips over a ref as wide as the
-    band, against the plain versions; on the global long-deletion recipe
-    (reads of up to 1024 rows over refs of W / 2 + 64 bases), with the
-    float64 forward fill as the normaliser (_plain_case's exact)."""
+    """Past ESTEP_SMEM_MAX_LANES both kernels take their block routes
+    (wide arithmetic), and a cluster or smem tiling that covers the band
+    is refused before any launch: on random strips over a ref as wide as
+    the band, against the plain versions; on the global long-deletion
+    recipe (reads of up to 1024 rows over refs of W / 2 + 64 bases), with
+    the float64 forward fill as the normaliser (_plain_case's exact)."""
     _need_card()
-    W = estep.ESTEP_CLUSTER_MAX_LANES + 1
+    W = estep.ESTEP_SMEM_MAX_LANES + 1
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
     assert routes == (("block", 0), ("block", 0))
@@ -1065,43 +1079,60 @@ def test_estep_block_routes_past_the_widest_band(variant):
           else dict(Lx=W // 2 + 64, Ly=1024))
     inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
                                  _tables("packed"), W, B=4, local=local, **kw)
-    for tiling in ((8, 8, 32), (8, 16, 16)):
-        assert W <= 32 * tiling[2] * tiling[1] * 8
+    for kind, tiling in (("cluster", (16, 8, 32)), ("cluster", (16, 16, 16)),
+                         ("smem", (16, 16, 16)), ("smem", (16, 16, 9))):
+        assert W <= 32 * tiling[2] * tiling[1] * tiling[0]
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, local=local,
-                            route=("cluster", tiling))
+                            route=(kind, tiling))
     _estep_routes_check(*_plain_case(inp, v2, local, exact=not local),
                         [routes])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local)[1:])
 
 
-# phase 4b's count -fast -kmatchoff chunk's width, and the widest band of
-# the two-level tilings
-TWO_LEVEL_WIDTHS = (22136, estep.ESTEP_CLUSTER_MAX_LANES)
+# phase 4b's count -fast -kmatchoff chunk's width, the widest band of K3's
+# two-level tilings, the smem routes' first band, phase 4b's 34 kb count's
+# width, and the smem routes' widest band
+TWO_LEVEL_WIDTHS = (22136, estep.ESTEP_CLUSTER_MAX_LANES["bwd_counts"],
+                    estep.ESTEP_CLUSTER_MAX_LANES["bwd_counts"] + 1, 35506,
+                    estep.ESTEP_SMEM_MAX_LANES)
+
+
+def _fold_count(route):
+    """The launch count a two-level route moves: two_level_launches for a
+    cluster route, smem_launches for an smem route."""
+    return "smem_launches" if route[0] == "smem" else "two_level_launches"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["local", "global"])
 @pytest.mark.parametrize("W", TWO_LEVEL_WIDTHS)
 def test_estep_two_level_fold_matches_plain(W, variant):
-    """K2's and K3's two-level tiling (more than 32 tiles: each CTA folds
-    its warps' tiles, then the CTAs fold) at phase 4b's width and at the
-    widest band, each paired with itself and with the other kernel's
-    block route (the layout they share), against the plain versions (K3
-    normalised by the plain forward scores): local, random strips over a
-    ref as wide as the band and strips seamed on tile and CTA boundaries;
-    global, one strip over every diagonal of reads of up to 1024 rows and
-    refs of W / 2 + 64 bases, normalised by the float64 forward fill
-    (_plain_case's exact).  K2's stored rows against the plain version's;
-    both kernels bit for bit on a rerun; each launch counted as a
-    two-level one."""
+    """K2's and K3's routes that fold in two levels (more than 32 tiles:
+    each CTA folds its warps' tiles, then the CTAs fold): K3's two-level
+    cluster route up to 32768 lanes, both kernels' smem routes (each
+    thread's lanes in shared memory, K2's in float64) past their cluster
+    routes, at phase 4b's widths, the smem routes' first and widest bands,
+    each paired with itself and with the other kernel's block route (the
+    layout they share), against the plain versions (K3 normalised by the
+    plain forward scores): local, random strips over a ref as wide as the
+    band and strips seamed on tile and CTA boundaries; global, one strip
+    over every diagonal of reads of up to 1024 rows and refs of W / 2 + 64
+    bases, normalised by the float64 forward fill (_plain_case's exact),
+    K2's forward score within 5e-3 nats of it.  K2's stored rows against
+    the plain version's; both kernels bit for bit on a rerun; each launch
+    counted on its fold."""
     _need_card()
     r2, r3 = (estep.estep_route(W, k) for k in ("fwd_store", "bwd_counts"))
     for r in (r2, r3):
         nct, warps, lpt = r[1]
-        assert r[0] == "cluster" and nct * warps > fill_v2.MAX_TILES
-        assert estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
+        assert nct * warps > fill_v2.MAX_TILES and nct > 1
+        if r[0] == "cluster":
+            assert estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
+        else:
+            assert r[0] == "smem"
+    assert r2[0] == "smem"
     if variant == "local":
         kws = [dict(Lx=W + 64, Ly=120),
                dict(Lx=W + 64, Ly=120, seams=_tile_seams(W, r2[1]))]
@@ -1115,37 +1146,47 @@ def test_estep_two_level_fold_matches_plain(W, variant):
                                      _tables(tables), W, B=3, local=local,
                                      **kw)
         case = _plain_case(inp, v2, local, exact=exact)
-        before = [estep.fwd_store.two_level_launches,
-                  estep.bwd_counts.two_level_launches]
+        before = [getattr(estep.fwd_store, _fold_count(r2)),
+                  getattr(estep.bwd_counts, _fold_count(r3))]
         _estep_routes_check(*case, [(r2, r3), (r2, bl), (bl, r3)])
-        # each pairing runs each kernel twice, twice on the cluster route
-        assert [estep.fwd_store.two_level_launches,
-                estep.bwd_counts.two_level_launches] == [
+        # each pairing runs each kernel twice, twice on the folded route
+        assert [getattr(estep.fwd_store, _fold_count(r2)),
+                getattr(estep.bwd_counts, _fold_count(r3))] == [
             before[0] + 4, before[1] + 4]
         inp, v2, local = case[:3]
         _stored_rows_check(inp, v2, local, *estep.fwd_store(
             **inp, tables=v2, local=local, route=r2)[1:])
 
 
+# the widths at which K2's float32 forward score was measured off the
+# float64 fill on the global long-deletion recipe (ROADMAP queue 3 item
+# 1), phase 4b's 34 kb width and the smem routes' widest band
+LONG_DELETION_WIDTHS = (8192, 16384, 22136, 24576, 32768, 32769, 35506,
+                        estep.ESTEP_SMEM_MAX_LANES)
+
+
 @pytest.mark.cuda
-def test_estep_two_level_long_deletions():
-    """K2's and K3's routes at the widest band (two-level) on the global
-    long-deletion input (reads of up to 1024 rows over refs of W / 2 + 64
-    bases, up to ~16000 deletions a read) on which the former arithmetic
-    missed the back-start posterior at 8192 and 16384 lanes: both routed
+@pytest.mark.parametrize("W", LONG_DELETION_WIDTHS)
+def test_estep_two_level_long_deletions(W):
+    """K2's and K3's routes on the global long-deletion input (reads of up
+    to 1024 rows over refs of W / 2 + 64 bases, up to ~32000 deletions a
+    read) at LONG_DELETION_WIDTHS: K2's smem route, K3's two-level cluster
+    route up to 32768 lanes and its smem route past it: both routed
     kernels and both block routes forced, the back-start posterior, with
-    the float64 forward fill as the normaliser, within 5e-3 of 1, the
-    forward scores within rtol 1e-5 of the float64 fill's, the tables and
-    the other per-pair sums against the plain versions."""
+    the float64 forward fill as the normaliser, within 5e-3 of 1, K2's
+    forward score within 5e-3 nats of the float64 fill's and the
+    back-start posterior on K2's own forward score within 5e-3 of 1 (with
+    float32 cells K2 was up to 3.7e-2 nats off here), the tables and the
+    other per-pair sums against the plain versions."""
     _need_card()
-    W = estep.ESTEP_CLUSTER_MAX_LANES
     inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
                                  _tables("packed"), W, B=4,
                                  Lx=W // 2 + 64, Ly=1024, local=False)
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
-    assert all(estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
-               for r in routes)
+    assert routes[0][0] == "smem"
+    assert routes[1][0] == "smem" or estep.cluster_mode(
+        W, routes[1][1]) == estep.TWO_FOLD
     _estep_routes_check(*_plain_case(inp, v2, False, exact=True),
                         [routes, (("block", 0), ("block", 0))])
 
@@ -1153,14 +1194,16 @@ def test_estep_two_level_long_deletions():
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(ESTEP_VARIANTS))
 @pytest.mark.parametrize("tiling", [
-    (nct, warps if nct * warps * 32 * lpt <= estep.ESTEP_CLUSTER_MAX_LANES
-     else 1, lpt) for nct, warps, lpt in _forced_tilings(
-         estep.ESTEP_CLUSTER_LPTS)], ids=str)
+    (nct, warps if nct * warps * 32 * lpt
+     <= estep.ESTEP_CLUSTER_MAX_LANES["bwd_counts"] else 1, lpt)
+    for nct, warps, lpt in _forced_tilings(estep.ESTEP_CLUSTER_LPTS)],
+    ids=str)
 def test_estep_cluster_forced_tilings(tiling, variant):
     """K2's and K3's cluster routes forced at 1, 2, 4 and 8 CTAs and every
     lanes-a-thread, two warps a CTA (one where two would fill more than
-    ESTEP_CLUSTER_MAX_LANES, the widest band the routes take), on bands
-    they fill exactly: local
+    K3's ESTEP_CLUSTER_MAX_LANES, the widest band its route takes; K2's
+    smem route at the tiling where its cluster route has no fold for it,
+    past 4096 lanes), on bands they fill exactly: local
     variants with strips seamed on tile and CTA boundaries (the last ending
     on a member lane at the last CTA's last lane), global ones over long
     reads whose tiles are dead in most rows; each paired with itself and
@@ -1181,13 +1224,15 @@ def test_estep_cluster_forced_tilings(tiling, variant):
                                      Lx=W // 2 + 64, Ly=min(W // 4, 1024),
                                      local=False)
     cl, bl = ("cluster", tiling), ("block", 0)
+    c2 = cl if estep.estep_route_ok(W, cl, "fwd_store") else ("smem", tiling)
     # global bands past ESTEP_WIDE_LANES take the float64 normaliser: on
-    # (8, 2, 16)'s gap-order-1 band the plain forward fill is 9.3e-3 off it
+    # (8, 2, 16)'s gap-order-1 band the float32-cell forward fill was
+    # 9.3e-3 off it
     exact = not local and W > estep.ESTEP_WIDE_LANES
     _estep_routes_check(*_plain_case(inp, v2, local, exact=exact),
-                        [(cl, cl), (cl, bl), (bl, cl)])
+                        [(c2, cl), (c2, bl), (bl, cl)])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
-        **inp, tables=v2, local=local, route=cl)[1:])
+        **inp, tables=v2, local=local, route=c2)[1:])
 
 
 def _seam_pairs(rng, lanes, ylen=100, W=512):
@@ -1274,59 +1319,21 @@ def _two_level_seam_lanes(W, tiling, ylen=100):
     return sorted(v for v in lanes if ylen <= v <= W - 2 * ylen - 1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
-@pytest.mark.parametrize("tiling", [(5, 7, 4), (6, 6, 4), (9, 4, 4),
-                                    (8, 5, 4), (16, 3, 4), (5, 7, 8)],
-                         ids=str)
-def test_estep_two_level_seams_match_one_fold(tiling, local):
-    """K2's and K3's two-level fold (more than 32 tiles or 4096 lanes:
-    each CTA folds its warps' tiles, then the CTAs fold), up to 16 CTAs,
-    4 and 8 lanes a thread, some CTAs past the band, on bands of reads
-    copied from their refs (_seam_pairs) whose alignment diagonals lie
-    either side of its tile and CTA boundaries, against a route without
-    its seams on the same inputs, at the bounds of
-    test_estep_cluster_seams_match_one_tile: a wrong first-level prefix, a
-    lost seam between CTAs, a wrong composite of the tiles after a tile
-    or a lost insert cell from the previous CTA each moved the forward
-    scores past 1e-3 or the tables past 1e-5 (measured on a CPU host with
-    one of each broken), while a right fold changes only the order of
-    float32 sums.  Local: 4096 lanes, K2 and K3 against the one-fold table
-    tiling (8 x 4 x 4, whose own seams that test holds to the one-tile
-    run).  Global: 4480 lanes (every path crosses every seam; ~4300
-    deletions a read, where the one-fold route's narrow-band arithmetic
-    parts from the wide one by 2e-3-3e-3 nats of a forward score), K2
-    against the block route, in the same arithmetic; K3 is held there by
-    the exact tests alone, since on these bands any two right routes'
-    tables (the block route, six two-level tilings) differ by up to
-    1.8e-5 of their largest entry, the order of float32 sums over the
-    deletion chains (measured on the card), past the bound that tells a
-    right fold from a wrong one."""
-    _need_card()
-    W = estep.ESTEP_WIDE_LANES if local else 4480
-    nct, warps, lpt = tiling
-    assert nct * warps > fill_v2.MAX_TILES and W <= nct * warps * 32 * lpt
-    assert estep.cluster_mode(W, tiling) == estep.TWO_FOLD
-    if local:
-        ref = estep.estep_route(W, "fwd_store")
-        assert ref == estep.estep_route(W, "bwd_counts") == ("cluster",
-                                                             (8, 4, 4))
-        assert estep.cluster_mode(W, ref[1]) == estep.ONE_FOLD
-    else:
-        ref = ("block", 0)
-    lanes = _two_level_seam_lanes(W, tiling)
-    assert len(lanes) >= 4
-    pb = _seam_pairs(np.random.default_rng(17), lanes, W=W)
-    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
-    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+def _seams_check(inp, v2, local, kernel_routes, k3=True):
+    """K2 and K3 on kernel_routes {kernel: (folded route, route without
+    its seams)} on the same inputs, at the bounds of
+    test_estep_cluster_seams_match_one_tile: forward scores 1e-3, stored
+    rows' absolute cells 1e-2, with k3 K3's tables 1e-5 and per-pair sums
+    3e-5 of their largest (K3 on the seamless K2 route's store); each
+    folded launch counted on its fold."""
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
-    two = ("cluster", tiling)
+    two, ref = kernel_routes["fwd_store"]
     f1, rows1, offs1 = estep.fwd_store(**inp, tables=v2, local=local,
                                        route=ref)
-    n = estep.fwd_store.two_level_launches
+    n = getattr(estep.fwd_store, _fold_count(two))
     f2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
                                        route=two)
-    assert estep.fwd_store.two_level_launches == n + 1
+    assert getattr(estep.fwd_store, _fold_count(two)) == n + 1
     fin = f1 > fill_v2.NEG_INF / 2
     assert bool(fin.all()) and torch.equal(f2 > fill_v2.NEG_INF / 2, fin)
     assert float((f1 - f2).abs().max()) <= 1e-3
@@ -1335,28 +1342,108 @@ def test_estep_two_level_seams_match_one_fold(tiling, local):
     a1 = rows1.double() + offs1[None, :, :, None]
     a2 = rows2.double() + offs2[None, :, :, None]
     assert float((a1 - a2).abs()[live].max()) <= 1e-2
-    if not local:
+    if not k3:
         return
+    two, ref = kernel_routes["bwd_counts"]
     wrow = torch.stack([torch.full_like(f1, 0.5), f1]).contiguous()
     p1, s1 = estep.bwd_counts(*base, wrow, rows1, offs1, local=local,
                               route=ref)
-    n = estep.bwd_counts.two_level_launches
+    n = getattr(estep.bwd_counts, _fold_count(two))
     p2, s2 = estep.bwd_counts(*base, wrow, rows1, offs1, local=local,
                               route=two)
-    assert estep.bwd_counts.two_level_launches == n + 1
+    assert getattr(estep.bwd_counts, _fold_count(two)) == n + 1
+    print(f"seams {kernel_routes}: K3 tables "
+          f"{float((p1 - p2).abs().max()) / float(p1.abs().max()):.3g}, "
+          f"sums {float((s1 - s2).abs().max()) / float(s1.abs().max()):.3g}"
+          " of their largest")
     assert float((p1 - p2).abs().max()) <= 1e-5 * float(p1.abs().max())
     assert float((s1 - s2).abs().max()) <= 3e-5 * float(s1.abs().max())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("tiling", [(5, 7, 4), (6, 6, 4), (9, 4, 4),
+                                    (8, 5, 4), (16, 3, 4), (5, 7, 8)],
+                         ids=str)
+def test_estep_two_level_seams_match_one_fold(tiling, local):
+    """K3's two-level fold and K2's smem route (more than 32 tiles: each
+    CTA folds its warps' tiles, then the CTAs fold), up to 16 CTAs, 4 and
+    8 lanes a thread, some CTAs past the band, on bands of reads copied
+    from their refs (_seam_pairs) whose alignment diagonals lie either
+    side of its tile and CTA boundaries, against a route without its
+    seams on the same inputs (_seams_check's bounds): a wrong first-level
+    prefix, a lost seam between CTAs, a wrong composite of the tiles after
+    a tile or a lost insert cell from the previous CTA each moved the
+    forward scores past 1e-3 or the tables past 1e-5 (measured on a CPU
+    host with one of each broken), while a right fold changes only the
+    order of the sums.  K2 against its block route, in the same float64
+    arithmetic.  K3: local, 4096 lanes, against the one-fold table tiling
+    (8 x 4 x 4, whose own seams test_estep_cluster_seams_match_one_tile
+    holds to the one-tile run); global, 4480 lanes (every path crosses
+    every seam; ~4300 deletions a read), held by the exact tests alone,
+    since on these bands any two right routes' tables (the block route,
+    six two-level tilings) differ by up to 1.8e-5 of their largest entry,
+    the order of float32 sums over the deletion chains (measured on the
+    card), past the bound that tells a right fold from a wrong one."""
+    _need_card()
+    W = estep.ESTEP_WIDE_LANES if local else 4480
+    nct, warps, lpt = tiling
+    assert nct * warps > fill_v2.MAX_TILES and W <= nct * warps * 32 * lpt
+    assert estep.cluster_mode(W, tiling) == estep.TWO_FOLD
+    ref = estep.estep_route(W, "bwd_counts")
+    if local:
+        assert ref == ("cluster", (8, 4, 4))
+        assert estep.cluster_mode(W, ref[1]) == estep.ONE_FOLD
+    lanes = _two_level_seam_lanes(W, tiling)
+    assert len(lanes) >= 4
+    pb = _seam_pairs(np.random.default_rng(17), lanes, W=W)
+    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
+    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+    _seams_check(inp, v2, local, {
+        "fwd_store": (("smem", tiling), ("block", 0)),
+        "bwd_counts": (("cluster", tiling), ref)}, k3=local)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("W, tiling", [(35506, (14, 16, 5)),
+                                       (35506, (9, 16, 8)),
+                                       (65536, (16, 16, 8))], ids=str)
+def test_estep_smem_seams_match_the_block_route(W, tiling, local):
+    """K2's and K3's smem routes past 32768 lanes (the table's tilings at
+    phase 4b's 34 kb width and at the widest band, and one of 9 CTAs of 8
+    lanes a thread): each thread's run of lanes in shared memory, its
+    tiles folded in its CTA, the CTAs at the cluster barrier, on bands of
+    reads copied from their refs whose alignment diagonals lie either side
+    of a tile boundary and of every CTA boundary, against the block routes
+    (one block a pair: no tile, CTA or run seams) on the same inputs, at
+    _seams_check's bounds: K2 in the same float64 arithmetic; K3 local
+    (global bands' tables differ by the order of float32 sums over the
+    deletion chains, held by the exact tests)."""
+    _need_card()
+    assert estep.estep_route_ok(W, ("smem", tiling), "bwd_counts")
+    lanes = _two_level_seam_lanes(W, tiling)
+    assert len(lanes) >= 2 * tiling[0]
+    pb = _seam_pairs(np.random.default_rng(19), lanes, W=W)
+    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
+    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+    _seams_check(inp, v2, local, {k: (("smem", tiling), ("block", 0))
+                                  for k in ("fwd_store", "bwd_counts")},
+                 k3=local)
+
+
+@pytest.mark.cuda
 def test_estep_cluster_refused_launch_raises():
     """K2's and K3's cluster routes at 16 CTAs with one fold are refused
-    by the card, at 32 CTAs with two by the entries: they return an error,
-    which the wrappers' launch check raises.  The wrappers themselves take
-    no cluster of more than MAX_CLUSTER_CTAS CTAs with one fold or
-    MAX_CLUSTER_CTAS2 with two, nor a tiling that cannot cover the band,
-    has more warps a CTA than the kernel or is not (CTAs, warps, lanes):
-    they raise before any launch."""
+    by the card, at 32 CTAs with two by the entries, and their smem routes
+    at 17 CTAs or 17 warps a CTA by the entries and at 64 lanes a thread
+    (more shared memory than a CTA may hold) by the card: they return an
+    error, which the wrappers' launch check raises.  The wrappers
+    themselves take no cluster of more than MAX_CLUSTER_CTAS CTAs with one
+    fold or MAX_CLUSTER_CTAS2 with two (none of K2's), nor an smem tiling
+    past 16 CTAs, 16 warps or 16 lanes a thread, nor a tiling that cannot
+    cover the band, has more warps a CTA than the kernel or is not (CTAs,
+    warps, lanes): they raise before any launch."""
     _need_card()
     from quaff_tpu_torch import kernels
 
@@ -1400,13 +1487,40 @@ def test_estep_cluster_refused_launch_raises():
         with pytest.raises(RuntimeError, match="cluster route"):
             kernels.check_launch(err, "bwd_counts", ("cluster", (nct, 1, 4)),
                                  "")
+    # the smem routes: 17 CTAs or 17 warps a CTA (the entries), 64 lanes a
+    # thread of 16 warps (the card: 917504 bytes of shared memory a CTA)
+    for nct, warps, lpt in ((17, 1, 4), (1, 17, 4), (1, 16, 64)):
+        err = lib.quaff_fwd_store_smem(
+            inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+            inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
+            inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(), S,
+            *tabs, B, int(local), lpt, nct, warps, out.data_ptr(),
+            rows.data_ptr(), offs.data_ptr(), stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="smem route"):
+            kernels.check_launch(err, "fwd_store",
+                                 ("smem", (nct, warps, lpt)), "")
+        err = lib.quaff_bwd_counts_smem(
+            inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+            inp["meta"].data_ptr(), inp["doff"].data_ptr(), W, *tabs,
+            wrow.data_ptr(), rows.data_ptr(), offs.data_ptr(), B, int(local),
+            lpt, nct, warps, part.data_ptr(), d_sc.data_ptr(), stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="smem route"):
+            kernels.check_launch(err, "bwd_counts",
+                                 ("smem", (nct, warps, lpt)), "")
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
     # too many CTAs (one fold: 8; two levels: 16), too few tiles, too many
-    # warps a CTA, a fourth element
+    # warps a CTA, two levels (K2), a fourth element
     for bad in ((16, 1, 4), (9, 3, 16), (17, 2, 4), (1, 2, 4), (1, 16, 16),
-                (8, 9, 16), (8, 5, 4, 2)):
+                (8, 9, 16), (9, 4, 4), (8, 5, 4, 2)):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=("cluster", bad))
+    for bad in ((17, 1, 4), (1, 17, 4), (1, 1, 17), (1, 1, 4), (1, 4, 4, 2)):
+        with pytest.raises(ValueError, match="no route"):
+            estep.fwd_store(**inp, tables=v2, route=("smem", bad))
+        with pytest.raises(ValueError, match="no route"):
+            estep.bwd_counts(*base, rows, offs, route=("smem", bad))
     for bad in ((16, 1, 4), (9, 3, 16), (17, 2, 4), (1, 2, 4), (2, 16, 4),
                 (8, 9, 8), (8, 5, 4, 2)):
         with pytest.raises(ValueError, match="no route"):

@@ -240,6 +240,10 @@ def test_kernel_sass_parsers():
      "char const*, int)", ("bwd_counts", "cluster")),
     ("(anonymous namespace)::bwd_counts_kernel<true>(signed char const*, "
      "int)", ("bwd_counts", "block")),
+    ("void (anonymous namespace)::fwd_store_smem_kernel(signed char const*, "
+     "int)", ("fwd_store", "smem")),
+    ("void (anonymous namespace)::bwd_counts_smem_kernel(signed char "
+     "const*, int)", ("bwd_counts", "smem")),
     ("void (anonymous namespace)::fwd_store_warp_kernel<8>(signed char "
      "const*, int)", ("fwd_store", "warp")),
     ("void fwd_store_warp_kernel<16>", ("fwd_store", "warp")),
@@ -259,8 +263,8 @@ def test_kernel_of_names_each_kernel(name, owner):
     or c++filt prints it) to the wrapper that launches it and its route:
     K2's block and cluster routes are K1's block and cluster fills with
     STORE set, its warp route and K3's have kernels of their own, as have
-    K3's and K4's cluster routes; a PyTorch kernel is none of the
-    port's."""
+    K3's and K4's cluster routes and K2's and K3's smem routes; a PyTorch
+    kernel is none of the port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner
@@ -351,19 +355,23 @@ def test_f32_chain_block_chain_is_the_chain(wide):
 @pytest.mark.parametrize("W", [4097, 6000, 12070, 16384, 22136])
 def test_estep_sweep_tilings_take_the_table_row(W):
     """prof/estep_sweep.py's tilings at a band past 4096 lanes: each one
-    the kernel takes (two levels), one a count of warps a CTA at each
-    lanes a thread, the table's own tiling among them; its batch is phase
-    2b's wide recipe (8 pairs whose bands span all W lanes)."""
+    of the route estep_route picks that the kernel takes (K3's cluster
+    route in two levels, K2's smem route), one a count of warps a CTA at
+    each lanes a thread, the table's own tiling among them; its batch is
+    phase 2b's wide recipe (8 pairs whose bands span all W lanes)."""
     from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.prof import estep_sweep
 
     for k in ("fwd_store", "bwd_counts"):
+        kind, tiling = estep.estep_route(W, k)
+        assert kind == ("smem" if k == "fwd_store" else "cluster")
         ts = estep_sweep.tilings(W, k)
-        assert estep.estep_route(W, k)[1] in ts
+        assert tiling in ts
         assert len({t[1:] for t in ts}) == len(ts)
         for t in ts:
-            assert estep.estep_route_ok(W, ("cluster", t), k)
-            assert estep.cluster_mode(W, t) == estep.TWO_FOLD
+            assert estep.estep_route_ok(W, (kind, t), k)
+            if kind == "cluster":
+                assert estep.cluster_mode(W, t) == estep.TWO_FOLD
     if W == 4097:
         pb, _ = estep_sweep.wide_batch(1000)
         assert pb.member.shape == (8, 1000)
