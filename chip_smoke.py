@@ -7,8 +7,8 @@ It builds everything from the checkout and runs its phases in order; any
 failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
-  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster and
-     block routes, K2's and K3's warp, cluster, smem and block routes, the
+  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster, smem
+     and block routes, K2's and K3's warp, cluster, smem and block routes, the
      count reduction, K4's warp and cluster routes and the probes' chain
      kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
@@ -78,12 +78,20 @@ failure exits non-zero before the final line is printed.
      the first 16 reads again on the CPU (plain version) must give the
      same text; then the cluster route on the run's largest cluster-route
      chunk against its plain version, the block route forced beside it
-     and every other cluster tiling timed alike, with the errors of
-     phase 2's cluster-route cases
+     and every other cluster tiling timed alike, each one's error logged
+     against the plain version (the float64 witness of phase 2's cases
+     is cut here for time)
   4b `align -kmatchoff` (no k-mer envelope, so bands wider than the
      cluster route's widest): a seeded 20 kb genome and 4 reads of 2-3 kb
-     through the CLI on cuda, every K1 launch on the block route, which is
-     then held against its plain version on the run's chunk; `count -fast
+     through the CLI on cuda, every K1 launch on the smem route; the same
+     run with K1 forced onto the block route (fill_route patched here),
+     byte for byte the same text; one read of 1000 bases against a genome
+     of phage lambda's length (48.5 kb, W=49500: the smem route) and one of
+     400 against 132 kb (past FILL_SMEM_MAX_LANES: the block route), every
+     launch on that route; then the smem route on the 4 reads' chunk
+     against its plain version, the block route forced beside it and every
+     other smem tiling swept, the lambda-length chunk alike, and the block
+     route on its chunk against its plain version; `count -fast
      -kmatchoff` on the same reads (W up to 22882: K2's smem route's and
      K3's two-level cluster route's path), every K2 launch on the smem
      route and K3 launch on the two-level fold, held against the plain
@@ -178,7 +186,8 @@ one of its timed runs.  Each kernel case of phases 2, 2c, 4, 4b, 6 and 7 also
 reruns the kernel on the same inputs and requires the same bits.
 
 Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
--kmatchoff for its block route, phase 5 for K2's and K3's warp routes and
+-kmatchoff for its smem route and its align against 132 kb for its block
+route, phase 5 for K2's and K3's warp routes and
 the reduction, phase 5b's train with a wide read for their cluster
 routes, phase 4b's count -fast -kmatchoff for K3's two-level cluster
 route, its count against 34 kb for their smem routes and against 66 kb
@@ -275,8 +284,9 @@ def phase1_build():
         t_host = ex.submit(timed, native.get_lib)
         t_cuda, t_host = t_cuda.result(), t_host.result()
     how = "built" if kernels.build_log is not None else "reused"
-    log(f"phase 1: kernel library (K1's warp, cluster and block routes, K2, "
-        f"K3, reduce, K4's warp and cluster routes, P1/P2 chains) {how} in "
+    log(f"phase 1: kernel library (K1's warp, cluster, smem and block "
+        f"routes, K2, K3, reduce, K4's warp and cluster routes, P1/P2 "
+        f"chains) {how} in "
         f"{t_cuda:.1f} s "
         f"({kernels.library_path().relative_to(ROOT)})")
     from quaff_tpu_torch.prof.kernel_sass import demangle, parse_ptxas
@@ -398,7 +408,7 @@ def _time(fn, variants):
     return statistics.median(_times(fn, variants))
 
 
-def _sweep_tilings(W, lpts, max_warps, two_level=False):
+def _sweep_tilings(W, lpts, max_warps, two_level=False, smem=False):
     """The cluster tilings (CTAs a pair, warps a CTA, lanes a thread) a
     band of W lanes can take: for each lanes-a-thread whose tiles (at most
     32) cover it, the fewest CTAs of at most 4, 8 and 16 warps (as the
@@ -406,11 +416,18 @@ def _sweep_tilings(W, lpts, max_warps, two_level=False):
     K3's two-level fold) also, for each lanes-a-thread whose more than 32
     tiles the kernel's warps cover over 16 CTAs, the fewest CTAs that
     hold them at each count of warps a CTA, from the kernel's most down
-    to where 16 CTAs are needed.  Timed beside the route
-    table's pick on the cluster-route chunks of the paths: the
+    to where 16 CTAs are needed; with smem (K1's smem route) those of
+    prof/fill_sweep.smem_tilings: for each lanes a thread, the fewest CTAs
+    of at most 4, 8 and 16 warps, up to 16 CTAs, whose CTA fits the card's
+    shared memory.  Timed beside the route
+    table's pick on the cluster- and smem-route chunks of the paths: the
     measurement the tables (fill_v2.FILL_CLUSTER_TABLE,
-    ov_fill.OV_CLUSTER_TABLE and estep.ESTEP_CLUSTER_TABLE) are set
-    from."""
+    fill_v2.FILL_SMEM_TABLE, ov_fill.OV_CLUSTER_TABLE and
+    estep.ESTEP_CLUSTER_TABLE) are set from."""
+    if smem:
+        from quaff_tpu_torch.prof.fill_sweep import smem_tilings
+
+        return smem_tilings(W)
     out = []
     for lpt in lpts:
         tiles = -(-W // (32 * lpt))
@@ -531,7 +548,7 @@ def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None,
 
 
 FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
-               "block_launches")
+               "smem_launches", "block_launches")
 
 
 def _route_counts():
@@ -553,18 +570,20 @@ def _route_label(route):
 
 
 def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
-              mp=None, n_plain=None, also=()):
+              mp=None, n_plain=None, also=(), witness=True):
     """K1 and its plain version on kernel_inputs `inp`: agreement, a rerun
     bit for bit, times, and that every launch took fill_route's route
-    (`route`, when given, must be its kind).  Each route of `also` is forced on the same inputs,
-    held against the plain version and timed alike; on the cluster route
-    every other tiling of _sweep_tilings is timed alike, and every route
-    and tiling's error is logged against the plain version and against it
-    in float64 (the float32 drift's witness), a swept tiling's without
-    failing (only the route table's tiling is held to the tolerance).
-    Returns the result of fill_route's route, with "also" {label: ms} and,
-    on the cluster route, "sweep" {label: (ms, error against the plain
-    version, error against float64, within tolerance)}."""
+    (`route`, when given, must be its kind).  Each route of `also` is
+    forced on the same inputs, held against the plain version and timed
+    alike; on the cluster and smem routes every other tiling of
+    _sweep_tilings (of the same route) is timed alike, and every route and
+    tiling's error is logged against the plain version and, with witness,
+    against it in float64 (the float32 drift's witness: seconds at the
+    widest chunks), a swept tiling's without failing (only the route
+    table's tiling is held to the tolerance).  Returns the result of
+    fill_route's route, with "also" {label: ms} and, on the cluster and
+    smem routes, "sweep" {label: (ms, error against the plain version,
+    error against float64 or None, within tolerance)}."""
     import torch
 
     from quaff_tpu_torch.dp import fill_v2
@@ -595,7 +614,7 @@ def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
     moved = {k: v - before[k] for k, v in _route_counts().items()}
     check(moved == {"launches": n_runs + 3,
                     **{f"{r}_launches": (n_runs + 3) * (want[0] == r)
-                       for r in ("warp", "cluster", "block")}},
+                       for r in ("warp", "cluster", "smem", "block")}},
           f"{name}: K1's launches by route {moved}, want all {n_runs + 3} "
           f"on the {want[0]} route")
     # the plain version: the comparison's run and n_plain - 1 more
@@ -613,9 +632,11 @@ def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
         f"{plain_ms:.3f} ms (median of {n_plain}); "
         f"{cells} in-envelope cells, {cells / (ms / 1e3):.4g} cells/s, "
         f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
-    # the plain version in float64 where the band is a cluster route's:
-    # how far each float32 fill drifts, so which side an error comes from
-    wit = plain(inp["keys"], torch.float64) if want[0] == "cluster" else None
+    # the plain version in float64 where the band is a cluster or smem
+    # route's: how far each float32 fill drifts, so which side an error
+    # comes from
+    swept = want[0] in ("cluster", "smem")
+    wit = plain(inp["keys"], torch.float64) if witness and swept else None
     if wit is not None:
         log(f"{name}: against the plain version in float64: the plain "
             f"version {_errors(ref, wit)[0]:.3g}, {_route_label(want)} "
@@ -633,26 +654,32 @@ def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
             f"{others[_route_label(r)]:.3f} ms (median of {n_runs}), max abs "
             f"err {e:.3g} against the plain version{e64} [{card}]")
     sweep = {}
-    if wit is not None:
+    if swept:
         # the other tilings, timed alike, each one's error logged (the card
         # tests hold every tiling against the plain version on their own
         # inputs)
-        for t in _sweep_tilings(W, fill_v2.FILL_CLUSTER_LPTS,
-                                fill_v2.fill_cluster_max_warps):
+        sweep_kind = want[0]
+        tilings = (_sweep_tilings(W, fill_v2.FILL_CLUSTER_LPTS,
+                                  fill_v2.fill_cluster_max_warps)
+                   if sweep_kind == "cluster" else
+                   _sweep_tilings(W, (), None, smem=True))
+        for t in tilings:
             if t == want[1]:
                 continue
-            r = ("cluster", t)
+            r = (sweep_kind, t)
             out = kern(inp["keys"], r)
             e32, ok = _errors(out, ref)
             kern(variants[0], r)  # warm
             sweep[_route_label(r)] = (
                 _time(lambda k: kern(k, r), variants[1:]) * 1e3, e32,
-                _errors(out, wit)[0], ok)
+                None if wit is None else _errors(out, wit)[0], ok)
         log(f"{name}: each other tiling on the same inputs (ms, median of "
-            f"{n_runs}; max abs err against the plain version / against it "
-            f"in float64): " + "; ".join(
-                "{}: {:.3f} ({:.3g} / {:.3g}{})".format(
-                    k.removeprefix("cluster route, "), ms, e32, e64,
+            f"{n_runs}; max abs err against the plain version"
+            + (" / against it in float64" if wit is not None else "")
+            + "): " + "; ".join(
+                "{}: {:.3f} ({:.3g}{}{})".format(
+                    k.split(" route, ")[-1], ms, e32,
+                    "" if e64 is None else f" / {e64:.3g}",
                     "" if ok else f", outside rtol {RTOL} / atol {ATOL}")
                 for k, (ms, e32, e64, ok) in sweep.items()) + f" [{card}]")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -892,9 +919,9 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=16):
             f"device busy {busy:.3f} s of {wall:.3f} s wall "
             f"({100 * busy / wall:.2f}%) [{card}]")
         cells = {r: sum(int(c) for rr, _, _, c in calls.calls if rr[0] == r)
-                 for r in ("warp", "cluster", "block")}
+                 for r in ("warp", "cluster", "smem", "block")}
         total = max(sum(cells.values()), 1)
-        for r in ("warp", "cluster", "block"):
+        for r in ("warp", "cluster", "smem", "block"):
             ws = sorted(W for rr, W, _, _ in calls.calls if rr[0] == r)
             check(len(ws) == counts[f"{r}_launches"],
                   f"phase 4: {len(ws)} {r}-route chunks but "
@@ -977,46 +1004,91 @@ class _record_fill:
         return False
 
 
-def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
-    """`align -kmatchoff` (no k-mer envelope: every pair's band spans its
-    whole ref and read, wider than the cluster route's widest): K1's block
-    route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
-    CLI on cuda; every launch must take the block route; then the block
-    route on the run's chunk against its plain version (once).  Then
-    `count -fast -kmatchoff` on the same reads, K2's smem route's and K3's
-    two-level cluster route's path (bands past 16384 lanes), the counts
-    finite; and of one read against a 34 kb genome and one against 48.5
-    kb, the smem routes' path (past 32768 lanes), and one against 66 kb,
-    the block routes' path (past 65536 lanes).  Returns K1's launches and
-    result, the first count run's E-step launches and its chunk with the
-    fewest pairs, and {genome: (launches, chunk)} of the others."""
+def _align_kmatchoff(argv, kind, what, n_reads, card, block=False):
+    """`align -kmatchoff` through the CLI on cuda (argv), every K1 launch
+    on the `kind` route and n_reads alignments; with block=True
+    fill_v2.fill_route is patched here to ("block", 0), so every launch
+    takes the block route.  Returns (text, K1's launches by route, the
+    inputs of the run's largest chunk)."""
     from quaff_tpu_torch.dp import fill_v2
 
+    calls = _record_fill()
+    orig = fill_v2.fill_route
+    if block:
+        fill_v2.fill_route = lambda W: ("block", 0)
+    try:
+        with calls:
+            t0 = time.perf_counter()
+            out = _cli(argv, "cuda")
+            wall = time.perf_counter() - t0
+    finally:
+        fill_v2.fill_route = orig
+    counts = calls.counts
+    check(counts["launches"] > 0
+          and counts[f"{kind}_launches"] == counts["launches"],
+          f"phase 4b: {what}: K1 launches by route {counts}, want all on "
+          f"the {kind} route")
+    check(out.count("#=GF Score") == n_reads,
+          f"phase 4b: {what}: {out.count('#=GF Score')} of {n_reads} reads "
+          "aligned")
+    log(f"phase 4b: {what} on cuda: {wall:.2f} s wall, {n_reads} "
+        f"alignments, K1 launches (route, W, B): "
+        + ", ".join(f"({_route_label(r)}, {W}, {B})"
+                    for r, W, B, _ in calls.calls) + f" [{card}]")
+    return out, counts, calls.widest[kind]
+
+
+def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
+    """`align -kmatchoff` (no k-mer envelope: every pair's band spans its
+    whole ref and read, wider than the cluster route's widest): K1's smem
+    route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
+    CLI on cuda; every launch must take the smem route; the same run with
+    K1 forced onto the block route (fill_route patched here) must print
+    the same text byte for byte.  Then one read of 1000 bases against a
+    genome of phage lambda's length (48.5 kb, W=49500) on the smem route,
+    and one of 400 bases against 132 kb (past FILL_SMEM_MAX_LANES: the
+    block route's path).  Then `count -fast -kmatchoff` on the 4 reads,
+    K2's smem route's and K3's two-level cluster route's path (bands past
+    16384 lanes), the counts finite; and of one read against a 34 kb
+    genome and one against 48.5 kb, the smem routes' path (past 32768
+    lanes), and one against 66 kb, the block routes' path (past 65536
+    lanes).  Last, K1 at each align run's chunk against its plain version
+    (once): the smem route at the 4-read chunk with the block route forced
+    beside it and every other smem tiling swept, at the lambda-length
+    chunk with its sweep, and the block route at its own.  Returns {"smem",
+    "lambda", "block": (K1's launches, its fill_case result)}, the first
+    count run's E-step launches and its chunk with the fewest pairs, and
+    {genome: (launches, chunk)} of the others."""
     with tempfile.TemporaryDirectory() as d:
         tmp = pathlib.Path(d)
         gpath, rpath, _, _, _ = _workload(tmp, seed=9, n_reads=n_reads,
                                           genome_len=genome_len,
                                           min_len=2000, max_len=3000,
                                           n_head=1)
-        calls = _record_fill()
-        with calls:
-            t0 = time.perf_counter()
-            out = _cli(["align", str(gpath), str(rpath), "-kmatchoff",
-                        "-nothreshold"], "cuda")
-            wall = time.perf_counter() - t0
-        counts = calls.counts
-        check(counts["launches"] > 0
-              and counts["block_launches"] == counts["launches"],
-              f"phase 4b: K1 launches by route {counts}, want all on the "
-              f"block route")
-        check(out.count("#=GF Score") == n_reads,
-              f"phase 4b: {out.count('#=GF Score')} of {n_reads} reads "
-              "aligned")
-        log(f"phase 4b: align -kmatchoff on cuda: {wall:.2f} s wall, "
-            f"{n_reads} alignments, K1 launches (route, W, B): "
-            + ", ".join(f"({_route_label(r)}, {W}, {B})"
-                        for r, W, B, _ in calls.calls) + f" [{card}]")
-        kw = calls.widest["block"]
+        argv = ["align", str(gpath), str(rpath), "-kmatchoff", "-nothreshold"]
+        out, counts, kw = _align_kmatchoff(argv, "smem", "align -kmatchoff",
+                                           n_reads, card)
+        blk, _, _ = _align_kmatchoff(argv, "block", "align -kmatchoff with "
+                                     "K1 forced onto the block route",
+                                     n_reads, card, block=True)
+        check(blk == out, "phase 4b: align -kmatchoff's text on the smem "
+              "route differs from the block route's")
+        log("phase 4b: align -kmatchoff: the smem and block routes' texts "
+            "are byte-identical")
+        k1 = {"smem": (counts, kw)}
+        for label, seed, glen, rlen, kind in (
+                ("lambda", 13, 48_502, 1000, "smem"),
+                ("block", 14, 132_000, 400, "block")):
+            sub = tmp / label
+            sub.mkdir()
+            g, r, _, _, _ = _workload(sub, seed=seed, n_reads=1,
+                                      genome_len=glen, min_len=rlen,
+                                      max_len=rlen, n_head=1)
+            _, c, kw_l = _align_kmatchoff(
+                ["align", str(g), str(r), "-kmatchoff", "-nothreshold"],
+                kind, f"align -kmatchoff of one {rlen}-base read against "
+                f"{glen / 1000:g} kb", 1, card)
+            k1[label] = (c, kw_l)
         _reset_launches()
         with _estep_chunks() as chunks:
             t0 = time.perf_counter()
@@ -1051,12 +1123,25 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
                     ("34 kb", 10, 34_000, 1500, "smem"),
                     ("48.5 kb", 11, 48_502, 1000, "smem"),
                     ("66 kb", 12, 66_000, 400, "block"))}
-    res = fill_case("phase 4b: the -kmatchoff chunk",
-                    {k: kw[k] for k in ("x_tok", "keys", "meta", "doff",
-                                        "seg_start", "seg_width")},
-                    kw["tables"], kw["mode"], kw["local"], card,
-                    route="block", mp=kw["max_prop"], n_plain=1)
-    return counts, res, e_counts, e_chunk, wide
+    keys = ("x_tok", "keys", "meta", "doff", "seg_start", "seg_width")
+    res = {}
+    for label, what, route, also in (
+            ("smem", "the align -kmatchoff chunk", "smem", (("block", 0),)),
+            ("lambda", "the lambda-length chunk", "smem", ()),
+            ("block", "the 132 kb chunk", "block", ())):
+        c, kw = k1[label]
+        res[label] = (c, fill_case(
+            f"phase 4b: {what}", {k: kw[k] for k in keys}, kw["tables"],
+            kw["mode"], kw["local"], card, route=route, mp=kw["max_prop"],
+            n_plain=1, also=also, witness=False))
+    sm = res["smem"][1]
+    log(f"phase 4b: the align -kmatchoff chunk: "
+        f"{_route_label(sm['route'])} {sm['ms']:.3f} ms against the block "
+        f"route's {sm['also']['block route']:.3f} ms "
+        f"({sm['also']['block route'] / sm['ms']:.2f}x); the lambda-length "
+        f"chunk {res['lambda'][1]['ms']:.3f} ms, the 132 kb chunk's block "
+        f"route {res['block'][1]['ms']:.3f} ms [{card}]")
+    return res, e_counts, e_chunk, wide
 
 
 def _count_kmatchoff(tmp, label, seed, genome_len, read_len, kind, card):
@@ -2847,7 +2932,8 @@ def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=1,
             f"({t_local:.2f} s); {wall:.2f} s wall, {_request_stats(waits)}; "
             f"K1 {counts['launches']} launches (warp "
             f"{counts['warp_launches']}, cluster {counts['cluster_launches']}, "
-            f"block {counts['block_launches']}; W {widths[0]}-{widths[-1]}), "
+            f"smem {counts['smem_launches']}, block "
+            f"{counts['block_launches']}; W {widths[0]}-{widths[-1]}), "
             f"{k1_ms:.3f} ms device (torch.profiler); device busy "
             f"{busy:.3f} s ({100 * busy / wall:.2f}% of the wall); the "
             f"jobs' float64 refills {sum(cells):.4g} cells, up to "
@@ -3445,7 +3531,7 @@ def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
         # plain version would take minutes)
         k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
         counts = k1_calls.counts
-        for r in ("warp", "cluster", "block"):
+        for r in ("warp", "cluster", "smem", "block"):
             if not counts[f"{r}_launches"]:
                 continue
             kw = min((kw for kw, c in zip(k1_calls.inputs, k1_calls.calls)
@@ -3644,22 +3730,22 @@ def main() -> int:
           f"{k1_counts}")
     # the cluster route at the align path's largest cluster-route chunk,
     # the block route forced beside it and the other tilings of the sweep
-    # timed alike; its plain version once (tens of seconds)
+    # timed alike; its plain version once (tens of seconds; the float64
+    # witness, ~19 s more, cut for the script's time limit)
     inp = {k: k1_chunk[k] for k in ("x_tok", "keys", "meta", "doff",
                                     "seg_start", "seg_width")}
     k1_wide = fill_case("phase 4: the largest cluster-route chunk", inp,
                         k1_chunk["tables"], k1_chunk["mode"],
                         k1_chunk["local"], card, route="cluster",
                         mp=k1_chunk["max_prop"], n_plain=1,
-                        also=(("block", 0),))
+                        also=(("block", 0),), witness=False)
     log(f"phase 4: the largest cluster-route chunk: cluster route "
         f"{k1_wide['ms']:.3f} ms against the block route's "
         f"{k1_wide['also']['block route']:.3f} ms "
         f"({k1_wide['also']['block route'] / k1_wide['ms']:.2f}x) [{card}]")
     del inp, k1_chunk
     lap("phase 4")
-    (k1_block_counts, k1_block, e_two_counts, e_chunk,
-     e_wide) = phase4b_kmatchoff(card)
+    k1_4b, e_two_counts, e_chunk, e_wide = phase4b_kmatchoff(card)
     from quaff_tpu_torch.dp import estep
 
     # K2's smem route and K3's two-level cluster route at the chunk of
@@ -3818,11 +3904,18 @@ def main() -> int:
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
                     launches=k1_counts["cluster_launches"], library_ms=None,
                     **{k: k1_wide[k] for k in k1_keys}),
+               dict(name="band_fill_smem", route="cuda",
+                    source="quaff_tpu_torch/csrc/band_fill_smem.cuh",
+                    replaces="quaff_tpu/dp/pallas_v2.py:491",
+                    launches=k1_4b["smem"][0]["smem_launches"],
+                    library_ms=None,
+                    **{k: k1_4b["smem"][1][k] for k in k1_keys}),
                dict(name="band_fill_block", route="cuda",
                     source="quaff_tpu_torch/csrc/band_fill.cuh",
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
-                    launches=k1_block_counts["block_launches"],
-                    library_ms=None, **{k: k1_block[k] for k in k1_keys})]
+                    launches=k1_4b["block"][0]["block_launches"],
+                    library_ms=None,
+                    **{k: k1_4b["block"][1][k] for k in k1_keys})]
     # K1 on the server's path (phase 7 (a)'s align jobs), a row per route
     # its jobs took
     for r, res in sorted(k1_server.items()):

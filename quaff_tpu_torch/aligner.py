@@ -12,8 +12,10 @@ With -mesh (`mesh`, a parallel/distributed.GlobalMesh) the scoring chunks
 are dealt to the ranks in turn, each rank scores its own with K1 on its
 device, the scores are all_gathered, and rank 0 picks the winners, refills
 them and writes (quaff_tpu/aligner.py's _mesh_chunk_scores).  A chunk of
-any width stays on one rank: K1's block route takes any band on one card,
-so the JAX package's band-sharded fill (parallel/spfill.py) is not ported.
+any width stays on one rank: K1 takes any band on one card (past 16384
+lanes its smem route spreads a pair over up to 16 SMs, past 131072 its
+block route gives it one), so the JAX package's band-sharded fill
+(parallel/spfill.py) is not ported.
 
 Not ported here: the JAX package's TPU workarounds (the cold-kernel native
 gates, the wide-envelope host fallback and the VMEM-derived batch caps:

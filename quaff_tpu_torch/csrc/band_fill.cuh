@@ -2,12 +2,15 @@
 // (estep.cu), for NVIDIA Hopper (sm_90a).
 //
 // band_fill_kernel<VIT, STORE> fills one pair per block (Viterbi when VIT,
-// else Forward; local or global).  K1 is <VIT, false>: end scores and
-// per-strip maxima only.  K2 is <false, true>: the same Forward fill also
-// writing every row's match, insert and delete cells to `rows` (pair-major
-// [3][B][Ly][W]: one contiguous run of W floats per pair and row), the
-// checkpoint K3's backward sweep reads.  One row recurrence and one
-// log-add-exp serve both kernels.
+// else Forward; local or global): the block routes of K1 and K2, which
+// take only the bands past every other route (K1's past its smem route,
+// dp/fill_v2.FILL_SMEM_MAX_LANES; K2's past dp/estep.ESTEP_SMEM_MAX_LANES).
+// The header's warp_scan, comb and the constants serve every route.  K1 is
+// <VIT, false>: end scores and per-strip maxima only.  K2 is <false, true>:
+// the same Forward fill also writing every row's match, insert and delete
+// cells to `rows` (pair-major [3][B][Ly][W]: one contiguous run of W floats
+// per pair and row), the checkpoint K3's backward sweep reads.  One row
+// recurrence and one log-add-exp serve both kernels.
 //
 // K2 keeps its fill scaled: after each row, a block reduction finds the
 // row's largest cell, which is subtracted from the row and added to the
@@ -283,7 +286,8 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     const float ins_emit = hq ? insert[kk.z * Q + kk.y] : insert_noq[kk.z];
     const float* mrow = hq ? match + (size_t)kk.x * Q + kk.y : match_noq + kk.x;
 
-    // A: match and insert cells
+    // A: match and insert cells; K1: the thread's largest match cell
+    V mtop = NEG;
     for (int w = w0; w < w1; ++w) {
       const int d = dof[w];
       const int idx = d + j - 1;  // i - 1
@@ -295,10 +299,19 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
         const V ih = w + 1 < W ? insp[w + 1] : NEG;
         const V mh = w + 1 < W ? matp[w + 1] : NEG;
         ic = ins_emit + comb<VIT>(ih + i2i, mh + m2i);
+        mtop = vmax2(mtop, mc);
       }
       matc[w] = mc;
       insc[w] = ic;
     }
+    // K1: the thread's delete chain composed and replayed relative to r0,
+    // its largest opening term near enough (its largest match cell plus
+    // m2d): a deletion run's steps then add at the run's own magnitude, not
+    // at the cells', where float32 rounds each step; 1024 threads leave up
+    // to 128 lanes a thread at 131073 lanes, whose steps, added at -6e4
+    // nats, drifted 0.77 nats (1.2e-5) from the plain version on a global
+    // band.  K2 composes absolute (r0 = 0: its arithmetic unchanged).
+    const V r0 = !STORE && mtop > NEG / 2 ? mtop + V(m2d) : V(0);
     __syncthreads();
 
     // B: compose this thread's delete-chain steps, then scan across threads
@@ -307,11 +320,11 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       const V c = v ? V(d2d) : NEG;
-      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
+      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d - r0 : NEG;
       b_acc = comb<VIT>(b_acc + c, bb);
       c_acc = c_acc + c;
     }
-    V x = block_scan_in<VIT>(c_acc, b_acc, wc, wb);
+    V x = block_scan_in<VIT>(c_acc, b_acc + r0, wc, wb) - r0;
 
     // C: replay this thread's lanes from its incoming delete value
     V top = NEG;
@@ -319,9 +332,9 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       const V c = v ? V(d2d) : NEG;
-      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d : NEG;
+      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d - r0 : NEG;
       x = comb<VIT>(x + c, bb);
-      del[w] = v ? x : NEG;
+      del[w] = v ? x + r0 : NEG;
       if (STORE) {
         // WIDE: the row's largest match or insert cell
         const V mi = vmax2(matc[w], insc[w]);

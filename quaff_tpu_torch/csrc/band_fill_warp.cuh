@@ -120,6 +120,17 @@ struct Trans {
   float d2d, d2m, i2i, i2m;
 };
 
+// a lane of diagonal dg + 1 is valid in a row 1 <= j <= ylen whose ref
+// index dg + j lies in the ref: one unsigned compare (a sentinel diagonal
+// is past any ref)
+__device__ __forceinline__ bool in_ref(int dg, int j, int xlen) {
+  return (unsigned)(dg + j) < (unsigned)xlen;
+}
+
+__device__ __forceinline__ float pick(const float (&e)[4], int tk) {
+  return tk < 2 ? (tk == 0 ? e[0] : e[1]) : (tk == 2 ? e[2] : e[3]);
+}
+
 // one row's work on a thread's lanes between its two halves: validity,
 // the match and insert cells, the delete-chain steps and the thread's
 // composed step

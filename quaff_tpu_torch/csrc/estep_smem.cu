@@ -23,7 +23,8 @@
 // 841 ms (K2) and 869 ms (K3) at phase 4b's 34 kb count (B=2, W=35506,
 // 1505 rows; PERF.md §6).  Here a tile is still a warp of 32 threads that
 // own consecutive runs of lanes, and the tiles meet as in the two-level
-// fold (cluster_seam.cuh kTwoFold): each tile posts its slot to its CTA,
+// fold (cluster_seam.cuh kTwoFold; K2's meeting is cluster_smem.cuh's,
+// which K1's smem route shares): each tile posts its slot to its CTA,
 // every warp folds its CTA's tiles after a block barrier, warp 0 posts the
 // CTA's slot to every CTA, and the CTAs fold after the row's one cluster
 // barrier.  What changes is where a thread's lanes live: a run of `lpt`
@@ -64,134 +65,12 @@
 // bytes (12 a cell K2 stores and K3 reads) are an order of magnitude
 // below.
 
+#include "cluster_smem.cuh"
 #include "estep_cluster.cuh"
 
 namespace {
 
-// warps a CTA of the smem routes (128 registers a thread)
-constexpr int kSmemMaxWarps = 16;
-
 // ---------------------------------------------------------------- K2
-
-__device__ __forceinline__ double warp_max_d(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmax(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// a tile's (or with level 2 a CTA's) slot, float64: its delete-chain map
-// without its first lane (c, b), the first lane's c (NEG where it is
-// invalid), match and insert cells, the last lane's match cell, and its
-// largest match or insert cell of the row
-enum { kDC, kDB, kDC0, kDM0, kDI0, kDML, kDTop, kDSlot };
-constexpr int kDWords = 8;  // a slot's doubles, two to a 16-byte store
-
-struct __align__(16) DSlot {
-  double v[kDWords];
-};
-
-__device__ __forceinline__ void remote_store2d(uint32_t addr, double x,
-                                               double y) {
-  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};" ::"r"(addr),
-               "d"(x), "d"(y)
-               : "memory");
-}
-
-// `v` as slot `h` of buffer `buf` in every CTA of the cluster: thread r
-// writes CTA r's copy (a plain store where the cluster is one CTA)
-__device__ __forceinline__ void post_d(DSlot (*slots)[kMaxClusterCtas],
-                                       int buf, int h,
-                                       const double (&v)[kDWords], int t,
-                                       int nct) {
-  if (t < nct) {
-    if (nct > 1) {
-      const uint32_t a = remote_addr(&slots[buf][h], t);
-#pragma unroll
-      for (int q = 0; q < kDWords / 2; ++q)
-        remote_store2d(a + 16u * q, v[2 * q], v[2 * q + 1]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < kDWords; ++q) slots[buf][h].v[q] = v[q];
-    }
-  }
-}
-
-__device__ __forceinline__ void read_d(const DSlot& s,
-                                       double (&v)[kDWords]) {
-#pragma unroll
-  for (int q = 0; q < kDWords; ++q) v[q] = s.v[q];
-}
-
-// level 1, after the block barrier: lane h takes the CTA's tile h (of nw)
-// and builds its step, tile 0's without its first lane (which joins at
-// level 2); one warp scan leaves in (fc, fb) the composite from tile 0's
-// second lane through tile h, in (c0, b0) tile h's first lane's step and
-// in v tile h's slot; cpost is the CTA's slot.
-__device__ __forceinline__ void fold_cta_d(const DSlot* lslots, int nw,
-                                           double m2d, int t,
-                                           double (&v)[kDWords], double& fc,
-                                           double& fb, double& c0,
-                                           double& b0,
-                                           double (&cpost)[kDWords]) {
-  const double NEG = (double)neg_big();
-  if (t < nw) {
-    read_d(lslots[t], v);
-  } else {
-#pragma unroll
-    for (int q = 0; q < kDWords; ++q) v[q] = NEG;
-  }
-  const double mprev = __shfl_up_sync(kFull, v[kDML], 1);
-  c0 = v[kDC0];
-  b0 = c0 > NEG / 2 ? mprev + m2d : NEG;
-  fc = 0.0;
-  fb = -INFINITY;
-  if (t == 0) {
-    fc = v[kDC];
-    fb = v[kDB];
-  } else if (t < nw) {
-    fc = c0 + v[kDC];
-    fb = comb<false>(b0 + v[kDC], v[kDB]);
-  }
-  warp_scan<false>(fc, fb, t);
-  cpost[kDC] = __shfl_sync(kFull, fc, nw - 1);
-  cpost[kDB] = __shfl_sync(kFull, fb, nw - 1);
-  cpost[kDC0] = __shfl_sync(kFull, v[kDC0], 0);
-  cpost[kDM0] = __shfl_sync(kFull, v[kDM0], 0);
-  cpost[kDI0] = __shfl_sync(kFull, v[kDI0], 0);
-  cpost[kDML] = __shfl_sync(kFull, v[kDML], nw - 1);
-  cpost[kDTop] = warp_max_d(t < nw ? v[kDTop] : NEG);
-  cpost[kDSlot] = 0.0;
-}
-
-// level 2, after the cluster barrier: lane q takes CTA q's slot (of nct),
-// builds its whole step, its first lane's from CTA q-1's last lane, one
-// warp scan composes them; lane q returns CTA q's first lane's delete
-// cell, v CTA q's slot
-__device__ __forceinline__ double fold_ctas_d(const DSlot* slots, int nct,
-                                              double m2d, int t,
-                                              double (&v)[kDWords]) {
-  const double NEG = (double)neg_big();
-  if (t < nct) {
-    read_d(slots[t], v);
-  } else {
-#pragma unroll
-    for (int q = 0; q < kDWords; ++q) v[q] = NEG;
-  }
-  double mprev = __shfl_up_sync(kFull, v[kDML], 1);
-  if (t == 0) mprev = NEG;
-  const double c0 = v[kDC0];
-  const double b0 = c0 > NEG / 2 ? mprev + m2d : NEG;
-  double fc = 0.0, fb = -INFINITY;
-  if (t < nct) {
-    fc = c0 + v[kDC];
-    fb = comb<false>(b0 + v[kDC], v[kDB]);
-  }
-  warp_scan<false>(fc, fb, t);
-  const double xe = __shfl_up_sync(kFull, fb, 1);
-  const double xin = t == 0 ? -INFINITY : xe;
-  return comb<false>(xin + c0, b0);
-}
 
 // K2: the scaled Forward fill of K1 with float64 cells, storing every
 // row's cells to rows[3][B][Ly][W] relative to the row's offset offs[B][Ly]
@@ -207,8 +86,7 @@ __global__ void __launch_bounds__(kSmemMaxWarps * 32, 1) fwd_store_smem_kernel(
     float* __restrict__ out, float* __restrict__ rows,
     double* __restrict__ offs) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
-  __shared__ DSlot lslots[2][kSmemMaxWarps];
-  __shared__ DSlot cslots[2][kMaxClusterCtas];
+  __shared__ RowSlots<double> slots;
   __shared__ double ends[kMaxClusterCtas * kSmemMaxWarps][2];
 
   const int NT = blockDim.x, tid = threadIdx.x;
@@ -270,9 +148,9 @@ __global__ void __launch_bounds__(kSmemMaxWarps * 32, 1) fwd_store_smem_kernel(
       const RowIn rn = load_row(tb, hq, kn, ctx);
       const int4 kn2 = kb[min(j + 1, ylen - 1)];
       const double m2d = r.m2d;
-      double post[kDWords];
+      double post[kRWords];
 #pragma unroll
-      for (int q = 0; q < kDWords; ++q) post[q] = NEG;
+      for (int q = 0; q < kRWords; ++q) post[q] = NEG;
       double ce = 0.0, be = -INFINITY, ml = NEG;
       if (lv) {
         // A: the match and insert cells in place of the previous row's
@@ -338,53 +216,25 @@ __global__ void __launch_bounds__(kSmemMaxWarps * 32, 1) fwd_store_smem_kernel(
         warp_scan<false>(cc, bc, t);
         ce = __shfl_up_sync(kFull, cc, 1);
         be = __shfl_up_sync(kFull, bc, 1);
-        post[kDC] = __shfl_sync(kFull, cc, 31);
-        post[kDB] = __shfl_sync(kFull, bc, 31);
-        post[kDC0] = __shfl_sync(kFull, c0, 0);
-        post[kDM0] = __shfl_sync(kFull, mc0, 0);
-        post[kDI0] = __shfl_sync(kFull, ic0, 0);
-        post[kDML] = __shfl_sync(kFull, mprev, 31);
-        post[kDTop] = warp_max_d(top);
+        post[kRC] = __shfl_sync(kFull, cc, 31);
+        post[kRB] = __shfl_sync(kFull, bc, 31);
+        post[kRC0] = __shfl_sync(kFull, c0, 0);
+        post[kRM0] = __shfl_sync(kFull, mc0, 0);
+        post[kRI0] = __shfl_sync(kFull, ic0, 0);
+        post[kRML] = __shfl_sync(kFull, mprev, 31);
+        post[kRTop] = warp_max_t(top);
       }
-      const int buf = j & 1;
-      if (t == 0) {
-#pragma unroll
-        for (int q = 0; q < kDWords; ++q) lslots[buf][wi].v[q] = post[q];
-      }
-      __syncthreads();
-      // level 1: every warp folds its CTA's tiles; warp 0 posts the CTA's
-      // slot to every CTA
-      double v1[kDWords], cpost[kDWords], fc, fb, tc0, tb0;
-      fold_cta_d(lslots[buf], nw, m2d, t, v1, fc, fb, tc0, tb0, cpost);
-      if (wi == 0) post_d(cslots, buf, rank, cpost, t, nct);
-      const double pfc = __shfl_sync(kFull, fc, max(wi - 1, 0));
-      const double pfb = __shfl_sync(kFull, fb, max(wi - 1, 0));
-      const double c0w = __shfl_sync(kFull, tc0, wi);
-      const double b0w = __shfl_sync(kFull, tb0, wi);
-      const double nm_l = __shfl_sync(kFull, v1[kDM0], min(wi + 1, 31));
-      const double ni_l = __shfl_sync(kFull, v1[kDI0], min(wi + 1, 31));
-      seam_arrive(nct);
-      ctx = indel_ctx(tb, kn);
-      kn = kn2;
-      seam_wait(nct);
-
-      // level 2: the CTAs' slots; the row's shift, the delete cell entering
-      // the tile's first lane, the next tile's first cells
-      double v2[kDWords];
-      const double del0 = fold_ctas_d(cslots[buf], nct, m2d, t, v2);
-      const double tm = warp_max_d(t < nct ? v2[kDTop] : NEG);
-      const double shift = tm > NEG / 2 ? tm : 0.0;
-      const double dc = __shfl_sync(kFull, del0, rank);
-      const double d0 =
-          wi == 0 ? dc : comb<false>(comb<false>(dc + pfc, pfb) + c0w, b0w);
-      const int n = min(rank + 1, 31);
-      const double cm = __shfl_sync(kFull, v2[kDM0], n);
-      const double cn = __shfl_sync(kFull, v2[kDI0], n);
-      const bool last = rank + 1 >= nct;
-      const double nm = wi + 1 < nw ? nm_l : (last ? NEG : cm);
-      const double ni = wi + 1 < nw ? ni_l : (last ? NEG : cn);
-      seam_m = nm <= NEG / 2 ? NEG : nm - shift;
-      seam_i = ni <= NEG / 2 ? NEG : ni - shift;
+      // the row's meeting (cluster_smem.cuh); the row's shift, its largest
+      // match or insert cell, from the CTAs' slots
+      const RowMeet<double> meet = smem_meet<false>(
+          slots, j & 1, post, m2d, t, wi, nw, rank, nct, [&] {
+            ctx = indel_ctx(tb, kn);
+            kn = kn2;
+          });
+      const double shift = meet.top > NEG / 2 ? meet.top : 0.0;
+      const double d0 = meet.d0;
+      seam_m = meet.nm <= NEG / 2 ? NEG : meet.nm - shift;
+      seam_i = meet.ni <= NEG / 2 ? NEG : meet.ni - shift;
 
       // C: the delete cells from the value entering the thread, the row
       // less its shift, kept and stored
@@ -440,7 +290,7 @@ __global__ void __launch_bounds__(kSmemMaxWarps * 32, 1) fwd_store_smem_kernel(
                         (local || dg + ylen == xlen - 1);
     if (at_end) vmax = fmax(vmax, Mc[a] + (double)r.m2e);
   }
-  const double em = warp_max_d(vmax);
+  const double em = warp_max_t(vmax);
   float sum = 0.f;
   if (em > NEG / 2) {
     for (int k = 0; k < lpt; ++k) {
@@ -463,7 +313,7 @@ __global__ void __launch_bounds__(kSmemMaxWarps * 32, 1) fwd_store_smem_kernel(
   if (rank == 0 && tid < 32) {
     double mt = NEG;
     for (int h = t; h < T; h += 32) mt = fmax(mt, ends[h][0]);
-    const double m = warp_max_d(mt);
+    const double m = warp_max_t(mt);
     double score = NEG;
     if (m > NEG / 2) {
       float part = 0.f;
@@ -855,30 +705,6 @@ inline size_t fwd_smem_bytes(int lpt, int warps) {
 inline size_t bwd_smem_bytes(int lpt, int nct, int warps, size_t table) {
   return table * sizeof(float) + sizeof(float) * 2 * (size_t)nct * warps * 16 +
          (size_t)lpt * warps * 32 * 6 * sizeof(float);
-}
-
-// The launch of a smem kernel: the tiling's checks, the opt-in to its
-// dynamic shared memory and to clusters past 8 CTAs (launch_cluster), the
-// card's refusal of the cluster shape returned as an error.
-template <typename... KArgs, typename... Args>
-cudaError_t launch_smem(void (*kernel)(KArgs...), int B, int nct, int warps,
-                        size_t smem, cudaStream_t stream, Args... args) {
-  if (nct < 1 || nct > kMaxClusterCtas || warps < 1 || warps > kSmemMaxWarps)
-    return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e == cudaSuccess && smem > (size_t)optin) e = cudaErrorInvalidValue;
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return e;
-  }
-  return launch_cluster(kernel, B, nct, warps, smem, stream, true, args...);
 }
 
 }  // namespace

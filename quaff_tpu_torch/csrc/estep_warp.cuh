@@ -206,16 +206,6 @@ __device__ __forceinline__ void init_diagonals(int (&dg)[LPT],
   }
 }
 
-// a lane is valid in a row 1 <= j <= ylen whose ref index lies in the ref:
-// one unsigned compare (a sentinel diagonal is past any ref)
-__device__ __forceinline__ bool in_ref(int dg, int j, int xlen) {
-  return (unsigned)(dg + j) < (unsigned)xlen;
-}
-
-__device__ __forceinline__ float pick(const float (&e)[4], int tk) {
-  return tk < 2 ? (tk == 0 ? e[0] : e[1]) : (tk == 2 ? e[2] : e[3]);
-}
-
 // ---------------------------------------------------------------- K2
 
 // the thread's lanes of the fill: the previous row's cells, diagonal - 1,

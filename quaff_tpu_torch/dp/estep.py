@@ -58,7 +58,9 @@ from .engine import _shift_left, _shift_right, doubling_scan
 from . import fill_v2
 from .fill_v2 import (
     D_SENTINEL,
+    MAX_CLUSTER_CTAS2,
     NEG_INF,
+    SMEM_MAX_WARPS,
     WARP_LPTS,
     V2Tables,
     _lse2,
@@ -150,9 +152,9 @@ ESTEP_CLUSTER_TABLE = {
 # register route already took 128 registers a thread at 4 lanes and 16
 # warps a CTA; so K2's bands past ESTEP_WIDE_LANES take the smem route
 ESTEP_CLUSTER_MAX_LANES = {"fwd_store": ESTEP_WIDE_LANES, "bwd_counts": 32768}
-# the two-level fold: clusters of up to 16 CTAs (past the portable 8 the
-# launch opts in to the card's non-portable size) of up to 16 warps
-MAX_CLUSTER_CTAS2 = 16
+# the two-level fold: clusters of up to fill_v2.MAX_CLUSTER_CTAS2 (16) CTAs
+# (past the portable 8 the launch opts in to the card's non-portable size)
+# of up to 16 warps
 MAX_TILES2 = MAX_CLUSTER_CTAS2 * 16
 # the cluster kernels' modes (csrc/cluster_seam.cuh): the narrow-band
 # arithmetic with one fold; the wide arithmetic with two levels
@@ -172,7 +174,6 @@ ONE_FOLD, TWO_FOLD = 0, 1
 # the fewest lanes a thread that 16 CTAs hold; K3's smem tilings there
 # (16 x 8 x 3 2.989, 15 x 16 x 3 16.346) lost to its cluster route (12 x 4
 # x 8 2.765, 11 x 8 x 8 13.907), which keeps bands up to 32768 lanes.
-SMEM_MAX_WARPS = 16
 SMEM_MAX_LPT = 16
 ESTEP_SMEM_TABLE = {
     "fwd_store": ((12288, 3, 8), (24576, 3, 16), (32768, 4, 16),

@@ -12,8 +12,9 @@ score plus the end maximum of each lane-packed strip:
   band_fill             the wrapper: csrc/band_fill.cu on a CUDA tensor
                         (the warp route for bands of up to 32 * 16 lanes,
                         the cluster route up to FILL_CLUSTER_MAX_LANES, the
-                        block route for wider ones: fill_route), the plain
-                        version on a CPU tensor
+                        smem route up to FILL_SMEM_MAX_LANES, the block
+                        route past it: fill_route), the plain version on a
+                        CPU tensor
   scores_v2             prep + band_fill + the -inf mapping
                         (scores_v2_device / scores_v2_traceable)
 
@@ -82,8 +83,50 @@ FILL_CLUSTER_LPTS = (4, 8, 16)
 #   - 12070 lanes (400 rows): 6 x 4 x 16 1.062 ms against 1.374 for 3 x 8 x
 #     16; past 8192 lanes only 16 lanes a thread cover the band in 32 tiles.
 FILL_CLUSTER_TABLE = ((2048, 4, 16), (8192, 8, 16), (16384, 16, 4))
-# the widest band the cluster route takes; wider ones take the block route
+# the widest band the cluster route takes; wider ones take the smem route
 FILL_CLUSTER_MAX_LANES = FILL_CLUSTER_TABLE[-1][0]
+# K1's smem route (csrc/band_fill_smem.cuh) and K2's (dp/estep.py): the
+# two-level fold (csrc/cluster_smem.cuh) over clusters of up to
+# MAX_CLUSTER_CTAS2 CTAs (past the portable 8 the launch opts in to the
+# card's non-portable size) of up to SMEM_MAX_WARPS warps
+MAX_CLUSTER_CTAS2 = 16
+SMEM_MAX_WARPS = 16
+# a CTA's shared memory on the card (227 KB, the opt-in limit of an H100's
+# block), and what K1's smem route keeps there: FILL_SMEM_LANE_BYTES a lane
+# (its match, insert and delete cells and its diagonal, lpt lanes a thread
+# in dynamic shared memory) beside FILL_SMEM_STATIC_BYTES of static slots
+# and end values (2 KB of row slots, 6 KB for 256 tiles' end values)
+SMEM_OPTIN_BYTES = 232448
+FILL_SMEM_LANE_BYTES = 16
+FILL_SMEM_STATIC_BYTES = 8192
+# The smem route's tiling by width, as FILL_CLUSTER_TABLE's: (widest band,
+# lanes a thread, warps a CTA at most), the tiles spread evenly over the
+# fewest CTAs that hold them (cluster_tiling).  From chip_smoke.py phase
+# 4b's sweeps and prof/fill_sweep.py's (median of 3; NVIDIA H100 80GB HBM3
+# at 700.00 W; PERF.md §6), where every tiling swept held K1's tolerance
+# against the plain version (rtol 1e-5 / atol 1e-3):
+#   - phase 4b's align -kmatchoff chunk (B=8, W=22882, Ly=2881, Viterbi):
+#     15 x 8 x 6 8.766 ms, the fastest of 63 (13 x 8 x 7 9.242, 9 x 16 x
+#     5 10.057, 15 x 16 x 3 12.988);
+#   - chunks of its shape (prof/fill_sweep.py --pairs 8 --rows 3000,
+#     Viterbi): at 30000 lanes 9 x 15 x 7 11.751, 15 x 8 x 8 12.043, 15 x
+#     16 x 4 19.508; at 49500 9 x 16 x 11 14.612, 15 x 8 x 13 15.724, 14 x
+#     16 x 7 23.646.  A CTA of 16 warps (80 registers a thread) takes an SM
+#     of its own, so 8 clusters of 14-16 such CTAs likely ran in two waves;
+#     CTAs of 8 warps share SMs;
+#   - one or two reads (B=2): the lambda-length chunk (W=49507, Ly=1004)
+#     14 x 16 x 7 4.123, 15 x 8 x 13 4.433 (7.5% slower), 9 x 16 x 11
+#     4.897; two reads of 8600 rows (Viterbi / Forward) at 22882 lanes 15
+#     x 16 x 3 25.764 / 65.726, 15 x 8 x 6 25.817 / 75.866, at 131072 16 x
+#     16 x 16 52.152 / 160.919, the fastest of 12.
+# So up to 65536 lanes CTAs of 8 warps, 16 of them, with the fewest lanes
+# a thread that cover the band (the multi-pair chunks of align -kmatchoff
+# gain 1.5x, a single read loses up to 7.5%); past it 16 warps a CTA (no
+# multi-pair chunk measured there).
+FILL_SMEM_TABLE = (tuple((4096 * lpt, lpt, 8) for lpt in range(6, 17))
+                   + tuple((8192 * lpt, lpt, 16) for lpt in range(9, 17)))
+# the widest band the smem route takes; wider ones take the block route
+FILL_SMEM_MAX_LANES = FILL_SMEM_TABLE[-1][0]
 
 
 def fill_cluster_max_warps(lpt: int) -> int:
@@ -120,23 +163,44 @@ def fill_route(W: int) -> tuple:
     """K1's route for a band of W lanes, a function of W alone: ("warp",
     lpt) with the smallest lpt of WARP_LPTS whose warp covers the band
     (32 * lpt >= W); past 32 * 16 lanes ("cluster", (nct, warps, lpt)) of
-    cluster_tiling up to FILL_CLUSTER_MAX_LANES; ("block", 0) past it: one
-    block per pair."""
+    cluster_tiling up to FILL_CLUSTER_MAX_LANES; ("smem", (nct, warps,
+    lpt)) of FILL_SMEM_TABLE up to FILL_SMEM_MAX_LANES; ("block", 0) past
+    it: one block per pair."""
     for lpt in WARP_LPTS:
         if 32 * lpt >= W:
             return "warp", lpt
     if W <= FILL_CLUSTER_MAX_LANES:
         return "cluster", cluster_tiling(W, FILL_CLUSTER_TABLE)
+    if W <= FILL_SMEM_MAX_LANES:
+        return "smem", cluster_tiling(W, FILL_SMEM_TABLE)
     return "block", 0
 
 
 def _fill_route_ok(W: int, route) -> bool:
-    kind, arg = route
+    """Whether `route` is one K1 has that covers a band of W lanes: ("warp",
+    lpt) with 32 * lpt >= W; ("cluster", (nct, warps, lpt)) as
+    cluster_route_ok; ("smem", (nct, warps, lpt)) of at most
+    MAX_CLUSTER_CTAS2 CTAs of at most SMEM_MAX_WARPS warps, at least one
+    lane a thread, tiles that cover the band and a CTA that fits the card's
+    shared memory; or ("block", 0)."""
+    try:
+        kind, arg = route
+    except (TypeError, ValueError):
+        return False
     if kind == "warp":
         return arg in WARP_LPTS and W <= 32 * arg
     if kind == "cluster":
         return cluster_route_ok(W, arg, FILL_CLUSTER_LPTS,
                                 fill_cluster_max_warps)
+    if kind == "smem":
+        try:
+            nct, warps, lpt = (int(v) for v in arg)
+        except (TypeError, ValueError):
+            return False
+        return (1 <= nct <= MAX_CLUSTER_CTAS2 and 1 <= warps <= SMEM_MAX_WARPS
+                and lpt >= 1 and W <= 32 * lpt * warps * nct
+                and (FILL_SMEM_LANE_BYTES * 32 * warps * lpt
+                     + FILL_SMEM_STATIC_BYTES <= SMEM_OPTIN_BYTES))
     return kind == "block" and arg == 0
 
 
@@ -457,14 +521,16 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
               max_prop=None, route=None) -> torch.Tensor:
     """K1 on the tensors' device: csrc/band_fill.cu for CUDA tensors, on
     the route fill_route picks from the band's width (each launch adds one
-    to `band_fill.launches` and to `warp_launches`, `cluster_launches` or
-    `block_launches`), the plain version for CPU tensors.  Same inputs and
-    [B + B*S] float32 output for all.  A failed launch, or a cluster shape
-    the card refuses, raises on every route; none gives way to another.
+    to `band_fill.launches` and to `warp_launches`, `cluster_launches`,
+    `smem_launches` or `block_launches`), the plain version for CPU
+    tensors.  Same inputs and [B + B*S] float32 output for all.  A failed
+    launch, or a cluster shape or shared memory the card refuses, raises on
+    every route; none gives way to another.
 
-    route, ("warp", lpt), ("cluster", (nct, warps, lpt)) or ("block", 0),
-    launches that route instead, for holding the routes against each other
-    on the same inputs; it must cover the band.
+    route, ("warp", lpt), ("cluster", (nct, warps, lpt)), ("smem", (nct,
+    warps, lpt)) or ("block", 0), launches that route instead, for holding
+    the routes against each other on the same inputs; it must cover the
+    band (_fill_route_ok).
 
     max_prop bounds the plain version's shift-scan steps; the kernels'
     delete scans are sequential inside a thread and a tree across threads,
@@ -512,6 +578,10 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
             nct, warps, lpt = arg
             err = lib.quaff_band_fill_cluster(*args, lpt, nct, warps,
                                               out.data_ptr(), stream)
+        elif kind == "smem":
+            nct, warps, lpt = arg
+            err = lib.quaff_band_fill_smem(*args, lpt, nct, warps,
+                                           out.data_ptr(), stream)
         else:
             scratch = None
             if W > kernels.max_smem_lanes(dev.index or 0):
@@ -534,6 +604,7 @@ _COUNT_LOCK = threading.Lock()
 band_fill.launches = 0
 band_fill.warp_launches = 0
 band_fill.cluster_launches = 0
+band_fill.smem_launches = 0
 band_fill.block_launches = 0
 
 

@@ -89,6 +89,11 @@ def library() -> ctypes.CDLL:
             i, i, i,  # lpt, nct, warps
             p, p,  # out, stream
         ]
+        lib.quaff_band_fill_smem.argtypes = fill_args + [
+            i, i, i,  # B, viterbi, local
+            i, i, i,  # lpt, nct, warps
+            p, p,  # out, stream
+        ]
         lib.quaff_fwd_store.argtypes = fill_args + [
             i, i, i,  # B, local, wide
             p, p, p, p, p,  # scratch, out, rows, offs, stream
@@ -163,7 +168,7 @@ def library() -> ctypes.CDLL:
             i, i, i, i, p,  # B, W, grid, iters, stream
         ]
         for fn in ("quaff_band_fill", "quaff_band_fill_warp",
-                   "quaff_band_fill_cluster",
+                   "quaff_band_fill_cluster", "quaff_band_fill_smem",
                    "quaff_fwd_store", "quaff_bwd_counts",
                    "quaff_fwd_store_warp", "quaff_bwd_counts_warp",
                    "quaff_fwd_store_cluster", "quaff_bwd_counts_cluster",

@@ -52,6 +52,7 @@ KERNEL_NAMES = (
     ("band_fill_kernel<", ("band_fill", "block")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),
     ("band_fill_cluster_kernel<", ("band_fill", "cluster")),
+    ("band_fill_smem_kernel<", ("band_fill", "smem")),
     ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
     ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),
     ("bwd_counts_cluster_kernel<", ("bwd_counts", "cluster")),

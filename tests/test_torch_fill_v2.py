@@ -256,24 +256,29 @@ def test_band_fill_routes_by_device():
     (513, ("cluster", (1, 5, 4))), (2048, ("cluster", (1, 16, 4))),
     (2049, ("cluster", (1, 9, 8))), (4038, ("cluster", (1, 16, 8))),
     (8192, ("cluster", (2, 16, 8))), (16384, ("cluster", (8, 4, 16))),
-    (16385, ("block", 0)),
+    (16385, ("smem", (11, 8, 6))), (22882, ("smem", (15, 8, 6))),
+    (49500, ("smem", (15, 8, 13))), (131072, ("smem", (16, 16, 16))),
+    (131073, ("block", 0)),
 ])
 def test_fill_route_and_cpu_plain(W, route):
     """K1's route is a pure function of the band's width: the warp route
     with the smallest lanes-a-thread whose warp covers the band, up to
     32 * 16 lanes; the cluster route past it, its tiling (CTAs a pair,
     warps a CTA, lanes a thread) from FILL_CLUSTER_TABLE, up to
-    FILL_CLUSTER_MAX_LANES; the block route past that.  A CPU tensor of any
-    width takes the plain version and moves no launch count."""
+    FILL_CLUSTER_MAX_LANES; the smem route past that, its tiling from
+    FILL_SMEM_TABLE, up to FILL_SMEM_MAX_LANES (131072); the block route
+    past that.  A CPU tensor of any width takes the plain version and
+    moves no launch count."""
     from test_torch_kernel_cuda import random_fill_inputs
 
     assert fill_v2.fill_route(W) == route
     assert 32 * fill_v2.WARP_LPTS[-1] == 512
+    assert fill_v2.FILL_SMEM_MAX_LANES == 131072
     _, tt, _ = _tables(default_params())
     inp, v2 = random_fill_inputs(np.random.default_rng(W), tt, W, B=2,
                                  Lx=60, Ly=24, device="cpu")
     counts = ("launches", "warp_launches", "cluster_launches",
-              "block_launches")
+              "smem_launches", "block_launches")
     before = [getattr(fill_v2.band_fill, k) for k in counts]
     out = fill_v2.band_fill(**inp, tables=v2)
     assert [getattr(fill_v2.band_fill, k) for k in counts] == before
@@ -309,19 +314,29 @@ def test_fill_cluster_tilings_cover_their_bands():
     (("cluster", (8, 1, 4)), True), (("cluster", (16, 1, 4)), False),
     (("cluster", (1, 5, 2)), False), (("cluster", (1, 5)), False),
     (("block", 0), True), (("block", None), False), (("tile", 0), False),
+    (("smem", (1, 1, 17)), True), (("smem", (2, 9, 1)), True),
+    (("smem", (16, 16, 1)), True), (("smem", (1, 1, 16)), False),
+    (("smem", (16, 1, 1)), False), (("smem", (17, 1, 1)), False),
+    (("smem", (1, 17, 1)), False), (("smem", (1, 16, 0)), False),
+    (("smem", (1, 16, 27)), True), (("smem", (1, 16, 28)), False),
+    (("smem", (1, 5)), False), (("smem", None), False),
 ])
 def test_band_fill_forced_route(route, ok):
     """A route given to band_fill must be one K1 has and cover the band
-    (here 513 lanes) in a cluster of at most MAX_CLUSTER_CTAS (8) CTAs, or
-    band_fill raises ValueError before any launch.  On CPU tensors every route runs the plain
-    version and moves no launch count, cluster_launches included."""
+    (here 513 lanes): a cluster tiling in a cluster of at most
+    MAX_CLUSTER_CTAS (8) CTAs; a smem tiling of at most MAX_CLUSTER_CTAS2
+    (16) CTAs of at most SMEM_MAX_WARPS (16) warps whose CTA fits the
+    card's 227 KB of shared memory (at 16 warps, 27 lanes a thread do, 28
+    do not); or band_fill raises ValueError before any launch.  On CPU
+    tensors every route runs the plain version and moves no launch count,
+    cluster_launches and smem_launches included."""
     from test_torch_kernel_cuda import random_fill_inputs
 
     _, tt, _ = _tables(default_params())
     inp, v2 = random_fill_inputs(np.random.default_rng(2), tt, 513, B=2,
                                  Lx=60, Ly=24, device="cpu")
     counts = ("launches", "warp_launches", "cluster_launches",
-              "block_launches")
+              "smem_launches", "block_launches")
     before = [getattr(fill_v2.band_fill, k) for k in counts]
     if ok:
         out = fill_v2.band_fill(**inp, tables=v2, route=route)
@@ -331,3 +346,80 @@ def test_band_fill_forced_route(route, ok):
         with pytest.raises(ValueError, match="no route"):
             fill_v2.band_fill(**inp, tables=v2, route=route)
     assert [getattr(fill_v2.band_fill, k) for k in counts] == before
+
+
+@pytest.mark.parametrize("row", range(len(fill_v2.FILL_SMEM_TABLE)))
+def test_fill_smem_tilings_cover_their_bands(row):
+    """Every width of a FILL_SMEM_TABLE row takes the smem route at a
+    tiling that covers the band with no whole tile past it, in at most
+    MAX_CLUSTER_CTAS2 (16) CTAs of at most SMEM_MAX_WARPS (16) warps,
+    whose CTA (16 bytes a lane beside the static slots) fits the card's
+    227 KB opt-in; the tiling never narrows as the band widens within the
+    row."""
+    table = fill_v2.FILL_SMEM_TABLE
+    widest, lpt_row, cap = table[row]
+    lo = table[row - 1][0] + 1 if row else fill_v2.FILL_CLUSTER_MAX_LANES + 1
+    assert fill_v2.FILL_SMEM_MAX_LANES == table[-1][0]
+    assert cap <= fill_v2.SMEM_MAX_WARPS
+    prev = None
+    for W in range(lo, widest + 1):
+        kind, (nct, warps, lpt) = fill_v2.fill_route(W)
+        assert kind == "smem" and lpt == lpt_row
+        assert 1 <= nct <= fill_v2.MAX_CLUSTER_CTAS2
+        assert 1 <= warps <= cap
+        tiles = -(-W // (32 * lpt))
+        assert nct * warps >= tiles and (nct - 1) * warps < tiles
+        assert (fill_v2.FILL_SMEM_LANE_BYTES * 32 * warps * lpt
+                + fill_v2.FILL_SMEM_STATIC_BYTES <= 227 * 1024)
+        assert fill_v2._fill_route_ok(W, ("smem", (nct, warps, lpt)))
+        if prev is not None:
+            assert nct * warps >= prev
+        prev = nct * warps
+
+
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+@pytest.mark.parametrize("local", [True, False])
+def test_smem_width_matches_f32_engine(mode, local):
+    """The plain K1 that the smem route answers to, on one full-envelope
+    pair past FILL_CLUSTER_MAX_LANES (a ref of 16500 bases and a read of
+    48 copied from it: 16549 lanes, the smem route's width), against the
+    JAX package's float32 XLA engine at K1's tolerance, rtol 1e-5 / atol
+    1e-3 (float32 sums in another order)."""
+    from quaff_tpu.io.fastseq import FastSeq as JaxFastSeq
+
+    rng = np.random.default_rng(17)
+    jt, tt, v2 = _tables(default_params())
+    xs = "".join("ACGT"[t] for t in rng.integers(0, 4, 16500))
+    ys = list(xs[9000:9048])
+    for i in range(len(ys)):
+        if rng.random() < 0.1:
+            ys[i] = "ACGT"[int(rng.integers(0, 4))]
+    qual = "".join(chr(33 + int(q)) for q in rng.integers(3, 40, len(ys)))
+    pairs = [(JaxFastSeq(name="x", seq=xs),
+              JaxFastSeq(name="y", seq="".join(ys), qual=qual),
+              full_envelope(len(xs), len(ys)))]
+    pb = PairBatch.build(port_pairs(pairs), tt)
+    W = pb.member.shape[1]
+    assert fill_v2.fill_route(W)[0] == "smem"
+    ref = np.asarray(jax_dp_fill(
+        device_tables(jt), device_batch(JaxPairBatch.build(pairs, jt)),
+        mode=mode, local=local, return_matrices=False, dtype=jnp.float32,
+    )["score"])
+    got = fill_v2.scores_v2(v2, to_device(pb, "cpu"), mode=mode, local=local)
+    assert np.isfinite(ref).all()
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("W", [16385, 22882, 49507, 131072])
+def test_chip_smoke_smem_sweep(W):
+    """The smem tilings chip_smoke.py's phase 4b sweeps beside the table's
+    (prof/fill_sweep.smem_tilings): each one K1 takes at W lanes (it covers
+    the band in at most 16 CTAs of at most 16 warps whose CTA fits the
+    card's shared memory), none twice, the table's among them."""
+    import chip_smoke
+
+    swept = chip_smoke._sweep_tilings(W, (), None, smem=True)
+    assert fill_v2.fill_route(W)[1] in swept
+    assert len(set(swept)) == len(swept)
+    assert all(fill_v2._fill_route_ok(W, ("smem", t)) for t in swept)
+    assert max(t[2] for t in swept) <= 27

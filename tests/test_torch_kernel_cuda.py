@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
-route at every lanes-a-thread instantiation, its cluster route at every
-tiling its route table chooses and at forced ones, and its block route),
+route at every lanes-a-thread instantiation, its cluster and smem routes
+at every tiling their route tables choose and at forced ones, the smem
+route's seams against the block route, and its block route),
 K2 and K3 (csrc/estep.cu, csrc/estep_cluster.cu: their warp routes at every
 lanes-a-thread instantiation, their cluster routes at the tilings their
 route tables choose up to 2048 lanes and at each table row's widest band,
@@ -18,7 +19,8 @@ one.  This file imports no JAX, so it also runs on a host that has none:
         tests/test_torch_kernel_cuda.py
 
 (`-k cluster` selects the cluster routes' tests, `-k two_level` the
-two-level fold's.)
+two-level fold's, `-k smem` the smem routes' of K1, K2 and K3, `-k
+fill_smem` K1's alone.)
 
 Tolerances, the TPU kernels' own: scores rtol 1e-5 / atol 1e-3 (the
 kernels sum their delete chains and Forward end reductions in another
@@ -242,7 +244,7 @@ def _variant_inputs(variant, W, seed):
 
 
 FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
-               "block_launches")
+               "smem_launches", "block_launches")
 
 
 def _fill_checked(inp, v2, mode, local, route=None):
@@ -257,7 +259,7 @@ def _fill_checked(inp, v2, mode, local, route=None):
     moved = [getattr(fill_v2.band_fill, k) - n
              for k, n in zip(FILL_COUNTS, before)]
     assert moved == [1] + [int(kind == k) for k in ("warp", "cluster",
-                                                    "block")]
+                                                    "smem", "block")]
     ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode,
                                       local=local)
     _assert_scores_close(got, ref, inp["doff"].shape[0])
@@ -1649,6 +1651,235 @@ def test_fill_cluster_refused_launch_raises():
     assert fill_v2.band_fill.launches == before
     # the card runs on: the table's route on the same inputs
     _fill_checked(inp, v2, mode, local)
+
+
+# K1's smem route (csrc/band_fill_smem.cuh): the bands past the register
+# cluster route's widest, up to FILL_SMEM_MAX_LANES
+FILL_SMEM_WIDTHS = (fill_v2.FILL_CLUSTER_MAX_LANES + 1, 22882, 49500,
+                    fill_v2.FILL_SMEM_MAX_LANES)
+
+
+def _fill_wide_inputs(variant, W, seed, B=4, Ly=120):
+    """_variant_inputs at W lanes: local bands of 1-3 strips at random
+    diagonals; global ones over refs of up to nearly W bases, each lane
+    live in a few rows and most tiles dead in most rows."""
+    mode, local, qual, gap = FILL_VARIANTS[variant]
+    tt = _tables("gaporder1" if gap else "packed")
+    inp, v2 = random_fill_inputs(np.random.default_rng(seed), tt, W, B=B,
+                                 Lx=W - Ly if not local else 300, Ly=Ly,
+                                 local=local, qual=qual)
+    return inp, v2, mode, local
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["viterbi", "forward", "global",
+                                     "forward-global"])
+@pytest.mark.parametrize("W", FILL_SMEM_WIDTHS)
+def test_fill_smem_routes_match_plain(W, variant):
+    """K1 through the wrapper on random bands of 16385, 22882 (phase 4b's
+    align -kmatchoff chunk), 49500 (a lambda-length ref) and
+    FILL_SMEM_MAX_LANES lanes: the smem route, its pair scores and strip
+    maxima against band_fill_reference; a rerun is bit-identical."""
+    _need_card()
+    assert fill_v2.fill_route(W)[0] == "smem"
+    inp, v2, mode, local = _fill_wide_inputs(variant, W, 61 + W)
+    got = _fill_checked(inp, v2, mode, local)
+    assert torch.equal(
+        fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local), got)
+
+
+def _fill_smem_table_tilings():
+    """Each FILL_SMEM_TABLE row's tilings at its narrowest and widest band
+    (fewest and most CTAs at its lanes a thread), with those widths."""
+    out, lo = [], fill_v2.FILL_CLUSTER_MAX_LANES + 1
+    for widest, _, _ in fill_v2.FILL_SMEM_TABLE:
+        for W in (lo, widest):
+            kind, tiling = fill_v2.fill_route(W)
+            assert kind == "smem"
+            if (tiling, W) not in out:
+                out.append((tiling, W))
+        lo = widest + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["viterbi", "forward", "global"])
+@pytest.mark.parametrize("tiling, W", _fill_smem_table_tilings(), ids=str)
+def test_fill_smem_table_tilings(tiling, W, variant):
+    """K1's smem route at each FILL_SMEM_TABLE row's tilings, on the
+    narrowest and widest band of the row (local: random strips, and strips
+    seamed on tile and CTA boundaries; global: one strip over every
+    diagonal), against the plain version; a rerun is bit-identical."""
+    _need_card()
+    mode, local, qual, gap = FILL_VARIANTS[variant]
+    assert fill_v2.fill_route(W) == ("smem", tiling)
+    tt = _tables("packed")
+    for seams in ((None, _tile_seams(W, tiling)) if local else (None,)):
+        inp, v2 = random_fill_inputs(np.random.default_rng(W), tt, W, B=3,
+                                     Lx=300 if local else W - 80, Ly=80,
+                                     local=local, qual=qual, seams=seams)
+        got = _fill_checked(inp, v2, mode, local)
+        assert torch.equal(
+            fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FILL_VARIANTS))
+@pytest.mark.parametrize("tiling", [(1, 1, 1), (1, 3, 5), (2, 2, 2),
+                                    (5, 3, 3), (9, 4, 1), (16, 2, 3),
+                                    (3, 16, 2)], ids=str)
+def test_fill_smem_forced_tilings(tiling, variant):
+    """K1's smem route forced at 1 to 16 CTAs of 1 to 16 warps and 1 to 5
+    lanes a thread, on bands it fills exactly: local variants with strips
+    seamed on tile and CTA boundaries (the last ending on a member lane at
+    the last CTA's last lane), global ones over reads a quarter of the band
+    long, whose tiles are dead in most rows; the block route forced on the
+    same inputs."""
+    _need_card()
+    nct, warps, lpt = tiling
+    W = nct * warps * 32 * lpt
+    mode, local, qual, gap = FILL_VARIANTS[variant]
+    tt = _tables("gaporder1" if gap else "packed")
+    rng = np.random.default_rng(W + lpt)
+    if local:
+        inp, v2 = random_fill_inputs(rng, tt, W, B=4, qual=qual,
+                                     seams=_tile_seams(W, tiling))
+    else:
+        inp, v2 = random_fill_inputs(rng, tt, W, B=3, Lx=W // 2 + 64,
+                                     Ly=max(W // 4, 8), local=False,
+                                     qual=qual)
+    _fill_checked(inp, v2, mode, local, ("smem", tiling))
+    _fill_checked(inp, v2, mode, local, ("block", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+@pytest.mark.parametrize("W", [22882, fill_v2.FILL_SMEM_MAX_LANES])
+def test_fill_smem_long_reads(W, mode):
+    """K1's smem route at phase 4b's width (22882 lanes: 15 x 8 x 6) and
+    at the table's widest band on reads of about 8600 rows
+    (_long_read_band), the length at which phase 4's chunk showed the
+    register cluster route's 16-lane tilings 0.445 nats off the plain
+    version, against the plain version at K1's own rtol 1e-5 / atol
+    1e-3."""
+    _need_card()
+    assert fill_v2.fill_route(W)[0] == "smem"
+    inp, v2 = _long_read_band(W, 102)
+    _fill_checked(inp, v2, mode, True)
+
+
+def _indel_seam_pairs(rng, bounds, W, ylen=80, k=4):
+    """For each tile or CTA boundary b of `bounds` (the band's first lane
+    of a tile), two pairs of a random ref and a read copied from it
+    (qualities, no substitution), each ylen bases, in full envelopes of W
+    lanes whose alignment crosses the boundary in one row: a deletion of k bases that
+    takes the path from lane b - k/2 to b + k/2 (its delete chain across
+    the seam), and an insertion of k bases that takes it back (the insert
+    cells of the next tile's first lane)."""
+    xlen = W - ylen - 1
+    pairs = []
+    for b in bounds:
+        for dele in (True, False):
+            lane0 = b - k // 2 if dele else b + k // 2
+            d = lane0 - ylen  # the read's first diagonal
+            assert 0 <= d and d + ylen + k < xlen
+            xs = "".join("ACGT"[t] for t in rng.integers(0, 4, xlen))
+            h = ylen // 2
+            if dele:
+                ys = xs[d:d + h] + xs[d + h + k:d + ylen + k]
+            else:
+                ys = (xs[d:d + h] + "".join(
+                    "ACGT"[t] for t in rng.integers(0, 4, k))
+                    + xs[d + h:d + ylen - k])
+            q = "".join(chr(33 + int(v)) for v in rng.integers(20, 40,
+                                                               len(ys)))
+            pairs.append((FastSeq(name=f"x{b}", seq=xs),
+                          FastSeq(name=f"y{b}", seq=ys, qual=q),
+                          full_envelope(xlen, len(ys))))
+    pb = PairBatch.build(pairs, _tables("packed"))
+    assert pb.member.shape[1] == W
+    return pb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+@pytest.mark.parametrize("W, tiling", [(22882, (15, 8, 6)),
+                                       (49500, (14, 16, 7)),
+                                       (4608, (4, 4, 9)),
+                                       (1536, (3, 2, 8))], ids=str)
+def test_fill_smem_seams_match_the_block_route(W, tiling, local, mode):
+    """K1's smem route on paths that cross a tile boundary and each CTA
+    boundary (_indel_seam_pairs: a deletion and an insertion across each),
+    against the plain version and, local, against the block route (one
+    block a pair: no tile, CTA or run seams) on the same inputs, at K1's
+    rtol 1e-5 / atol 1e-3: a lost delete chain or insert cell at a seam
+    moves the local path's score by nats.  The global paths (the whole
+    ref: up to ~49000 deletions, every seam crossed) are held against the
+    plain version alone: there the smem and block routes each came within
+    the tolerance of the plain version but 0.32 nats (1.2e-5 of -27240)
+    apart at 49500 lanes, the order of float32 sums over the deletion
+    chains (measured on the card)."""
+    _need_card()
+    assert fill_v2._fill_route_ok(W, ("smem", tiling))
+    nct, warps, lpt = tiling
+    tile, cta = 32 * lpt, 32 * lpt * warps
+    bounds = [tile] + [c * cta for c in range(1, nct) if c * cta < W - 400]
+    pb = _indel_seam_pairs(np.random.default_rng(23), bounds, W)
+    inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
+    v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
+    got = _fill_checked(inp, v2, mode, local, ("smem", tiling))
+    if local:
+        blk = _fill_checked(inp, v2, mode, local, ("block", 0))
+        _assert_scores_close(got, blk, len(bounds))
+
+
+@pytest.mark.cuda
+def test_fill_smem_refused_launch_raises():
+    """K1's smem route at 17 CTAs or 17 warps a CTA is refused by the
+    entry, and at 64 lanes a thread of 16 warps (512 KB, past a CTA's 227
+    KB) by the card: the entry returns an error, which the wrapper's
+    launch check raises.  The wrapper itself takes no such tiling, nor one
+    that cannot cover the band or whose CTA does not fit the card's shared
+    memory (_fill_route_ok): it raises before any launch."""
+    _need_card()
+    from quaff_tpu_torch import kernels
+
+    W = fill_v2.FILL_CLUSTER_MAX_LANES + 1
+    inp, v2, mode, local = _fill_wide_inputs("viterbi", W, 5, B=2, Ly=40)
+    B = inp["doff"].shape[0]
+    before = fill_v2.band_fill.launches
+    out = torch.empty(B + B * inp["seg_start"].shape[1], device="cuda")
+    for nct, warps, lpt in ((17, 16, 2), (2, 17, 16), (1, 16, 64)):
+        err = kernels.library().quaff_band_fill_smem(
+            *fill_v2.launch_args(**inp, tables=v2, mode=mode, local=local),
+            lpt, nct, warps, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="smem route"):
+            kernels.check_launch(err, "band_fill", ("smem", (nct, warps, lpt)),
+                                 "")
+    for bad in ((17, 16, 2), (2, 17, 16), (1, 16, 64), (2, 16, 28),
+                (11, 16, 2), (1, 2, 4)):
+        with pytest.raises(ValueError, match="no route"):
+            fill_v2.band_fill(**inp, tables=v2, route=("smem", bad))
+    assert fill_v2.band_fill.launches == before
+    # the card runs on: the table's route on the same inputs
+    _fill_checked(inp, v2, mode, local)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+def test_fill_block_route_past_the_smem_route(mode):
+    """One lane past FILL_SMEM_MAX_LANES K1 takes its block route (one
+    block a pair, the row state in global scratch), against the plain
+    version on local and global bands."""
+    _need_card()
+    W = fill_v2.FILL_SMEM_MAX_LANES + 1
+    assert fill_v2.fill_route(W) == ("block", 0)
+    for variant in ((mode,) if mode == "forward" else (mode, "global")):
+        inp, v2, m, local = _fill_wide_inputs(variant, W, 9, B=2, Ly=60)
+        _fill_checked(inp, v2, m, local)
 
 
 @pytest.mark.cuda

@@ -257,14 +257,17 @@ def test_kernel_sass_parsers():
      "const*, int)", ("ov_fill", "cluster")),
     ("void sol_chain_kernel<2>", ("sol_chain", None)),
     ("void at::native::vectorized_elementwise_kernel<4>", None),
+    ("void (anonymous namespace)::band_fill_smem_kernel<true>(signed char "
+     "const*, int)", ("band_fill", "smem")),
+    ("void band_fill_smem_kernel<false>", ("band_fill", "smem")),
 ])
 def test_kernel_of_names_each_kernel(name, owner):
     """kernel_of attributes a kernel's demangled name (as torch.profiler
     or c++filt prints it) to the wrapper that launches it and its route:
     K2's block and cluster routes are K1's block and cluster fills with
     STORE set, its warp route and K3's have kernels of their own, as have
-    K3's and K4's cluster routes and K2's and K3's smem routes; a PyTorch
-    kernel is none of the port's."""
+    K3's and K4's cluster routes and K1's, K2's and K3's smem routes; a
+    PyTorch kernel is none of the port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner
