@@ -8,8 +8,8 @@ failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
   1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster, smem
-     and block routes, K2's and K3's warp, cluster, smem and block routes, the
-     count reduction, K4's warp and cluster routes and the probes' chain
+     and block routes, K2's and K3's warp, cluster and smem routes (the smem
+     routes' shared and global tiers), the count reduction, K4's warp and cluster routes and the probes' chain
      kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
      and the host library libquaffio (native/*.cpp, one g++ per source),
@@ -26,14 +26,14 @@ failure exits non-zero before the final line is printed.
      cells/s, the least time the card could take
   2b K2, K3 and the count reduction against their plain versions: B=64
      W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
-     (the warp routes' cutover: lanes-a-thread 16 against the cluster and
-     block routes), a band wider than shared memory and than the train
-     path's 4096 lanes (W=12070: K2's smem route, K3's two-level cluster
-     fold, and the block routes, their row state in global scratch), and
-     the c8f30 self pair; each of K2's and K3's routes (the warp route
-     where 512 lanes cover the band, the cluster route at the table's
-     tiling up to the kernel's widest, else the smem route up to 65536
-     lanes, the block route) forced on the same inputs, K3 on each of K2's
+     (the warp routes' cutover: lanes-a-thread 16 against the cluster
+     routes), a band wider than K1's block route keeps in shared memory and
+     than the train path's 4096 lanes (W=12070: K2's smem route, its global
+     tier beside it, and K3's two-level cluster fold); each of K2's and
+     K3's routes (the warp route where 512 lanes cover the band, the
+     cluster route at the table's tiling up to the kernel's widest, else
+     the smem route, its shared tier with the global tier at the same
+     tiling beside it) forced on the same inputs, K3 on each of K2's
      routes' stores, each against the plain versions and repeated bit for
      bit, timed (CUDA events, median of 3); on the cutover and wide cases
      every other cluster or smem tiling of each kernel timed alike and its
@@ -64,8 +64,8 @@ failure exits non-zero before the final line is printed.
      synth12 against the float64 parity count, with the default k-mer band
      and with -kmatchband 600 (W=606, wider than any warp route: K2's and
      K3's cluster routes); each chunk's routes, held to estep_route's;
-     then K2/K3 (the cluster routes, the block routes forced beside them,
-     every other tiling swept) and the reduction on the -kmatchband 600
+     then K2/K3 (the cluster routes, every other tiling swept) and the
+     reduction on the -kmatchband 600
      run's chunk against their plain versions
   3c the port's `overlap` CLI on cuda, byte for byte against five goldens,
      with K4's launches (K4 must run on the multi-pair ones)
@@ -95,17 +95,16 @@ failure exits non-zero before the final line is printed.
      -kmatchoff` on the same reads (W up to 22882: K2's smem route's and
      K3's two-level cluster route's path), every K2 launch on the smem
      route and K3 launch on the two-level fold, held against the plain
-     versions on its smaller chunk's 2 pairs with the fewest rows, timed
-     against the block routes forced on the same inputs and every other
-     tiling swept; then `count -fast -kmatchoff` of one read against a
-     34 kb genome (W=35506 past 32768: the smem routes' path), every
-     K2/K3 launch on the smem routes, held against the plain versions on
-     its pair and timed against the block routes forced on the same
-     inputs (each must be faster); of one read against a genome of phage
-     lambda's length (48.5 kb, near the smem routes' widest band), on the
-     smem routes, held against the plain versions; and of one read
-     against 66 kb (past 65536 lanes: the block routes' path), every
-     K2/K3 launch on the block routes, held against the plain versions
+     versions on its smaller chunk's 2 pairs with the fewest rows, K2's
+     global tier forced beside its shared tier and every other tiling
+     swept; then `count -fast -kmatchoff` of one read against a 34 kb
+     genome (W=35506 past 32768: the smem routes' path), of one against a
+     genome of phage lambda's length (48.5 kb) and of one against 66 kb,
+     every K2/K3 launch on the smem routes' shared tier (the global tier
+     forced beside it at 34 and 66 kb), and of one read against 132 kb
+     (W=132401, past 122880: the global tier's path), every K2/K3 launch
+     on the global tier; each held against the plain versions on its pair
+     cut to its first 1024 rows
   5  train at a size users run: 128 such reads, `train -maxiter 2` through
      the CLI on cuda; s per EM iteration, pair fills, K2/K3 launches by
      route, each chunk's (B, W, routes, K2 and K3 device ms) from the
@@ -113,8 +112,8 @@ failure exits non-zero before the final line is printed.
      rise; `count -fast` on all 128 reads twice, the second time while a
      tensor holds most of the card's free memory, byte for byte the same
      (the E-step's chunk plan reads no free memory); `count -fast` on the
-     first 4 reads against the parity count; then K2/K3 (the warp,
-     cluster and block routes forced) and the reduction timed on the run's
+     first 4 reads against the parity count; then K2/K3 (the warp and
+     cluster routes forced) and the reduction timed on the run's
      largest chunk, held against their plain versions on its 8 pairs with
      the fewest rows
   5b train on phase 4's recipe (512 reads, seed 1): `train -maxiter 2`
@@ -123,8 +122,8 @@ failure exits non-zero before the final line is printed.
      its chunk of 14 pairs there); each chunk's (B, W, rows, K2 route, K3
      route, device ms) by the profiler's kernel names; the log-likelihood
      must rise; then at the wide chunk K2 and K3 on their cluster routes
-     against their block routes forced on the same inputs (median of 3,
-     CUDA events) and every other tiling swept, the bound from its inputs,
+     (median of 3, CUDA events) and every other tiling swept on the same
+     inputs, the bound from its inputs,
      the counts held to the plain versions on its 2 pairs with the fewest
      rows, two runs bit for bit
   6  overlap at a size users run: 64 reads of 2-10 kb from a seeded 100 kb
@@ -190,8 +189,8 @@ Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
 route, phase 5 for K2's and K3's warp routes and
 the reduction, phase 5b's train with a wide read for their cluster
 routes, phase 4b's count -fast -kmatchoff for K3's two-level cluster
-route, its count against 34 kb for their smem routes and against 66 kb
-for their block routes,
+route, its count against 34 kb for their smem routes' shared tier and
+against 132 kb for their global tier,
 phase 6 for K4's two routes, the probes' run in phase 2d for the chain
 kernel, phase 7's `align -remote` runs for K1 on the server's path, phase
 8 (a)'s `-mesh` runs for K1, K2, K3, the reduction and K4 on the mesh
@@ -560,12 +559,15 @@ def _route_counts():
 def _route_label(route):
     """A route as the logs name it: the warp route with its lanes a
     thread, the cluster route with its tiling (CTAs a pair x warps a CTA x
-    lanes a thread), the block route."""
+    lanes a thread), the smem route's shared ("smem") and global tiers
+    alike, K1's block route."""
     kind, arg = route
     if kind == "warp":
         return f"warp route, {arg} lanes a thread"
     if kind in ("cluster", "smem"):
         return "{} route, {} x {} x {}".format(kind, *arg)
+    if kind == "global":
+        return "smem route's global tier, {} x {} x {}".format(*arg)
     return "block route"
 
 
@@ -1050,9 +1052,9 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
     block route's path).  Then `count -fast -kmatchoff` on the 4 reads,
     K2's smem route's and K3's two-level cluster route's path (bands past
     16384 lanes), the counts finite; and of one read against a 34 kb
-    genome and one against 48.5 kb, the smem routes' path (past 32768
-    lanes), and one against 66 kb, the block routes' path (past 65536
-    lanes).  Last, K1 at each align run's chunk against its plain version
+    genome, one against 48.5 kb and one against 66 kb, the smem routes'
+    shared tier (past 32768 lanes), and one against 132 kb (K1's 132 kb
+    case's genome and read), their global tier (past 122880 lanes).  Last, K1 at each align run's chunk against its plain version
     (once): the smem route at the 4-read chunk with the block route forced
     beside it and every other smem tiling swept, at the lambda-length
     chunk with its sweep, and the block route at its own.  Returns {"smem",
@@ -1114,15 +1116,16 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
         e_chunk = min(chunks, key=lambda c: c["B"])
         del chunks
         # the smem routes' path: one read against a genome wider than the
-        # register cluster routes' widest band (34 kb), and one against a
-        # genome of phage lambda's length (48.5 kb), near the smem routes'
-        # widest band; the block routes' path past it (66 kb)
+        # register cluster routes' widest band (34 kb), one against a genome
+        # of phage lambda's length (48.5 kb) and one against 66 kb, the
+        # shared tier; the global tier past it (132 kb)
         wide = {label: _count_kmatchoff(tmp, label, seed, glen, rlen, kind,
                                         card)
                 for label, seed, glen, rlen, kind in (
                     ("34 kb", 10, 34_000, 1500, "smem"),
                     ("48.5 kb", 11, 48_502, 1000, "smem"),
-                    ("66 kb", 12, 66_000, 400, "block"))}
+                    ("66 kb", 12, 66_000, 400, "smem"),
+                    ("132 kb", 14, 132_000, 400, "global"))}
     keys = ("x_tok", "keys", "meta", "doff", "seg_start", "seg_width")
     res = {}
     for label, what, route, also in (
@@ -1205,16 +1208,18 @@ def _max_prop(bdev):
     return p if m > 0 else None
 
 
-ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: warp, cluster, smem, block
+ESTEP = ("fwd_store", "bwd_counts")  # K2, K3: warp, cluster, smem, global
 
 
 def _estep_routes(W, kernel):
     """The routes of K2 or K3 (`kernel`) held against each other on a band
     of W lanes: the warp route at estep.warp_lpt(W) where a warp covers W
-    (up to 512 lanes), the cluster route at the kernel's
+    (up to 512 lanes) and the cluster route at the kernel's
     ESTEP_CLUSTER_TABLE tiling up to its ESTEP_CLUSTER_MAX_LANES, else the
-    smem route at its ESTEP_SMEM_TABLE tiling up to ESTEP_SMEM_MAX_LANES,
-    then the block route."""
+    smem route: its shared tier at its ESTEP_SMEM_TABLE tiling up to
+    ESTEP_SMEM_MAX_LANES[kernel] with the global tier forced at the same
+    tiling beside it (the same bits, each thread's run in global memory),
+    past it the global tier."""
     from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.dp.fill_v2 import cluster_tiling
 
@@ -1223,10 +1228,9 @@ def _estep_routes(W, kernel):
     if W <= estep.ESTEP_CLUSTER_MAX_LANES[kernel]:
         out.append(("cluster", cluster_tiling(
             W, estep.ESTEP_CLUSTER_TABLE[kernel])))
-    elif W <= estep.ESTEP_SMEM_MAX_LANES:
-        out.append(("smem", cluster_tiling(
-            W, estep.ESTEP_SMEM_TABLE[kernel])))
-    return out + [("block", 0)]
+        return out
+    kind, arg = estep.estep_route(W, kernel)
+    return out + [(kind, arg)] + ([("global", arg)] if kind == "smem" else [])
 
 
 def _smem_tilings(W):
@@ -1359,7 +1363,7 @@ def estep_case(name, bdev, v2, local, card, n_plain=3, n_runs=3,
                 # K3's smem route beside its two-level cluster route: the
                 # measurement ESTEP_CLUSTER_MAX_LANES is set from
                 cand += [("smem", t) for t in _smem_tilings(W)]
-        elif W <= estep.ESTEP_SMEM_MAX_LANES:
+        elif W <= estep.ESTEP_SMEM_MAX_LANES[k]:
             cand = [("smem", t) for t in _smem_tilings(W)]
         else:
             return []
@@ -1563,7 +1567,7 @@ def phase2b_estep(card):
     case("global", PairBatch.build(
         [(xg, yg, full_envelope(len(xg.seq), len(yg.seq)))
          for xg, yg, _ in pairs[:16]], tables), tables, False)
-    # the warp routes' cutover: lanes-a-thread 16 against the block route
+    # the warp routes' cutover: lanes-a-thread 16 against the cluster route
     # on the same 257-512-lane batch, for each kernel
     cpb = PairBatch.build_packed(
         _cutover_pairs(np.random.default_rng(9), 32), tables)
@@ -1575,15 +1579,12 @@ def phase2b_estep(card):
         f"W={cW}: " + "; ".join(
             f"{k} lanes-a-thread 16 {cut[k]['warp']['ms']:.3f} ms against "
             f"the cluster route's {cut[k]['cluster']['ms']:.3f} ms "
-            f"({cut[k]['cluster']['ms'] / cut[k]['warp']['ms']:.2f}x) and "
-            f"the block route's {cut[k]['block']['ms']:.3f} ms "
-            f"({cut[k]['block']['ms'] / cut[k]['warp']['ms']:.2f}x), "
+            f"({cut[k]['cluster']['ms'] / cut[k]['warp']['ms']:.2f}x), "
             f"ESTEP_WARP_MAX_LANES {estep.ESTEP_WARP_MAX_LANES[k]}"
             for k in ESTEP) + f" [{card}]")
-    # a band wider than K2's and K3's shared-memory row state: global scratch
-    dev = torch.cuda.current_device()
-    limit = max(kernels.max_smem_lanes(dev),
-                kernels.max_smem_lanes(dev, "bwd_counts"))
+    # a band wider than K1's block route keeps in shared memory (the width
+    # the former block routes of K2 and K3 first kept in global scratch)
+    limit = kernels.max_smem_lanes(torch.cuda.current_device())
     rng = np.random.default_rng(8)
     xs = "".join("ACGT"[t] for t in rng.integers(0, 4, limit + 2000))
     wide = []
@@ -1598,8 +1599,8 @@ def phase2b_estep(card):
           "wide case fits shared memory or the train path's widest band")
     # K2's smem route and K3's cluster route (wide arithmetic, two levels)
     # take it, every other tiling swept beside them (ESTEP_SMEM_TABLE's
-    # and ESTEP_CLUSTER_TABLE's rows past 4096 lanes); the block routes,
-    # forced beside them, keep their row state in global scratch
+    # and ESTEP_CLUSTER_TABLE's rows past 4096 lanes), K2's global tier at
+    # its tiling beside its shared tier
     case(f"wide (W > {limit} smem lanes)", wpb, tables, True, sweep=True)
 
 
@@ -1634,7 +1635,7 @@ def _json_close(mine, want, rtol, atol, skip=()):
 
 
 ROUTE_COUNTS = ("launches", "warp_launches", "cluster_launches",
-                "smem_launches", "block_launches")
+                "smem_launches", "global_launches")
 
 
 def _estep_launches():
@@ -1690,7 +1691,7 @@ def _check_routes(what, chunks, n):
 
     routes = [{k: estep.estep_route(c["W"], k) for k in ESTEP}
               for c in chunks]
-    kinds = ("warp", "cluster", "smem", "block")
+    kinds = ("warp", "cluster", "smem", "global")
     for k in ESTEP:
         want = {r: sum(c[k][0] == r for c in routes) for r in kinds}
         got = {r: n[k].get(f"{r}_launches", 0) for r in kinds}
@@ -1756,9 +1757,9 @@ def _route_text(chunks, routes):
 
 def _route_name(route):
     """A route as the chunk logs name it: "warp 8", "cluster 1 x 16 x 8",
-    "smem 13 x 16 x 5", "block"."""
+    "smem 13 x 16 x 5", "global 16 x 16 x 17", K1's "block"."""
     kind, arg = route
-    if kind in ("cluster", "smem"):
+    if kind in ("cluster", "smem", "global"):
         return "{} {} x {} x {}".format(kind, *arg)
     return kind if kind == "block" else f"{kind} {arg}"
 
@@ -1901,7 +1902,8 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=2):
             check(e2[0] == r["fwd_store"][0] and e3[0] == r["bwd_counts"][0],
                   f"phase 5: a chunk of W={c['W']} ran K2 {e2[0]}, K3 "
                   f"{e3[0]}, not estep_route's {r}")
-        dev_ms = {k: {"warp": 0.0, "block": 0.0} for k in ESTEP}
+        dev_ms = {k: {"warp": 0.0, "cluster": 0.0, "smem": 0.0,
+                      "global": 0.0} for k in ESTEP}
         for k in ESTEP:
             for route, ms in evs[k]:
                 dev_ms[k][route] += ms
@@ -1927,8 +1929,9 @@ def phase5_train(card, n_reads=128, genome_len=200_000, n_check=2):
                 for c, r, e2, e3 in zip(chunks, routes, evs["fwd_store"],
                                         evs["bwd_counts"]))
             + "; by route: " + "; ".join(
-                f"{k} warp {dev_ms[k]['warp']:.3f} ms, block "
-                f"{dev_ms[k]['block']:.3f} ms" for k in ESTEP)
+                f"{k} " + ", ".join(f"{r} {ms:.3f} ms"
+                                    for r, ms in dev_ms[k].items() if ms)
+                for k in ESTEP)
             + f" [{card}]")
         log("phase 5: where the time goes (host seconds, fenced by "
             "synchronize; summed over both iterations): "
@@ -3561,11 +3564,12 @@ def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
         for name, rep_at in (("fwd_store", "quaff_tpu/dp/pallas_counts.py:507"),
                              ("bwd_counts",
                               "quaff_tpu/dp/pallas_counts.py:561")):
-            sources = {"warp": "estep_warp.cuh", "block": "estep.cu",
+            sources = {"warp": "estep_warp.cuh", "smem": "estep_smem.cu",
+                       "global": "estep_smem.cu",
                        "cluster": ("band_fill_cluster.cuh"
                                    if name == "fwd_store"
                                    else "estep_cluster.cu")}
-            for r in ("warp", "cluster", "block"):
+            for r in ("warp", "cluster", "smem", "global"):
                 n = launched[name][f"{r}_launches"]
                 if not n:
                     continue
@@ -3715,11 +3719,10 @@ def main() -> int:
     lap("phases 2d-3")
     wide = phase3b_train_goldens(card)
     # K2's and K3's cluster routes at the chunk of count -fast -kmatchband
-    # 600, the block routes forced beside them and the other tilings swept,
-    # against their plain versions
+    # 600, the other tilings swept beside them, against their plain versions
     est = estep_case("phase 3b: the -kmatchband 600 chunk", wide["batch"],
                      wide["v2"], wide["local"], card, sweep=True)
-    check(all(set(est[k]) == {"cluster", "block"} for k in ESTEP),
+    check(all(set(est[k]) == {"cluster"} for k in ESTEP),
           "the -kmatchband 600 chunk is narrow enough for a warp route")
     del wide, est
     phase3c_overlap_goldens()
@@ -3749,15 +3752,15 @@ def main() -> int:
     from quaff_tpu_torch.dp import estep
 
     # K2's smem route and K3's two-level cluster route at the chunk of
-    # their path (count -fast -kmatchoff), the block routes forced beside
-    # them and the other tilings swept, the plain versions on its 2 pairs
-    # with the fewest rows, cut to their first 1024 rows
+    # their path (count -fast -kmatchoff), K2's global tier forced beside
+    # its shared tier and the other tilings swept, the plain versions on
+    # its 2 pairs with the fewest rows, cut to their first 1024 rows
     estep_two = estep_case("phase 4b: the count -fast -kmatchoff chunk",
                            e_chunk["batch"], e_chunk["v2"], e_chunk["local"],
                            card, n_plain=1, check_n=2, check_rows=CHECK_ROWS,
                            sweep=True)
-    check(set(estep_two["fwd_store"]) == {"smem", "block"}
-          and set(estep_two["bwd_counts"]) == {"cluster", "block"}
+    check(set(estep_two["fwd_store"]) == {"smem", "global"}
+          and set(estep_two["bwd_counts"]) == {"cluster"}
           and estep.cluster_mode(e_chunk["W"],
                                  estep_two["bwd_counts"]["cluster"]["route"][1])
           == estep.TWO_FOLD,
@@ -3766,53 +3769,43 @@ def main() -> int:
     log(f"phase 4b: the count -fast -kmatchoff chunk (W="
         f"{e_chunk['W']}): " + "; ".join(
             f"{k} {_route_name(estep_two[k][r]['route'])} "
-            f"{estep_two[k][r]['ms']:.3f} ms against its block "
-            f"route's {estep_two[k]['block']['ms']:.3f} ms "
-            f"({estep_two[k]['block']['ms'] / estep_two[k][r]['ms']:.2f}"
-            f"x), bound {estep_two[k][r]['bound_ms']:.4f} ms "
+            f"{estep_two[k][r]['ms']:.3f} ms, bound "
+            f"{estep_two[k][r]['bound_ms']:.4f} ms "
             f"({estep_two[k][r]['bound_by']})"
             for k, r in (("fwd_store", "smem"), ("bwd_counts", "cluster")))
-        + f" [{card}]")
+        + f"; K2's global tier at its tiling "
+        f"{estep_two['fwd_store']['global']['ms']:.3f} ms [{card}]")
     del e_chunk
-    # K2's and K3's smem routes at the chunk of their path (the count of
-    # one read against 34 kb), the block routes forced beside them, against
-    # the plain versions on its pair; then at the lambda-length band
-    # (estep_route's routes alone) and the block routes at the chunk of
-    # their path (66 kb), each against the plain versions on its pair
-    e_counts_s, s_chunk = e_wide["34 kb"]
-    estep_smem = estep_case("phase 4b: the 34 kb count's chunk",
-                            s_chunk["batch"], s_chunk["v2"],
-                            s_chunk["local"], card, n_plain=1, check_n=1)
-    check(all(set(estep_smem[k]) == {"smem", "block"} for k in ESTEP),
-          "the 34 kb count's chunk does not take the smem routes")
-    for k in ESTEP:
-        sm, bl = estep_smem[k]["smem"]["ms"], estep_smem[k]["block"]["ms"]
-        check(sm < bl, f"phase 4b: the 34 kb count's chunk: {k}'s smem "
-              f"route {sm:.3f} ms, not below its block route's {bl:.3f} ms")
-    log(f"phase 4b: the 34 kb count's chunk (W={s_chunk['W']}, Ly="
-        f"{s_chunk['rows']}): " + "; ".join(
-            f"{k} smem route {_route_name(estep_smem[k]['smem']['route'])} "
-            f"{estep_smem[k]['smem']['ms']:.3f} ms against its block route's "
-            f"{estep_smem[k]['block']['ms']:.3f} ms "
-            f"({estep_smem[k]['block']['ms'] / estep_smem[k]['smem']['ms']:.2f}"
-            f"x), bound {estep_smem[k]['smem']['bound_ms']:.4f} ms "
-            f"({estep_smem[k]['smem']['bound_by']})" for k in ESTEP)
-        + f" [{card}]")
-    del s_chunk
-    _, l_chunk = e_wide["48.5 kb"]
-    estep_l = estep_case("phase 4b: the lambda-length band",
-                         l_chunk["batch"], l_chunk["v2"], l_chunk["local"],
-                         card, n_plain=1, check_n=1, forced=False)
-    check(all(set(estep_l[k]) == {"smem"} for k in ESTEP),
-          "the lambda-length band does not take the smem routes")
-    del l_chunk
-    e_block_counts, b_chunk = e_wide["66 kb"]
-    estep_blk = estep_case("phase 4b: the 66 kb count's chunk",
-                           b_chunk["batch"], b_chunk["v2"], b_chunk["local"],
-                           card, n_plain=1, check_n=1)
-    check(all(set(estep_blk[k]) == {"block"} for k in ESTEP),
-          "the 66 kb count's chunk is narrow enough for an smem route")
-    del b_chunk, e_wide
+    # K2's and K3's smem routes at the chunks of their path: the shared
+    # tier at the count of one read against 34 kb (the kernels line's) and
+    # against 66 kb, the global tier forced beside it at the same tiling;
+    # the lambda-length band (estep_route's routes alone); the global tier
+    # at the 132 kb count's chunk; each against the plain versions on its
+    # pair, cut to its first 1024 rows
+    wide_cases = {}
+    for label, forced in (("34 kb", True), ("48.5 kb", False),
+                          ("66 kb", True), ("132 kb", True)):
+        counts_l, chunk_l = e_wide[label]
+        res_l = estep_case(f"phase 4b: the {label} count's chunk",
+                           chunk_l["batch"], chunk_l["v2"],
+                           chunk_l["local"], card, n_plain=1, check_n=1,
+                           check_rows=CHECK_ROWS, forced=forced)
+        want = ({"global"} if label == "132 kb" else
+                {"smem", "global"} if forced else {"smem"})
+        check(all(set(res_l[k]) == want for k in ESTEP),
+              f"the {label} count's chunk takes K2/K3 routes "
+              f"{[sorted(res_l[k]) for k in ESTEP]}, not {sorted(want)}")
+        log(f"phase 4b: the {label} count's chunk (W={chunk_l['W']}, Ly="
+            f"{chunk_l['rows']}): " + "; ".join(
+                f"{k} {_route_name(res_l[k][r]['route'])} "
+                f"{res_l[k][r]['ms']:.3f} ms"
+                for k in ESTEP for r in sorted(res_l[k]))
+            + "; bound " + ", ".join(
+                f"{res_l[k][r]['bound_ms']:.4f} ms ({res_l[k][r]['bound_by']})"
+                for k in ESTEP for r in sorted(res_l[k])[:1]) + f" [{card}]")
+        wide_cases[label] = (counts_l, res_l)
+        del chunk_l
+    del e_wide
     lap("phase 4b")
     launches, chunk = phase5_train(card)
     # K2, K3 and the reduction at the shape of the train path's largest
@@ -3822,8 +3815,7 @@ def main() -> int:
     estep_k = estep_case("phase-5 chunk", chunk["batch"], chunk["v2"],
                          chunk["local"], card, n_plain=1, check_n=8,
                          check_rows=CHECK_ROWS)
-    check(all(set(estep_k[k]) == {"warp", "cluster", "block"}
-              for k in ESTEP),
+    check(all(set(estep_k[k]) == {"warp", "cluster"} for k in ESTEP),
           "the phase-5 chunk is too wide for the warp routes")
     del chunk
     lap("phase 5")
@@ -3873,21 +3865,19 @@ def main() -> int:
     # come between the profiled runs of phases 5-7 and phase 8's, whose
     # traces are held to the wrappers' counts kernel by kernel
     cluster_launches, wide = phase5b_train_wide(card)
-    # K2's and K3's cluster routes at the train path's wide chunk, the
-    # block routes forced on the same inputs and every other tiling swept,
+    # K2's and K3's cluster routes at the train path's wide chunk, every
+    # other tiling swept on the same inputs,
     # the plain versions on its 2 pairs with the fewest rows, cut to their
     # first 1024 rows (their 8410 rows took 93 s)
     estep_w = estep_case("phase 5b: the wide chunk", wide["batch"], wide["v2"],
                          wide["local"], card, n_plain=1, check_n=2,
                          check_rows=CHECK_ROWS, sweep=True)
-    check(all(set(estep_w[k]) == {"cluster", "block"} for k in ESTEP),
+    check(all(set(estep_w[k]) == {"cluster"} for k in ESTEP),
           "phase 5b's wide chunk is narrow enough for a warp route")
     log(f"phase 5b: the wide chunk (B={wide['B']}, W={wide['W']}, "
         f"Ly={wide['rows']}): " + "; ".join(
-            f"{k} cluster route {estep_w[k]['cluster']['ms']:.3f} ms against "
-            f"its block route's {estep_w[k]['block']['ms']:.3f} ms "
-            f"({estep_w[k]['block']['ms'] / estep_w[k]['cluster']['ms']:.2f}x"
-            f"), bound {estep_w[k]['cluster']['bound_ms']:.4f} ms "
+            f"{k} cluster route {estep_w[k]['cluster']['ms']:.3f} ms, bound "
+            f"{estep_w[k]['cluster']['bound_ms']:.4f} ms "
             f"({estep_w[k]['cluster']['bound_by']})" for k in ESTEP)
         + f" [{card}]")
     del wide
@@ -3930,18 +3920,19 @@ def main() -> int:
     # largest chunk; the cluster routes (one fold) on phase 5b's (train
     # with a wide read), timed on its wide chunk; K3's two-level cluster
     # route on phase 4b's count -fast -kmatchoff, timed on that run's
-    # chunk; the smem routes on phase 4b's count of one read against 34
-    # kb, timed on that run's chunk (the block routes forced beside them);
-    # the block routes on phase 4b's count of one read against 66 kb
+    # chunk; the smem routes' shared tier on phase 4b's count of one read
+    # against 34 kb, timed on that run's chunk (the global tier forced
+    # beside it); their global tier on phase 4b's count of one read
+    # against 132 kb
     e_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
-    for name, rep_at, cluster_src, block_src, rows in (
+    e_counts_s, estep_smem = wide_cases["34 kb"]
+    e_global_counts, estep_global = wide_cases["132 kb"]
+    for name, rep_at, cluster_src, rows in (
             ("fwd_store", "quaff_tpu/dp/pallas_counts.py:507",
-             "quaff_tpu_torch/csrc/band_fill_cluster.cuh",
-             "quaff_tpu_torch/csrc/band_fill.cuh", ("", "_cluster")),
+             "quaff_tpu_torch/csrc/band_fill_cluster.cuh", ("", "_cluster")),
             ("bwd_counts", "quaff_tpu/dp/pallas_counts.py:561",
              "quaff_tpu_torch/csrc/estep_cluster.cu",
-             "quaff_tpu_torch/csrc/estep.cu",
              ("", "_cluster", "_cluster_two_level"))):
         for suffix, source, n, kind, res in (
                 ("", "quaff_tpu_torch/csrc/estep_warp.cuh",
@@ -3954,9 +3945,10 @@ def main() -> int:
                  estep_two),
                 ("_smem", "quaff_tpu_torch/csrc/estep_smem.cu",
                  e_counts_s[name]["smem_launches"], "smem", estep_smem),
-                ("_block", block_src, e_block_counts[name]["block_launches"],
-                 "block", estep_blk)):
-            if suffix not in rows + ("_smem", "_block"):
+                ("_global", "quaff_tpu_torch/csrc/estep_smem.cu",
+                 e_global_counts[name]["global_launches"], "global",
+                 estep_global)):
+            if suffix not in rows + ("_smem", "_global"):
                 continue
             check(n > 0, f"{name}'s {kind} route was not launched on its path")
             kernels.append(dict(name=name + suffix, route="cuda",

@@ -26,9 +26,8 @@
 //                  warps, each thread's run of lanes in shared memory, the
 //                  tiles meeting once a row in the two-level fold of
 //                  cluster_smem.cuh;
-//   block route    wider bands: band_fill_kernel<VIT, false>
-//                  (band_fill.cuh, shared with K2 in estep.cu), one block
-//                  per pair, the band row in global scratch.
+//   block route    wider bands: band_fill_kernel<VIT> (band_fill.cuh),
+//                  one block per pair, the band row in global scratch.
 //
 // What bounds them: neither bytes nor FLOPs (a pair of Ly rows and W lanes
 // moves about 16*Ly + W*Ly bytes); the warp route issues ~50 instructions
@@ -71,14 +70,12 @@ int quaff_band_fill(const void* x_tok, int Lx, const void* keys, int Ly,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      viterbi ? launch_fill<true, false>(xt, Lx, k4, Ly, m4, dof, W, s0, sw,
-                                         S, ma, mn, in, inn, Km, Q, ikt, n_ik,
-                                         tr, B, local, scr, o, nullptr,
-                                         nullptr, st)
-              : launch_fill<false, false>(xt, Lx, k4, Ly, m4, dof, W, s0, sw,
-                                          S, ma, mn, in, inn, Km, Q, ikt,
-                                          n_ik, tr, B, local, scr, o, nullptr,
-                                          nullptr, st);
+      viterbi ? launch_fill<true>(xt, Lx, k4, Ly, m4, dof, W, s0, sw, S, ma,
+                                  mn, in, inn, Km, Q, ikt, n_ik, tr, B, local,
+                                  scr, o, st)
+              : launch_fill<false>(xt, Lx, k4, Ly, m4, dof, W, s0, sw, S, ma,
+                                   mn, in, inn, Km, Q, ikt, n_ik, tr, B,
+                                   local, scr, o, st);
   return (int)e;
 }
 

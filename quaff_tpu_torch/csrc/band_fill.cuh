@@ -1,24 +1,11 @@
-// The banded pair-HMM row fill shared by K1 (band_fill.cu) and K2
-// (estep.cu), for NVIDIA Hopper (sm_90a).
+// K1's banded pair-HMM row fill, one block a pair ("the block route",
+// band_fill.cu), and what every route of K1-K3 shares (warp_scan, comb,
+// the constants), for NVIDIA Hopper (sm_90a).
 //
-// band_fill_kernel<VIT, STORE> fills one pair per block (Viterbi when VIT,
-// else Forward; local or global): the block routes of K1 and K2, which
-// take only the bands past every other route (K1's past its smem route,
-// dp/fill_v2.FILL_SMEM_MAX_LANES; K2's past dp/estep.ESTEP_SMEM_MAX_LANES).
-// The header's warp_scan, comb and the constants serve every route.  K1 is
-// <VIT, false>: end scores and per-strip maxima only.  K2 is <false, true>:
-// the same Forward fill also writing every row's match, insert and delete
-// cells to `rows` (pair-major [3][B][Ly][W]: one contiguous run of W floats
-// per pair and row), the checkpoint K3's backward sweep reads.  One row
-// recurrence and one log-add-exp serve both kernels.
-//
-// K2 keeps its fill scaled: after each row, a block reduction finds the
-// row's largest cell, which is subtracted from the row and added to the
-// pair's float64 offset (stored per row in offs[B][Ly]).  The cells stay
-// near 0, where float32 is fine; unscaled, a Forward fill at -2e4 nats
-// steps in 2e-3 and loses its small log-add-exp terms, enough over the
-// 6604-row c8f30 read to move its printed log-likelihood.  The pair score
-// is offset + end score.
+// band_fill_kernel<VIT> fills one pair per block (Viterbi when VIT, else
+// Forward; local or global): K1's block route, which takes only the bands
+// past its smem route (dp/fill_v2.FILL_SMEM_MAX_LANES): end scores and
+// per-strip maxima.
 //
 // Design.  Pairs are independent, so one block fills one pair and the
 // TPU's sequential row grid becomes a row loop inside the block.  The
@@ -38,29 +25,18 @@
 //      across the row: each thread composes its lanes' (c, b) steps
 //      sequentially, a warp-shuffle scan and a scan of the warp totals
 //      give each thread its incoming value, and
-//   C  each thread replays its lanes from that value (and, with STORE,
-//      writes the row's three cells of its lanes).
+//   C  each thread replays its lanes from that value.
 //
 // Lanes outside the envelope carry c = -inf, which stops the chain at
-// strip seams exactly as the TPU kernel's masking does.
-//
-// WIDE (K2 past dp/estep.ESTEP_WIDE_LANES): the cells are float64, every
-// sum is a float64 one and a log-add-exp takes its one transcendental,
-// log1p(exp(-|a - b|)), in float32 (comb on doubles below); each row is
-// shifted by its largest match or insert cell.  On global bands with long
-// deletion runs the path that ends the read lies hundreds to ~10^4 nats
-// below the row's largest cell, where a float32 step rounds at 6e-5 to
-// 5e-4 nats: float32 cells, even composed relative to each thread's
-// largest opening term, put the Forward score up to 3.7e-2 nats off the
-// float64 fill at 32769 lanes (quaff_tpu_torch/prof/f32_chain.py
-// emulates the steps on the CPU).  The row state (5 doubles and the
-// diagonal a lane) lives in the global scratch row set, the scans'
-// float64 partials in 768 bytes of dynamic shared memory.
-// Narrower bands keep float32 (the train path's outputs, bit for bit).
-// The end row's
+// strip seams exactly as the TPU kernel's masking does.  The end row's
 // match cells reduce to the pair score (max, or log-sum-exp) and to the
 // per-strip maxima, written straight to out[B + B*S].  Rows past a pair's
-// read length are neither filled nor stored.
+// read length are not filled.
+//
+// K2's float64 cells (its smem route, estep_smem.cu) take comb on doubles
+// below: the max in float64, the log-add-exp's one transcendental,
+// log1p(exp(-|a - b|)), in float32, whose absolute error (~1e-7 nats) does
+// not grow with the cells' magnitude.
 
 #pragma once
 
@@ -68,7 +44,6 @@
 
 #include <cfloat>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -89,7 +64,7 @@ __device__ __forceinline__ float comb(float a, float b) {
   return m < -1e38f ? m : m + log1pf(expf(-fabsf(a - b)));
 }
 
-// K2's wide log-add-exp on float64 cells: the max in float64, the
+// the log-add-exp on float64 cells (K2's): the max in float64, the
 // correction log1p(exp(-|a - b|)) in float32 (its absolute error ~1e-7
 // whatever the cells' magnitude); the max alone below -1e38, as above
 template <bool VIT>
@@ -201,7 +176,7 @@ __device__ __forceinline__ T block_reduce(T v, T* red) {
   return r;
 }
 
-template <bool VIT, bool STORE, bool WIDE = false>
+template <bool VIT>
 __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     const int8_t* __restrict__ x_tok, int Lx,
     const int4* __restrict__ keys, int Ly,
@@ -215,37 +190,20 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     const float* __restrict__ ik, int n_ik,
     const float* __restrict__ trans,
     int B, int local, int lanes_per_thread,
-    float* __restrict__ scratch, float* __restrict__ out,
-    float* __restrict__ rows, double* __restrict__ offs) {
-  static_assert(!WIDE || (STORE && !VIT), "the wide arithmetic is K2's");
-  // the cells' type: float64 with the wide arithmetic
-  using V = typename std::conditional<WIDE, double, float>::type;
+    float* __restrict__ scratch, float* __restrict__ out) {
   extern __shared__ float smem[];
   __shared__ float warp_c[32], warp_b[32], red[32];
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  const V NEG = neg_big();
+  const float NEG = neg_big();
 
-  // the row state and the scans' partials: WIDE's in the scratch row set
-  // (12 floats a lane a pair) and in dynamic shared memory
-  V *st, *wc, *wb, *wr;
-  if constexpr (WIDE) {
-    st = reinterpret_cast<V*>(scratch + (size_t)b * 12 * W);
-    wc = reinterpret_cast<V*>(smem);
-    wb = wc + 32;
-    wr = wb + 32;
-  } else {
-    st = scratch != nullptr ? scratch + (size_t)b * 6 * W : smem;
-    wc = warp_c;
-    wb = warp_b;
-    wr = red;
-  }
-  V* matp = st;
-  V* matc = st + W;
-  V* insp = st + 2 * W;
-  V* insc = st + 3 * W;
-  V* del = st + 4 * W;
+  float* st = scratch != nullptr ? scratch + (size_t)b * 6 * W : smem;
+  float* matp = st;
+  float* matc = st + W;
+  float* insp = st + 2 * W;
+  float* insc = st + 3 * W;
+  float* del = st + 4 * W;
   int* dof = reinterpret_cast<int*>(st + 5 * W);
 
   const int w0 = min(t * lanes_per_thread, W);
@@ -256,7 +214,6 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
   const int8_t* xb = x_tok + (size_t)b * Lx;
   const int4* kb = keys + (size_t)b * Ly;
   const size_t sym_stride = hq ? (size_t)Km * Q : (size_t)Km;
-  const size_t plane = (size_t)B * Ly * W;  // one state's [B][Ly][W] rows
 
   for (int w = w0; w < w1; ++w) {
     matp[w] = NEG;
@@ -268,7 +225,6 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
 
   int ik_prev = 0;
   float m2e = ik[3];
-  double off = 0.0;  // K2: the pair's offset (all threads hold it)
   for (int j = 1; j <= ylen; ++j) {
     const int4 kk = kb[j - 1];  // match k-mer, quality, read token, indel ctx
     float m2m, m2i, m2d;
@@ -286,86 +242,56 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
     const float ins_emit = hq ? insert[kk.z * Q + kk.y] : insert_noq[kk.z];
     const float* mrow = hq ? match + (size_t)kk.x * Q + kk.y : match_noq + kk.x;
 
-    // A: match and insert cells; K1: the thread's largest match cell
-    V mtop = NEG;
+    // A: match and insert cells; the thread's largest match cell
+    float mtop = NEG;
     for (int w = w0; w < w1; ++w) {
       const int d = dof[w];
       const int idx = d + j - 1;  // i - 1
-      V mc = NEG, ic = NEG;
+      float mc = NEG, ic = NEG;
       if (d != kSentinel && idx >= 0 && idx < xlen) {
-        V a = comb<VIT>(comb<VIT>(matp[w] + m2m, del[w] + d2m), insp[w] + i2m);
-        if (j == 1 && (local || idx == 0)) a = comb<VIT>(a, V(0));
+        float a = comb<VIT>(comb<VIT>(matp[w] + m2m, del[w] + d2m), insp[w] + i2m);
+        if (j == 1 && (local || idx == 0)) a = comb<VIT>(a, 0.f);
         mc = a + mrow[(size_t)xb[idx] * sym_stride];
-        const V ih = w + 1 < W ? insp[w + 1] : NEG;
-        const V mh = w + 1 < W ? matp[w + 1] : NEG;
+        const float ih = w + 1 < W ? insp[w + 1] : NEG;
+        const float mh = w + 1 < W ? matp[w + 1] : NEG;
         ic = ins_emit + comb<VIT>(ih + i2i, mh + m2i);
-        mtop = vmax2(mtop, mc);
+        mtop = fmaxf(mtop, mc);
       }
       matc[w] = mc;
       insc[w] = ic;
     }
-    // K1: the thread's delete chain composed and replayed relative to r0,
-    // its largest opening term near enough (its largest match cell plus
-    // m2d): a deletion run's steps then add at the run's own magnitude, not
-    // at the cells', where float32 rounds each step; 1024 threads leave up
-    // to 128 lanes a thread at 131073 lanes, whose steps, added at -6e4
-    // nats, drifted 0.77 nats (1.2e-5) from the plain version on a global
-    // band.  K2 composes absolute (r0 = 0: its arithmetic unchanged).
-    const V r0 = !STORE && mtop > NEG / 2 ? mtop + V(m2d) : V(0);
+    // the thread's delete chain composed and replayed relative to r0, its
+    // largest opening term near enough (its largest match cell plus m2d):
+    // a deletion run's steps then add at the run's own magnitude, not at
+    // the cells', where float32 rounds each step; 1024 threads leave up to
+    // 128 lanes a thread at 131073 lanes, whose steps, added at -6e4 nats,
+    // drifted 0.77 nats (1.2e-5) from the plain version on a global band
+    const float r0 = mtop > NEG / 2 ? mtop + m2d : 0.f;
     __syncthreads();
 
     // B: compose this thread's delete-chain steps, then scan across threads
-    V c_acc = 0.f, b_acc = neg_inf();  // the identity step
+    float c_acc = 0.f, b_acc = neg_inf();  // the identity step
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-      const V c = v ? V(d2d) : NEG;
-      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d - r0 : NEG;
+      const float c = v ? d2d : NEG;
+      const float bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d - r0 : NEG;
       b_acc = comb<VIT>(b_acc + c, bb);
       c_acc = c_acc + c;
     }
-    V x = block_scan_in<VIT>(c_acc, b_acc + r0, wc, wb) - r0;
+    float x = block_scan_in<VIT>(c_acc, b_acc + r0, warp_c, warp_b) - r0;
 
     // C: replay this thread's lanes from its incoming delete value
-    V top = NEG;
     for (int w = w0; w < w1; ++w) {
       const int idx = dof[w] + j - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-      const V c = v ? V(d2d) : NEG;
-      const V bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d - r0 : NEG;
+      const float c = v ? d2d : NEG;
+      const float bb = v ? (w > 0 ? matc[w - 1] : NEG) + m2d - r0 : NEG;
       x = comb<VIT>(x + c, bb);
       del[w] = v ? x + r0 : NEG;
-      if (STORE) {
-        // WIDE: the row's largest match or insert cell
-        const V mi = vmax2(matc[w], insc[w]);
-        top = vmax2(top, WIDE ? (v ? mi : NEG) : vmax2(mi, del[w]));
-      }
-    }
-    if (STORE) {
-      // scale the row and store it (after the reduction's barriers no
-      // thread reads this row's unscaled cells any more)
-      top = block_reduce<true>(top, wr);
-      const V shift = top > NEG / 2 ? top : V(0);
-      off += shift;
-      const size_t row = ((size_t)b * Ly + (j - 1)) * W;
-      for (int w = w0; w < w1; ++w) {
-        const int idx = dof[w] + j - 1;
-        const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-        const V mc = v ? matc[w] - shift : NEG;
-        const V ic = v ? insc[w] - shift : NEG;
-        const V dc = v ? del[w] - shift : NEG;
-        matc[w] = mc;
-        insc[w] = ic;
-        del[w] = dc;
-        rows[row + w] = to_row(mc);
-        rows[plane + row + w] = to_row(ic);
-        rows[2 * plane + row + w] = to_row(dc);
-      }
-      if (t == 0) offs[(size_t)b * Ly + (j - 1)] = off;
-      __syncthreads();  // the next row reads neighbouring lanes
     }
     ik_prev = kk.w;
-    V* tmp = matp;
+    float* tmp = matp;
     matp = matc;
     matc = tmp;
     tmp = insp;
@@ -374,7 +300,7 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
   }
 
   // end row: pair score and per-strip maxima (matp holds row ylen)
-  V vmax = NEG;
+  float vmax = NEG;
   float smax[kMaxSegs];
 #pragma unroll
   for (int k = 0; k < kMaxSegs; ++k) smax[k] = -FLT_MAX;
@@ -383,40 +309,31 @@ __global__ void __launch_bounds__(kMaxThreads) band_fill_kernel(
       const int idx = dof[w] + ylen - 1;
       const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
       if (!v || !(local || idx == xlen - 1)) continue;
-      const V e = matp[w] + m2e;
-      vmax = vmax2(vmax, e);
-      if (!STORE) {
+      const float e = matp[w] + m2e;
+      vmax = fmaxf(vmax, e);
 #pragma unroll
-        for (int k = 0; k < kMaxSegs; ++k) {
-          if (k < S) {
-            const int s0 = seg_start[b * S + k];
-            if (w >= s0 && w < s0 + seg_width[b * S + k])
-              smax[k] = fmaxf(smax[k], (float)e);
-          }
+      for (int k = 0; k < kMaxSegs; ++k) {
+        if (k < S) {
+          const int s0 = seg_start[b * S + k];
+          if (w >= s0 && w < s0 + seg_width[b * S + k])
+            smax[k] = fmaxf(smax[k], e);
         }
       }
     }
   }
-  const V m = block_reduce<true>(vmax, wr);
-  V score = m;
+  const float m = block_reduce<true>(vmax, red);
+  float score = m;
   if (!VIT && m > NEG / 2) {
     float sum = 0.f;
     if (ylen >= 1) {
       for (int w = w0; w < w1; ++w) {
         const int idx = dof[w] + ylen - 1;
         const bool v = dof[w] != kSentinel && idx >= 0 && idx < xlen;
-        if (v && (local || idx == xlen - 1))
-          sum += expf((float)(matp[w] + m2e - m));
+        if (v && (local || idx == xlen - 1)) sum += expf(matp[w] + m2e - m);
       }
     }
     sum = block_reduce<false>(sum, red);
     score = m + logf(sum);
-  }
-  if (STORE) {
-    // K2: the absolute Forward score; strip maxima are K1's alone
-    if (t == 0)
-      out[b] = score > NEG / 2 ? (float)(off + (double)score) : (float)score;
-    return;
   }
   if (t == 0) out[b] = score;
 #pragma unroll
@@ -435,7 +352,7 @@ inline int fill_threads(int W) {
   return padded < kMaxThreads ? padded : kMaxThreads;
 }
 
-template <bool VIT, bool STORE, bool WIDE = false>
+template <bool VIT>
 cudaError_t launch_fill(const int8_t* x_tok, int Lx, const int4* keys, int Ly,
                         const int4* meta, const int* doff, int W,
                         const int* seg_start, const int* seg_width, int S,
@@ -443,27 +360,22 @@ cudaError_t launch_fill(const int8_t* x_tok, int Lx, const int4* keys, int Ly,
                         const float* insert, const float* insert_noq, int Km,
                         int Q, const float* ik, int n_ik, const float* trans,
                         int B, int local, float* scratch, float* out,
-                        float* rows, double* offs, cudaStream_t stream) {
+                        cudaStream_t stream) {
   const int threads = fill_threads(W);
   const int lanes_per_thread = (W + threads - 1) / threads;
-  // WIDE: the row state in scratch (12 floats a lane), the scans' float64
-  // partials in shared memory
-  if (WIDE && scratch == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = WIDE ? 3 * 32 * sizeof(double)
-                           : scratch != nullptr ? 0
-                                                : (size_t)6 * W * sizeof(float);
+  const size_t smem = scratch != nullptr ? 0 : (size_t)6 * W * sizeof(float);
   // the opt-in covers the kernel's static arrays too: dynamic bytes of
   // 48 KB or just under still need it
   if (smem > 0) {
     const cudaError_t e = cudaFuncSetAttribute(
-        band_fill_kernel<VIT, STORE, WIDE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        band_fill_kernel<VIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
-  band_fill_kernel<VIT, STORE, WIDE><<<B, threads, smem, stream>>>(
+  band_fill_kernel<VIT><<<B, threads, smem, stream>>>(
       x_tok, Lx, keys, Ly, meta, doff, W, seg_start, seg_width, S, match,
       match_noq, insert, insert_noq, Km, Q, ik, n_ik, trans, B, local,
-      lanes_per_thread, scratch, out, rows, offs);
+      lanes_per_thread, scratch, out);
   return cudaGetLastError();
 }
 

@@ -12,14 +12,15 @@
 // ESTEP_CLUSTER_MAX_LANES (K2: ESTEP_WIDE_LANES; its wider bands take the
 // smem route, estep_smem.cu), with the tiling (CTAs a pair, warps a CTA,
 // LPT) of its ESTEP_CLUSTER_TABLE row and the mode dp/estep.cluster_mode
-// picks (K2 one fold alone); the same inputs and outputs as the warp,
-// smem and block routes, so any route's K2 store feeds any route's K3.
+// picks (K2 one fold alone); the same inputs and outputs as the warp and
+// smem routes, so any route's K2 store feeds any route's K3.
 //
-// Why.  The block routes give a pair one block, the row in shared memory
-// or global scratch, and pass 7 (K2) and 9 (K3) block barriers a row over
-// all W lanes of the chunk whatever the pair's own extent.  A training
-// chunk holding one read whose band is a few thousand lanes wide put every
-// pair of the chunk there.
+// Why.  One block a pair (the former block routes) kept the row in shared
+// memory or global scratch and passed 7 (K2) and 9 (K3) block barriers a
+// row over all W lanes of the chunk whatever the pair's own extent; one
+// warp a pair holds at most 512 lanes.  A training chunk holding one read
+// whose band is a few thousand lanes wide put every pair of the chunk
+// past the warp routes.
 //
 // K2's cluster route is K1's cluster fill with STORE set
 // (band_fill_cluster_kernel<false, true, LPT>, band_fill_cluster.cuh): the
@@ -564,8 +565,9 @@ extern "C" {
 // CTAs (a thread-block cluster) of `warps` warps, lpt lanes a thread (one
 // of 4, 8, 16), which must cover the band, in `mode` kOneFold
 // (cluster_seam.cuh; any other mode is refused) with at most kMaxTiles
-// tiles.  The same outputs as quaff_fwd_store; returns the cudaError_t of
-// the launch, or of the card's refusal of the cluster shape.
+// tiles.  The same outputs as quaff_fwd_store_warp; returns the
+// cudaError_t of the launch, or of the card's refusal of the cluster
+// shape.
 int quaff_fwd_store_cluster(const void* x_tok, int Lx, const void* keys,
                             int Ly, const void* meta, const void* doff, int W,
                             const void* seg_start, const void* seg_width,
@@ -596,7 +598,7 @@ int quaff_fwd_store_cluster(const void* x_tok, int Lx, const void* keys,
 
 // Launches K3's cluster route on `stream` (the tiling and mode as
 // quaff_fwd_store_cluster's, at most kBwdClusterWarps warps a CTA): the
-// same outputs as quaff_bwd_counts, no scratch.
+// same outputs as quaff_bwd_counts_warp, no scratch.
 int quaff_bwd_counts_cluster(const void* x_tok, int Lx, const void* keys,
                              int Ly, const void* meta, const void* doff,
                              int W, const void* match, const void* match_noq,

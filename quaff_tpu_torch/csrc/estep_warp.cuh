@@ -3,19 +3,19 @@
 // posterior counts (bwd_counts_warp_kernel), one warp per pair with the
 // band row in registers, for NVIDIA Hopper (sm_90a).
 //
-// They compute what the block routes compute (band_fill_kernel<false,
-// true> in band_fill.cuh and bwd_counts_kernel in estep.cu), on the same
-// inputs and into the same outputs (rows[3][B][Ly][W], offs[B][Ly],
+// They compute what the other routes compute (estep.cu's header), on the
+// same inputs and into the same outputs (rows[3][B][Ly][W], offs[B][Ly],
 // partial[B][E], d_sc[5][B]), for bands of at most 32 * LPT lanes;
 // estep.cu launches them and dp/estep.estep_route picks the route and LPT
 // from the band's width.  Any route's K2 store feeds any route's K3; the
 // cluster routes (estep_cluster.cu) run this file's K3 row on each tile.
 // The recurrences are those at the top of band_fill.cuh and estep.cu.
 //
-// Why.  The block routes give each pair a block, one thread a lane, the row
-// in shared memory, and pass 7 (K2) and 9 (K3) block barriers a row, with
-// one warp alone scanning the warp totals between two of them; at the
-// training chunk (B=256, W=168) they ran 120x and 180x over their bounds.
+// Why.  One block a pair (the former block routes), one thread a lane, the
+// row in shared memory, passed 7 (K2) and 9 (K3) block barriers a row,
+// with one warp alone scanning the warp totals between two of them; at
+// the training chunk (B=256, W=168) they ran 120x and 180x over their
+// bounds.
 //
 // Design (band_fill_warp.cuh's and ov_fill_warp.cuh's).
 //   - One warp per pair; a block holds kWarpsPerBlock independent warps.
@@ -34,8 +34,7 @@
 //   - The log-add-exp is the TPU kernels' own (_fwd_kernel and _bwd_kernel
 //     both take pallas_v2._lse2_fast), lse2 below: the operations of
 //     ov_fill_warp.cuh's lse without its predicates.  K3's posterior
-//     weights take the hardware exp (post_fast).  The block routes keep
-//     log1pf and expf.
+//     weights take the hardware exp (post_fast).
 //   - The delete chains, K2's del[w] = lse(del[w-1] + d2d, mat[w-1] + m2d)
 //     and K3's reverse bd[w] = lse(bd[w+1] + d2d, d2m + me'[w] + bm'[w]),
 //     are chains of maps x -> lse(x + c, b).  Each thread composes its
@@ -56,7 +55,7 @@
 //     w+1 and w-1 neighbours come by shuffle.  Loaded a row ahead instead,
 //     three more arrays of LPT cells stay live across the row, and at LPT
 //     8 ptxas, at its 255-register limit, interleaved fewer lanes.
-//   - Per-row float64 scaling as in the block routes: after a row a warp
+//   - Per-row float64 scaling: after a row a warp
 //     max (5 shuffles) of the thread's cells is subtracted from the row
 //     and added to the pair's float64 offset; lane 0 writes K2's offset.
 //   - K3's 15 row statistics (estep.cu) reduce by one reduce-scatter
@@ -116,6 +115,17 @@ __device__ __forceinline__ float lse2(float a, float b) {
   return fmaf(lg2_ftz(1.f + ex2_ftz(x)), 0.693147182f, m);
 }
 
+// K3's float64 cells (its smem route, estep_smem.cu): the max and the sum
+// in float64, the correction ln 2 * lg2(1 + 2^x) in float32 as above (its
+// absolute error, ~1e-7 nats, does not grow with the cells' magnitude);
+// two operands at -inf give NaN in the difference, which the clamp maps to
+// -200 as above
+__device__ __forceinline__ double lse2(double a, double b) {
+  const double m = fmax(a, b);
+  const float x = fmaxf((float)-fabs(a - b) * 1.44269504f, -200.f);
+  return m + (double)(lg2_ftz(1.f + ex2_ftz(x)) * 0.693147182f);
+}
+
 // K3's warp route's posterior weight: the TPU kernel's exp(min(logw + c,
 // 40)) (_bwd_kernel's post, a hardware exp on the TPU) by the card's
 // hardware exp, 2 instructions where expf takes 8; its relative error
@@ -128,16 +138,15 @@ __device__ __forceinline__ float post_fast(float logw, float c) {
 // inclusive scan over the first `span` threads of a warp (a warp-uniform
 // count) of maps x -> lse(x + c, b), composed in lane order (UP) or from
 // the high lanes down
-template <bool UP>
-__device__ __forceinline__ void scan_maps(float& c, float& b, int t,
-                                          int span) {
+template <bool UP, typename T>
+__device__ __forceinline__ void scan_maps(T& c, T& b, int t, int span) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     if (off >= span) break;
-    const float co = UP ? __shfl_up_sync(kFull, c, off)
-                        : __shfl_down_sync(kFull, c, off);
-    const float bo = UP ? __shfl_up_sync(kFull, b, off)
-                        : __shfl_down_sync(kFull, b, off);
+    const T co = UP ? __shfl_up_sync(kFull, c, off)
+                    : __shfl_down_sync(kFull, c, off);
+    const T bo = UP ? __shfl_up_sync(kFull, b, off)
+                    : __shfl_down_sync(kFull, b, off);
     if (UP ? t >= off : t + off < 32) {
       b = lse2(bo + c, b);  // the earlier maps (co, bo), then ours
       c = co + c;
@@ -418,7 +427,7 @@ struct BwdRowIn {
 };
 
 // row inputs of key kk whose previous row's indel context is ikp (0 at
-// row 1); the tables' indices as bwd_counts_kernel forms them
+// row 1); the tables' indices of estep.cu's header
 __device__ __forceinline__ BwdRowIn load_bwd_row(const FillTables& tb,
                                                  bool hq, int4 kk, int ikp) {
   BwdRowIn r;

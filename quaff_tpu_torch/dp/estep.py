@@ -22,22 +22,23 @@ Ported from quaff_tpu/dp/pallas_counts.py:
 Each wrapper runs its CUDA kernel (csrc/estep.cu, csrc/estep_cluster.cu,
 csrc/estep_smem.cu) on CUDA tensors, adding one to its `launches` count,
 and its plain version on CPU tensors; any other device raises.  K2 and K3
-have four routes each, picked by estep_route from the band's width: the
+have three routes each, picked by estep_route from the band's width: the
 warp route (csrc/estep_warp.cuh, one warp per pair) up to the kernel's
 measured cutover, the cluster route (csrc/estep_cluster.cu: a pair's band
 tiled over the warps of a thread-block cluster, each thread's lanes in
 registers, K2's as K1's cluster fill with STORE in
 csrc/band_fill_cluster.cuh; K3's fold takes two levels past
-ESTEP_WIDE_LANES or 32 tiles) up to ESTEP_CLUSTER_MAX_LANES[kernel], the
-smem route (csrc/estep_smem.cu: the same two-level fold over up to 16
-CTAs, each thread's lanes in shared memory) up to ESTEP_SMEM_MAX_LANES,
-the block route (K1's block fill with STORE in csrc/band_fill.cuh,
-bwd_counts_kernel in estep.cu) past it; `warp_launches`,
-`cluster_launches`, `smem_launches` and `block_launches` count each, and
-`two_level_launches` the cluster launches with the two-level fold.  Past
-ESTEP_WIDE_LANES every route runs the wide arithmetic (see there).  All
-routes keep one layout, so any route's K2 store feeds any route's K3.  All take
-fill_v2.kernel_inputs's layout.  Count tables are flat:
+ESTEP_WIDE_LANES or 32 tiles) up to ESTEP_CLUSTER_MAX_LANES[kernel], and
+the smem route (csrc/estep_smem.cu: the same two-level fold over up to 16
+CTAs) for every wider band, each thread's lanes in shared memory up to
+ESTEP_SMEM_MAX_LANES[kernel] (route kind "smem", the shared tier) and in
+a per-pair slab of global memory past it ("global", the global tier);
+`warp_launches`, `cluster_launches`, `smem_launches` and
+`global_launches` count each, and `two_level_launches` the cluster
+launches with the two-level fold.  Past ESTEP_WIDE_LANES every route
+runs the wide arithmetic (see there), and past ESTEP_BWD_F64_LANES K3's
+cells are float64.  All routes keep one layout, so any route's K2 store
+feeds any route's K3.  All take fill_v2.kernel_inputs's layout.  Count tables are flat:
 E = 4*Km*Q match counts (symbol-major, then k-mer, then quality) + 4*Q
 insert counts (token, quality) + 4*Ki transition counts (m2m, m2i, m2d,
 m2e per indel context).
@@ -159,31 +160,58 @@ MAX_TILES2 = MAX_CLUSTER_CTAS2 * 16
 # the cluster kernels' modes (csrc/cluster_seam.cuh): the narrow-band
 # arithmetic with one fold; the wide arithmetic with two levels
 ONE_FOLD, TWO_FOLD = 0, 1
+# Bands wider than this run K3 in float64 cells (its backward cells, chain
+# maps and row constants; each posterior weight's argument summed in
+# float64), on every route that takes them (the smem route, csrc/
+# estep_smem.cu) and in bwd_counts_reference: the widest band of K3's
+# cluster route.  On the card tests' global long-deletion recipe (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6-7) K3's backward total, its float32
+# normaliser's rounding taken out, came within 1.2e-4-3.9e-4 of the
+# float64 fill's at 4097-262144 lanes in float64 cells, while the cluster
+# route's float32 two-level arithmetic (the relative chain and the
+# posterior-mode shift of ESTEP_WIDE_LANES) left it 4.8e-4-6.6e-4 off at
+# 8192-22136 lanes and 1.5e-3-2.6e-3 at 24576-32768 (the counts' bound is
+# 5e-3), a drift that grows with the band's deletions.
+ESTEP_BWD_F64_LANES = 32768
 # The smem routes (csrc/estep_smem.cu): the two-level fold over up to
 # MAX_CLUSTER_CTAS2 CTAs of up to SMEM_MAX_WARPS warps, lpt lanes a thread
-# (any count up to SMEM_MAX_LPT: they live in shared memory, 28 bytes a
-# lane for K2, 24 for K3).  Each kernel's tiling by width, as
-# ESTEP_CLUSTER_TABLE's: (widest band, lanes a thread, warps a CTA at
-# most), the tiles spread evenly over the fewest CTAs that hold them; rows
-# that spread a pair over up to 16 SMs (lanes a thread grow with the band
-# once 16 CTAs of 16 warps are full).  From chip_smoke.py's sweeps of
-# every smem tiling (median of 3, NVIDIA H100 80GB HBM3 at 700 W; PERF.md
-# §6): K2 at phase 2b's W=12070 16 x 8 x 3 4.231 ms (8 x 16 x 3 4.359, 12
-# x 8 x 4 4.779, 6 x 16 x 4 4.955, 2 lanes a thread 7.545), at phase 4b's
-# W=22136 15 x 16 x 3 23.561 (11 x 16 x 4 26.457, 9 x 16 x 5 30.716):
-# the fewest lanes a thread that 16 CTAs hold; K3's smem tilings there
-# (16 x 8 x 3 2.989, 15 x 16 x 3 16.346) lost to its cluster route (12 x 4
-# x 8 2.765, 11 x 8 x 8 13.907), which keeps bands up to 32768 lanes.
+# (a runtime count), each thread's run of lanes in shared memory (the
+# shared tier, route kind "smem": up to SMEM_MAX_LPT lanes a thread, while
+# a CTA's run and its fixed arrays fit SMEM_CTA_BYTES) or in a per-pair
+# slab of global memory that the wrapper allocates (the global tier,
+# "global": any lanes a thread); ESTEP_SMEM_LANE_BYTES a lane (K2's
+# float64 match, insert and delete cells and the diagonal; K3's float64
+# from_match, two insert rows and chain map, and the diagonal).
 SMEM_MAX_LPT = 16
+SMEM_CTA_BYTES = 232448  # the shared memory a CTA of an H100 may hold
+ESTEP_SMEM_LANE_BYTES = {"fwd_store": 28, "bwd_counts": 36}
+# Each kernel's shared-tier tiling by width, as ESTEP_CLUSTER_TABLE's:
+# (widest band, lanes a thread, warps a CTA at most), the tiles spread
+# evenly over the fewest CTAs that hold them; rows that spread a pair over
+# up to 16 SMs (lanes a thread grow with the band once 16 CTAs of 16 warps
+# are full), up to the most lanes a thread whose run fits a CTA (K2 15,
+# K3 10).  From chip_smoke.py's sweeps of every smem tiling (median of 3,
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6): K2 at phase 2b's W=12070 16
+# x 8 x 3 4.231 ms (8 x 16 x 3 4.359, 12 x 8 x 4 4.779, 6 x 16 x 4 4.955,
+# 2 lanes a thread 7.545), at phase 4b's W=22136 15 x 16 x 3 23.561 (11 x
+# 16 x 4 26.457, 9 x 16 x 5 30.716): the fewest lanes a thread that 16
+# CTAs hold; K3's smem tilings there (16 x 8 x 3 2.989, 15 x 16 x 3
+# 16.346) lost to its cluster route (12 x 4 x 8 2.765, 11 x 8 x 8 13.907),
+# which keeps bands up to 32768 lanes.
 ESTEP_SMEM_TABLE = {
     "fwd_store": ((12288, 3, 8), (24576, 3, 16), (32768, 4, 16),
                   (40960, 5, 16), (49152, 6, 16), (57344, 7, 16),
-                  (65536, 8, 16)),
+                  (65536, 8, 16), (73728, 9, 16), (81920, 10, 16),
+                  (90112, 11, 16), (98304, 12, 16), (106496, 13, 16),
+                  (114688, 14, 16), (122880, 15, 16)),
     "bwd_counts": ((40960, 5, 16), (49152, 6, 16), (57344, 7, 16),
-                   (65536, 8, 16))}
-# the widest band the smem routes take (a 10 kb read's global band against
-# phage lambda's 48.5 kb); wider ones take the block routes
-ESTEP_SMEM_MAX_LANES = 65536
+                   (65536, 8, 16), (73728, 9, 16), (81920, 10, 16))}
+# the widest band each kernel's shared tier takes (its table's last row);
+# wider ones take the global tier
+ESTEP_SMEM_MAX_LANES = {k: t[-1][0] for k, t in ESTEP_SMEM_TABLE.items()}
+# the global tier's warps a CTA: 16 CTAs of them, lanes a thread growing
+# with the band
+ESTEP_GLOBAL_WARPS = 16
 
 
 def table_size(tables: V2Tables) -> int:
@@ -199,22 +227,58 @@ def warp_lpt(W: int):
     return next((lpt for lpt in WARP_LPTS if W <= 32 * lpt), None)
 
 
+def global_tiling(W: int) -> tuple:
+    """The global tier's tiling for a band of W lanes: the fewest lanes a
+    thread with which MAX_CLUSTER_CTAS2 CTAs of ESTEP_GLOBAL_WARPS warps
+    cover the band, its tiles over the fewest CTAs, spread evenly."""
+    lpt = -(-W // (32 * ESTEP_GLOBAL_WARPS * MAX_CLUSTER_CTAS2))
+    return cluster_tiling(W, ((W, lpt, ESTEP_GLOBAL_WARPS),))
+
+
 def estep_route(W: int, kernel: str) -> tuple:
     """The route of K2 (kernel "fwd_store") or K3 ("bwd_counts") for a band
     of W lanes, a function of W alone: ("warp", warp_lpt(W)) up to
     ESTEP_WARP_MAX_LANES[kernel] lanes; ("cluster", (nct, warps, lpt)) of
     ESTEP_CLUSTER_TABLE[kernel] up to ESTEP_CLUSTER_MAX_LANES[kernel] (in
-    cluster_mode's fold); ("smem", (nct, warps, lpt)) of
-    ESTEP_SMEM_TABLE[kernel] up to ESTEP_SMEM_MAX_LANES; else ("block",
-    0): one block per pair."""
+    cluster_mode's fold); the smem route past it: ("smem", (nct, warps,
+    lpt)) of ESTEP_SMEM_TABLE[kernel] up to ESTEP_SMEM_MAX_LANES[kernel],
+    else ("global", global_tiling(W))."""
     lpt = warp_lpt(W)
     if lpt is not None and 32 * lpt <= ESTEP_WARP_MAX_LANES[kernel]:
         return "warp", lpt
     if W <= ESTEP_CLUSTER_MAX_LANES[kernel]:
         return "cluster", cluster_tiling(W, ESTEP_CLUSTER_TABLE[kernel])
-    if W <= ESTEP_SMEM_MAX_LANES:
+    if W <= ESTEP_SMEM_MAX_LANES[kernel]:
         return "smem", cluster_tiling(W, ESTEP_SMEM_TABLE[kernel])
-    return "block", 0
+    return "global", global_tiling(W)
+
+
+def smem_cta_bytes(kernel: str, tiling) -> int:
+    """The shared memory a CTA of the kernel's shared tier takes at `tiling`
+    (nct, warps, lpt): its run of lanes and its fixed arrays (K2 its slots
+    and end values; K3 its slots and its tiles' row statistics), without
+    K3's count table, which goes to global memory where it does not fit
+    beside them."""
+    nct, warps, lpt = tiling
+    run = ESTEP_SMEM_LANE_BYTES[kernel] * 32 * warps * lpt
+    if kernel == "fwd_store":
+        return run + 8192
+    return run + 4096 + 4 * 2 * nct * warps * 16
+
+
+def slab_bytes(kernel: str, B: int, tiling) -> int:
+    """The global tier's slab for B pairs at `tiling`: every CTA's run."""
+    nct, warps, lpt = tiling
+    return B * nct * warps * 32 * lpt * ESTEP_SMEM_LANE_BYTES[kernel]
+
+
+def global_scratch_bytes(W: int) -> int:
+    """The device bytes one pair's global-tier slab takes for a band of W
+    lanes (the larger of K2's and K3's, which never live at once), 0 where
+    neither kernel's route is the global tier: what the E-step's chunk
+    plan counts for it."""
+    return max((slab_bytes(k, 1, r[1]) for k in ("fwd_store", "bwd_counts")
+                for r in [estep_route(W, k)] if r[0] == "global"), default=0)
 
 
 def cluster_mode(W: int, tiling) -> int:
@@ -233,26 +297,29 @@ def estep_route_ok(W: int, route, kernel: str) -> bool:
     the kernel has, at most ESTEP_CLUSTER_MAX_WARPS warps a CTA, tiles
     that cover the band, over at most fill_v2.MAX_CLUSTER_CTAS CTAs with
     one fold, MAX_CLUSTER_CTAS2 with two (cluster_mode; K2 has one fold
-    alone); ("smem", (nct, warps, lpt)) for a band of at most
-    ESTEP_SMEM_MAX_LANES, at most MAX_CLUSTER_CTAS2 CTAs of at most
-    SMEM_MAX_WARPS warps, 1 to SMEM_MAX_LPT lanes a thread, tiles that
-    cover the band; or ("block", 0)."""
+    alone); ("smem", (nct, warps, lpt)) or ("global", (nct, warps, lpt)):
+    at most MAX_CLUSTER_CTAS2 CTAs of at most SMEM_MAX_WARPS warps, tiles
+    that cover the band, the shared tier 1 to SMEM_MAX_LPT lanes a thread
+    whose CTA fits SMEM_CTA_BYTES (smem_cta_bytes), the global tier any
+    lanes a thread."""
     try:
         kind, arg = route
     except (TypeError, ValueError):
         return False
     if kind == "warp":
         return arg in WARP_LPTS and W <= 32 * arg
-    if kind in ("cluster", "smem"):
+    if kind in ("cluster", "smem", "global"):
         try:
             nct, warps, lpt = (int(v) for v in arg)
         except (TypeError, ValueError):
             return False
-        if kind == "smem":
-            return (W <= ESTEP_SMEM_MAX_LANES and 1 <= lpt <= SMEM_MAX_LPT
-                    and 1 <= nct <= MAX_CLUSTER_CTAS2
+        if kind != "cluster":
+            return (lpt >= 1 and 1 <= nct <= MAX_CLUSTER_CTAS2
                     and 1 <= warps <= SMEM_MAX_WARPS
-                    and W <= 32 * lpt * warps * nct)
+                    and W <= 32 * lpt * warps * nct
+                    and (kind == "global" or (
+                        lpt <= SMEM_MAX_LPT and smem_cta_bytes(
+                            kernel, (nct, warps, lpt)) <= SMEM_CTA_BYTES)))
         two = cluster_mode(W, (nct, warps, lpt)) == TWO_FOLD
         if two and kernel == "fwd_store":
             return False
@@ -263,7 +330,7 @@ def estep_route_ok(W: int, route, kernel: str) -> bool:
                 and 1 <= warps <= ESTEP_CLUSTER_MAX_WARPS[kernel][lpt]
                 and nct * warps <= MAX_TILES2
                 and W <= 32 * lpt * warps * nct)
-    return kind == "block" and arg == 0
+    return False
 
 
 def _check_route(name, route, W):
@@ -281,6 +348,21 @@ def _count(fn, kind, two_level=False):
     fn.launches += 1
     setattr(fn, f"{kind}_launches", getattr(fn, f"{kind}_launches") + 1)
     fn.two_level_launches += int(two_level)
+
+
+def _slab(kernel, kind, B, tiling, dev):
+    """The global tier's per-pair slab of global memory (slab_bytes),
+    allocated as the wrappers allocate every output; None for the shared
+    tier."""
+    if kind != "global":
+        return None
+    return torch.empty(slab_bytes(kernel, B, tiling), dtype=torch.uint8,
+                       device=dev)
+
+
+def _slab_args(slab):
+    """The smem entries' (slab, its bytes) arguments: (0, 0) for none."""
+    return (0, 0) if slab is None else (slab.data_ptr(), slab.numel())
 
 
 def _raise_on(err, name, kernels, B, W, Ly, kind=None):
@@ -321,9 +403,10 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
     except that rows and offsets past a pair's read length are left
     unwritten on the card (K3 never reads them).  On the card it takes
     estep_route's route, or `route` (("warp", lpt), ("cluster", (nct,
-    warps, lpt)) or ("block", 0)) where given; a CPU tensor takes the
-    plain version whatever the route.  A failed launch, or a cluster shape
-    the card refuses, raises; no route gives way to another."""
+    warps, lpt)), ("smem", ...) or ("global", ...)) where given; a CPU
+    tensor takes the plain version whatever the route.  A failed launch,
+    or a cluster shape or shared memory the card refuses, raises; no route
+    gives way to another."""
     dev = doff.device
     kind, lpt = _check_route("fwd_store", route, doff.shape[1])
     if dev.type == "cpu":
@@ -372,29 +455,15 @@ def fwd_store(x_tok, keys, meta, doff, seg_start, seg_width,
                 seg_width.data_ptr(), S, *tabs, B, int(bool(local)), lpt, nct,
                 warps, mode, out.data_ptr(), rows.data_ptr(),
                 offsets.data_ptr(), stream)
-        elif kind == "smem":
+        else:
+            slab = _slab("fwd_store", kind, B, lpt, dev)
             nct, warps, lpt = lpt
             err = lib.quaff_fwd_store_smem(
                 x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
                 doff.data_ptr(), W, seg_start.data_ptr(),
                 seg_width.data_ptr(), S, *tabs, B, int(bool(local)), lpt, nct,
-                warps, out.data_ptr(), rows.data_ptr(), offsets.data_ptr(),
-                stream)
-        else:
-            # the row state in shared memory while it fits, else in global
-            # scratch: 6 floats a lane, or with the wide arithmetic's
-            # float64 cells 12 (5 doubles and the diagonal, padded)
-            wide = W > ESTEP_WIDE_LANES
-            scratch = None
-            if wide or W > kernels.max_smem_lanes(dev.index or 0):
-                scratch = torch.empty(B * (12 if wide else 6) * W,
-                                      dtype=torch.float32, device=dev)
-            err = lib.quaff_fwd_store(
-                x_tok.data_ptr(), Lx, keys.data_ptr(), Ly, meta.data_ptr(),
-                doff.data_ptr(), W, seg_start.data_ptr(),
-                seg_width.data_ptr(), S, *tabs, B, int(bool(local)),
-                int(wide), 0 if scratch is None else scratch.data_ptr(),
-                out.data_ptr(), rows.data_ptr(), offsets.data_ptr(), stream)
+                warps, *_slab_args(slab), out.data_ptr(), rows.data_ptr(),
+                offsets.data_ptr(), stream)
     _raise_on(err, "fwd_store", kernels, B, W, Ly, kind)
     _count(fwd_store, kind, kind == "cluster" and mode == TWO_FOLD)
     return out[:B], rows, offsets
@@ -404,7 +473,7 @@ fwd_store.launches = 0
 fwd_store.warp_launches = 0
 fwd_store.cluster_launches = 0
 fwd_store.smem_launches = 0
-fwd_store.block_launches = 0
+fwd_store.global_launches = 0
 fwd_store.two_level_launches = 0
 
 
@@ -413,7 +482,8 @@ fwd_store.two_level_launches = 0
 
 
 def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
-                         rows, offsets, local: bool = True, max_prop=None):
+                         rows, offsets, local: bool = True, max_prop=None,
+                         wide=None):
     """The plain version of K3: a row loop from the last row to the first
     over [B, W] tensors, mirroring _bwd_kernel, with the row contributions
     added to per-pair tables by index_add_.
@@ -426,6 +496,9 @@ def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
     posterior weight exp(fwd_src + trans + back_dst - fwd_total) takes the
     relative forward and backward cells plus the float32 row constant
     (forward offset + backward offset - fwd_total), formed in float64.
+    With `wide` (default: past ESTEP_BWD_F64_LANES, as the kernels) the
+    backward cells, the weights and their sums are float64, the row
+    constant too; the tables and per-pair sums are float32 either way.
     Returns (partial [B, E], d_sc [5, B]: i2i, i2m, d2d, d2m and the
     back-start posterior per pair)."""
     neg = NEG_INF
@@ -433,6 +506,9 @@ def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
     Ly = keys.shape[1]
     dev = doff.device
     f32 = torch.float32
+    if wide is None:
+        wide = W > ESTEP_BWD_F64_LANES
+    dt = torch.float64 if wide else f32  # the cells' type
     Km, Q = tables.match.shape[1], tables.match.shape[2]
     E = table_size(tables)
     o_ins, o_ik = 4 * Km * Q, 4 * Km * Q + 4 * Q
@@ -454,29 +530,32 @@ def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
 
     def row_const(j):
         """(forward offset of row j + backward offset - fwd_total) as
-        float32 [B, 1]; row 0 has forward offset 0."""
+        [B, 1] of the cells' type; row 0 has forward offset 0."""
         off = offsets[:, j - 1] if j >= 1 else torch.zeros_like(fnorm)
-        return (off + off_b - fnorm).float()[:, None]
+        return (off + off_b - fnorm).to(dt)[:, None]
 
     partial = torch.zeros(B * E, dtype=f32, device=dev)
     d_sc = torch.zeros((5, B), dtype=f32, device=dev)
-    bm_n = torch.full((B, W), neg, dtype=f32, device=dev)
+    bm_n = torch.full((B, W), neg, dtype=dt, device=dev)
     bi_n = bm_n.clone()
-    me_n = torch.zeros((B, W), dtype=f32, device=dev)
-    ie_n = torch.zeros((B, 1), dtype=f32, device=dev)
+    me_n = torch.zeros((B, W), dtype=dt, device=dev)
+    ie_n = torch.zeros((B, 1), dtype=dt, device=dev)
     off_b = torch.zeros(B, dtype=torch.float64, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    if wide:
+        d2d, d2m, i2i, i2m = (t.to(dt) for t in (d2d, d2m, i2i, i2m))
     for j in range(Ly, 0, -1):
         mk, q, yt, ik_cur = keys[:, j - 1].long().unbind(1)
         ik_prev = (keys[:, j - 2, 3].long() if j >= 2
                    else torch.zeros(B, dtype=torch.long, device=dev))
-        m2m_c, m2i_c, m2d_c, m2e_c = (c[:, None] for c in
+        m2m_c, m2i_c, m2d_c, m2e_c = (c[:, None].to(dt) for c in
                                       tables.ik[ik_cur].unbind(1))
-        m2m_p, m2i_p = (c[:, None] for c in tables.ik[ik_prev, :2].unbind(1))
+        m2m_p, m2i_p = (c[:, None].to(dt)
+                        for c in tables.ik[ik_prev, :2].unbind(1))
         emit4 = torch.where(has_q[:, None], tables.match[:, mk, q].T,
-                            tables.match_noq[:, mk].T)
+                            tables.match_noq[:, mk].T).to(dt)
         ie_c = torch.where(has_q, tables.insert[yt, q],
-                           tables.insert_noq[yt])[:, None]
+                           tables.insert_noq[yt])[:, None].to(dt)
         idx = doffl + (j - 1)
         valid = not_sent & (idx >= 0) & (idx < x_len) & (j <= y_len)
         tok = torch.gather(xt, 1, idx.clamp(0, Lx - 1))
@@ -503,12 +582,11 @@ def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
 
         # posterior transition weights (rows past a pair's read length
         # may hold anything: every term is masked by `valid`)
-        fm_c, fi_c, fd_c = rows[0, :, j - 1], rows[1, :, j - 1], rows[2, :, j - 1]
+        fm_c, fi_c, fd_c = (rows[k, :, j - 1].to(dt) for k in range(3))
         if j >= 2:
-            fm_p, fi_p, fd_p = (rows[0, :, j - 2], rows[1, :, j - 2],
-                                rows[2, :, j - 2])
+            fm_p, fi_p, fd_p = (rows[k, :, j - 2].to(dt) for k in range(3))
         else:
-            fm_p = fi_p = fd_p = torch.full((B, W), neg, dtype=f32, device=dev)
+            fm_p = fi_p = fd_p = torch.full((B, W), neg, dtype=dt, device=dev)
         base = me_c + bm_c
         cc, cp, c0 = row_const(j), row_const(j - 1), row_const(0)
 
@@ -535,16 +613,16 @@ def bwd_counts_reference(x_tok, keys, meta, doff, tables: V2Tables, wrow,
         for a in range(4):
             partial.index_add_(
                 0, base_b + a * Km * Q + mk * Q + q,
-                torch.where(tok == a, mc, zero).sum(1) * factor)
+                (torch.where(tok == a, mc, zero).sum(1) * factor).to(f32))
         partial.index_add_(0, base_b + o_ins + yt * Q + q,
-                           (w_m2i + w_i2i).sum(1) * factor)
+                           ((w_m2i + w_i2i).sum(1) * factor).to(f32))
         for c, (ctx, wt) in enumerate(((ik_prev, w_m2m), (ik_prev, w_m2i),
                                        (ik_cur, w_m2d), (ik_cur, w_m2e))):
             partial.index_add_(0, base_b + o_ik + ctx * 4 + c,
-                               wt.sum(1) * factor)
+                               (wt.sum(1) * factor).to(f32))
         for k, wt in enumerate((w_i2i, w_i2m, w_d2d, w_d2m)):
-            d_sc[k] += wt.sum(1) * factor
-        d_sc[4] += w_s2m.sum(1)
+            d_sc[k] += (wt.sum(1) * factor).to(f32)
+        d_sc[4] += w_s2m.sum(1).to(f32)
 
         # scale the backward row carried to the next one
         top = torch.maximum(bm_c, bi_c).amax(1)
@@ -609,20 +687,12 @@ def bwd_counts(x_tok, keys, meta, doff, tables: V2Tables, wrow, rows,
             err = lib.quaff_bwd_counts_cluster(
                 *args, lpt, nct, warps, mode, partial.data_ptr(),
                 d_sc.data_ptr(), stream)
-        elif kind == "smem":
+        else:
+            slab = _slab("bwd_counts", kind, B, lpt, dev)
             nct, warps, lpt = lpt
             err = lib.quaff_bwd_counts_smem(
-                *args, lpt, nct, warps, partial.data_ptr(), d_sc.data_ptr(),
-                stream)
-        else:
-            scratch = None
-            if W > kernels.max_smem_lanes(dev.index or 0, "bwd_counts"):
-                scratch = torch.empty(B * 8 * W, dtype=torch.float32,
-                                      device=dev)
-            err = lib.quaff_bwd_counts(
-                *args, int(W > ESTEP_WIDE_LANES),
-                0 if scratch is None else scratch.data_ptr(),
-                partial.data_ptr(), d_sc.data_ptr(), stream)
+                *args, lpt, nct, warps, *_slab_args(slab), partial.data_ptr(),
+                d_sc.data_ptr(), stream)
     _raise_on(err, "bwd_counts", kernels, B, W, Ly, kind)
     _count(bwd_counts, kind, kind == "cluster" and mode == TWO_FOLD)
     return partial, d_sc
@@ -632,7 +702,7 @@ bwd_counts.launches = 0
 bwd_counts.warp_launches = 0
 bwd_counts.cluster_launches = 0
 bwd_counts.smem_launches = 0
-bwd_counts.block_launches = 0
+bwd_counts.global_launches = 0
 bwd_counts.two_level_launches = 0
 
 

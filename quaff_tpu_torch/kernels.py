@@ -69,7 +69,7 @@ def library() -> ctypes.CDLL:
             build_log = build_library(path, _sources(), _nvcc(), NVCC_FLAGS,
                                       LINK_FLAGS)
         lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fill_args = [
             p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
             p, i, p, p, i,  # doff, W, seg_start, seg_width, S
@@ -94,10 +94,6 @@ def library() -> ctypes.CDLL:
             i, i, i,  # lpt, nct, warps
             p, p,  # out, stream
         ]
-        lib.quaff_fwd_store.argtypes = fill_args + [
-            i, i, i,  # B, local, wide
-            p, p, p, p, p,  # scratch, out, rows, offs, stream
-        ]
         lib.quaff_fwd_store_warp.argtypes = [
             p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
             p, i,  # doff, W
@@ -113,14 +109,6 @@ def library() -> ctypes.CDLL:
             p, i, p,  # ik, n_ik, trans
             p, p, p, i, i, i,  # wrow, rows, offs, B, local, lpt
             p, p, p,  # partial, d_sc, stream
-        ]
-        lib.quaff_bwd_counts.argtypes = [
-            p, i, p, i, p,  # x_tok, Lx, keys, Ly, meta
-            p, i,  # doff, W
-            p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
-            p, i, p,  # ik, n_ik, trans
-            p, p, p, i, i, i,  # wrow, rows, offs, B, local, wide
-            p, p, p, p,  # scratch, partial, d_sc, stream
         ]
         lib.quaff_fwd_store_cluster.argtypes = fill_args + [
             i, i,  # B, local
@@ -139,6 +127,7 @@ def library() -> ctypes.CDLL:
         lib.quaff_fwd_store_smem.argtypes = fill_args + [
             i, i,  # B, local
             i, i, i,  # lpt, nct, warps
+            p, ll,  # slab (null: the shared tier), its bytes
             p, p, p, p,  # out, rows, offs, stream
         ]
         lib.quaff_bwd_counts_smem.argtypes = [
@@ -148,6 +137,7 @@ def library() -> ctypes.CDLL:
             p, i, p,  # ik, n_ik, trans
             p, p, p, i, i,  # wrow, rows, offs, B, local
             i, i, i,  # lpt, nct, warps
+            p, ll,  # slab (null: the shared tier), its bytes
             p, p, p,  # partial, d_sc, stream
         ]
         lib.quaff_estep_reduce.argtypes = [p, i, i, p, p]
@@ -169,7 +159,6 @@ def library() -> ctypes.CDLL:
         ]
         for fn in ("quaff_band_fill", "quaff_band_fill_warp",
                    "quaff_band_fill_cluster", "quaff_band_fill_smem",
-                   "quaff_fwd_store", "quaff_bwd_counts",
                    "quaff_fwd_store_warp", "quaff_bwd_counts_warp",
                    "quaff_fwd_store_cluster", "quaff_bwd_counts_cluster",
                    "quaff_fwd_store_smem", "quaff_bwd_counts_smem",
@@ -177,24 +166,20 @@ def library() -> ctypes.CDLL:
                    "quaff_ov_fill_cluster",
                    "quaff_sol_chain"):
             getattr(lib, fn).restype = i
-        for fn in ("quaff_band_fill_max_smem_lanes",
-                   "quaff_bwd_counts_max_smem_lanes"):
-            getattr(lib, fn).argtypes = [i]
-            getattr(lib, fn).restype = i
+        lib.quaff_band_fill_max_smem_lanes.argtypes = [i]
+        lib.quaff_band_fill_max_smem_lanes.restype = i
         lib.quaff_cuda_error_string.argtypes = [i]
         lib.quaff_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
 
-def max_smem_lanes(device_index: int, kernel: str = "band_fill") -> int:
-    """Widest band a block-route kernel ("band_fill", which K2 shares, or
-    "bwd_counts") keeps in shared memory on this card."""
-    key = (device_index, kernel)
-    if key not in _smem_lanes:
-        fn = getattr(library(), f"quaff_{kernel}_max_smem_lanes")
-        _smem_lanes[key] = int(fn(device_index))
-    return _smem_lanes[key]
+def max_smem_lanes(device_index: int) -> int:
+    """Widest band K1's block route keeps in shared memory on this card."""
+    if device_index not in _smem_lanes:
+        _smem_lanes[device_index] = int(
+            library().quaff_band_fill_max_smem_lanes(device_index))
+    return _smem_lanes[device_index]
 
 
 def error_string(err: int) -> str:

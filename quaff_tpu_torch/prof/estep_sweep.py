@@ -1,23 +1,27 @@
 """K2's and K3's cluster or smem tilings timed against each other on the
 card: the measurement dp/estep.ESTEP_CLUSTER_TABLE's rows past
-ESTEP_WIDE_LANES and ESTEP_SMEM_TABLE's rows are set from.
+ESTEP_WIDE_LANES, ESTEP_SMEM_TABLE's rows and the global tier's warps
+(ESTEP_GLOBAL_WARPS) are set from.
 
-At each band width, chip_smoke.py phase 2b's wide recipe (8 reads of 400
-bases drawn from a random ref, each in a full envelope, so every pair's
-band spans W lanes; local), and every tiling of the route estep_route
-picks there (cluster or smem) that estep_route_ok takes: for each lanes
-a thread, the fewest CTAs that hold the tiles at each count of warps a
-CTA.  Each tiling's K2 and K3 are timed by CUDA events
-(median of 3 runs on distinct inputs, after a warm run) and checked
-against the table's tiling on the same inputs (max abs difference of the
-forward scores and of K3's tables: the tilings differ only in the order
-of float32 sums).
+At each band width, chip_smoke.py phase 2b's wide recipe (--pairs reads,
+8 by default, of 400 bases drawn from a random ref, each in a full
+envelope, so every pair's band spans W lanes; local), and every tiling
+of the route estep_route picks there that estep_route_ok takes: on the
+cluster route for each lanes a thread, the fewest CTAs that hold the
+tiles at each count of warps a CTA; on the smem route both tiers (the
+shared tier where a CTA's run fits, the global tier always) at 4, 8 and
+16 warps a CTA over 8 and 16 CTAs' worth of lanes a thread.  Each
+tiling's K2 and K3 are timed by CUDA events (median of 3 runs on
+distinct inputs, after a warm run) and checked against the table's
+tiling on the same inputs (max abs difference of the forward scores and
+of K3's tables: the tilings differ only in the order of sums).
 
     python -m quaff_tpu_torch.prof.estep_sweep 6000 8192 12070 16384
+    python -m quaff_tpu_torch.prof.estep_sweep 98304 131072 --pairs 2
 
 One line per width and kernel: the table's tiling, then each tiling's
-"nct x warps x lpt: ms (max abs difference)", fastest first; the card's
-name and power limit first.
+"kind nct x warps x lpt: ms (max abs difference)", fastest first; the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -53,24 +57,38 @@ def wide_batch(W: int, seed: int = 8, n: int = 8, ylen: int = 400):
 
 
 def tilings(W: int, kernel: str) -> list:
-    """Every (nct, warps, lpt) of the route kind estep_route picks for
-    `kernel` at W lanes ("cluster" or "smem") that estep_route_ok takes,
-    with its tiles over the fewest CTAs at that many warps a CTA."""
+    """The routes (kind, (nct, warps, lpt)) timed for `kernel` at W lanes
+    that estep_route_ok takes: on the cluster route (and the smem route's
+    shared tier up to 65536 lanes) every lanes a thread, its tiles over the
+    fewest CTAs at each count of warps a CTA; past 65536 lanes both smem
+    tiers at 4, 8 and 16 warps a CTA and the lanes a thread with which
+    8 or 16 CTAs cover the band, its tiles over the fewest CTAs."""
     from ..dp import estep
+    from ..dp.fill_v2 import cluster_tiling
 
     kind = estep.estep_route(W, kernel)[0]
-    lpts = (estep.ESTEP_CLUSTER_LPTS if kind == "cluster"
-            else range(1, estep.SMEM_MAX_LPT + 1))
     out = []
-    for lpt in lpts:
-        tiles = -(-W // (32 * lpt))
-        seen = set()
-        for nct in range(1, estep.MAX_CLUSTER_CTAS2 + 1):
-            t = (nct, -(-tiles // nct), lpt)
-            if t[1] not in seen and estep.estep_route_ok(
-                    W, (kind, t), kernel):
-                seen.add(t[1])
-                out.append(t)
+    if kind == "cluster" or W <= 65536:
+        lpts = (estep.ESTEP_CLUSTER_LPTS if kind == "cluster"
+                else range(1, estep.SMEM_MAX_LPT + 1))
+        for lpt in lpts:
+            tiles = -(-W // (32 * lpt))
+            seen = set()
+            for nct in range(1, estep.MAX_CLUSTER_CTAS2 + 1):
+                t = (nct, -(-tiles // nct), lpt)
+                if t[1] not in seen and estep.estep_route_ok(
+                        W, (kind, t), kernel):
+                    seen.add(t[1])
+                    out.append((kind, t))
+        return out
+    for warps in (4, 8, 16):
+        for nct in (8, 16):
+            lpt = -(-W // (32 * warps * nct))
+            t = cluster_tiling(W, ((W, lpt, warps),))
+            for k in ("smem", "global"):
+                if (k, t) not in out and estep.estep_route_ok(W, (k, t),
+                                                              kernel):
+                    out.append((k, t))
     return out
 
 
@@ -91,15 +109,15 @@ def _ms(fn, args):
     return statistics.median(times)
 
 
-def sweep(W: int) -> dict:
-    """{kernel: {tiling: (ms, max abs difference from the table's
-    tiling)}} at W lanes."""
+def sweep(W: int, pairs: int = 8) -> dict:
+    """{kernel: {route: (ms, max abs difference from the table's
+    route)}} at W lanes on `pairs` pairs."""
     import torch
 
     from ..dp import estep, fill_v2
     from ..dp.engine import to_device
 
-    pb, tables = wide_batch(W)
+    pb, tables = wide_batch(W, n=pairs)
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
     v2 = fill_v2.V2Tables.from_tables(tables, "cuda")
     keys = [inp["keys"]] + [inp["keys"].clone() for _ in range(3)]
@@ -111,18 +129,15 @@ def sweep(W: int) -> dict:
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
     part = estep.bwd_counts(*base, ws[0], rows, offs)[0]
     out = {"fwd_store": {}, "bwd_counts": {}}
-    kind = {k: estep.estep_route(W, k)[0] for k in out}
-    for t in tilings(W, "fwd_store"):
-        r = (kind["fwd_store"], t)
+    for r in tilings(W, "fwd_store"):
         err = float((estep.fwd_store(**inp, tables=v2, route=r)[0]
                      - fwd).abs().max())
-        out["fwd_store"][t] = (_ms(lambda k: estep.fwd_store(
+        out["fwd_store"][r] = (_ms(lambda k: estep.fwd_store(
             **dict(inp, keys=k), tables=v2, route=r), keys), err)
-    for t in tilings(W, "bwd_counts"):
-        r = (kind["bwd_counts"], t)
+    for r in tilings(W, "bwd_counts"):
         err = float((estep.bwd_counts(*base, ws[0], rows, offs, route=r)[0]
                      - part).abs().max())
-        out["bwd_counts"][t] = (_ms(lambda w: estep.bwd_counts(
+        out["bwd_counts"][r] = (_ms(lambda w: estep.bwd_counts(
             *base, w, rows, offs, route=r), ws), err)
     return out
 
@@ -130,6 +145,7 @@ def sweep(W: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("widths", type=int, nargs="+")
+    ap.add_argument("--pairs", type=int, default=8)
     args = ap.parse_args(argv)
     from .. import kernels
     from ..dp import estep
@@ -139,12 +155,13 @@ def main(argv=None) -> int:
     card = card_label()
     print(card, flush=True)
     for W in args.widths:
-        res = sweep(W)
+        res = sweep(W, args.pairs)
         for k, times in res.items():
             rows = sorted(times.items(), key=lambda kv: kv[1][0])
-            print(f"W={W} {k} (table {estep.estep_route(W, k)}): "
-                  + "; ".join("{} x {} x {}: {:.3f} ({:.3g})".format(
-                      *t, ms, err) for t, (ms, err) in rows)
+            print(f"W={W} B={args.pairs} {k} (table "
+                  f"{estep.estep_route(W, k)}): "
+                  + "; ".join("{} {} x {} x {}: {:.3f} ({:.3g})".format(
+                      kind, *t, ms, err) for (kind, t), (ms, err) in rows)
                   + f" [{card}]", flush=True)
     return 0
 

@@ -43,11 +43,10 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 # The port's kernels by their __global__ function: (part of the demangled
 # name, (the wrapper that launches it, its route)), the first match wins.
-# K1 and K2 share band_fill_kernel and band_fill_cluster_kernel: their
-# STORE instantiations (<false, true, ...>, each mode) are K2's block and
-# cluster routes.
+# K1 and K2 share band_fill_cluster_kernel: its STORE instantiations
+# (<false, true, ...>, each mode) are K2's cluster route; the smem
+# kernels' <true> instantiations are the smem routes' global tier.
 KERNEL_NAMES = (
-    ("band_fill_kernel<false, true", ("fwd_store", "block")),
     ("band_fill_cluster_kernel<false, true,", ("fwd_store", "cluster")),
     ("band_fill_kernel<", ("band_fill", "block")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),
@@ -56,9 +55,10 @@ KERNEL_NAMES = (
     ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
     ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),
     ("bwd_counts_cluster_kernel<", ("bwd_counts", "cluster")),
+    ("fwd_store_smem_kernel<true>", ("fwd_store", "global")),
+    ("bwd_counts_smem_kernel<true>", ("bwd_counts", "global")),
     ("fwd_store_smem_kernel", ("fwd_store", "smem")),
     ("bwd_counts_smem_kernel", ("bwd_counts", "smem")),
-    ("bwd_counts_kernel", ("bwd_counts", "block")),
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("ov_fill_warp_kernel<", ("ov_fill", "warp")),
     ("ov_fill_cluster_kernel<", ("ov_fill", "cluster")),

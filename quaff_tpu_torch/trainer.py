@@ -39,6 +39,7 @@ from .aligner import DPConfig
 from .device import one_thread_on_cpu, resolve_device
 from .dp.counts import dp_forward_backward
 from .dp.engine import PairBatch, table_tensors, to_device
+from .dp.estep import global_scratch_bytes
 from .dp.fill_v2 import V2Tables
 from .dp.scores import ScoreTables
 from .envelope import fit_envelope_lanes, pack_strips
@@ -364,11 +365,15 @@ class QuaffCounter:
 
     def _pair_bytes(self, width: int, rows: int, x_len: int) -> int:
         """Device bytes one pair takes in a fused E-step chunk: K2's three
-        stored float32 rows per lane and row, K3's per-pair count table and
-        its row state in global scratch when the band is wide, the inputs."""
+        stored float32 rows per lane and row, K3's per-pair count table, 32
+        bytes a lane of per-lane inputs and headroom, the inputs, and where
+        the band takes the smem routes' global tier the pair's slab of
+        global memory (estep.global_scratch_bytes): a function of the
+        band's width, never of the card."""
         Km, Q = self.tables.match_score.shape[1], self.tables.match_score.shape[2]
         table = 4 * (4 * Km * Q + 4 * Q + 4 * len(self.tables.m2m))
-        return 12 * width * rows + table + 32 * width + x_len + 16 * rows
+        return (12 * width * rows + table + 32 * width + x_len + 16 * rows
+                + global_scratch_bytes(width))
 
     def _get_counts_kernel_batched(self, refs, reads, sort_order, plog,
                                    envs):

@@ -166,6 +166,79 @@ def test_plain_fwd_store_wide_bands_hold_the_float64_fill():
     assert abs(float(narrow) - float(f64)) > 9e-3
 
 
+def _engine_batch(inp):
+    """The exact engine's bounding-band batch (dp/counts.dp_forward_backward)
+    for K2's and K3's inputs of one strip over every diagonal
+    (prof/f32_chain.global_band): lane w holds diagonal doff[w] = d_lo + w,
+    the read's keys give its tokens, k-mers, qualities and indel contexts."""
+    meta, doff, keys = (inp[k].long() for k in ("meta", "doff", "keys"))
+    B = doff.shape[0]
+    return {"x_tok": inp["x_tok"], "x_len": meta[:, 0],
+            "y_tok": keys[..., 2], "y_match_kmer": keys[..., 0],
+            "y_indel_kmer_pad": torch.cat(
+                [torch.zeros((B, 1), dtype=torch.long), keys[..., 3]], 1),
+            "y_qual": keys[..., 1], "y_has_qual": meta[:, 2].bool(),
+            "y_len": meta[:, 1], "d_lo": doff[:, 0],
+            "member": doff != fill_v2.D_SENTINEL}
+
+
+def test_plain_bwd_counts_wide_bands_hold_the_float64_fill():
+    """Past ESTEP_BWD_F64_LANES K3's plain version runs float64 cells (its
+    backward cells, weights and their sums), as its smem route does, so on
+    a global long-deletion band its back-start posterior and counts hold
+    the float64 exact engine (dp/counts.py in float64): the card tests'
+    gap-order-1 band of 8192 lanes (its first pair: 618 rows over 3421 ref
+    bases, 2800 deletions; prof/f32_chain.global_band), forced to the wide
+    arithmetic (the band is narrower than the route's threshold; its
+    default there is float32 cells), normalised by the engine's forward
+    score.  The posterior exp(back - fwd) is held to exp(f64 - fnorm), the
+    float32 normaliser's own rounding, within 1e-3 (7.3e-5 measured on a
+    CPU host; the float32 cells, the default on this band, left it 5.6e-3
+    off, so the bound tells the two apart), the counts within the counts'
+    rtol 3e-3 / atol 5e-3.  One intra-op thread, as the wrappers' CPU
+    paths."""
+    from quaff_tpu_torch.device import one_thread_on_cpu
+    from quaff_tpu_torch.dp.counts import dp_forward_backward
+    from quaff_tpu_torch.dp.engine import table_tensors
+    from quaff_tpu_torch.model.params import QuaffParams
+    from quaff_tpu_torch.prof import f32_chain
+
+    with open(pathlib.Path(__file__).parent / "data"
+              / "params-gaporder1.json") as f:
+        params = QuaffParams.from_json(f.read())
+    inp, v2 = f32_chain.global_band(8192, 8209, 3, params)
+    inp = {k: v[:1].contiguous() for k, v in inp.items()}
+    ylen = int(inp["meta"][0, 1])
+    inp["keys"] = inp["keys"][:, :ylen].contiguous()
+    W = inp["doff"].shape[1]
+    assert estep.ESTEP_WIDE_LANES < W <= estep.ESTEP_BWD_F64_LANES
+    assert ylen == 618
+    with one_thread_on_cpu(torch.device("cpu")):
+        exact = dp_forward_backward(
+            table_tensors(ScoreTables.from_params(params)), _engine_batch(inp),
+            local=False, dtype=torch.float64,
+            num_match_kmers=params.num_match_kmers,
+            num_indel_kmers=params.num_indel_kmers)
+        f64 = exact["fwd_score"]
+        _, rows, offs = estep.fwd_store(**inp, tables=v2, local=False)
+        wrow = torch.stack([torch.ones(1), f64.float()]).contiguous()
+        base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2,
+                wrow, rows, offs)
+        part, sc = estep.bwd_counts_reference(*base, local=False, wide=True)
+    assert part.dtype == torch.float32 and sc.dtype == torch.float32
+    want = torch.exp(f64 - f64.float().double())
+    err = float((sc[4].double() - want).abs().max())
+    print(f"back-start posterior off the float64 engine's: {err:.3g}")
+    assert err < 1e-3
+    got = estep.unpack_counts(part[0].double().numpy(), v2)
+    for k, v in got.items():
+        np.testing.assert_allclose(v, exact[k][0].numpy(), err_msg=k,
+                                   **COUNTS)
+    for i, k in enumerate(("i2i", "i2m", "d2d", "d2m")):
+        np.testing.assert_allclose(float(sc[i, 0]), float(exact[k][0]),
+                                   err_msg=k, **COUNTS)
+
+
 # sha256 (first 32 hex digits) of K2's plain outputs (forward scores, rows,
 # offsets) and K3's (tables, per-pair sums) on bands of at most
 # ESTEP_WIDE_LANES, computed by the code before the wide arithmetic went
@@ -292,13 +365,13 @@ def _smem_route(W, kernel):
 
 def _wide_route(W, kernel):
     """estep_route's route past the warp routes: the cluster route up to
-    the kernel's ESTEP_CLUSTER_MAX_LANES, the smem route up to
-    ESTEP_SMEM_MAX_LANES, the block route past it."""
+    the kernel's ESTEP_CLUSTER_MAX_LANES, the smem route's shared tier up
+    to its ESTEP_SMEM_MAX_LANES, its global tier past it."""
     if W <= estep.ESTEP_CLUSTER_MAX_LANES[kernel]:
         return _cluster_route(W, kernel)
-    if W <= estep.ESTEP_SMEM_MAX_LANES:
+    if W <= estep.ESTEP_SMEM_MAX_LANES[kernel]:
         return _smem_route(W, kernel)
-    return "block", 0
+    return "global", estep.global_tiling(W)
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
@@ -309,10 +382,11 @@ def test_estep_route_table(kernel, lpt):
     with the smallest lanes-a-thread whose warp (32 * lpt lanes) covers it
     (the widths 16*lpt+1 .. 32*lpt), every wider band up to the kernel's
     ESTEP_CLUSTER_MAX_LANES the cluster route at the tiling of the first
-    row of its ESTEP_CLUSTER_TABLE that covers it, up to
-    ESTEP_SMEM_MAX_LANES the smem route at the tiling of its
-    ESTEP_SMEM_TABLE, every band past that the block route (lpt None: the
-    4096 widths past the cutover)."""
+    row of its ESTEP_CLUSTER_TABLE that covers it, up to its
+    ESTEP_SMEM_MAX_LANES the smem route's shared tier at the tiling of its
+    ESTEP_SMEM_TABLE, every band past that the smem route's global tier at
+    global_tiling's (lpt None: the 4096 widths past the cutover); no band
+    takes a route of another kind."""
     cut = estep.ESTEP_WARP_MAX_LANES[kernel]
     assert cut in (256, 512)
     if lpt is None:
@@ -328,10 +402,11 @@ def test_estep_route_table(kernel, lpt):
     top = estep.ESTEP_CLUSTER_MAX_LANES[kernel]
     assert estep.estep_route(top, kernel)[0] == "cluster"
     assert estep.estep_route(top + 1, kernel)[0] == "smem"
-    top = estep.ESTEP_SMEM_MAX_LANES
+    top = estep.ESTEP_SMEM_MAX_LANES[kernel]
     assert estep.estep_route(top, kernel)[0] == "smem"
-    assert estep.estep_route(top + 1, kernel) == ("block", 0)
-    assert estep.estep_route(12 * top, kernel) == ("block", 0)
+    for W in (top + 1, 12 * top):
+        assert estep.estep_route(W, kernel) == ("global",
+                                                estep.global_tiling(W))
 
 
 @pytest.mark.parametrize("W,lpt", [(1, 1), (32, 1), (33, 2), (64, 2),
@@ -342,8 +417,8 @@ def test_warp_lpt(W, lpt):
     """The warp routes' lanes a thread: the smallest of 1/2/4/8/16 whose
     warp covers the band, none past 512 lanes; estep_route takes it up to
     each kernel's cutover, past it the cluster route up to the kernel's
-    ESTEP_CLUSTER_MAX_LANES, the smem route up to ESTEP_SMEM_MAX_LANES and
-    the block route past that."""
+    ESTEP_CLUSTER_MAX_LANES, the smem route's shared tier up to its
+    ESTEP_SMEM_MAX_LANES and its global tier past that."""
     assert estep.warp_lpt(W) == lpt
     for kernel, cut in estep.ESTEP_WARP_MAX_LANES.items():
         want = ("warp", lpt) if W <= cut else _wide_route(W, kernel)
@@ -396,20 +471,36 @@ def test_estep_cluster_table(kernel):
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
 def test_estep_smem_table(kernel):
     """The kernel's ESTEP_SMEM_TABLE: rows of growing width from past its
-    cluster route up to ESTEP_SMEM_MAX_LANES (65536: a 10 kb read's global
-    band against phage lambda), and at every width there the tiling it
-    gives is one the smem kernels take (at most MAX_CLUSTER_CTAS2 CTAs of
-    SMEM_MAX_WARPS warps, at most SMEM_MAX_LPT lanes a thread) that covers
-    the band with every CTA holding lanes, spreads each pair over more than
-    one SM, and keeps a CTA's lanes (K2 28 bytes a lane, K3 24 and its
-    tiles' row statistics) inside the 227 KB a CTA of an H100 may hold."""
+    cluster route up to its ESTEP_SMEM_MAX_LANES (K2 122880, K3 81920: the
+    most lanes a thread whose run fits a CTA of 16 warps, 16 CTAs a pair),
+    and at every width there the tiling it gives is one the shared tier
+    takes (at most MAX_CLUSTER_CTAS2 CTAs of SMEM_MAX_WARPS warps, at most
+    SMEM_MAX_LPT lanes a thread) that covers the band with every CTA
+    holding lanes, spreads each pair over more than one SM, and keeps a
+    CTA's run (K2 28 bytes a lane, K3 36: csrc/estep_smem.cu's
+    kFwdLaneBytes and kBwdLaneBytes) and its fixed arrays (K2 8 KB of
+    slots and end values; K3 4 KB of slots and its tiles' row statistics)
+    inside the 227 KB a CTA of an H100 may hold; one more lane a thread
+    at 16 CTAs of 16 warps would not fit.  Past the table the global tier
+    takes 16 CTAs of 16 warps (global_tiling)."""
+    import re
+
+    from quaff_tpu_torch import kernels
+
     table = estep.ESTEP_SMEM_TABLE[kernel]
     assert set(estep.ESTEP_SMEM_TABLE) == {"fwd_store", "bwd_counts"}
     widths = [row[0] for row in table]
     assert widths == sorted(widths)
     assert widths[0] > estep.ESTEP_CLUSTER_MAX_LANES[kernel]
-    assert widths[-1] == estep.ESTEP_SMEM_MAX_LANES == 65536
-    lane_bytes = {"fwd_store": 28, "bwd_counts": 24}[kernel]
+    assert widths[-1] == estep.ESTEP_SMEM_MAX_LANES[kernel] == {
+        "fwd_store": 122880, "bwd_counts": 81920}[kernel]
+    src = (pathlib.Path(kernels.__file__).parent / "csrc"
+           / "estep_smem.cu").read_text()
+    name = "kFwdLaneBytes" if kernel == "fwd_store" else "kBwdLaneBytes"
+    doubles = int(re.search(name + r" = (\d) \* sizeof\(double\) \+ "
+                            r"sizeof\(int\);", src).group(1))
+    lane_bytes = {"fwd_store": 28, "bwd_counts": 36}[kernel]
+    assert estep.ESTEP_SMEM_LANE_BYTES[kernel] == lane_bytes == 8 * doubles + 4
     for W in range(estep.ESTEP_CLUSTER_MAX_LANES[kernel] + 1, widths[-1] + 1,
                    97):
         route = estep.estep_route(W, kernel)
@@ -419,13 +510,17 @@ def test_estep_smem_table(kernel):
         assert 1 < nct <= estep.MAX_CLUSTER_CTAS2
         assert warps <= estep.SMEM_MAX_WARPS and lpt <= estep.SMEM_MAX_LPT
         assert (nct - 1) * warps * 32 * lpt < W  # every CTA holds lanes
-        stats = 2 * nct * warps * 16 * 4 if kernel == "bwd_counts" else 0
-        assert lpt * warps * 32 * lane_bytes + stats <= 227 * 1024
+        fixed = 8192 if kernel == "fwd_store" else 4096 + 2 * nct * warps * 64
+        assert estep.smem_cta_bytes(kernel, route[1]) == (
+            lpt * warps * 32 * lane_bytes + fixed) <= 227 * 1024
+    top = (16, 16, table[-1][1] + 1)
+    assert estep.smem_cta_bytes(kernel, top) > estep.SMEM_CTA_BYTES
+    assert estep.global_tiling(widths[-1] + 1)[2] == table[-1][1] + 1
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
 @pytest.mark.parametrize("W", [4096, 4097, 16384, 16385, 32768, 32769,
-                               65536, 65537])
+                               65536, 65537, 81920, 81921, 122880, 122881])
 def test_estep_route_bounds(W, kernel):
     """The routes at each bound: 4096 lanes the last of the narrow-band
     row (8 x 4 x 4, one fold, the narrow-band arithmetic); past it K2 the
@@ -434,22 +529,30 @@ def test_estep_route_bounds(W, kernel):
     the wide
     arithmetic and two levels (4 lanes a thread and 4 warps up to 8192
     lanes, then 8 and 4; 16385-32768 8 and 8, over up to 16 CTAs), then
-    its smem route; past 65536 the block route (wide).  estep_route_ok
-    takes each route's tiling and refuses a one-fold tiling past 8 CTAs,
-    a two-level one past 16 CTAs or the kernel's warps or any of K2's, an
-    smem tiling past 16 CTAs, 16 warps or 16 lanes a thread, a tiling that
-    does not cover the band, any cluster tiling past the kernel's
-    ESTEP_CLUSTER_MAX_LANES, any smem tiling past ESTEP_SMEM_MAX_LANES,
-    and a fourth element."""
+    its smem route (float64 cells); each kernel's shared tier up to its
+    widest band (K3 81920 lanes, 10 a thread; K2 122880, 15 a thread), the
+    global tier past it (16 CTAs of 16 warps, lanes a thread growing with
+    the band).  estep_route_ok takes each route's tiling and refuses a
+    one-fold tiling past 8 CTAs, a two-level one past 16 CTAs or the
+    kernel's warps or any of K2's, an smem tiling past 16 CTAs, 16 warps or
+    16 lanes a thread or whose run does not fit a CTA (where the global
+    tier takes the same tiling), a tiling that does not cover the band,
+    any cluster tiling past the kernel's ESTEP_CLUSTER_MAX_LANES, the
+    former ("block", 0), and a fourth element."""
     ok = estep.estep_route_ok
     kind, tiling = estep.estep_route(W, kernel)
-    if W > estep.ESTEP_SMEM_MAX_LANES:
-        assert (kind, tiling) == ("block", 0)
+    assert not ok(W, ("block", 0), kernel)
+    if W > estep.ESTEP_SMEM_MAX_LANES[kernel]:
+        assert (kind, tiling) == ("global", estep.global_tiling(W))
+        assert tiling[:2] == (16, 16) or W <= 122880
+        assert ok(W, (kind, tiling), kernel)
+        assert not ok(W, ("smem", tiling), kernel)  # its run does not fit
         for t in ((16, 8, 8), (16, 16, 4), (8, 8, 32)):
             assert not ok(W, ("cluster", t), kernel)
         for t in ((16, 16, 16), (16, 16, 9)):
             assert not ok(W, ("smem", t), kernel)
-        assert ok(W, ("block", 0), kernel)
+            assert ok(W, ("global", t), kernel) == (W <= 32 * 16 * 16 * t[2])
+        assert not ok(W, (kind, tiling + (2,)), kernel)
         return
     want = {4096: ("cluster", (8, 4, 4)),
             4097: {"fwd_store": ("smem", (6, 8, 3)),
@@ -461,7 +564,11 @@ def test_estep_route_bounds(W, kernel):
             32768: {"fwd_store": ("smem", (16, 16, 4)),
                     "bwd_counts": ("cluster", (16, 8, 8))},
             32769: ("smem", (13, 16, 5)),
-            65536: ("smem", (16, 16, 8))}[W]
+            65536: ("smem", (16, 16, 8)),
+            65537: ("smem", (15, 16, 9)),
+            81920: ("smem", (16, 16, 10)),
+            81921: ("smem", (15, 16, 11)),
+            122880: ("smem", (16, 16, 15))}[W]
     if isinstance(want, dict):
         want = want[kernel]
     assert (kind, tiling) == want
@@ -473,7 +580,9 @@ def test_estep_route_bounds(W, kernel):
         assert not ok(W, ("smem", (17, warps, lpt)), kernel)
         assert not ok(W, ("smem", (nct, 17, lpt)), kernel)
         assert not ok(W, ("smem", (nct, warps, 17)), kernel)
-        assert ok(W, ("smem", (16, 16, 16)), kernel)
+        assert not ok(W, ("smem", (16, 16, 16)), kernel)  # 16 lanes: no fit
+        assert ok(W, ("global", (16, 16, 16)), kernel)
+        assert ok(W, ("global", tiling), kernel)
         assert not ok(W, ("cluster", (16, 8, 8)), kernel) or (
             kernel == "bwd_counts" and W <= 32768)
         return
@@ -504,8 +613,9 @@ def test_estep_cluster_route_ok_refuses(kernel):
     ESTEP_CLUSTER_MAX_LANES, and anything that is not a (CTAs, warps,
     lanes) tuple; the wrappers raise on it before any launch, CPU tensors
     too.  Past ESTEP_WIDE_LANES every K3 cluster tiling takes two levels,
-    so up to 16 CTAs.  A forced smem tiling takes any width up to
-    ESTEP_SMEM_MAX_LANES, up to 16 CTAs, warps and lanes a thread."""
+    so up to 16 CTAs.  A forced smem tiling takes up to 16 CTAs, warps and
+    lanes a thread whose run fits a CTA (smem_cta_bytes), a forced global
+    tiling any lanes a thread; a band of any width."""
     ok = estep.estep_route_ok
     k3 = kernel == "bwd_counts"
     assert ok(2048, ("cluster", (1, 4, 16)), kernel)
@@ -533,25 +643,38 @@ def test_estep_cluster_route_ok_refuses(kernel):
     assert ok(top, ("cluster", (8, 8, 16)), kernel) == k3  # 8 CTAs
     for W, tiling in ((top + 1, (16, 8, 8)), (top + 1, (8, 16, 16))):
         assert not ok(W, ("cluster", tiling), kernel)  # past the cap
-    # the smem route: any lanes a thread up to 16, 16 CTAs of 16 warps
+    # the smem route: the shared tier any lanes a thread up to 16 whose
+    # run fits a CTA, 16 CTAs of 16 warps; the global tier any lanes
     for W, tiling in ((600, (1, 2, 16)), (600, (3, 2, 4)),
                       (4097, (16, 1, 9)), (65536, (16, 16, 8)),
-                      (65536, (8, 16, 16))):
+                      (65536, (16, 8, 16))):
         assert ok(W, ("smem", tiling), kernel)
+        assert ok(W, ("global", tiling), kernel)
     for W, tiling in ((600, (1, 1, 15)), (600, (17, 1, 16)),
                       (600, (1, 17, 16)), (600, (1, 2, 17)),
-                      (65537, (16, 16, 16)), (600, (0, 1, 16))):
+                      (65536, (8, 16, 16)), (65537, (16, 16, 16)),
+                      (600, (0, 1, 16))):
         assert not ok(W, ("smem", tiling), kernel)
+    for W, tiling in ((600, (1, 1, 19)), (600, (1, 2, 17)),
+                      (65536, (8, 16, 16)), (10**6, (16, 16, 123)),
+                      (10**6, (1, 1, 31250))):
+        assert ok(W, ("global", tiling), kernel)
+    for W, tiling in ((600, (1, 1, 18)), (600, (17, 1, 16)),
+                      (600, (1, 17, 16)), (600, (1, 1, 0)),
+                      (10**6, (16, 16, 122))):
+        assert not ok(W, ("global", tiling), kernel)
     for bad in (("cluster", None), ("cluster", (1, 4)), ("cluster", 0),
                 ("cluster", (1, 4, 4, 2)), ("cluster", (12, 1, 4, 2)),
                 ("smem", (1, 4)), ("smem", (1, 4, 4, 2)), ("smem", None),
-                None, ("warp",)):
+                ("global", (1, 4)), ("global", None), ("block", 0), None,
+                ("warp",)):
         assert not ok(600, bad, kernel)
     from test_torch_kernel_cuda import _tables, random_fill_inputs
 
     inp, v2 = random_fill_inputs(np.random.default_rng(4), _tables("packed"),
                                  600, B=1, Lx=60, Ly=8, device="cpu")
-    for bad in (("cluster", (1, 1, 4)), ("smem", (1, 1, 2))):
+    for bad in (("cluster", (1, 1, 4)), ("smem", (1, 1, 2)),
+                ("global", (1, 1, 2)), ("block", 0)):
         with pytest.raises(ValueError, match="no route"):
             if kernel == "fwd_store":
                 estep.fwd_store(**inp, tables=v2, route=bad)
@@ -601,6 +724,52 @@ def test_wide_read_routes_its_chunk_to_the_cluster_routes():
             assert routes == {"fwd_store": "warp", "bwd_counts": "warp"}
 
 
+def test_chunk_plan_counts_the_global_tier_slab(monkeypatch):
+    """The fused E-step's chunk plan counts the smem routes' global-tier
+    slab where a band takes it (estep.global_scratch_bytes: the larger of
+    K2's 28 and K3's 36 bytes a lane of a pair's 16 CTAs of 16 warps), and
+    nothing more for narrower bands, so a chunk cannot overrun the card;
+    it is a function of the widths alone: the same plan whatever the
+    card's free memory reports, or when asking raises.  (K3's global tier
+    starts past 81920 lanes, K2's past 122880.)"""
+    import types
+
+    from quaff_tpu_torch import trainer
+
+    counter = types.SimpleNamespace(
+        tables=ScoreTables.from_params(port_params(jax_default_params())))
+
+    def pair_bytes(width, rows, x_len):
+        return trainer.QuaffCounter._pair_bytes(counter, width, rows, x_len)
+
+    Km, Q = counter.tables.match_score.shape[1:3]
+    table = 4 * (4 * Km * Q + 4 * Q + 4 * len(counter.tables.m2m))
+    for W, slab in ((4038, 0), (66401, 0), (81920, 0),
+                    (81921, 15 * 16 * 32 * 11 * 36),
+                    (122881, 16 * 16 * 32 * 16 * 36),
+                    (132401, 16 * 16 * 32 * 17 * 36)):
+        assert estep.global_scratch_bytes(W) == slab
+        assert pair_bytes(W, 400, 132_000) == (
+            12 * W * 400 + table + 32 * W + 132_000 + 16 * 400 + slab)
+        assert (slab > 0) == any(estep.estep_route(W, k)[0] == "global"
+                                 for k in ("fwd_store", "bwd_counts"))
+    # two reads of 400 rows with a 132401-lane band: the budget holds
+    # them without their slabs, not with them
+    reads = [(0, 400, 132401, [132_000]), (1, 400, 132401, [132_000])]
+    bare = pair_bytes(132401, 400, 132_000) - estep.global_scratch_bytes(
+        132401)
+    budget = 2 * bare + estep.global_scratch_bytes(132401)
+    plan = trainer.estep_chunk_plan(reads, pair_bytes, budget=budget)
+    assert plan == ([[0], [1]], [])
+
+    def no_info(device=None):
+        raise RuntimeError("the chunk plan must not read free memory")
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_info)
+    assert trainer.estep_chunk_plan(reads, pair_bytes, budget=budget) == plan
+    assert trainer.estep_chunk_plan(reads, pair_bytes) == ([[0, 1]], [])
+
+
 def test_estep_card_variants_cover_both_table_homes():
     """K3's warp route keeps a pair's count table in shared memory while a
     block's kWarpsPerBlock tables fit kTableSmemBytes, else in partial
@@ -638,13 +807,14 @@ def test_estep_forced_route_on_cpu():
             rows, offs)
     part, sc = estep.bwd_counts_reference(*base)
     counts = ("launches", "warp_launches", "cluster_launches",
-              "smem_launches", "block_launches", "two_level_launches")
+              "smem_launches", "global_launches", "two_level_launches")
     before = {f: [getattr(getattr(estep, f), k) for k in counts]
               for f in ("fwd_store", "bwd_counts")}
     for route in (None, ("warp", 2), ("warp", 16), ("cluster", (1, 1, 4)),
                   ("cluster", (2, 1, 8)), ("cluster", (1, 3, 16)),
                   ("cluster", (9, 4, 4)), ("smem", (1, 1, 2)),
-                  ("smem", (2, 1, 1)), ("block", 0)):
+                  ("smem", (2, 1, 1)), ("global", (1, 1, 2)),
+                  ("global", (2, 1, 1)), ("global", (1, 1, 40))):
         if route != ("cluster", (9, 4, 4)):  # two levels: K3's alone
             got = estep.fwd_store(**inp, tables=v2, route=route)
             assert all(torch.equal(a, b)
@@ -653,11 +823,14 @@ def test_estep_forced_route_on_cpu():
         assert torch.equal(got[0], part) and torch.equal(got[1], sc)
     assert before == {f: [getattr(getattr(estep, f), k) for k in counts]
                       for f in ("fwd_store", "bwd_counts")}
-    for bad in (("warp", 1), ("warp", 3), ("block", None), ("block", 8),
-                ("tile", 0), ("cluster", (1, 1, 1)), ("cluster", (9, 1, 4)),
-                ("cluster", (1, 1, 2)), ("cluster", (1, 40, 4)),
-                ("cluster", (1, 1, 4, 2)), ("cluster", 4), ("smem", (1, 1, 1)),
-                ("smem", (17, 1, 2)), ("smem", (1, 1, 17))):
+    for bad in (("warp", 1), ("warp", 3), ("block", 0), ("block", None),
+                ("block", 8), ("tile", 0), ("cluster", (1, 1, 1)),
+                ("cluster", (9, 1, 4)), ("cluster", (1, 1, 2)),
+                ("cluster", (1, 40, 4)), ("cluster", (1, 1, 4, 2)),
+                ("cluster", 4), ("smem", (1, 1, 1)), ("smem", (17, 1, 2)),
+                ("smem", (1, 1, 17)), ("global", (1, 1, 1)),
+                ("global", (17, 1, 2)), ("global", (1, 17, 2)),
+                ("global", 4)):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=bad)
         with pytest.raises(ValueError, match="no route"):
@@ -668,27 +841,30 @@ def test_chip_smoke_route_helpers():
     """chip_smoke.py's E-step route helpers, pure functions of the width:
     the routes it holds against each other (the warp route where 512
     lanes cover the band, the cluster route at the table's tiling up to
-    the kernel's ESTEP_CLUSTER_MAX_LANES, else the smem route up to 65536
-    lanes, then the block route), the tilings its sweep times at phase
+    the kernel's ESTEP_CLUSTER_MAX_LANES, else the smem route's shared tier
+    with its global tier at the same tiling beside it, past the shared
+    tier the global tier alone), the tilings its sweep times at phase
     4b's width (K3's two-level cluster tilings, K2's smem tilings), and the
     check that a run's launch counts by route match its chunks'
     estep_route (a 423-lane chunk runs K2's warp route and K3's cluster
     route, a 4038-lane one both cluster routes, a 22882-lane one K2's smem
     route and K3's two-level cluster route, a 35000-lane one both smem
-    routes, a 70000-lane one both block routes)."""
+    routes, a 132401-lane one both global tiers)."""
     import chip_smoke
 
     assert chip_smoke._estep_routes(3, "fwd_store") == [
-        ("warp", 1), ("cluster", (1, 1, 4)), ("block", 0)]
+        ("warp", 1), ("cluster", (1, 1, 4))]
     assert chip_smoke._estep_routes(168, "bwd_counts") == [
-        ("warp", 8), _cluster_route(168, "bwd_counts"), ("block", 0)]
+        ("warp", 8), _cluster_route(168, "bwd_counts")]
     assert chip_smoke._estep_routes(512, "fwd_store") == [
-        ("warp", 16), _cluster_route(512, "fwd_store"), ("block", 0)]
+        ("warp", 16), _cluster_route(512, "fwd_store")]
     for k in ("fwd_store", "bwd_counts"):
-        for W in (4038, 4097, 22882, 35000):
-            assert chip_smoke._estep_routes(W, k) == [
-                _wide_route(W, k), ("block", 0)]
-        assert chip_smoke._estep_routes(65537, k) == [("block", 0)]
+        for W in (4038, 4097, 22882, 35000, 66401, 132401):
+            r = _wide_route(W, k)
+            assert chip_smoke._estep_routes(W, k) == [r] + (
+                [("global", r[1])] if r[0] == "smem" else [])
+        assert chip_smoke._estep_routes(132401, k) == [
+            ("global", estep.global_tiling(132401))]
     assert _wide_route(4097, "fwd_store")[0] == "smem"
     assert _wide_route(22882, "bwd_counts")[0] == "cluster"
     assert _wide_route(35000, "bwd_counts")[0] == "smem"
@@ -708,15 +884,21 @@ def test_chip_smoke_route_helpers():
     smem = chip_smoke._smem_tilings(22136)
     assert _smem_route(22136, "fwd_store")[1] == (15, 16, 3) in smem
     for k in ("fwd_store", "bwd_counts"):
-        assert all(estep.estep_route_ok(22136, ("smem", t), k) for t in smem)
+        # every one whose run fits a CTA (K2's all; K3's 36 bytes a lane
+        # not at 16 warps of 13 or more lanes a thread)
+        assert [estep.estep_route_ok(22136, ("smem", t), k)
+                for t in smem] == [
+            estep.smem_cta_bytes(k, t) <= estep.SMEM_CTA_BYTES for t in smem]
+    assert all(estep.estep_route_ok(22136, ("smem", t), "fwd_store")
+               for t in smem)
     assert len(set(smem)) == len(smem) and min(t[2] for t in smem) == 3
     chunks = [{"B": 4, "W": 168}, {"B": 2, "W": 423}, {"B": 14, "W": 4038},
               {"B": 8, "W": 22882}, {"B": 1, "W": 35000},
-              {"B": 1, "W": 70000}]
+              {"B": 1, "W": 132401}]
     n = {"fwd_store": {"warp_launches": 2, "cluster_launches": 1,
-                       "smem_launches": 2, "block_launches": 1},
+                       "smem_launches": 2, "global_launches": 1},
          "bwd_counts": {"warp_launches": 1, "cluster_launches": 3,
-                        "smem_launches": 1, "block_launches": 1}}
+                        "smem_launches": 1, "global_launches": 1}}
     routes = chip_smoke._check_routes("a run", chunks, n)
     assert routes == [
         {"fwd_store": ("warp", 8), "bwd_counts": ("warp", 8)},
@@ -726,7 +908,8 @@ def test_chip_smoke_route_helpers():
         {"fwd_store": _smem_route(22882, "fwd_store"),
          "bwd_counts": _cluster_route(22882, "bwd_counts")},
         {k: _smem_route(35000, k) for k in ("fwd_store", "bwd_counts")},
-        {"fwd_store": ("block", 0), "bwd_counts": ("block", 0)}]
+        {k: ("global", estep.global_tiling(132401))
+         for k in ("fwd_store", "bwd_counts")}]
     t423 = "{} x {} x {}".format(*_cluster_route(423, "bwd_counts")[1])
     t35 = "{} x {} x {}".format(*_smem_route(35000, "bwd_counts")[1])
     assert chip_smoke._route_text(chunks[:2], routes[:2]) == (
@@ -735,6 +918,6 @@ def test_chip_smoke_route_helpers():
     assert chip_smoke._route_text(chunks[4:5], routes[4:5]) == (
         f"(B=1, W=35000: K2 smem {t35}, K3 smem {t35})")
     n["bwd_counts"] = {"warp_launches": 2, "cluster_launches": 2,
-                       "smem_launches": 1, "block_launches": 1}
+                       "smem_launches": 1, "global_launches": 1}
     with pytest.raises(chip_smoke.SmokeFailure, match="bwd_counts"):
         chip_smoke._check_routes("a run", chunks, n)

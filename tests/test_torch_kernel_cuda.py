@@ -3,13 +3,15 @@ card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
 route at every lanes-a-thread instantiation, its cluster and smem routes
 at every tiling their route tables choose and at forced ones, the smem
 route's seams against the block route, and its block route),
-K2 and K3 (csrc/estep.cu, csrc/estep_cluster.cu: their warp routes at every
-lanes-a-thread instantiation, their cluster routes at the tilings their
-route tables choose up to 2048 lanes and at each table row's widest band,
-at forced tilings and against their own one-tile tiling, the two-level
-fold past 32 tiles and forced on a few, their block routes on global
-long-deletion bands, and each pairing of a K2 route with a K3 route), the
-count
+K2 and K3 (csrc/estep.cu, csrc/estep_cluster.cu, csrc/estep_smem.cu:
+their warp routes at every lanes-a-thread instantiation, their cluster
+routes at the tilings their route tables choose up to 2048 lanes and at
+each table row's widest band, at forced tilings and against their own
+one-tile tiling, the two-level fold past 32 tiles and forced on a few,
+their smem routes' shared and global tiers at every table row and past
+it, against a one-tile run and against each other, on global
+long-deletion bands up to 262144 lanes, and each pairing of a K2 route
+with a K3 route), the count
 reduction (bit for bit), K4 (csrc/ov_fill.cu: its warp route at every
 lanes-a-thread instantiation, its cluster route as K1's) and the probes'
 chain kernel (csrc/sol_probe.cu).  Needs an NVIDIA GPU and skips without
@@ -20,7 +22,8 @@ one.  This file imports no JAX, so it also runs on a host that has none:
 
 (`-k cluster` selects the cluster routes' tests, `-k two_level` the
 two-level fold's, `-k smem` the smem routes' of K1, K2 and K3, `-k
-fill_smem` K1's alone.)
+fill_smem` K1's alone, `-k estep_smem` K2's and K3's shared and global
+tiers.)
 
 Tolerances, the TPU kernels' own: scores rtol 1e-5 / atol 1e-3 (the
 kernels sum their delete chains and Forward end reductions in another
@@ -69,13 +72,12 @@ def _pairs(rng, n, with_qual=True, repeat=True):
 
 def _batch(case, rng, tt):
     if case == "wide":
-        # a full envelope wider than the block's shared memory holds: the
-        # row state of K1/K2 and of K3 lives in global scratch
+        # a full envelope wider than K1's block route keeps in shared
+        # memory: its row state lives in global scratch (K2's and K3's
+        # bands of this width take their smem routes)
         from quaff_tpu_torch import kernels
 
-        dev = torch.cuda.current_device()
-        limit = max(kernels.max_smem_lanes(dev),
-                    kernels.max_smem_lanes(dev, "bwd_counts"))
+        limit = kernels.max_smem_lanes(torch.cuda.current_device())
         xs = "".join("ACGT"[t] for t in rng.integers(0, 4, limit + 500))
         x = FastSeq(name="x", seq=xs)
         y = FastSeq(name="y", seq=xs[1000:1200], qual="5" * 200)
@@ -436,7 +438,7 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
     posterior on K2's own forward score, exp(K3's backward total - K2's
     forward score) (what the E-step's posterior reads), within 5e-3 of
     1; both are printed beside the plain version's forward drift."""
-    kinds = ("warp", "cluster", "smem", "block")
+    kinds = ESTEP_KINDS
     counts = ("launches",) + tuple(f"{k}_launches" for k in kinds)
     exact = fwd32 is not None
     fin = fwd_p > fill_v2.NEG_INF / 2
@@ -471,15 +473,20 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
             f64 = fwd_p[fin].double().cpu()
             k2_off = fwd[fin].double().cpu() - f64
             plain_off = fwd32[fin].double().cpu() - f64
-            # exp(back - fwd) = exp(back - f64) * exp(f64 - fwd)
+            # exp(back - fwd) = exp(back - f64) * exp(f64 - fwd); K3's
+            # own error takes out exp(f64 - fnorm), the rounding of its
+            # float32 normaliser (up to 2e-3 nats at these scores)
             own = bsp * torch.exp(-k2_off)
+            k3_own = bsp / torch.exp(f64 - wrow[1][fin].double().cpu())
             print(f"exact W={inp['doff'].shape[1]} K2 {r2} K3 {r3}: K2's "
                   f"forward - float64 fill {float(k2_off.abs().max()):.3g} "
                   f"nats (plain float32 "
                   f"{float(plain_off.abs().max()):.3g}); back-start "
                   f"posterior on K2's own forward within "
                   f"{float((own - 1).abs().max()):.3g} of 1, on the float64 "
-                  f"fill's {float((bsp - 1).abs().max()):.3g}")
+                  f"fill's {float((bsp - 1).abs().max()):.3g}; K3's "
+                  f"backward total off the float64 fill's "
+                  f"{float((k3_own - 1).abs().max()):.3g}")
             assert float(k2_off.abs().max()) < 5e-3
             assert float((own - 1).abs().max()) < 5e-3
         fwd2, rows2, offs2 = estep.fwd_store(**inp, tables=v2, local=local,
@@ -490,26 +497,32 @@ def _estep_routes_check(inp, v2, local, fwd_p, wrow, part_p, sc_p, fwd32,
         assert torch.equal(part, part2) and torch.equal(sc, sc2)
 
 
-# each kernel's cutover and the width past it
-# the warp routes' cutovers, and the block routes at their shared-memory
-# row state's 48 KB (K3's 8 words a lane at 1536 lanes, K2's 6 at 2048),
-# past which the launch must opt in to more (the opt-in also counts the
-# kernels' static arrays)
+# the route kinds of K2 and K3, each with its launch count
+ESTEP_KINDS = ("warp", "cluster", "smem", "global")
+
+# each kernel's cutover and the width past it, and 1536 and 2048 lanes
+# (the 48 KB of shared memory the former block routes' row state took)
 ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256, 1536, 2048}.union(
     *({c, c + 1} for c in estep.ESTEP_WARP_MAX_LANES.values())))
+
+
+def _global(W):
+    """The smem routes' global tier at its own tiling for a band of W
+    lanes: a route of both kernels at any width."""
+    return "global", estep.global_tiling(W)
 
 
 def _kernel_routes(W, kernel):
     """The routes of K2 or K3 held against each other on a band of W lanes:
     the warp route at the smallest lanes-a-thread that covers W (up to 512
     lanes), the cluster route at the table's tiling (up to the kernel's
-    ESTEP_CLUSTER_MAX_LANES) or else the smem route at its table's (up to
-    ESTEP_SMEM_MAX_LANES), the block route."""
-    routes = [("block", 0)]
+    ESTEP_CLUSTER_MAX_LANES) or else the smem route's shared tier at its
+    table's (up to ESTEP_SMEM_MAX_LANES[kernel]), the global tier."""
+    routes = [_global(W)]
     if W <= estep.ESTEP_CLUSTER_MAX_LANES[kernel]:
         routes.insert(0, ("cluster", fill_v2.cluster_tiling(
             W, estep.ESTEP_CLUSTER_TABLE[kernel])))
-    elif W <= estep.ESTEP_SMEM_MAX_LANES:
+    elif W <= estep.ESTEP_SMEM_MAX_LANES[kernel]:
         routes.insert(0, ("smem", fill_v2.cluster_tiling(
             W, estep.ESTEP_SMEM_TABLE[kernel])))
     if estep.warp_lpt(W) is not None:
@@ -526,8 +539,8 @@ def test_estep_routes_match_plain(W, variant):
     route with a K3 route (the layout they share), against
     fwd_store_reference and bwd_counts_reference: the warp route at the
     smallest lanes-a-thread that covers W (up to 512 lanes), the cluster
-    route at each kernel's table tiling and the block route; then both
-    kernels through estep_route's own route."""
+    route at each kernel's table tiling and the smem routes' global tier;
+    then both kernels through estep_route's own route."""
     _need_card()
     case = _estep_plain(variant, W, 61 + W)
     pairs = [(r2, r3) for r2 in _kernel_routes(W, "fwd_store")
@@ -1034,19 +1047,15 @@ def test_estep_cluster_table_tilings(kernel, tiling, W, variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [4097, 8192, 16384])
 def test_estep_block_routes_past_the_cluster_routes(W):
-    """The block routes on global bands of reads of up to 1024 rows over
-    refs of up to W / 2 + 64 bases, about 3300 deletions a read, against
-    the plain versions (K3 normalised by the plain forward scores): the
-    back-start posterior within 5e-3 of 1; K2's stored rows against the
-    plain version's.  Past ESTEP_WIDE_LANES they run the wide arithmetic
-    (each thread's delete chain relative to its largest opening term, K3's
-    rows scaled at their posterior mode); on this input the former
-    arithmetic put the back-start posterior 6.8e-3 off 1 (8192 lanes) and
-    the per-pair sums 2.2e-2 off the plain version's (16384).  K2's smem
-    route and K3's cluster route take these bands, so the block routes are
-    forced (K2's there with float64 cells); normalised by the float64
-    forward fill (_plain_case's exact), K2's forward score within 5e-3
-    nats of it."""
+    """The smem routes' global tier (the route that took the former block
+    routes' bands) forced on global bands of reads of up to 1024 rows over
+    refs of up to W / 2 + 64 bases, about 3300 deletions a read, where K2's
+    shared tier and K3's cluster route are estep_route's, against the
+    plain versions (normalised by the float64 forward fill, _plain_case's
+    exact): the back-start posterior within 5e-3 of 1, K2's forward score
+    within 5e-3 nats of the float64 fill; K2's stored rows against the
+    plain version's.  K3's global tier runs float64 cells here too (its
+    kernel's arithmetic at any width)."""
     _need_card()
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
@@ -1056,8 +1065,9 @@ def test_estep_block_routes_past_the_cluster_routes(W):
                                  _tables(tables), W, B=4, local=local,
                                  Lx=W // 2 + 64, Ly=min(W // 4, 1024))
     case = _plain_case(inp, v2, local, exact=True)
-    routes = (("block", 0), ("block", 0))
-    _estep_routes_check(*case, [routes])
+    routes = (_global(W), _global(W))
+    _estep_routes_check(*case, [routes, (routes[0], estep.estep_route(
+        W, "bwd_counts"))])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local, route=routes[0])[1:])
 
@@ -1065,24 +1075,26 @@ def test_estep_block_routes_past_the_cluster_routes(W):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["local", "global"])
 def test_estep_block_routes_past_the_widest_band(variant):
-    """Past ESTEP_SMEM_MAX_LANES both kernels take their block routes
-    (wide arithmetic), and a cluster or smem tiling that covers the band
-    is refused before any launch: on random strips over a ref as wide as
-    the band, against the plain versions; on the global long-deletion
-    recipe (reads of up to 1024 rows over refs of W / 2 + 64 bases), with
-    the float64 forward fill as the normaliser (_plain_case's exact)."""
+    """One lane past the widest band either kernel's shared tier takes
+    (ESTEP_SMEM_MAX_LANES) both kernels take the smem routes' global tier,
+    each thread's run in a per-pair slab of global memory, and a cluster
+    tiling or a shared-tier tiling whose run does not fit a CTA is refused
+    before any launch: on random strips over a ref as wide as the band,
+    against the plain versions; on the global long-deletion recipe (reads
+    of up to 1024 rows over refs of W / 2 + 64 bases), with the float64
+    forward fill as the normaliser (_plain_case's exact)."""
     _need_card()
-    W = estep.ESTEP_SMEM_MAX_LANES + 1
+    W = max(estep.ESTEP_SMEM_MAX_LANES.values()) + 1
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
-    assert routes == (("block", 0), ("block", 0))
+    assert routes == (_global(W), _global(W))
     local = variant == "local"
     kw = (dict(Lx=W + 64, Ly=120) if local
           else dict(Lx=W // 2 + 64, Ly=1024))
     inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
                                  _tables("packed"), W, B=4, local=local, **kw)
     for kind, tiling in (("cluster", (16, 8, 32)), ("cluster", (16, 16, 16)),
-                         ("smem", (16, 16, 16)), ("smem", (16, 16, 9))):
+                         ("smem", (16, 16, 16)), ("smem", (16, 16, 17))):
         assert W <= 32 * tiling[2] * tiling[1] * tiling[0]
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, local=local,
@@ -1095,16 +1107,18 @@ def test_estep_block_routes_past_the_widest_band(variant):
 
 # phase 4b's count -fast -kmatchoff chunk's width, the widest band of K3's
 # two-level tilings, the smem routes' first band, phase 4b's 34 kb count's
-# width, and the smem routes' widest band
+# width, 65536 lanes and each kernel's widest shared-tier band
 TWO_LEVEL_WIDTHS = (22136, estep.ESTEP_CLUSTER_MAX_LANES["bwd_counts"],
                     estep.ESTEP_CLUSTER_MAX_LANES["bwd_counts"] + 1, 35506,
-                    estep.ESTEP_SMEM_MAX_LANES)
+                    65536, *sorted(estep.ESTEP_SMEM_MAX_LANES.values()))
 
 
 def _fold_count(route):
     """The launch count a two-level route moves: two_level_launches for a
-    cluster route, smem_launches for an smem route."""
-    return "smem_launches" if route[0] == "smem" else "two_level_launches"
+    cluster route, smem_launches or global_launches for an smem route."""
+    if route[0] == "cluster":
+        return "two_level_launches"
+    return f"{route[0]}_launches"
 
 
 @pytest.mark.cuda
@@ -1114,16 +1128,18 @@ def test_estep_two_level_fold_matches_plain(W, variant):
     """K2's and K3's routes that fold in two levels (more than 32 tiles:
     each CTA folds its warps' tiles, then the CTAs fold): K3's two-level
     cluster route up to 32768 lanes, both kernels' smem routes (each
-    thread's lanes in shared memory, K2's in float64) past their cluster
-    routes, at phase 4b's widths, the smem routes' first and widest bands,
-    each paired with itself and with the other kernel's block route (the
-    layout they share), against the plain versions (K3 normalised by the
-    plain forward scores): local, random strips over a ref as wide as the
-    band and strips seamed on tile and CTA boundaries; global, one strip
-    over every diagonal of reads of up to 1024 rows and refs of W / 2 + 64
-    bases, normalised by the float64 forward fill (_plain_case's exact),
-    K2's forward score within 5e-3 nats of it.  K2's stored rows against
-    the plain version's; both kernels bit for bit on a rerun; each launch
+    thread's lanes in shared memory, or past the kernel's shared tier in
+    global memory; K2's cells float64, K3's past ESTEP_BWD_F64_LANES) past
+    their cluster routes, at phase 4b's widths, the smem routes' first band
+    and each kernel's widest shared-tier band, each paired with itself and
+    with the other kernel's global tier at its own tiling (the layout they
+    share), against the plain versions (K3 normalised by the plain forward
+    scores): local, random strips over a ref as wide as the band and
+    strips seamed on tile and CTA boundaries; global, one strip over every
+    diagonal of reads of up to 1024 rows and refs of W / 2 + 64 bases,
+    normalised by the float64 forward fill (_plain_case's exact), K2's
+    forward score within 5e-3 nats of it.  K2's stored rows against the
+    plain version's; both kernels bit for bit on a rerun; each launch
     counted on its fold."""
     _need_card()
     r2, r3 = (estep.estep_route(W, k) for k in ("fwd_store", "bwd_counts"))
@@ -1133,14 +1149,14 @@ def test_estep_two_level_fold_matches_plain(W, variant):
         if r[0] == "cluster":
             assert estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
         else:
-            assert r[0] == "smem"
-    assert r2[0] == "smem"
+            assert r[0] in ("smem", "global")
+    assert r2[0] in ("smem", "global")
     if variant == "local":
         kws = [dict(Lx=W + 64, Ly=120),
                dict(Lx=W + 64, Ly=120, seams=_tile_seams(W, r2[1]))]
     else:
         kws = [dict(Lx=W // 2 + 64, Ly=min(W // 4, 1024))]
-    bl = ("block", 0)
+    gl = _global(W)
     exact = variant == "global"
     for kw in kws:
         local, tables = ESTEP_VARIANTS[variant]
@@ -1148,13 +1164,16 @@ def test_estep_two_level_fold_matches_plain(W, variant):
                                      _tables(tables), W, B=3, local=local,
                                      **kw)
         case = _plain_case(inp, v2, local, exact=exact)
+        pairs = list(dict.fromkeys([(r2, r3), (r2, gl), (gl, r3)]))
         before = [getattr(estep.fwd_store, _fold_count(r2)),
                   getattr(estep.bwd_counts, _fold_count(r3))]
-        _estep_routes_check(*case, [(r2, r3), (r2, bl), (bl, r3)])
-        # each pairing runs each kernel twice, twice on the folded route
+        _estep_routes_check(*case, pairs)
+        # each pairing runs each kernel twice on its route
+        n2 = 2 * sum(_fold_count(q[0]) == _fold_count(r2) for q in pairs)
+        n3 = 2 * sum(_fold_count(q[1]) == _fold_count(r3) for q in pairs)
         assert [getattr(estep.fwd_store, _fold_count(r2)),
                 getattr(estep.bwd_counts, _fold_count(r3))] == [
-            before[0] + 4, before[1] + 4]
+            before[0] + n2, before[1] + n3]
         inp, v2, local = case[:3]
         _stored_rows_check(inp, v2, local, *estep.fwd_store(
             **inp, tables=v2, local=local, route=r2)[1:])
@@ -1162,35 +1181,40 @@ def test_estep_two_level_fold_matches_plain(W, variant):
 
 # the widths at which K2's float32 forward score was measured off the
 # float64 fill on the global long-deletion recipe (ROADMAP queue 3 item
-# 1), phase 4b's 34 kb width and the smem routes' widest band
+# 1), phase 4b's 34 kb width, 65536 lanes, the global tier at 131072 and
+# 262144 lanes (B=2 there: a [3, B, 1024, W] float32 store is 3.2 GB a
+# pair)
 LONG_DELETION_WIDTHS = (8192, 16384, 22136, 24576, 32768, 32769, 35506,
-                        estep.ESTEP_SMEM_MAX_LANES)
+                        65536, 131072, 262144)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", LONG_DELETION_WIDTHS)
 def test_estep_two_level_long_deletions(W):
     """K2's and K3's routes on the global long-deletion input (reads of up
-    to 1024 rows over refs of W / 2 + 64 bases, up to ~32000 deletions a
+    to 1024 rows over refs of W / 2 + 64 bases, up to ~130000 deletions a
     read) at LONG_DELETION_WIDTHS: K2's smem route, K3's two-level cluster
-    route up to 32768 lanes and its smem route past it: both routed
-    kernels and both block routes forced, the back-start posterior, with
-    the float64 forward fill as the normaliser, within 5e-3 of 1, K2's
-    forward score within 5e-3 nats of the float64 fill's and the
-    back-start posterior on K2's own forward score within 5e-3 of 1 (with
-    float32 cells K2 was up to 3.7e-2 nats off here), the tables and the
-    other per-pair sums against the plain versions."""
+    route up to 32768 lanes and its smem route past it (float64 cells),
+    each kernel's shared tier up to its widest band and the global tier
+    past it: both routed kernels and both global tiers forced, the
+    back-start posterior, with the float64 forward fill as the normaliser,
+    within 5e-3 of 1, K2's forward score within 5e-3 nats of the float64
+    fill's and the back-start posterior on K2's own forward score within
+    5e-3 of 1 (with float32 cells K2 was up to 3.7e-2 nats off here), the
+    tables and the other per-pair sums against the plain versions; K3's
+    posterior error printed (-rP)."""
     _need_card()
     inp, v2 = random_fill_inputs(np.random.default_rng(W + 7),
-                                 _tables("packed"), W, B=4,
+                                 _tables("packed"), W,
+                                 B=4 if W <= 65536 else 2,
                                  Lx=W // 2 + 64, Ly=1024, local=False)
     routes = tuple(estep.estep_route(W, k) for k in ("fwd_store",
                                                       "bwd_counts"))
-    assert routes[0][0] == "smem"
-    assert routes[1][0] == "smem" or estep.cluster_mode(
+    assert routes[0][0] in ("smem", "global")
+    assert routes[1][0] in ("smem", "global") or estep.cluster_mode(
         W, routes[1][1]) == estep.TWO_FOLD
     _estep_routes_check(*_plain_case(inp, v2, False, exact=True),
-                        [routes, (("block", 0), ("block", 0))])
+                        list(dict.fromkeys([routes, (_global(W),) * 2])))
 
 
 @pytest.mark.cuda
@@ -1209,10 +1233,10 @@ def test_estep_cluster_forced_tilings(tiling, variant):
     variants with strips seamed on tile and CTA boundaries (the last ending
     on a member lane at the last CTA's last lane), global ones over long
     reads whose tiles are dead in most rows; each paired with itself and
-    with the block route of the other kernel, against the plain versions
-    (global bands past ESTEP_WIDE_LANES with the float64 forward fill as
-    K3's normaliser, _plain_case's exact); K2's stored rows against the
-    plain version's."""
+    with the other kernel's smem route's global tier at the same tiling,
+    against the plain versions (global bands past ESTEP_WIDE_LANES with the
+    float64 forward fill as K3's normaliser, _plain_case's exact); K2's
+    stored rows against the plain version's."""
     _need_card()
     nct, warps, lpt = tiling
     W = nct * warps * 32 * lpt
@@ -1225,14 +1249,14 @@ def test_estep_cluster_forced_tilings(tiling, variant):
         inp, v2 = random_fill_inputs(rng, _tables(tables), W, B=3,
                                      Lx=W // 2 + 64, Ly=min(W // 4, 1024),
                                      local=False)
-    cl, bl = ("cluster", tiling), ("block", 0)
+    cl, gl = ("cluster", tiling), ("global", tiling)
     c2 = cl if estep.estep_route_ok(W, cl, "fwd_store") else ("smem", tiling)
     # global bands past ESTEP_WIDE_LANES take the float64 normaliser: on
     # (8, 2, 16)'s gap-order-1 band the float32-cell forward fill was
     # 9.3e-3 off it
     exact = not local and W > estep.ESTEP_WIDE_LANES
     _estep_routes_check(*_plain_case(inp, v2, local, exact=exact),
-                        [(c2, cl), (c2, bl), (bl, cl)])
+                        [(c2, cl), (c2, gl), (gl, cl)])
     _stored_rows_check(inp, v2, local, *estep.fwd_store(
         **inp, tables=v2, local=local, route=c2)[1:])
 
@@ -1378,13 +1402,14 @@ def test_estep_two_level_seams_match_one_fold(tiling, local):
     a tile or a lost insert cell from the previous CTA each moved the
     forward scores past 1e-3 or the tables past 1e-5 (measured on a CPU
     host with one of each broken), while a right fold changes only the
-    order of the sums.  K2 against its block route, in the same float64
-    arithmetic.  K3: local, 4096 lanes, against the one-fold table tiling
+    order of the sums.  K2 against one tile of the smem routes' global
+    tier (one warp, every lane of the band in its 32 threads' runs: no tile
+    or CTA seam), in the same float64 arithmetic.  K3: local, 4096 lanes, against the one-fold table tiling
     (8 x 4 x 4, whose own seams test_estep_cluster_seams_match_one_tile
     holds to the one-tile run); global, 4480 lanes (every path crosses
     every seam; ~4300 deletions a read), held by the exact tests alone,
-    since on these bands any two right routes' tables (the block route,
-    six two-level tilings) differ by up to 1.8e-5 of their largest entry,
+    since on these bands any two right routes' tables (the former block
+    route, six two-level tilings) differ by up to 1.8e-5 of their largest entry,
     the order of float32 sums over the deletion chains (measured on the
     card), past the bound that tells a right fold from a wrong one."""
     _need_card()
@@ -1402,8 +1427,14 @@ def test_estep_two_level_seams_match_one_fold(tiling, local):
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
     v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
     _seams_check(inp, v2, local, {
-        "fwd_store": (("smem", tiling), ("block", 0)),
+        "fwd_store": (("smem", tiling), _one_tile(W)),
         "bwd_counts": (("cluster", tiling), ref)}, k3=local)
+
+
+def _one_tile(W):
+    """The smem routes' global tier as one warp over a band of W lanes (any
+    lanes a thread): a route without tile or CTA seams."""
+    return "global", (1, 1, -(-W // 32))
 
 
 @pytest.mark.cuda
@@ -1413,15 +1444,18 @@ def test_estep_two_level_seams_match_one_fold(tiling, local):
                                        (65536, (16, 16, 8))], ids=str)
 def test_estep_smem_seams_match_the_block_route(W, tiling, local):
     """K2's and K3's smem routes past 32768 lanes (the table's tilings at
-    phase 4b's 34 kb width and at the widest band, and one of 9 CTAs of 8
+    phase 4b's 34 kb width and at 65536 lanes, and one of 9 CTAs of 8
     lanes a thread): each thread's run of lanes in shared memory, its
     tiles folded in its CTA, the CTAs at the cluster barrier, on bands of
     reads copied from their refs whose alignment diagonals lie either side
-    of a tile boundary and of every CTA boundary, against the block routes
-    (one block a pair: no tile, CTA or run seams) on the same inputs, at
-    _seams_check's bounds: K2 in the same float64 arithmetic; K3 local
-    (global bands' tables differ by the order of float32 sums over the
-    deletion chains, held by the exact tests)."""
+    of a tile boundary and of every CTA boundary, against one tile of the
+    global tier (one warp a pair: no tile or CTA seams) on the same inputs,
+    at _seams_check's bounds: K2 and K3 in the same float64 arithmetic, K3
+    local (global bands' tables differ by the order of the float32 sums of
+    their weights over the deletion chains, held by the exact tests).
+    Then the global tier at the same tiling: the same code on the same
+    sums, each thread's run in global memory, so the same bits as the
+    shared tier, both kernels (the tier seam)."""
     _need_card()
     assert estep.estep_route_ok(W, ("smem", tiling), "bwd_counts")
     lanes = _two_level_seam_lanes(W, tiling)
@@ -1429,23 +1463,158 @@ def test_estep_smem_seams_match_the_block_route(W, tiling, local):
     pb = _seam_pairs(np.random.default_rng(19), lanes, W=W)
     inp = fill_v2.kernel_inputs(to_device(pb, "cuda"))
     v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
-    _seams_check(inp, v2, local, {k: (("smem", tiling), ("block", 0))
+    _seams_check(inp, v2, local, {k: (("smem", tiling), _one_tile(W))
                                   for k in ("fwd_store", "bwd_counts")},
                  k3=local)
+    _tiers_check(inp, v2, local, tiling)
+
+
+def _tiers_check(inp, v2, local, tiling, k3=True):
+    """K2 (and with k3 K3, on K2's shared-tier store) on the smem routes'
+    shared and global tiers at the same tiling on the same inputs: the
+    same bits, each launch counted on its tier."""
+    base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2)
+    got, store, wrow = {}, None, None
+    for kind in ("smem", "global"):
+        n = [getattr(estep.fwd_store, f"{kind}_launches"),
+             getattr(estep.bwd_counts, f"{kind}_launches")]
+        out = estep.fwd_store(**inp, tables=v2, local=local,
+                              route=(kind, tiling))
+        if store is None:
+            fwd = out[0]
+            store = out[1:]
+            wrow = torch.stack([torch.full_like(fwd, 0.5),
+                                torch.where(fwd > fill_v2.NEG_INF / 2, fwd,
+                                            0.0)]).contiguous()
+        if k3:
+            out += estep.bwd_counts(*base, wrow, *store, local=local,
+                                    route=(kind, tiling))
+        torch.cuda.synchronize()
+        assert [getattr(estep.fwd_store, f"{kind}_launches"),
+                getattr(estep.bwd_counts, f"{kind}_launches")] == [
+            n[0] + 1, n[1] + int(k3)]
+        got[kind] = out
+    # rows and offsets past a pair's read length are left unwritten
+    ylen = inp["meta"][:, 1].tolist()
+    for i, (a, b) in enumerate(zip(got["smem"], got["global"])):
+        if i in (1, 2):
+            for p, n in enumerate(ylen):
+                assert torch.equal(a[..., p, :n, :] if i == 1 else a[p, :n],
+                                   b[..., p, :n, :] if i == 1 else b[p, :n])
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W, tiling", [
+    (estep.ESTEP_SMEM_MAX_LANES["bwd_counts"], (16, 16, 10)),
+    (estep.ESTEP_SMEM_MAX_LANES["fwd_store"], (16, 16, 15))], ids=str)
+def test_estep_smem_tiers_match(W, tiling):
+    """At each kernel's widest shared-tier band, on the tiling of its table
+    row there (K3's shared tier ends at 81920 lanes, K2's at 122880), both
+    tiers on random local strips over a ref as wide as the band give the
+    same bits (_tiers_check), K2 past K3's widest band on the tiling K2's
+    run fits; and both against the plain versions."""
+    _need_card()
+    for k in ("fwd_store", "bwd_counts"):
+        if estep.ESTEP_SMEM_MAX_LANES[k] == W:
+            assert estep.estep_route(W, k) == ("smem", tiling)
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 3),
+                                 _tables("packed"), W, B=2,
+                                 Lx=W + 64, Ly=120)
+    case = _plain_case(inp, v2, True)
+    k3_smem = estep.estep_route_ok(W, ("smem", tiling), "bwd_counts")
+    r3 = ("smem", tiling) if k3_smem else _global(W)
+    _estep_routes_check(*case, [(("smem", tiling), r3),
+                                (("global", tiling), ("global", tiling))])
+    _tiers_check(inp, v2, True, tiling, k3=k3_smem)
+
+
+def _estep_smem_table_tilings():
+    """(kernel, route, W): each ESTEP_SMEM_TABLE row's tiling at its
+    widest band, and the global tier's at the band one lane past each
+    kernel's table and at 131072 and 262144 lanes."""
+    out = []
+    for k, table in estep.ESTEP_SMEM_TABLE.items():
+        for W in [row[0] for row in table] + [table[-1][0] + 1, 131072,
+                                              262144]:
+            out.append((k, estep.estep_route(W, k), W))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, route, W", _estep_smem_table_tilings(),
+                         ids=str)
+def test_estep_smem_table_tilings(kernel, route, W):
+    """K2's or K3's smem route at each tiling of its ESTEP_SMEM_TABLE rows
+    on the row's widest band (random local strips over a ref as wide as
+    the band), and its global tier past the table, the other kernel on its
+    own route, against the plain versions; K2's stored rows against the
+    plain version's; each kernel rerun bit for bit."""
+    _need_card()
+    assert estep.estep_route(W, kernel) == route
+    assert route[0] == ("smem" if W <= estep.ESTEP_SMEM_MAX_LANES[kernel]
+                        else "global")
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 5),
+                                 _tables("packed"), W, B=2, Lx=W + 64,
+                                 Ly=120)
+    case = _plain_case(inp, v2, True)
+    pair = ((route, estep.estep_route(W, "bwd_counts"))
+            if kernel == "fwd_store"
+            else (estep.estep_route(W, "fwd_store"), route))
+    _estep_routes_check(*case, [pair])
+    _stored_rows_check(inp, v2, True, *estep.fwd_store(
+        **inp, tables=v2, local=True, route=pair[0])[1:])
+
+
+# forced smem tilings past 65536 lanes: the shared tier where a CTA's run
+# fits (8 warps of more lanes a thread), the global tier at 8 and 16
+# warps, at 65537, 98304, 131072 and 262144 lanes
+ESTEP_SMEM_FORCED = [
+    (65537, ("smem", (9, 16, 15))), (65537, ("global", (16, 8, 17))),
+    (98304, ("smem", (16, 16, 12))), (98304, ("global", (16, 8, 24))),
+    (98304, ("global", (8, 16, 24))), (131072, ("global", (16, 8, 32))),
+    (131072, ("global", (8, 16, 32))), (262144, ("global", (16, 8, 64))),
+    (262144, ("global", (16, 4, 128)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["local", "global-gap1"])
+@pytest.mark.parametrize("W, route", ESTEP_SMEM_FORCED, ids=str)
+def test_estep_smem_forced_tilings(W, route, variant):
+    """Both kernels on a forced smem tiling past 65536 lanes (K3 on the
+    global tier at the same tiling where its run does not fit a CTA),
+    against the plain versions: local random strips over a ref as wide as
+    the band, or a gap-order-1 global long-deletion band (reads of 1024
+    rows over refs of W / 2 + 64 bases) normalised by the float64 forward
+    fill (_plain_case's exact)."""
+    _need_card()
+    local, tables = ESTEP_VARIANTS[variant]
+    kw = (dict(Lx=W + 64, Ly=120) if local
+          else dict(Lx=W // 2 + 64, Ly=1024))
+    inp, v2 = random_fill_inputs(np.random.default_rng(W + 9),
+                                 _tables(tables), W, B=2, local=local, **kw)
+    r3 = (route if estep.estep_route_ok(W, route, "bwd_counts")
+          else ("global", route[1]))
+    assert estep.estep_route_ok(W, route, "fwd_store")
+    _estep_routes_check(*_plain_case(inp, v2, local, exact=not local),
+                        [(route, r3)])
 
 
 @pytest.mark.cuda
 def test_estep_cluster_refused_launch_raises():
     """K2's and K3's cluster routes at 16 CTAs with one fold are refused
     by the card, at 32 CTAs with two by the entries, and their smem routes
-    at 17 CTAs or 17 warps a CTA by the entries and at 64 lanes a thread
-    (more shared memory than a CTA may hold) by the card: they return an
-    error, which the wrappers' launch check raises.  The wrappers
-    themselves take no cluster of more than MAX_CLUSTER_CTAS CTAs with one
-    fold or MAX_CLUSTER_CTAS2 with two (none of K2's), nor an smem tiling
-    past 16 CTAs, 16 warps or 16 lanes a thread, nor a tiling that cannot
-    cover the band, has more warps a CTA than the kernel or is not (CTAs,
-    warps, lanes): they raise before any launch."""
+    at 17 CTAs or 17 warps a CTA by the entries, at 64 lanes a thread
+    (more shared memory than a CTA may hold) by the card, and on the
+    global tier with a slab one byte short of every CTA's run or a tiling
+    that does not cover the band by the entries: they return an error,
+    which the wrappers' launch check raises.  The wrappers themselves take
+    no cluster of more than MAX_CLUSTER_CTAS CTAs with one fold or
+    MAX_CLUSTER_CTAS2 with two (none of K2's), nor an smem tiling past 16
+    CTAs, 16 warps or 16 lanes a thread (or whose run does not fit a CTA),
+    nor a tiling that cannot cover the band, has more warps a CTA than the
+    kernel or is not (CTAs, warps, lanes): they raise before any launch."""
     _need_card()
     from quaff_tpu_torch import kernels
 
@@ -1490,27 +1659,42 @@ def test_estep_cluster_refused_launch_raises():
             kernels.check_launch(err, "bwd_counts", ("cluster", (nct, 1, 4)),
                                  "")
     # the smem routes: 17 CTAs or 17 warps a CTA (the entries), 64 lanes a
-    # thread of 16 warps (the card: 917504 bytes of shared memory a CTA)
-    for nct, warps, lpt in ((17, 1, 4), (1, 17, 4), (1, 16, 64)):
-        err = lib.quaff_fwd_store_smem(
-            inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
-            inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
-            inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(), S,
-            *tabs, B, int(local), lpt, nct, warps, out.data_ptr(),
-            rows.data_ptr(), offs.data_ptr(), stream)
-        assert err != 0
-        with pytest.raises(RuntimeError, match="smem route"):
-            kernels.check_launch(err, "fwd_store",
-                                 ("smem", (nct, warps, lpt)), "")
-        err = lib.quaff_bwd_counts_smem(
-            inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
-            inp["meta"].data_ptr(), inp["doff"].data_ptr(), W, *tabs,
-            wrow.data_ptr(), rows.data_ptr(), offs.data_ptr(), B, int(local),
-            lpt, nct, warps, part.data_ptr(), d_sc.data_ptr(), stream)
-        assert err != 0
-        with pytest.raises(RuntimeError, match="smem route"):
-            kernels.check_launch(err, "bwd_counts",
-                                 ("smem", (nct, warps, lpt)), "")
+    # thread of 16 warps (the card: 917504 bytes of shared memory a CTA);
+    # the global tier (kind "global": a slab) one byte short of every
+    # CTA's run, and 1 x 1 x 4 lanes, which does not cover the band
+    def short_slab(k, tiling):
+        buf = torch.empty(estep.slab_bytes(k, B, tiling), dtype=torch.uint8,
+                          device="cuda")
+        return buf, (buf.data_ptr(), buf.numel() - 1)
+
+    for kind, (nct, warps, lpt) in (("smem", (17, 1, 4)),
+                                    ("smem", (1, 17, 4)),
+                                    ("smem", (1, 16, 64)),
+                                    ("global", (4, 16, 1)),
+                                    ("global", (1, 1, 4))):
+        for k in ("fwd_store", "bwd_counts"):
+            buf, slab = (None, (0, 0)) if kind == "smem" else short_slab(
+                k, (nct, warps, lpt))
+            if (nct, warps, lpt) == (1, 1, 4):
+                slab = (slab[0], slab[1] + 1)  # whole, but W > 128 lanes
+            if k == "fwd_store":
+                err = lib.quaff_fwd_store_smem(
+                    inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+                    inp["meta"].data_ptr(), inp["doff"].data_ptr(), W,
+                    inp["seg_start"].data_ptr(), inp["seg_width"].data_ptr(),
+                    S, *tabs, B, int(local), lpt, nct, warps, *slab,
+                    out.data_ptr(), rows.data_ptr(), offs.data_ptr(), stream)
+            else:
+                err = lib.quaff_bwd_counts_smem(
+                    inp["x_tok"].data_ptr(), Lx, inp["keys"].data_ptr(), Ly,
+                    inp["meta"].data_ptr(), inp["doff"].data_ptr(), W, *tabs,
+                    wrow.data_ptr(), rows.data_ptr(), offs.data_ptr(), B,
+                    int(local), lpt, nct, warps, *slab, part.data_ptr(),
+                    d_sc.data_ptr(), stream)
+            assert err != 0
+            with pytest.raises(RuntimeError, match=f"{kind} route"):
+                kernels.check_launch(err, k, (kind, (nct, warps, lpt)), "")
+            del buf
     base = (inp["x_tok"], inp["keys"], inp["meta"], inp["doff"], v2, wrow)
     # too many CTAs (one fold: 8; two levels: 16), too few tiles, too many
     # warps a CTA, two levels (K2), a fourth element
@@ -1518,11 +1702,15 @@ def test_estep_cluster_refused_launch_raises():
                 (8, 9, 16), (9, 4, 4), (8, 5, 4, 2)):
         with pytest.raises(ValueError, match="no route"):
             estep.fwd_store(**inp, tables=v2, route=("cluster", bad))
-    for bad in ((17, 1, 4), (1, 17, 4), (1, 1, 17), (1, 1, 4), (1, 4, 4, 2)):
+    for kind, bad in (("smem", (17, 1, 4)), ("smem", (1, 17, 4)),
+                      ("smem", (1, 1, 17)), ("smem", (1, 1, 4)),
+                      ("smem", (1, 4, 4, 2)), ("global", (17, 1, 4)),
+                      ("global", (1, 17, 4)), ("global", (1, 1, 4)),
+                      ("global", (1, 1, 0)), ("global", (1, 4, 4, 2))):
         with pytest.raises(ValueError, match="no route"):
-            estep.fwd_store(**inp, tables=v2, route=("smem", bad))
+            estep.fwd_store(**inp, tables=v2, route=(kind, bad))
         with pytest.raises(ValueError, match="no route"):
-            estep.bwd_counts(*base, rows, offs, route=("smem", bad))
+            estep.bwd_counts(*base, rows, offs, route=(kind, bad))
     for bad in ((16, 1, 4), (9, 3, 16), (17, 2, 4), (1, 2, 4), (2, 16, 4),
                 (8, 9, 8), (8, 5, 4, 2)):
         with pytest.raises(ValueError, match="no route"):

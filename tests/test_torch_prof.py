@@ -219,10 +219,10 @@ def test_kernel_sass_parsers():
 
 
 @pytest.mark.parametrize("name, owner", [
-    ("void (anonymous namespace)::band_fill_kernel<false, true>(signed char "
-     "const*, int, int4 const*, int)", ("fwd_store", "block")),
-    ("void (anonymous namespace)::band_fill_kernel<false, true, true>(signed "
-     "char const*, int)", ("fwd_store", "block")),
+    ("void (anonymous namespace)::fwd_store_smem_kernel<true>(signed char "
+     "const*, int, int4 const*, int)", ("fwd_store", "global")),
+    ("void (anonymous namespace)::bwd_counts_smem_kernel<true>(signed "
+     "char const*, int)", ("bwd_counts", "global")),
     ("void band_fill_kernel<true, false>", ("band_fill", "block")),
     ("void band_fill_kernel<false, false, false>", ("band_fill", "block")),
     ("void band_fill_warp_kernel<false, 8>", ("band_fill", "warp")),
@@ -238,8 +238,8 @@ def test_kernel_sass_parsers():
      "1>(signed char const*, int)", ("fwd_store", "cluster")),
     ("void (anonymous namespace)::bwd_counts_cluster_kernel<16, 1>(signed "
      "char const*, int)", ("bwd_counts", "cluster")),
-    ("(anonymous namespace)::bwd_counts_kernel<true>(signed char const*, "
-     "int)", ("bwd_counts", "block")),
+    ("(anonymous namespace)::fwd_store_smem_kernel<false>(signed char "
+     "const*, int)", ("fwd_store", "smem")),
     ("void (anonymous namespace)::fwd_store_smem_kernel(signed char const*, "
      "int)", ("fwd_store", "smem")),
     ("void (anonymous namespace)::bwd_counts_smem_kernel(signed char "
@@ -249,8 +249,8 @@ def test_kernel_sass_parsers():
     ("void fwd_store_warp_kernel<16>", ("fwd_store", "warp")),
     ("void (anonymous namespace)::bwd_counts_warp_kernel<4>(signed char "
      "const*, int)", ("bwd_counts", "warp")),
-    ("(anonymous namespace)::bwd_counts_kernel(signed char const*, int)",
-     ("bwd_counts", "block")),
+    ("(anonymous namespace)::bwd_counts_smem_kernel<false>(signed char "
+     "const*, int)", ("bwd_counts", "smem")),
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("void ov_fill_warp_kernel<true, 4>", ("ov_fill", "warp")),
     ("void (anonymous namespace)::ov_fill_cluster_kernel<false, 8>(float "
@@ -264,10 +264,11 @@ def test_kernel_sass_parsers():
 def test_kernel_of_names_each_kernel(name, owner):
     """kernel_of attributes a kernel's demangled name (as torch.profiler
     or c++filt prints it) to the wrapper that launches it and its route:
-    K2's block and cluster routes are K1's block and cluster fills with
-    STORE set, its warp route and K3's have kernels of their own, as have
-    K3's and K4's cluster routes and K1's, K2's and K3's smem routes; a
-    PyTorch kernel is none of the port's."""
+    K2's cluster route is K1's cluster fill with STORE set, its warp route
+    and K3's have kernels of their own, as have K3's and K4's cluster
+    routes and K1's, K2's and K3's smem routes (K2's and K3's <true>
+    instantiations their global tier); K1's block route is
+    band_fill_kernel; a PyTorch kernel is none of the port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner
@@ -355,26 +356,35 @@ def test_f32_chain_block_chain_is_the_chain(wide):
     np.testing.assert_allclose(g[valid], want[valid], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("W", [4097, 6000, 12070, 16384, 22136])
+@pytest.mark.parametrize("W", [4097, 6000, 12070, 16384, 22136, 98304,
+                               131072])
 def test_estep_sweep_tilings_take_the_table_row(W):
-    """prof/estep_sweep.py's tilings at a band past 4096 lanes: each one
-    of the route estep_route picks that the kernel takes (K3's cluster
-    route in two levels, K2's smem route), one a count of warps a CTA at
-    each lanes a thread, the table's own tiling among them; its batch is
-    phase 2b's wide recipe (8 pairs whose bands span all W lanes)."""
+    """prof/estep_sweep.py's routes at a band past 4096 lanes: each one of
+    the route estep_route picks that the kernel takes (K3's cluster route
+    in two levels, K2's smem route; past 65536 lanes both smem tiers at 4,
+    8 and 16 warps a CTA), one a count of warps a CTA at each lanes a
+    thread, the table's own route among them; its batch is phase 2b's wide
+    recipe (8 pairs whose bands span all W lanes)."""
     from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.prof import estep_sweep
 
     for k in ("fwd_store", "bwd_counts"):
         kind, tiling = estep.estep_route(W, k)
-        assert kind == ("smem" if k == "fwd_store" else "cluster")
+        if W <= 65536:
+            assert kind == ("smem" if k == "fwd_store" else "cluster")
         ts = estep_sweep.tilings(W, k)
-        assert tiling in ts
-        assert len({t[1:] for t in ts}) == len(ts)
-        for t in ts:
-            assert estep.estep_route_ok(W, (kind, t), k)
-            if kind == "cluster":
-                assert estep.cluster_mode(W, t) == estep.TWO_FOLD
+        assert (kind, tiling) in ts
+        assert len(set(ts)) == len(ts)
+        if W <= 65536:
+            assert {r[0] for r in ts} == {kind}
+            assert len({r[1][1:] for r in ts}) == len(ts)
+        else:
+            assert {r[0] for r in ts} <= {"smem", "global"}
+            assert {r[1][1] for r in ts} == {4, 8, 16}
+        for r in ts:
+            assert estep.estep_route_ok(W, r, k)
+            if r[0] == "cluster":
+                assert estep.cluster_mode(W, r[1]) == estep.TWO_FOLD
     if W == 4097:
         pb, _ = estep_sweep.wide_batch(1000)
         assert pb.member.shape == (8, 1000)
