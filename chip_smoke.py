@@ -7,28 +7,28 @@ It builds everything from the checkout and runs its phases in order; any
 failure exits non-zero before the final line is printed.
 
   0  the card's name and power limit (nvidia-smi), torch and CUDA versions
-  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's warp, cluster, smem
-     and block routes, K2's and K3's warp, cluster and smem routes (the smem
-     routes' shared and global tiers), the count reduction, K4's warp and cluster routes and the probes' chain
-     kernel;
+  1  build the kernels (quaff_tpu_torch/csrc/*.cu: K1's, K2's and K3's
+     warp, cluster and smem routes (the smem routes' shared and global
+     tiers), the count reduction, K4's warp and cluster routes and the
+     probes' chain kernel;
      one nvcc per source, sm_90a; ptxas's registers and spills a kernel)
      and the host library libquaffio (native/*.cpp, one g++ per source),
      both at once
   2  K1 against its plain PyTorch version on the card: c8f30 against itself
      lane-packed at B=2048 (the align configuration; the warp route), plus
      forward, global (the cluster route), no-quality, gap-order-1 and a
-     band wider than the block route's shared memory (the cluster route);
-     every launch must take fill_route's route; on the two cluster-route
-     cases the block route forced on the same inputs, held against the
-     plain version, and every other cluster tiling timed alike, each
+     band of 12070 lanes (the cluster route); every launch must take
+     fill_route's route; on the two cluster-route cases the smem route's
+     global tier forced on the same inputs, held against the plain
+     version, and every other cluster tiling timed alike, each
      one's error logged against the plain version and against it in
      float64 (the float32 drift's witness); median times, in-envelope
      cells/s, the least time the card could take
   2b K2, K3 and the count reduction against their plain versions: B=64
      W~134 Ly=300 at gap order 0 and 1, global mode, a 257-512-lane batch
      (the warp routes' cutover: lanes-a-thread 16 against the cluster
-     routes), a band wider than K1's block route keeps in shared memory and
-     than the train path's 4096 lanes (W=12070: K2's smem route, its global
+     routes), a band wider than the train path's 4096 lanes (W=12070: K2's
+     smem route, its global
      tier beside it, and K3's two-level cluster fold); each of K2's and
      K3's routes (the warp route where 512 lanes cover the band, the
      cluster route at the table's tiling up to the kernel's widest, else
@@ -77,21 +77,24 @@ failure exits non-zero before the final line is printed.
      warp-route chunk with the cluster route forced on the same inputs;
      the first 16 reads again on the CPU (plain version) must give the
      same text; then the cluster route on the run's largest cluster-route
-     chunk against its plain version, the block route forced beside it
-     and every other cluster tiling timed alike, each one's error logged
+     chunk against its plain version, the smem route's global tier forced
+     beside it and every other cluster tiling timed alike, each one's
+     error logged
      against the plain version (the float64 witness of phase 2's cases
      is cut here for time)
   4b `align -kmatchoff` (no k-mer envelope, so bands wider than the
      cluster route's widest): a seeded 20 kb genome and 4 reads of 2-3 kb
-     through the CLI on cuda, every K1 launch on the smem route; the same
-     run with K1 forced onto the block route (fill_route patched here),
-     byte for byte the same text; one read of 1000 bases against a genome
-     of phage lambda's length (48.5 kb, W=49500: the smem route) and one of
-     400 against 132 kb (past FILL_SMEM_MAX_LANES: the block route), every
-     launch on that route; then the smem route on the 4 reads' chunk
-     against its plain version, the block route forced beside it and every
-     other smem tiling swept, the lambda-length chunk alike, and the block
-     route on its chunk against its plain version; `count -fast
+     through the CLI on cuda, every K1 launch on the smem route's shared
+     tier; the same run with K1 forced onto its global tier (fill_route
+     patched here), byte for byte the same text; one read of 1000 bases
+     against a genome of phage lambda's length (48.5 kb, W=49500), one of
+     400 against 132 kb (W=132396, 17 lanes a thread) on the shared tier,
+     and one of 400 against 264 kb (W=264400, past FILL_SMEM_MAX_LANES:
+     the global tier), every launch on that route; then the shared tier
+     on the 4 reads' chunk against its plain version, the global tier
+     forced beside it at the same tiling and every other smem tiling
+     swept, the lambda-length chunk alike, and the 132 kb and 264 kb
+     chunks against their plain versions; `count -fast
      -kmatchoff` on the same reads (W up to 22882: K2's smem route's and
      K3's two-level cluster route's path), every K2 launch on the smem
      route and K3 launch on the two-level fold, held against the plain
@@ -185,8 +188,8 @@ one of its timed runs.  Each kernel case of phases 2, 2c, 4, 4b, 6 and 7 also
 reruns the kernel on the same inputs and requires the same bits.
 
 Each path (phase 4 for K1's warp and cluster routes, phase 4b's align
--kmatchoff for its smem route and its align against 132 kb for its block
-route, phase 5 for K2's and K3's warp routes and
+-kmatchoff for its smem route's shared tier and its align against 264 kb
+for its global tier, phase 5 for K2's and K3's warp routes and
 the reduction, phase 5b's train with a wide read for their cluster
 routes, phase 4b's count -fast -kmatchoff for K3's two-level cluster
 route, its count against 34 kb for their smem routes' shared tier and
@@ -283,9 +286,8 @@ def phase1_build():
         t_host = ex.submit(timed, native.get_lib)
         t_cuda, t_host = t_cuda.result(), t_host.result()
     how = "built" if kernels.build_log is not None else "reused"
-    log(f"phase 1: kernel library (K1's warp, cluster, smem and block "
-        f"routes, K2, K3, reduce, K4's warp and cluster routes, P1/P2 "
-        f"chains) {how} in "
+    log(f"phase 1: kernel library (K1's warp, cluster and smem routes, K2, "
+        f"K3, reduce, K4's warp and cluster routes, P1/P2 chains) {how} in "
         f"{t_cuda:.1f} s "
         f"({kernels.library_path().relative_to(ROOT)})")
     from quaff_tpu_torch.prof.kernel_sass import demangle, parse_ptxas
@@ -547,7 +549,8 @@ def run_case(name, pb, tables, mode, local, card, n_runs=3, route=None,
 
 
 FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
-               "smem_launches", "block_launches")
+               "smem_launches", "global_launches")
+FILL_ROUTES = ("warp", "cluster", "smem", "global")
 
 
 def _route_counts():
@@ -560,15 +563,29 @@ def _route_label(route):
     """A route as the logs name it: the warp route with its lanes a
     thread, the cluster route with its tiling (CTAs a pair x warps a CTA x
     lanes a thread), the smem route's shared ("smem") and global tiers
-    alike, K1's block route."""
+    alike."""
     kind, arg = route
     if kind == "warp":
         return f"warp route, {arg} lanes a thread"
     if kind in ("cluster", "smem"):
         return "{} route, {} x {} x {}".format(kind, *arg)
-    if kind == "global":
-        return "smem route's global tier, {} x {} x {}".format(*arg)
-    return "block route"
+    return "smem route's global tier, {} x {} x {}".format(*arg)
+
+
+def _fill_source(kind):
+    """The source of K1's kernel on route `kind`: the smem route's two
+    tiers share band_fill_smem.cuh."""
+    return ("quaff_tpu_torch/csrc/band_fill"
+            + {"warp": "_warp", "cluster": "_cluster"}.get(kind, "_smem")
+            + ".cuh")
+
+
+def _fill_global(W):
+    """K1's smem route's global tier at its own tiling for a band of W
+    lanes: a route it has at any width."""
+    from quaff_tpu_torch.dp import fill_v2
+
+    return "global", fill_v2.global_tiling(W, fill_v2.FILL_GLOBAL_WARPS)
 
 
 def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
@@ -616,7 +633,7 @@ def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
     moved = {k: v - before[k] for k, v in _route_counts().items()}
     check(moved == {"launches": n_runs + 3,
                     **{f"{r}_launches": (n_runs + 3) * (want[0] == r)
-                       for r in ("warp", "cluster", "smem", "block")}},
+                       for r in FILL_ROUTES}},
           f"{name}: K1's launches by route {moved}, want all {n_runs + 3} "
           f"on the {want[0]} route")
     # the plain version: the comparison's run and n_plain - 1 more
@@ -691,9 +708,7 @@ def fill_case(name, inp, v2, mode, local, card, n_runs=3, route=None,
 
 def phase2_kernel(card):
     import numpy as np
-    import torch
 
-    from quaff_tpu_torch import kernels
     from quaff_tpu_torch.dp import fill_v2
     from quaff_tpu_torch.envelope import full_envelope, make_envelope
     from quaff_tpu_torch.io.fastseq import FastSeq, KmerIndex, read_fast_seqs
@@ -720,11 +735,12 @@ def phase2_kernel(card):
     run_case("forward", PairBatch.build_packed(pairs, tables), tables,
              "forward", True, card)
     # global paths need the whole ref in the band: full envelopes (W above
-    # 1024 lanes: the cluster route; the block route forced beside it)
-    run_case("global", PairBatch.build(
+    # 1024 lanes: the cluster route; the global tier forced beside it)
+    gpb = PairBatch.build(
         [(xg, yg, full_envelope(len(xg.seq), len(yg.seq)))
-         for xg, yg, _ in pairs[:16]], tables), tables, "viterbi", False, card,
-        route="cluster", also=(("block", 0),))
+         for xg, yg, _ in pairs[:16]], tables)
+    run_case("global", gpb, tables, "viterbi", False, card, route="cluster",
+             also=(_fill_global(gpb.member.shape[1]),))
     run_case("no-qual", PairBatch.build_packed(
         _synthetic_pairs(rng, 64, with_qual=False), tables), tables,
         "viterbi", True, card)
@@ -732,11 +748,9 @@ def phase2_kernel(card):
         (DATA / "params-gaporder1.json").read_text()))
     run_case("gaporder1", PairBatch.build_packed(pairs, gap1), gap1,
              "viterbi", True, card)
-    # a band wider than the block route's shared memory (its row state in
-    # global scratch) and narrower than the cluster route's widest: the
-    # cluster route, the block route forced beside it
-    limit = kernels.max_smem_lanes(torch.cuda.current_device())
-    xs = "".join("ACGT"[t] for t in rng.integers(0, 4, limit + 2000))
+    # a band of 12070 lanes, narrower than the cluster route's widest: the
+    # cluster route, the global tier forced beside it
+    xs = "".join("ACGT"[t] for t in rng.integers(0, 4, 11669))
     wide = []
     for b in range(8):
         s0 = int(rng.integers(0, len(xs) - 400))
@@ -746,10 +760,11 @@ def phase2_kernel(card):
         wide.append((FastSeq(name="xw", seq=xs), yw,
                      full_envelope(len(xs), 400)))
     wpb = PairBatch.build(wide, tables)
-    check(limit < wpb.member.shape[1] <= fill_v2.FILL_CLUSTER_MAX_LANES,
-          "the wide case fits shared memory, or no cluster route takes it")
-    run_case(f"wide (W > {limit} smem lanes)", wpb, tables, "viterbi", True,
-             card, route="cluster", also=(("block", 0),))
+    W = wpb.member.shape[1]
+    check(8192 < W <= fill_v2.FILL_CLUSTER_MAX_LANES,
+          f"the wide case's {W} lanes are not the cluster route's widest row")
+    run_case(f"wide (W={W})", wpb, tables, "viterbi", True, card,
+             route="cluster", also=(_fill_global(W),))
     return main
 
 
@@ -921,9 +936,9 @@ def phase4_workload(card, n_reads=512, genome_len=200_000, n_check=16):
             f"device busy {busy:.3f} s of {wall:.3f} s wall "
             f"({100 * busy / wall:.2f}%) [{card}]")
         cells = {r: sum(int(c) for rr, _, _, c in calls.calls if rr[0] == r)
-                 for r in ("warp", "cluster", "smem", "block")}
+                 for r in FILL_ROUTES}
         total = max(sum(cells.values()), 1)
-        for r in ("warp", "cluster", "smem", "block"):
+        for r in FILL_ROUTES:
             ws = sorted(W for rr, W, _, _ in calls.calls if rr[0] == r)
             check(len(ws) == counts[f"{r}_launches"],
                   f"phase 4: {len(ws)} {r}-route chunks but "
@@ -1006,18 +1021,19 @@ class _record_fill:
         return False
 
 
-def _align_kmatchoff(argv, kind, what, n_reads, card, block=False):
+def _align_kmatchoff(argv, kind, what, n_reads, card, force_global=False):
     """`align -kmatchoff` through the CLI on cuda (argv), every K1 launch
-    on the `kind` route and n_reads alignments; with block=True
-    fill_v2.fill_route is patched here to ("block", 0), so every launch
-    takes the block route.  Returns (text, K1's launches by route, the
-    inputs of the run's largest chunk)."""
+    on the `kind` route and n_reads alignments; with force_global=True
+    fill_v2.fill_route is patched here to the smem route's global tier at
+    its own tiling (_fill_global), so every launch takes it.  Returns
+    (text, K1's launches by route, the inputs of the run's largest
+    chunk)."""
     from quaff_tpu_torch.dp import fill_v2
 
     calls = _record_fill()
     orig = fill_v2.fill_route
-    if block:
-        fill_v2.fill_route = lambda W: ("block", 0)
+    if force_global:
+        fill_v2.fill_route = _fill_global
     try:
         with calls:
             t0 = time.perf_counter()
@@ -1044,23 +1060,28 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
     """`align -kmatchoff` (no k-mer envelope: every pair's band spans its
     whole ref and read, wider than the cluster route's widest): K1's smem
     route's path.  A seeded 20 kb genome and 4 reads of 2-3 kb through the
-    CLI on cuda; every launch must take the smem route; the same run with
-    K1 forced onto the block route (fill_route patched here) must print
-    the same text byte for byte.  Then one read of 1000 bases against a
-    genome of phage lambda's length (48.5 kb, W=49500) on the smem route,
-    and one of 400 bases against 132 kb (past FILL_SMEM_MAX_LANES: the
-    block route's path).  Then `count -fast -kmatchoff` on the 4 reads,
+    CLI on cuda; every launch must take the smem route's shared tier; the
+    same run with K1 forced onto its global tier (fill_route patched here)
+    must print the same text byte for byte.  Then one read of 1000 bases
+    against a genome of phage lambda's length (48.5 kb, W=49500) and one
+    of 400 bases against 132 kb (W=132396) on the shared tier, and one of
+    400 bases against 264 kb (W=264400, past FILL_SMEM_MAX_LANES: the
+    global tier's path).  Then `count -fast -kmatchoff` on the 4 reads,
     K2's smem route's and K3's two-level cluster route's path (bands past
     16384 lanes), the counts finite; and of one read against a 34 kb
     genome, one against 48.5 kb and one against 66 kb, the smem routes'
     shared tier (past 32768 lanes), and one against 132 kb (K1's 132 kb
-    case's genome and read), their global tier (past 122880 lanes).  Last, K1 at each align run's chunk against its plain version
-    (once): the smem route at the 4-read chunk with the block route forced
-    beside it and every other smem tiling swept, at the lambda-length
-    chunk with its sweep, and the block route at its own.  Returns {"smem",
-    "lambda", "block": (K1's launches, its fill_case result)}, the first
-    count run's E-step launches and its chunk with the fewest pairs, and
+    case's genome and read), their global tier (past 122880 lanes).  Last,
+    K1 at each align run's chunk against its plain version (once): the
+    shared tier at the 4-read chunk with the global tier forced beside it
+    at the same tiling and every other smem tiling swept, at the
+    lambda-length chunk with its sweep and at the 132 kb chunk, and the
+    global tier at the 264 kb chunk.  Returns {"smem", "lambda", "132 kb",
+    "global": (K1's launches, its fill_case result)}, the first count
+    run's E-step launches and its chunk with the fewest pairs, and
     {genome: (launches, chunk)} of the others."""
+    from quaff_tpu_torch.dp import fill_v2
+
     with tempfile.TemporaryDirectory() as d:
         tmp = pathlib.Path(d)
         gpath, rpath, _, _, _ = _workload(tmp, seed=9, n_reads=n_reads,
@@ -1070,17 +1091,18 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
         argv = ["align", str(gpath), str(rpath), "-kmatchoff", "-nothreshold"]
         out, counts, kw = _align_kmatchoff(argv, "smem", "align -kmatchoff",
                                            n_reads, card)
-        blk, _, _ = _align_kmatchoff(argv, "block", "align -kmatchoff with "
-                                     "K1 forced onto the block route",
-                                     n_reads, card, block=True)
-        check(blk == out, "phase 4b: align -kmatchoff's text on the smem "
-              "route differs from the block route's")
-        log("phase 4b: align -kmatchoff: the smem and block routes' texts "
+        glo, _, _ = _align_kmatchoff(argv, "global", "align -kmatchoff with "
+                                     "K1 forced onto the global tier",
+                                     n_reads, card, force_global=True)
+        check(glo == out, "phase 4b: align -kmatchoff's text on the smem "
+              "route's shared tier differs from its global tier's")
+        log("phase 4b: align -kmatchoff: the shared and global tiers' texts "
             "are byte-identical")
         k1 = {"smem": (counts, kw)}
         for label, seed, glen, rlen, kind in (
                 ("lambda", 13, 48_502, 1000, "smem"),
-                ("block", 14, 132_000, 400, "block")):
+                ("132 kb", 14, 132_000, 400, "smem"),
+                ("global", 15, 264_000, 400, "global")):
             sub = tmp / label
             sub.mkdir()
             g, r, _, _, _ = _workload(sub, seed=seed, n_reads=1,
@@ -1128,22 +1150,28 @@ def phase4b_kmatchoff(card, genome_len=20_000, n_reads=4):
                     ("132 kb", 14, 132_000, 400, "global"))}
     keys = ("x_tok", "keys", "meta", "doff", "seg_start", "seg_width")
     res = {}
-    for label, what, route, also in (
-            ("smem", "the align -kmatchoff chunk", "smem", (("block", 0),)),
-            ("lambda", "the lambda-length chunk", "smem", ()),
-            ("block", "the 132 kb chunk", "block", ())):
+    for label, what, route in (
+            ("smem", "the align -kmatchoff chunk", "smem"),
+            ("lambda", "the lambda-length chunk", "smem"),
+            ("132 kb", "the 132 kb chunk", "smem"),
+            ("global", "the 264 kb chunk", "global")):
         c, kw = k1[label]
+        inp = {k: kw[k] for k in keys}
+        tiling = fill_v2.fill_route(inp["doff"].shape[1])[1]
         res[label] = (c, fill_case(
-            f"phase 4b: {what}", {k: kw[k] for k in keys}, kw["tables"],
-            kw["mode"], kw["local"], card, route=route, mp=kw["max_prop"],
-            n_plain=1, also=also, witness=False))
+            f"phase 4b: {what}", inp, kw["tables"], kw["mode"], kw["local"],
+            card, route=route, mp=kw["max_prop"], n_plain=1,
+            also=(("global", tiling),) if label == "smem" else (),
+            witness=False))
     sm = res["smem"][1]
+    tier = _route_label(("global", sm["route"][1]))
     log(f"phase 4b: the align -kmatchoff chunk: "
-        f"{_route_label(sm['route'])} {sm['ms']:.3f} ms against the block "
-        f"route's {sm['also']['block route']:.3f} ms "
-        f"({sm['also']['block route'] / sm['ms']:.2f}x); the lambda-length "
-        f"chunk {res['lambda'][1]['ms']:.3f} ms, the 132 kb chunk's block "
-        f"route {res['block'][1]['ms']:.3f} ms [{card}]")
+        f"{_route_label(sm['route'])} {sm['ms']:.3f} ms, the {tier} "
+        f"{sm['also'][tier]:.3f} ms ({sm['also'][tier] / sm['ms']:.3f}x); the "
+        f"lambda-length chunk {res['lambda'][1]['ms']:.3f} ms, the 132 kb "
+        f"chunk ({_route_label(res['132 kb'][1]['route'])}) "
+        f"{res['132 kb'][1]['ms']:.3f} ms, the 264 kb chunk ({_route_label(res['global'][1]['route'])}) "
+        f"{res['global'][1]['ms']:.3f} ms [{card}]")
     return res, e_counts, e_chunk, wide
 
 
@@ -1541,9 +1569,7 @@ def _cutover_pairs(rng, n, band=420):
 
 def phase2b_estep(card):
     import numpy as np
-    import torch
 
-    from quaff_tpu_torch import kernels
     from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.dp.engine import PairBatch, to_device
     from quaff_tpu_torch.dp.fill_v2 import V2Tables
@@ -1582,11 +1608,11 @@ def phase2b_estep(card):
             f"({cut[k]['cluster']['ms'] / cut[k]['warp']['ms']:.2f}x), "
             f"ESTEP_WARP_MAX_LANES {estep.ESTEP_WARP_MAX_LANES[k]}"
             for k in ESTEP) + f" [{card}]")
-    # a band wider than K1's block route keeps in shared memory (the width
-    # the former block routes of K2 and K3 first kept in global scratch)
-    limit = kernels.max_smem_lanes(torch.cuda.current_device())
+    # a band of 12070 lanes, past the train path's widest (the width at
+    # which the former block routes first kept their rows in global
+    # scratch)
     rng = np.random.default_rng(8)
-    xs = "".join("ACGT"[t] for t in rng.integers(0, 4, limit + 2000))
+    xs = "".join("ACGT"[t] for t in rng.integers(0, 4, 11669))
     wide = []
     for b in range(8):
         s0 = int(rng.integers(0, len(xs) - 400))
@@ -1595,13 +1621,13 @@ def phase2b_estep(card):
                                   for q in rng.integers(3, 40, 400)))
         wide.append((FastSeq(name="xw", seq=xs), yw, full_envelope(len(xs), 400)))
     wpb = PairBatch.build(wide, tables)
-    check(wpb.member.shape[1] > max(limit, estep.ESTEP_WIDE_LANES),
-          "wide case fits shared memory or the train path's widest band")
+    check(wpb.member.shape[1] > estep.ESTEP_WIDE_LANES,
+          "the wide case fits the train path's widest band")
     # K2's smem route and K3's cluster route (wide arithmetic, two levels)
     # take it, every other tiling swept beside them (ESTEP_SMEM_TABLE's
     # and ESTEP_CLUSTER_TABLE's rows past 4096 lanes), K2's global tier at
     # its tiling beside its shared tier
-    case(f"wide (W > {limit} smem lanes)", wpb, tables, True, sweep=True)
+    case(f"wide (W={wpb.member.shape[1]})", wpb, tables, True, sweep=True)
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1757,11 +1783,11 @@ def _route_text(chunks, routes):
 
 def _route_name(route):
     """A route as the chunk logs name it: "warp 8", "cluster 1 x 16 x 8",
-    "smem 13 x 16 x 5", "global 16 x 16 x 17", K1's "block"."""
+    "smem 13 x 16 x 5", "global 16 x 16 x 17"."""
     kind, arg = route
     if kind in ("cluster", "smem", "global"):
         return "{} {} x {} x {}".format(kind, *arg)
-    return kind if kind == "block" else f"{kind} {arg}"
+    return f"{kind} {arg}"
 
 
 def phase3b_train_goldens(card):
@@ -2935,8 +2961,8 @@ def phase7_server(card, n_align=64, n_count=1, n_overlap=8, n_launch=1,
             f"({t_local:.2f} s); {wall:.2f} s wall, {_request_stats(waits)}; "
             f"K1 {counts['launches']} launches (warp "
             f"{counts['warp_launches']}, cluster {counts['cluster_launches']}, "
-            f"smem {counts['smem_launches']}, block "
-            f"{counts['block_launches']}; W {widths[0]}-{widths[-1]}), "
+            f"smem {counts['smem_launches']}, global "
+            f"{counts['global_launches']}; W {widths[0]}-{widths[-1]}), "
             f"{k1_ms:.3f} ms device (torch.profiler); device busy "
             f"{busy:.3f} s ({100 * busy / wall:.2f}% of the wall); the "
             f"jobs' float64 refills {sum(cells):.4g} cells, up to "
@@ -3534,7 +3560,7 @@ def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
         # plain version would take minutes)
         k1_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
         counts = k1_calls.counts
-        for r in ("warp", "cluster", "smem", "block"):
+        for r in FILL_ROUTES:
             if not counts[f"{r}_launches"]:
                 continue
             kw = min((kw for kw, c in zip(k1_calls.inputs, k1_calls.calls)
@@ -3547,8 +3573,7 @@ def phase8_mesh(card, n_align=128, n_train=32, n_overlap=16):
                             n_plain=1)
             rows.append(dict(
                 name=f"band_fill{'' if r == 'warp' else '_' + r}_mesh",
-                route="cuda", source="quaff_tpu_torch/csrc/band_fill"
-                f"{'' if r == 'block' else '_' + r}.cuh",
+                route="cuda", source=_fill_source(r),
                 replaces="quaff_tpu/dp/pallas_v2.py:491",
                 launches=counts[f"{r}_launches"], library_ms=None,
                 **{k: res[k] for k in k1_keys}))
@@ -3732,7 +3757,7 @@ def main() -> int:
           f"phase 4: the align path launched no K1 on the cluster route: "
           f"{k1_counts}")
     # the cluster route at the align path's largest cluster-route chunk,
-    # the block route forced beside it and the other tilings of the sweep
+    # the global tier forced beside it and the other tilings of the sweep
     # timed alike; its plain version once (tens of seconds; the float64
     # witness, ~19 s more, cut for the script's time limit)
     inp = {k: k1_chunk[k] for k in ("x_tok", "keys", "meta", "doff",
@@ -3741,11 +3766,12 @@ def main() -> int:
                         k1_chunk["tables"], k1_chunk["mode"],
                         k1_chunk["local"], card, route="cluster",
                         mp=k1_chunk["max_prop"], n_plain=1,
-                        also=(("block", 0),), witness=False)
+                        also=(_fill_global(inp["doff"].shape[1]),),
+                        witness=False)
     log(f"phase 4: the largest cluster-route chunk: cluster route "
-        f"{k1_wide['ms']:.3f} ms against the block route's "
-        f"{k1_wide['also']['block route']:.3f} ms "
-        f"({k1_wide['also']['block route'] / k1_wide['ms']:.2f}x) [{card}]")
+        f"{k1_wide['ms']:.3f} ms, the "
+        + "; ".join(f"{k} {ms:.3f} ms ({ms / k1_wide['ms']:.2f}x)"
+                    for k, ms in k1_wide["also"].items()) + f" [{card}]")
     del inp, k1_chunk
     lap("phase 4")
     k1_4b, e_two_counts, e_chunk, e_wide = phase4b_kmatchoff(card)
@@ -3900,19 +3926,18 @@ def main() -> int:
                     launches=k1_4b["smem"][0]["smem_launches"],
                     library_ms=None,
                     **{k: k1_4b["smem"][1][k] for k in k1_keys}),
-               dict(name="band_fill_block", route="cuda",
-                    source="quaff_tpu_torch/csrc/band_fill.cuh",
+               dict(name="band_fill_global", route="cuda",
+                    source="quaff_tpu_torch/csrc/band_fill_smem.cuh",
                     replaces="quaff_tpu/dp/pallas_v2.py:491",
-                    launches=k1_4b["block"][0]["block_launches"],
+                    launches=k1_4b["global"][0]["global_launches"],
                     library_ms=None,
-                    **{k: k1_4b["block"][1][k] for k in k1_keys})]
+                    **{k: k1_4b["global"][1][k] for k in k1_keys})]
     # K1 on the server's path (phase 7 (a)'s align jobs), a row per route
     # its jobs took
     for r, res in sorted(k1_server.items()):
         kernels.append(dict(
             name=f"band_fill{'' if r == 'warp' else '_' + r}_server",
-            route="cuda", source=f"quaff_tpu_torch/csrc/band_fill"
-            f"{'' if r == 'block' else '_' + r}.cuh",
+            route="cuda", source=_fill_source(r),
             replaces="quaff_tpu/dp/pallas_v2.py:491",
             launches=k1_server_counts[f"{r}_launches"], library_ms=None,
             **{k: res[k] for k in k1_keys}))

@@ -13,8 +13,9 @@ are dealt to the ranks in turn, each rank scores its own with K1 on its
 device, the scores are all_gathered, and rank 0 picks the winners, refills
 them and writes (quaff_tpu/aligner.py's _mesh_chunk_scores).  A chunk of
 any width stays on one rank: K1 takes any band on one card (past 16384
-lanes its smem route spreads a pair over up to 16 SMs, past 131072 its
-block route gives it one), so the JAX package's band-sharded fill
+lanes its smem route spreads a pair over up to 16 SMs, with its lanes in
+shared memory up to FILL_SMEM_MAX_LANES and in a per-pair slab of global
+memory past it), so the JAX package's band-sharded fill
 (parallel/spfill.py) is not ported.
 
 Not ported here: the JAX package's TPU workarounds (the cold-kernel native
@@ -67,7 +68,8 @@ ALIGN_LANE_CAP = 4096
 # Scoring chunks: at most this many pairs, and at most B*W lanes within
 # a budget of device memory.  BYTES_PER_LANE covers the float32 [B, W]
 # temporaries of K1's plain version (the kernel itself needs less: its
-# inputs plus, for bands too wide for shared memory, 24 bytes of scratch).
+# inputs plus, for bands past its shared tier, FILL_SMEM_LANE_BYTES, 16
+# bytes a lane of the global tier's slab).
 MAX_BATCH = 2048
 BYTES_PER_LANE = 64
 CPU_CHUNK_BYTES = 1 << 30

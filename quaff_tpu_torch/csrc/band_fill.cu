@@ -7,7 +7,7 @@
 // quaff_tpu_torch/dp/fill_v2.py::band_fill_reference; the input layout is
 // described there (kernel_inputs).
 //
-// Four routes, picked by dp/fill_v2.fill_route from the band's width W
+// Three routes, picked by dp/fill_v2.fill_route from the band's width W
 // alone:
 //
 //   warp route     W <= 32 * 16: band_fill_warp_kernel<VIT, LPT>
@@ -20,68 +20,30 @@
 //                  (band_fill_cluster.cuh), the pair's band tiled over the
 //                  warps of a thread-block cluster, each warp on the warp
 //                  route's row code, the tiles meeting once a row;
-//   smem route     W <= dp/fill_v2.FILL_SMEM_MAX_LANES:
-//                  band_fill_smem_kernel<VIT> (band_fill_smem.cuh), the
-//                  pair's band over a cluster of up to 16 CTAs of up to 16
-//                  warps, each thread's run of lanes in shared memory, the
-//                  tiles meeting once a row in the two-level fold of
-//                  cluster_smem.cuh;
-//   block route    wider bands: band_fill_kernel<VIT> (band_fill.cuh),
-//                  one block per pair, the band row in global scratch.
+//   smem route     every wider band: band_fill_smem_kernel<GLOBAL, VIT>
+//                  (band_fill_smem.cuh), the pair's band over a cluster of
+//                  up to 16 CTAs of up to 16 warps, each thread's run of
+//                  lanes in shared memory up to
+//                  dp/fill_v2.FILL_SMEM_MAX_LANES (the shared tier), in a
+//                  per-pair slab of global memory past it (the global
+//                  tier), the tiles meeting once a row in the two-level
+//                  fold of cluster_smem.cuh.
+// No route gives a pair one block (the former block route is deleted).
 //
 // What bounds them: neither bytes nor FLOPs (a pair of Ly rows and W lanes
 // moves about 16*Ly + W*Ly bytes); the warp route issues ~50 instructions
 // a lane and row, the cluster and smem routes add a cluster barrier and
-// scans over their tiles to each row's dependent chain, the block route
-// waits on three block barriers and a dependent chain of global loads (row
-// keys, then table entries) each row.
+// scans over their tiles to each row's dependent chain.
 
 #include "band_fill_cluster.cuh"
 #include "band_fill_smem.cuh"
 
 extern "C" {
 
-// Launches K1's block route on `stream`; returns the cudaError_t of the
-// launch.  Does not synchronise and allocates nothing: scratch is null (row
-// state in shared memory) or B*6*W floats of global memory.
-int quaff_band_fill(const void* x_tok, int Lx, const void* keys, int Ly,
-                    const void* meta, const void* doff, int W,
-                    const void* seg_start, const void* seg_width, int S,
-                    const void* match, const void* match_noq,
-                    const void* insert, const void* insert_noq, int Km, int Q,
-                    const void* ik, int n_ik, const void* trans, int B,
-                    int viterbi, int local, void* scratch, void* out,
-                    void* stream) {
-  if (B <= 0) return 0;
-  if (W < 1 || S < 1 || S > kMaxSegs || n_ik < 1) return (int)cudaErrorInvalidValue;
-  const auto* xt = static_cast<const int8_t*>(x_tok);
-  const auto* k4 = static_cast<const int4*>(keys);
-  const auto* m4 = static_cast<const int4*>(meta);
-  const auto* dof = static_cast<const int*>(doff);
-  const auto* s0 = static_cast<const int*>(seg_start);
-  const auto* sw = static_cast<const int*>(seg_width);
-  const auto* ma = static_cast<const float*>(match);
-  const auto* mn = static_cast<const float*>(match_noq);
-  const auto* in = static_cast<const float*>(insert);
-  const auto* inn = static_cast<const float*>(insert_noq);
-  const auto* ikt = static_cast<const float*>(ik);
-  const auto* tr = static_cast<const float*>(trans);
-  auto* scr = static_cast<float*>(scratch);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      viterbi ? launch_fill<true>(xt, Lx, k4, Ly, m4, dof, W, s0, sw, S, ma,
-                                  mn, in, inn, Km, Q, ikt, n_ik, tr, B, local,
-                                  scr, o, st)
-              : launch_fill<false>(xt, Lx, k4, Ly, m4, dof, W, s0, sw, S, ma,
-                                   mn, in, inn, Km, Q, ikt, n_ik, tr, B,
-                                   local, scr, o, st);
-  return (int)e;
-}
-
 // Launches K1's warp route on `stream` (W <= 32 * lpt, lpt one of 1, 2, 4,
-// 8, 16); returns the cudaError_t of the launch.  Same inputs and output as
-// quaff_band_fill, no scratch.
+// 8, 16); returns the cudaError_t of the launch.  Every K1 entry takes the
+// same inputs (dp/fill_v2.launch_args) and writes the same [B + B*S]
+// output: the pair scores, then the per-strip end maxima.
 int quaff_band_fill_warp(const void* x_tok, int Lx, const void* keys, int Ly,
                          const void* meta, const void* doff, int W,
                          const void* seg_start, const void* seg_width, int S,
@@ -119,7 +81,7 @@ int quaff_band_fill_warp(const void* x_tok, int Lx, const void* keys, int Ly,
 // nct CTAs (a thread-block cluster) of `warps` warps, lpt lanes a thread
 // (one of 4, 8, 16), at most kMaxTiles tiles, which must cover the band.
 // Returns the cudaError_t of the launch, or of the card's refusal of the
-// cluster shape.  Same inputs and output as quaff_band_fill, no scratch.
+// cluster shape.
 int quaff_band_fill_cluster(const void* x_tok, int Lx, const void* keys,
                             int Ly, const void* meta, const void* doff, int W,
                             const void* seg_start, const void* seg_width,
@@ -160,10 +122,11 @@ int quaff_band_fill_cluster(const void* x_tok, int Lx, const void* keys,
 
 // Launches K1's smem route on `stream`: each pair's band over nct CTAs (a
 // thread-block cluster, at most 16) of `warps` warps (at most 16), lpt
-// lanes a thread in shared memory, which must cover the band.  Returns the
-// cudaError_t of the launch, or of the card's refusal of the cluster shape
-// or its shared memory.  Same inputs and output as quaff_band_fill, no
-// scratch.
+// lanes a thread, which must cover the band; each thread's run in shared
+// memory (slab null: the shared tier) or in `slab`, slab_bytes of global
+// memory that must hold B * nct * warps * 32 * lpt lanes of 16 bytes (the
+// global tier).  Returns the cudaError_t of the launch, or of the card's
+// refusal of the cluster shape or its shared memory.
 int quaff_band_fill_smem(const void* x_tok, int Lx, const void* keys, int Ly,
                          const void* meta, const void* doff, int W,
                          const void* seg_start, const void* seg_width, int S,
@@ -171,11 +134,13 @@ int quaff_band_fill_smem(const void* x_tok, int Lx, const void* keys, int Ly,
                          const void* insert, const void* insert_noq, int Km,
                          int Q, const void* ik, int n_ik, const void* trans,
                          int B, int viterbi, int local, int lpt, int nct,
-                         int warps, void* out, void* stream) {
+                         int warps, void* slab, long long slab_bytes,
+                         void* out, void* stream) {
   if (B <= 0) return 0;
   if (W < 1 || lpt < 1 || nct < 1 || warps < 1 ||
       (long long)W > (long long)nct * warps * 32 * lpt || S < 1 ||
-      S > kMaxSegs || n_ik < 1 || Lx < 1)
+      S > kMaxSegs || n_ik < 1 || Lx < 1 ||
+      !slab_ok(slab, slab_bytes, B, nct, lpt, warps, kFillLaneBytes))
     return (int)cudaErrorInvalidValue;
   const FillTables tb{static_cast<const float*>(match),
                       static_cast<const float*>(match_noq),
@@ -189,22 +154,17 @@ int quaff_band_fill_smem(const void* x_tok, int Lx, const void* keys, int Ly,
   const auto* s0 = static_cast<const int*>(seg_start);
   const auto* sw = static_cast<const int*>(seg_width);
   const auto* tr = static_cast<const float*>(trans);
+  auto* sl = static_cast<unsigned char*>(slab);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       viterbi ? launch_fill_smem<true>(lpt, nct, warps, xt, Lx, k4, Ly, m4,
-                                       dof, W, s0, sw, S, tb, tr, B, local, o,
-                                       st)
+                                       dof, W, s0, sw, S, tb, tr, B, local,
+                                       sl, o, st)
               : launch_fill_smem<false>(lpt, nct, warps, xt, Lx, k4, Ly, m4,
                                         dof, W, s0, sw, S, tb, tr, B, local,
-                                        o, st);
+                                        sl, o, st);
   return (int)e;
-}
-
-// Widest band whose row state fits the block's shared memory on `device`
-// (6 words a lane next to the kernel's static reduction arrays).
-int quaff_band_fill_max_smem_lanes(int device) {
-  return smem_lanes(device, 6, 3 * 32 * (int)sizeof(float));
 }
 
 const char* quaff_cuda_error_string(int err) {

@@ -1,17 +1,17 @@
 // K1's warp route: the banded pair-HMM score fill with one warp per pair
 // and the band row in registers, for NVIDIA Hopper (sm_90a).
 //
-// It computes what band_fill_kernel<VIT, false> (band_fill.cuh, the "block
-// route") computes, on the same inputs and into the same [B + B*S] output,
-// for bands of at most 32 * LPT lanes; band_fill.cu launches it and
-// dp/fill_v2.band_fill picks the route and LPT from the band's width.
+// It computes what K1's other routes compute, on the same inputs and into
+// the same [B + B*S] output, for bands of at most 32 * LPT lanes;
+// band_fill.cu launches it and dp/fill_v2.band_fill picks the route and LPT
+// from the band's width.
 //
-// Why.  The block route gives each pair a block, one thread a lane, with
-// the band row in shared memory: every lane makes about ten shared-memory
-// accesses a row and the block passes three barriers a row, between two of
-// which one warp scans the warp totals alone.  At the align configuration
-// (W=203) a row costs about 4 SM-cycles an in-envelope cell, and the
-// kernel runs two orders of magnitude above its operation bound.
+// Why.  The former block route (deleted) gave each pair a block, one
+// thread a lane, with the band row in shared memory: every lane made about
+// ten shared-memory accesses a row and the block passed three barriers a
+// row, between two of which one warp scanned the warp totals alone.  At
+// the align configuration (W=203) a row cost about 4 SM-cycles an
+// in-envelope cell, two orders of magnitude above its operation bound.
 //
 // Design.
 //   - One warp fills one pair; a block holds kWarpsPerBlock independent
@@ -31,7 +31,7 @@
 //     thread the chain's value entering its run (the chain is -inf before
 //     lane 0, so that value is the exclusive prefix's b), and the thread
 //     replays its lanes.  Invalid lanes carry c = -FLT_MAX and stop the
-//     chain at strip seams and sentinel lanes, as in the block route.
+//     chain at strip seams and sentinel lanes, as in every route.
 //   - Row inputs one row ahead: while it fills row j the warp loads row
 //     j+1's four match scores (by ref token), insert score and transitions,
 //     whose addresses come from row j+1's key, loaded a row earlier still;
@@ -79,7 +79,7 @@ __device__ __forceinline__ int indel_ctx(const FillTables& tb, int4 kk) {
 }
 
 // row inputs of key kk; m2m/m2i follow the previous row's indel context,
-// m2d/m2e this row's (as in band_fill_kernel)
+// m2d/m2e this row's (as in the plain version, band_fill_reference)
 __device__ __forceinline__ RowIn load_row(const FillTables& tb, bool hq,
                                           int4 kk, int ctx_prev) {
   RowIn r;

@@ -1,7 +1,7 @@
 // What the shared-memory cluster routes ("smem routes") of K1
 // (band_fill_smem.cuh) and K2 (estep_smem.cu) share, for NVIDIA Hopper
-// (sm_90a): the row slots of the two-level fold, the fold itself and the
-// launch.
+// (sm_90a): the row slots of the two-level fold, the fold itself, the
+// global tier's slab check and the launch.
 //
 // A smem route tiles one pair's band over the warps of a thread-block
 // cluster of up to kMaxClusterCtas CTAs of up to kSmemMaxWarps warps: warp
@@ -231,6 +231,21 @@ __device__ __forceinline__ RowMeet<T> smem_meet(RowSlots<T>& s, int buf,
   m.nm = wi + 1 < nw ? nm_l : (last ? NEG : cm);
   m.ni = wi + 1 < nw ? ni_l : (last ? NEG : cn);
   return m;
+}
+
+// a tiling's run, bytes a CTA: its lanes times the kernel's bytes a lane
+inline size_t run_bytes(int lpt, int warps, size_t lane_bytes) {
+  return (size_t)lpt * warps * 32 * lane_bytes;
+}
+
+// the global tier's slab (null: the shared tier) must hold every CTA's run
+// of every pair
+inline bool slab_ok(const void* slab, long long slab_bytes, int B, int nct,
+                    int lpt, int warps, size_t lane_bytes) {
+  return slab == nullptr ||
+         (slab_bytes >= 0 &&
+          (size_t)slab_bytes >=
+              (size_t)B * nct * run_bytes(lpt, warps, lane_bytes));
 }
 
 // The launch of a smem kernel: the tiling's checks, the opt-in to its

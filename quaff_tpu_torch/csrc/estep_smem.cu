@@ -729,26 +729,12 @@ __global__ void __launch_bounds__(kSmemMaxWarps * 32, 1)
   }
 }
 
-// a tiling's run, bytes a CTA: its lanes times the kernel's bytes a lane
-inline size_t run_bytes(int lpt, int warps, size_t lane_bytes) {
-  return (size_t)lpt * warps * 32 * lane_bytes;
-}
-
 // K3's dynamic shared memory: the count table, the tiles' statistics and,
 // on the shared tier, the run
 inline size_t bwd_smem_bytes(int lpt, int nct, int warps, size_t table,
                              bool global) {
   return table * sizeof(float) + sizeof(float) * 2 * (size_t)nct * warps * 16 +
          (global ? 0 : run_bytes(lpt, warps, kBwdLaneBytes));
-}
-
-// the global tier's slab must hold every CTA's run of every pair
-inline bool slab_ok(const void* slab, long long slab_bytes, int B, int nct,
-                    int lpt, int warps, size_t lane_bytes) {
-  return slab == nullptr ||
-         (slab_bytes >= 0 &&
-          (size_t)slab_bytes >=
-              (size_t)B * nct * run_bytes(lpt, warps, lane_bytes));
 }
 
 }  // namespace

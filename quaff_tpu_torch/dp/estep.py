@@ -227,14 +227,6 @@ def warp_lpt(W: int):
     return next((lpt for lpt in WARP_LPTS if W <= 32 * lpt), None)
 
 
-def global_tiling(W: int) -> tuple:
-    """The global tier's tiling for a band of W lanes: the fewest lanes a
-    thread with which MAX_CLUSTER_CTAS2 CTAs of ESTEP_GLOBAL_WARPS warps
-    cover the band, its tiles over the fewest CTAs, spread evenly."""
-    lpt = -(-W // (32 * ESTEP_GLOBAL_WARPS * MAX_CLUSTER_CTAS2))
-    return cluster_tiling(W, ((W, lpt, ESTEP_GLOBAL_WARPS),))
-
-
 def estep_route(W: int, kernel: str) -> tuple:
     """The route of K2 (kernel "fwd_store") or K3 ("bwd_counts") for a band
     of W lanes, a function of W alone: ("warp", warp_lpt(W)) up to
@@ -242,7 +234,7 @@ def estep_route(W: int, kernel: str) -> tuple:
     ESTEP_CLUSTER_TABLE[kernel] up to ESTEP_CLUSTER_MAX_LANES[kernel] (in
     cluster_mode's fold); the smem route past it: ("smem", (nct, warps,
     lpt)) of ESTEP_SMEM_TABLE[kernel] up to ESTEP_SMEM_MAX_LANES[kernel],
-    else ("global", global_tiling(W))."""
+    else ("global", fill_v2.global_tiling(W, ESTEP_GLOBAL_WARPS))."""
     lpt = warp_lpt(W)
     if lpt is not None and 32 * lpt <= ESTEP_WARP_MAX_LANES[kernel]:
         return "warp", lpt
@@ -250,7 +242,7 @@ def estep_route(W: int, kernel: str) -> tuple:
         return "cluster", cluster_tiling(W, ESTEP_CLUSTER_TABLE[kernel])
     if W <= ESTEP_SMEM_MAX_LANES[kernel]:
         return "smem", cluster_tiling(W, ESTEP_SMEM_TABLE[kernel])
-    return "global", global_tiling(W)
+    return "global", fill_v2.global_tiling(W, ESTEP_GLOBAL_WARPS)
 
 
 def smem_cta_bytes(kernel: str, tiling) -> int:

@@ -12,9 +12,9 @@ score plus the end maximum of each lane-packed strip:
   band_fill             the wrapper: csrc/band_fill.cu on a CUDA tensor
                         (the warp route for bands of up to 32 * 16 lanes,
                         the cluster route up to FILL_CLUSTER_MAX_LANES, the
-                        smem route up to FILL_SMEM_MAX_LANES, the block
-                        route past it: fill_route), the plain version on a
-                        CPU tensor
+                        smem route past it, its shared tier up to
+                        FILL_SMEM_MAX_LANES and its global tier past that:
+                        fill_route), the plain version on a CPU tensor
   scores_v2             prep + band_fill + the -inf mapping
                         (scores_v2_device / scores_v2_traceable)
 
@@ -119,14 +119,33 @@ FILL_SMEM_STATIC_BYTES = 8192
 #     4.897; two reads of 8600 rows (Viterbi / Forward) at 22882 lanes 15
 #     x 16 x 3 25.764 / 65.726, 15 x 8 x 6 25.817 / 75.866, at 131072 16 x
 #     16 x 16 52.152 / 160.919, the fastest of 12.
+#   - past 131072 lanes (prof/fill_sweep.py --rows 3000, Viterbi, B=2 /
+#     B=8): at 131073 lanes 16 x 16 x 17 19.666 / 39.045 ms, 15 x 16 x 18
+#     20.268 / 40.309, 10 x 16 x 27 26.406 / 52.448, the global tier at 16
+#     x 16 x 17 31.981 / 62.665 and at 16 x 8 x 33 52.326 / 67.800; at
+#     188416 16 x 16 x 23 23.823 / 47.561, 14 x 16 x 27 26.575 / 52.942;
+#     at 221184 16 x 16 x 27 26.838 / 53.221, the global tier there 49.525
+#     / 94.384; at 264400 (the global tier alone) 16 x 16 x 33 62.810 /
+#     122.230, 16 x 8 x 65 133.876 / 189.324, 16 x 4 x 130 263.895 /
+#     360.981.  Only CTAs of 16 warps cover these bands in 16 CTAs; at B=8
+#     the batch took twice B=2's time (8 clusters of 16 one-SM CTAs, in two
+#     waves).
 # So up to 65536 lanes CTAs of 8 warps, 16 of them, with the fewest lanes
 # a thread that cover the band (the multi-pair chunks of align -kmatchoff
-# gain 1.5x, a single read loses up to 7.5%); past it 16 warps a CTA (no
-# multi-pair chunk measured there).
+# gain 1.5x, a single read loses up to 7.5%); past it 16 warps a CTA with
+# the fewest lanes a thread, up to 27, the most whose run a CTA holds (16
+# * 32 * 16 * 27 + FILL_SMEM_STATIC_BYTES = 229376 bytes): 221184 lanes,
+# past which the global tier takes the band at FILL_GLOBAL_WARPS (it costs
+# 61-85% over the shared tier at one tiling).
 FILL_SMEM_TABLE = (tuple((4096 * lpt, lpt, 8) for lpt in range(6, 17))
-                   + tuple((8192 * lpt, lpt, 16) for lpt in range(9, 17)))
-# the widest band the smem route takes; wider ones take the block route
+                   + tuple((8192 * lpt, lpt, 16) for lpt in range(9, 28)))
+# the widest band the smem route's shared tier takes; wider ones take its
+# global tier
 FILL_SMEM_MAX_LANES = FILL_SMEM_TABLE[-1][0]
+# the global tier's warps a CTA: 16 CTAs of them, lanes a thread growing
+# with the band (global_tiling); 16 CTAs of 8 or 4 warps took 1.08-4.2x
+# its time in the sweep above
+FILL_GLOBAL_WARPS = 16
 
 
 def fill_cluster_max_warps(lpt: int) -> int:
@@ -147,6 +166,22 @@ def cluster_tiling(W: int, table) -> tuple:
     raise ValueError(f"no cluster tiling covers a band of {W} lanes")
 
 
+def global_tiling(W: int, warps: int) -> tuple:
+    """The smem routes' global-tier tiling (K1's and the E-step's) for a
+    band of W lanes at `warps` warps a CTA at most: the fewest lanes a
+    thread with which MAX_CLUSTER_CTAS2 CTAs of that many warps cover the
+    band, its tiles over the fewest CTAs, spread evenly."""
+    lpt = -(-W // (32 * warps * MAX_CLUSTER_CTAS2))
+    return cluster_tiling(W, ((W, lpt, warps),))
+
+
+def fill_slab_bytes(B: int, tiling) -> int:
+    """K1's global-tier slab for B pairs at `tiling` (nct, warps, lpt):
+    every CTA's run, FILL_SMEM_LANE_BYTES a lane."""
+    nct, warps, lpt = tiling
+    return B * nct * warps * 32 * lpt * FILL_SMEM_LANE_BYTES
+
+
 def cluster_route_ok(W: int, tiling, lpts, max_warps) -> bool:
     """Whether a cluster tiling (nct, warps, lpt) is one the kernel has and
     covers W lanes, in a cluster of at most MAX_CLUSTER_CTAS CTAs."""
@@ -163,9 +198,10 @@ def fill_route(W: int) -> tuple:
     """K1's route for a band of W lanes, a function of W alone: ("warp",
     lpt) with the smallest lpt of WARP_LPTS whose warp covers the band
     (32 * lpt >= W); past 32 * 16 lanes ("cluster", (nct, warps, lpt)) of
-    cluster_tiling up to FILL_CLUSTER_MAX_LANES; ("smem", (nct, warps,
-    lpt)) of FILL_SMEM_TABLE up to FILL_SMEM_MAX_LANES; ("block", 0) past
-    it: one block per pair."""
+    cluster_tiling up to FILL_CLUSTER_MAX_LANES; the smem route past it:
+    ("smem", (nct, warps, lpt)) of FILL_SMEM_TABLE up to
+    FILL_SMEM_MAX_LANES (the shared tier), else ("global",
+    global_tiling(W, FILL_GLOBAL_WARPS))."""
     for lpt in WARP_LPTS:
         if 32 * lpt >= W:
             return "warp", lpt
@@ -173,16 +209,17 @@ def fill_route(W: int) -> tuple:
         return "cluster", cluster_tiling(W, FILL_CLUSTER_TABLE)
     if W <= FILL_SMEM_MAX_LANES:
         return "smem", cluster_tiling(W, FILL_SMEM_TABLE)
-    return "block", 0
+    return "global", global_tiling(W, FILL_GLOBAL_WARPS)
 
 
 def _fill_route_ok(W: int, route) -> bool:
     """Whether `route` is one K1 has that covers a band of W lanes: ("warp",
     lpt) with 32 * lpt >= W; ("cluster", (nct, warps, lpt)) as
-    cluster_route_ok; ("smem", (nct, warps, lpt)) of at most
-    MAX_CLUSTER_CTAS2 CTAs of at most SMEM_MAX_WARPS warps, at least one
-    lane a thread, tiles that cover the band and a CTA that fits the card's
-    shared memory; or ("block", 0)."""
+    cluster_route_ok; ("smem", (nct, warps, lpt)) or ("global", (nct,
+    warps, lpt)): at most MAX_CLUSTER_CTAS2 CTAs of at most SMEM_MAX_WARPS
+    warps, at least one lane a thread and tiles that cover the band, the
+    shared tier's CTA fitting the card's shared memory, the global tier's
+    any lanes a thread."""
     try:
         kind, arg = route
     except (TypeError, ValueError):
@@ -192,16 +229,16 @@ def _fill_route_ok(W: int, route) -> bool:
     if kind == "cluster":
         return cluster_route_ok(W, arg, FILL_CLUSTER_LPTS,
                                 fill_cluster_max_warps)
-    if kind == "smem":
-        try:
-            nct, warps, lpt = (int(v) for v in arg)
-        except (TypeError, ValueError):
-            return False
-        return (1 <= nct <= MAX_CLUSTER_CTAS2 and 1 <= warps <= SMEM_MAX_WARPS
-                and lpt >= 1 and W <= 32 * lpt * warps * nct
-                and (FILL_SMEM_LANE_BYTES * 32 * warps * lpt
-                     + FILL_SMEM_STATIC_BYTES <= SMEM_OPTIN_BYTES))
-    return kind == "block" and arg == 0
+    if kind not in ("smem", "global"):
+        return False
+    try:
+        nct, warps, lpt = (int(v) for v in arg)
+    except (TypeError, ValueError):
+        return False
+    return (1 <= nct <= MAX_CLUSTER_CTAS2 and 1 <= warps <= SMEM_MAX_WARPS
+            and lpt >= 1 and W <= 32 * lpt * warps * nct
+            and (kind == "global" or FILL_SMEM_LANE_BYTES * 32 * warps * lpt
+                 + FILL_SMEM_STATIC_BYTES <= SMEM_OPTIN_BYTES))
 
 
 class V2Tables:
@@ -522,15 +559,16 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
     """K1 on the tensors' device: csrc/band_fill.cu for CUDA tensors, on
     the route fill_route picks from the band's width (each launch adds one
     to `band_fill.launches` and to `warp_launches`, `cluster_launches`,
-    `smem_launches` or `block_launches`), the plain version for CPU
+    `smem_launches` or `global_launches`), the plain version for CPU
     tensors.  Same inputs and [B + B*S] float32 output for all.  A failed
     launch, or a cluster shape or shared memory the card refuses, raises on
     every route; none gives way to another.
 
     route, ("warp", lpt), ("cluster", (nct, warps, lpt)), ("smem", (nct,
-    warps, lpt)) or ("block", 0), launches that route instead, for holding
-    the routes against each other on the same inputs; it must cover the
-    band (_fill_route_ok).
+    warps, lpt)) or ("global", (nct, warps, lpt)), launches that route
+    instead, for holding the routes against each other on the same inputs;
+    it must cover the band (_fill_route_ok).  The global tier's slab
+    (fill_slab_bytes) is allocated here, as every output is.
 
     max_prop bounds the plain version's shift-scan steps; the kernels'
     delete scans are sequential inside a thread and a tree across threads,
@@ -578,20 +616,14 @@ def band_fill(x_tok, keys, meta, doff, seg_start, seg_width,
             nct, warps, lpt = arg
             err = lib.quaff_band_fill_cluster(*args, lpt, nct, warps,
                                               out.data_ptr(), stream)
-        elif kind == "smem":
-            nct, warps, lpt = arg
-            err = lib.quaff_band_fill_smem(*args, lpt, nct, warps,
-                                           out.data_ptr(), stream)
         else:
-            scratch = None
-            if W > kernels.max_smem_lanes(dev.index or 0):
-                # row state too wide for shared memory: a global scratch
-                # row set per pair (6 words per lane, see band_fill.cuh)
-                scratch = torch.empty(B * 6 * W, dtype=torch.float32,
-                                      device=dev)
-            err = lib.quaff_band_fill(
-                *args, 0 if scratch is None else scratch.data_ptr(),
-                out.data_ptr(), stream)
+            nct, warps, lpt = arg
+            slab = (torch.empty(fill_slab_bytes(B, arg), dtype=torch.uint8,
+                                device=dev) if kind == "global" else None)
+            err = lib.quaff_band_fill_smem(
+                *args, lpt, nct, warps,
+                0 if slab is None else slab.data_ptr(),
+                0 if slab is None else slab.numel(), out.data_ptr(), stream)
     kernels.check_launch(err, "band_fill", route, f"B={B}, W={W}, Ly={Ly}")
     with _COUNT_LOCK:  # a server's ports launch from threads of their own
         band_fill.launches += 1
@@ -605,7 +637,7 @@ band_fill.launches = 0
 band_fill.warp_launches = 0
 band_fill.cluster_launches = 0
 band_fill.smem_launches = 0
-band_fill.block_launches = 0
+band_fill.global_launches = 0
 
 
 def scores_v2(v2tab: V2Tables, batch: dict, mode: str = "viterbi",

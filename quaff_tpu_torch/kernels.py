@@ -27,7 +27,6 @@ LINK_FLAGS = ["-shared"]
 
 _lock = threading.Lock()
 _lib = None
-_smem_lanes: dict = {}
 # what this process's build printed (nvcc's -Xptxas -v register and
 # shared memory report); None when an earlier build was reused
 build_log = None
@@ -76,10 +75,6 @@ def library() -> ctypes.CDLL:
             p, p, p, p, i, i,  # match, match_noq, insert, insert_noq, Km, Q
             p, i, p,  # ik, n_ik, trans
         ]
-        lib.quaff_band_fill.argtypes = fill_args + [
-            i, i, i,  # B, viterbi, local
-            p, p, p,  # scratch, out, stream
-        ]
         lib.quaff_band_fill_warp.argtypes = fill_args + [
             i, i, i, i,  # B, viterbi, local, lpt
             p, p,  # out, stream
@@ -92,6 +87,7 @@ def library() -> ctypes.CDLL:
         lib.quaff_band_fill_smem.argtypes = fill_args + [
             i, i, i,  # B, viterbi, local
             i, i, i,  # lpt, nct, warps
+            p, ll,  # slab (null: the shared tier), its bytes
             p, p,  # out, stream
         ]
         lib.quaff_fwd_store_warp.argtypes = [
@@ -157,7 +153,7 @@ def library() -> ctypes.CDLL:
             i, p, p, p, p,  # op, x0, a, b, out
             i, i, i, i, p,  # B, W, grid, iters, stream
         ]
-        for fn in ("quaff_band_fill", "quaff_band_fill_warp",
+        for fn in ("quaff_band_fill_warp",
                    "quaff_band_fill_cluster", "quaff_band_fill_smem",
                    "quaff_fwd_store_warp", "quaff_bwd_counts_warp",
                    "quaff_fwd_store_cluster", "quaff_bwd_counts_cluster",
@@ -166,20 +162,10 @@ def library() -> ctypes.CDLL:
                    "quaff_ov_fill_cluster",
                    "quaff_sol_chain"):
             getattr(lib, fn).restype = i
-        lib.quaff_band_fill_max_smem_lanes.argtypes = [i]
-        lib.quaff_band_fill_max_smem_lanes.restype = i
         lib.quaff_cuda_error_string.argtypes = [i]
         lib.quaff_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
-
-
-def max_smem_lanes(device_index: int) -> int:
-    """Widest band K1's block route keeps in shared memory on this card."""
-    if device_index not in _smem_lanes:
-        _smem_lanes[device_index] = int(
-            library().quaff_band_fill_max_smem_lanes(device_index))
-    return _smem_lanes[device_index]
 
 
 def error_string(err: int) -> str:

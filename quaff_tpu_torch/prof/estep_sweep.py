@@ -8,9 +8,10 @@ At each band width, chip_smoke.py phase 2b's wide recipe (--pairs reads,
 envelope, so every pair's band spans W lanes; local), and every tiling
 of the route estep_route picks there that estep_route_ok takes: on the
 cluster route for each lanes a thread, the fewest CTAs that hold the
-tiles at each count of warps a CTA; on the smem route both tiers (the
-shared tier where a CTA's run fits, the global tier always) at 4, 8 and
-16 warps a CTA over 8 and 16 CTAs' worth of lanes a thread.  Each
+tiles at each count of warps a CTA; on the smem route, and beside K3's
+two-level cluster route, both smem tiers (the shared tier where a CTA's
+run fits, the global tier always) at 4, 8 and 16 warps a CTA over 8 and
+16 CTAs' worth of lanes a thread.  Each
 tiling's K2 and K3 are timed by CUDA events (median of 3 runs on
 distinct inputs, after a warm run) and checked against the table's
 tiling on the same inputs (max abs difference of the forward scores and
@@ -60,13 +61,15 @@ def tilings(W: int, kernel: str) -> list:
     """The routes (kind, (nct, warps, lpt)) timed for `kernel` at W lanes
     that estep_route_ok takes: on the cluster route (and the smem route's
     shared tier up to 65536 lanes) every lanes a thread, its tiles over the
-    fewest CTAs at each count of warps a CTA; past 65536 lanes both smem
-    tiers at 4, 8 and 16 warps a CTA and the lanes a thread with which
-    8 or 16 CTAs cover the band, its tiles over the fewest CTAs."""
+    fewest CTAs at each count of warps a CTA; past 65536 lanes, and beside
+    K3's two-level cluster route (its float32 fold against the smem
+    route's float64 cells), both smem tiers at 4, 8 and 16 warps a CTA and
+    the lanes a thread with which 8 or 16 CTAs cover the band, its tiles
+    over the fewest CTAs."""
     from ..dp import estep
     from ..dp.fill_v2 import cluster_tiling
 
-    kind = estep.estep_route(W, kernel)[0]
+    kind, table = estep.estep_route(W, kernel)
     out = []
     if kind == "cluster" or W <= 65536:
         lpts = (estep.ESTEP_CLUSTER_LPTS if kind == "cluster"
@@ -80,7 +83,8 @@ def tilings(W: int, kernel: str) -> list:
                         W, (kind, t), kernel):
                     seen.add(t[1])
                     out.append((kind, t))
-        return out
+        if kind != "cluster" or estep.cluster_mode(W, table) != estep.TWO_FOLD:
+            return out
     for warps in (4, 8, 16):
         for nct in (8, 16):
             lpt = -(-W // (32 * warps * nct))

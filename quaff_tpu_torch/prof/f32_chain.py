@@ -55,7 +55,7 @@ from ..dp.scores import ScoreTables
 from ..model.params import default_params
 
 NEG = fill_v2.NEG_INF
-THREADS = 1024  # the block routes' threads a pair (band_fill.cuh kMaxThreads)
+THREADS = 1024  # the former block routes' threads a pair
 
 
 def global_band(W: int, seed: int, B: int = 4, params=None):

@@ -1,7 +1,7 @@
-"""K1's smem-route tilings timed against each other on the card, on long
-reads: with chip_smoke.py phase 4b's sweeps at its align -kmatchoff chunk
-and its lambda-length chunk, the measurement dp/fill_v2.FILL_SMEM_TABLE's
-rows are set from.
+"""K1's smem-route tilings on both its tiers timed against each other on
+the card, on long reads: with chip_smoke.py phase 4b's sweeps at its align
+-kmatchoff chunk and its lambda-length chunk, the measurement
+dp/fill_v2.FILL_SMEM_TABLE's rows and FILL_GLOBAL_WARPS are set from.
 
 At each band width, --pairs reads (2) of --rows bases (8600) copied from
 one random ref of W - rows - 1 bases (each base substituted with
@@ -9,18 +9,20 @@ probability 7.2%, followed by an inserted base 2.4%, deleted 2.4%; random
 qualities), each in a full envelope, so every pair's band spans W lanes:
 the long reads' wide bands of align -kmatchoff
 (tests/test_torch_kernel_cuda.py's _long_read_band at real alignments),
-local.  Every smem tiling that
-covers the band and fits a CTA (smem_tilings) is timed by CUDA events
-(median of 3 runs on distinct inputs, after a warm run) and held against
-the plain version (one run) at K1's tolerance, rtol 1e-5 / atol 1e-3.
+local.  Each route of tier_routes (the shared tier at every tiling that
+covers the band and fits a CTA, smem_tilings; the global tier at 16 CTAs
+of 4, 8 and 16 warps and, where the band fits the shared tier, at the
+table's tiling) is timed by CUDA events (median of 3 runs on distinct
+inputs, after a warm run) and held against the plain version (one run) at
+K1's tolerance, rtol 1e-5 / atol 1e-3.
 
     python -m quaff_tpu_torch.prof.fill_sweep 22882 131072
     python -m quaff_tpu_torch.prof.fill_sweep 30000 49500 --pairs 8 \
         --rows 3000 --modes viterbi   # chunks of phase 4b's shape
 
-One line per width and mode: the table's tiling, then each tiling's "nct
-x warps x lpt: ms (max abs error against the plain version)", fastest
-first, "!" after a tiling outside the tolerance; the card's name and power
+One line per width and mode: the table's route, then each route's "tier
+nct x warps x lpt: ms (max abs error against the plain version)", fastest
+first, "!" after one outside the tolerance; the card's name and power
 limit first.
 """
 
@@ -47,6 +49,23 @@ def smem_tilings(W: int, max_lpt: int = 27) -> list:
             t = (nct, -(-tiles // nct), lpt)
             if fill_v2._fill_route_ok(W, ("smem", t)) and t not in out:
                 out.append(t)
+    return out
+
+
+def tier_routes(W: int) -> list:
+    """[(route kind, tiling)] of both tiers of K1's smem route that
+    fill_sweep times at W lanes: ("smem", t) for every t of
+    smem_tilings(W), ("global", fill_v2.global_tiling(W, warps)) for 4, 8
+    and 16 warps a CTA and, where W takes the shared tier, ("global", t)
+    at the table's tiling t (the global tier's cost at one tiling)."""
+    from ..dp import fill_v2
+
+    out = [("smem", t) for t in smem_tilings(W)]
+    kind, table = fill_v2.fill_route(W)
+    for r in [("global", fill_v2.global_tiling(W, cap)) for cap in (4, 8, 16)
+              ] + ([("global", table)] if kind == "smem" else []):
+        if r not in out:
+            out.append(r)
     return out
 
 
@@ -107,8 +126,8 @@ def _ms(fn, args):
 
 
 def sweep(W: int, mode: str, rows: int = 8600, n: int = 2) -> dict:
-    """{tiling: (ms, max abs error against the plain version, within
-    K1's tolerance)} of every smem tiling at W lanes on n reads."""
+    """{route: (ms, max abs error against the plain version, within K1's
+    tolerance)} of every route of tier_routes(W) on n reads."""
     from ..dp import fill_v2
     from ..dp.engine import to_device
 
@@ -123,12 +142,11 @@ def sweep(W: int, mode: str, rows: int = 8600, n: int = 2) -> dict:
         k[:, i, 1] = (k[:, i, 1] + 1) % 40
         keys.append(k)
     out = {}
-    for t in smem_tilings(W):
-        r = ("smem", t)
+    for r in tier_routes(W):
         got = fill_v2.band_fill(**inp, tables=v2, mode=mode, route=r).double()
         err = (got - ref).abs()[fin]
         ok = bool((err <= ATOL + RTOL * ref[fin].abs()).all())
-        out[t] = (_ms(lambda k: fill_v2.band_fill(
+        out[r] = (_ms(lambda k: fill_v2.band_fill(
             **dict(inp, keys=k), tables=v2, mode=mode, route=r), keys),
             float(err.max()), ok)
     return out
@@ -154,9 +172,9 @@ def main(argv=None) -> int:
             lines = sorted(res.items(), key=lambda kv: kv[1][0])
             print(f"W={W} {mode} B={args.pairs} rows={args.rows} (table "
                   f"{fill_v2.fill_route(W)}): "
-                  + "; ".join("{} x {} x {}: {:.3f} ({:.3g}{})".format(
-                      *t, ms, err, "" if ok else " !")
-                      for t, (ms, err, ok) in lines)
+                  + "; ".join("{} {} x {} x {}: {:.3f} ({:.3g}{})".format(
+                      kind, *t, ms, err, "" if ok else " !")
+                      for (kind, t), (ms, err, ok) in lines)
                   + f" [{card}]", flush=True)
     return 0
 

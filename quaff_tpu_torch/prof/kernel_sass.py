@@ -45,12 +45,13 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # name, (the wrapper that launches it, its route)), the first match wins.
 # K1 and K2 share band_fill_cluster_kernel: its STORE instantiations
 # (<false, true, ...>, each mode) are K2's cluster route; the smem
-# kernels' <true> instantiations are the smem routes' global tier.
+# kernels' instantiations with GLOBAL (their first argument) true are the
+# smem routes' global tier.
 KERNEL_NAMES = (
     ("band_fill_cluster_kernel<false, true,", ("fwd_store", "cluster")),
-    ("band_fill_kernel<", ("band_fill", "block")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),
     ("band_fill_cluster_kernel<", ("band_fill", "cluster")),
+    ("band_fill_smem_kernel<true,", ("band_fill", "global")),
     ("band_fill_smem_kernel<", ("band_fill", "smem")),
     ("fwd_store_warp_kernel<", ("fwd_store", "warp")),
     ("bwd_counts_warp_kernel<", ("bwd_counts", "warp")),

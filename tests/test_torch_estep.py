@@ -371,7 +371,11 @@ def _wide_route(W, kernel):
         return _cluster_route(W, kernel)
     if W <= estep.ESTEP_SMEM_MAX_LANES[kernel]:
         return _smem_route(W, kernel)
-    return "global", estep.global_tiling(W)
+    return _global_route(W)
+
+
+def _global_route(W):
+    return "global", fill_v2.global_tiling(W, estep.ESTEP_GLOBAL_WARPS)
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
@@ -405,8 +409,7 @@ def test_estep_route_table(kernel, lpt):
     top = estep.ESTEP_SMEM_MAX_LANES[kernel]
     assert estep.estep_route(top, kernel)[0] == "smem"
     for W in (top + 1, 12 * top):
-        assert estep.estep_route(W, kernel) == ("global",
-                                                estep.global_tiling(W))
+        assert estep.estep_route(W, kernel) == _global_route(W)
 
 
 @pytest.mark.parametrize("W,lpt", [(1, 1), (32, 1), (33, 2), (64, 2),
@@ -515,7 +518,7 @@ def test_estep_smem_table(kernel):
             lpt * warps * 32 * lane_bytes + fixed) <= 227 * 1024
     top = (16, 16, table[-1][1] + 1)
     assert estep.smem_cta_bytes(kernel, top) > estep.SMEM_CTA_BYTES
-    assert estep.global_tiling(widths[-1] + 1)[2] == table[-1][1] + 1
+    assert _global_route(widths[-1] + 1)[1][2] == table[-1][1] + 1
 
 
 @pytest.mark.parametrize("kernel", ["fwd_store", "bwd_counts"])
@@ -543,7 +546,7 @@ def test_estep_route_bounds(W, kernel):
     kind, tiling = estep.estep_route(W, kernel)
     assert not ok(W, ("block", 0), kernel)
     if W > estep.ESTEP_SMEM_MAX_LANES[kernel]:
-        assert (kind, tiling) == ("global", estep.global_tiling(W))
+        assert (kind, tiling) == _global_route(W)
         assert tiling[:2] == (16, 16) or W <= 122880
         assert ok(W, (kind, tiling), kernel)
         assert not ok(W, ("smem", tiling), kernel)  # its run does not fit
@@ -863,8 +866,7 @@ def test_chip_smoke_route_helpers():
             r = _wide_route(W, k)
             assert chip_smoke._estep_routes(W, k) == [r] + (
                 [("global", r[1])] if r[0] == "smem" else [])
-        assert chip_smoke._estep_routes(132401, k) == [
-            ("global", estep.global_tiling(132401))]
+        assert chip_smoke._estep_routes(132401, k) == [_global_route(132401)]
     assert _wide_route(4097, "fwd_store")[0] == "smem"
     assert _wide_route(22882, "bwd_counts")[0] == "cluster"
     assert _wide_route(35000, "bwd_counts")[0] == "smem"
@@ -908,8 +910,7 @@ def test_chip_smoke_route_helpers():
         {"fwd_store": _smem_route(22882, "fwd_store"),
          "bwd_counts": _cluster_route(22882, "bwd_counts")},
         {k: _smem_route(35000, k) for k in ("fwd_store", "bwd_counts")},
-        {k: ("global", estep.global_tiling(132401))
-         for k in ("fwd_store", "bwd_counts")}]
+        {k: _global_route(132401) for k in ("fwd_store", "bwd_counts")}]
     t423 = "{} x {} x {}".format(*_cluster_route(423, "bwd_counts")[1])
     t35 = "{} x {} x {}".format(*_smem_route(35000, "bwd_counts")[1])
     assert chip_smoke._route_text(chunks[:2], routes[:2]) == (

@@ -25,7 +25,7 @@ from quaff_tpu.dp.pallas_v2 import scores_v2_traceable
 from quaff_tpu.dp.scores import ScoreTables as JaxScoreTables
 from quaff_tpu.envelope import full_envelope, pack_strips
 from quaff_tpu.model.params import QuaffParams, default_params
-from quaff_tpu_torch.dp import fill_v2
+from quaff_tpu_torch.dp import estep, fill_v2
 from quaff_tpu_torch.dp.engine import PairBatch, dp_fill, table_tensors, to_device
 from quaff_tpu_torch.dp.scores import ScoreTables
 from quaff_tpu_torch.envelope import pack_strips as port_pack_strips
@@ -258,7 +258,8 @@ def test_band_fill_routes_by_device():
     (8192, ("cluster", (2, 16, 8))), (16384, ("cluster", (8, 4, 16))),
     (16385, ("smem", (11, 8, 6))), (22882, ("smem", (15, 8, 6))),
     (49500, ("smem", (15, 8, 13))), (131072, ("smem", (16, 16, 16))),
-    (131073, ("block", 0)),
+    (131073, ("smem", (16, 16, 17))), (221184, ("smem", (16, 16, 27))),
+    (221185, ("global", (16, 16, 28))),
 ])
 def test_fill_route_and_cpu_plain(W, route):
     """K1's route is a pure function of the band's width: the warp route
@@ -266,19 +267,20 @@ def test_fill_route_and_cpu_plain(W, route):
     32 * 16 lanes; the cluster route past it, its tiling (CTAs a pair,
     warps a CTA, lanes a thread) from FILL_CLUSTER_TABLE, up to
     FILL_CLUSTER_MAX_LANES; the smem route past that, its tiling from
-    FILL_SMEM_TABLE, up to FILL_SMEM_MAX_LANES (131072); the block route
-    past that.  A CPU tensor of any width takes the plain version and
-    moves no launch count."""
+    FILL_SMEM_TABLE, up to FILL_SMEM_MAX_LANES (221184: 27 lanes a thread,
+    the most a CTA's shared memory holds), its global tier past that at
+    global_tiling's 16 CTAs of 16 warps.  A CPU tensor of any width takes
+    the plain version and moves no launch count."""
     from test_torch_kernel_cuda import random_fill_inputs
 
     assert fill_v2.fill_route(W) == route
     assert 32 * fill_v2.WARP_LPTS[-1] == 512
-    assert fill_v2.FILL_SMEM_MAX_LANES == 131072
+    assert fill_v2.FILL_SMEM_MAX_LANES == 221184
     _, tt, _ = _tables(default_params())
     inp, v2 = random_fill_inputs(np.random.default_rng(W), tt, W, B=2,
                                  Lx=60, Ly=24, device="cpu")
     counts = ("launches", "warp_launches", "cluster_launches",
-              "smem_launches", "block_launches")
+              "smem_launches", "global_launches")
     before = [getattr(fill_v2.band_fill, k) for k in counts]
     out = fill_v2.band_fill(**inp, tables=v2)
     assert [getattr(fill_v2.band_fill, k) for k in counts] == before
@@ -313,13 +315,19 @@ def test_fill_cluster_tilings_cover_their_bands():
     (("cluster", (1, 17, 4)), False), (("cluster", (1, 9, 16)), False),
     (("cluster", (8, 1, 4)), True), (("cluster", (16, 1, 4)), False),
     (("cluster", (1, 5, 2)), False), (("cluster", (1, 5)), False),
-    (("block", 0), True), (("block", None), False), (("tile", 0), False),
+    (("block", 0), False), (("block", None), False), (("tile", 0), False),
     (("smem", (1, 1, 17)), True), (("smem", (2, 9, 1)), True),
     (("smem", (16, 16, 1)), True), (("smem", (1, 1, 16)), False),
     (("smem", (16, 1, 1)), False), (("smem", (17, 1, 1)), False),
     (("smem", (1, 17, 1)), False), (("smem", (1, 16, 0)), False),
     (("smem", (1, 16, 27)), True), (("smem", (1, 16, 28)), False),
     (("smem", (1, 5)), False), (("smem", None), False),
+    (("global", (1, 1, 17)), True), (("global", (1, 16, 28)), True),
+    (("global", (16, 16, 1)), True), (("global", (1, 1, 200)), True),
+    (("global", (1, 1, 16)), False), (("global", (16, 1, 1)), False),
+    (("global", (17, 1, 1)), False), (("global", (1, 17, 1)), False),
+    (("global", (1, 16, 0)), False), (("global", (1, 5)), False),
+    (("global", None), False),
 ])
 def test_band_fill_forced_route(route, ok):
     """A route given to band_fill must be one K1 has and cover the band
@@ -327,16 +335,18 @@ def test_band_fill_forced_route(route, ok):
     MAX_CLUSTER_CTAS (8) CTAs; a smem tiling of at most MAX_CLUSTER_CTAS2
     (16) CTAs of at most SMEM_MAX_WARPS (16) warps whose CTA fits the
     card's 227 KB of shared memory (at 16 warps, 27 lanes a thread do, 28
-    do not); or band_fill raises ValueError before any launch.  On CPU
-    tensors every route runs the plain version and moves no launch count,
-    cluster_launches and smem_launches included."""
+    do not); a global-tier tiling of the same CTAs and warps at any lanes a
+    thread; or band_fill raises ValueError before any launch (the former
+    block route, ("block", 0), is none).  On CPU tensors every route runs
+    the plain version and moves no launch count, cluster_launches,
+    smem_launches and global_launches included."""
     from test_torch_kernel_cuda import random_fill_inputs
 
     _, tt, _ = _tables(default_params())
     inp, v2 = random_fill_inputs(np.random.default_rng(2), tt, 513, B=2,
                                  Lx=60, Ly=24, device="cpu")
     counts = ("launches", "warp_launches", "cluster_launches",
-              "smem_launches", "block_launches")
+              "smem_launches", "global_launches")
     before = [getattr(fill_v2.band_fill, k) for k in counts]
     if ok:
         out = fill_v2.band_fill(**inp, tables=v2, route=route)
@@ -375,6 +385,84 @@ def test_fill_smem_tilings_cover_their_bands(row):
         if prev is not None:
             assert nct * warps >= prev
         prev = nct * warps
+
+
+@pytest.mark.parametrize("warps", sorted({fill_v2.FILL_GLOBAL_WARPS,
+                                          estep.ESTEP_GLOBAL_WARPS, 4, 8}))
+def test_global_tiling_covers_every_width(warps):
+    """The smem routes' one global_tiling (K1's global tier at
+    FILL_GLOBAL_WARPS warps a CTA, the E-step's at ESTEP_GLOBAL_WARPS)
+    covers every band width: the fewest lanes a thread with which 16 CTAs
+    of `warps` warps cover the band, at most that many warps over at most
+    MAX_CLUSTER_CTAS2 CTAs, no whole tile past the band; a route that K1
+    and both E-step kernels take, and past each one's shared tier the
+    route they pick."""
+    widths = sorted(set(range(1, 300_000, 997)) | {
+        1, 32, 33, 8192, 131072, 131073, 221184, 221185, 262144, 264400,
+        1 << 20, (1 << 20) + 1})
+    for W in widths:
+        nct, w, lpt = fill_v2.global_tiling(W, warps)
+        assert 1 <= nct <= fill_v2.MAX_CLUSTER_CTAS2 and 1 <= w <= warps
+        assert lpt == -(-W // (32 * warps * fill_v2.MAX_CLUSTER_CTAS2))
+        tiles = -(-W // (32 * lpt))
+        assert nct * w >= tiles and (nct - 1) * w < tiles
+        assert fill_v2._fill_route_ok(W, ("global", (nct, w, lpt)))
+        for k in ("fwd_store", "bwd_counts"):
+            assert estep.estep_route_ok(W, ("global", (nct, w, lpt)), k)
+        if warps == fill_v2.FILL_GLOBAL_WARPS and (
+                W > fill_v2.FILL_SMEM_MAX_LANES):
+            assert fill_v2.fill_route(W) == ("global", (nct, w, lpt))
+        for k in ("fwd_store", "bwd_counts"):
+            if (warps == estep.ESTEP_GLOBAL_WARPS
+                    and W > estep.ESTEP_SMEM_MAX_LANES[k]):
+                assert estep.estep_route(W, k) == ("global", (nct, w, lpt))
+
+
+@pytest.mark.parametrize("B, W", [(1, 221185), (2, 264400), (8, 262144),
+                                  (3, 1 << 20)])
+def test_fill_slab_bytes(B, W):
+    """K1's global-tier slab: every CTA's run of every pair, 16 bytes
+    (FILL_SMEM_LANE_BYTES) a lane the tiling covers, at least 16 bytes a
+    lane of the band; at 264400 lanes (16 x 16 x 33) 4325376 bytes a
+    pair, which the card's 50 MB L2 holds."""
+    route = fill_v2.fill_route(W)
+    assert route[0] == "global"
+    nct, warps, lpt = route[1]
+    n = fill_v2.fill_slab_bytes(B, route[1])
+    assert n == B * nct * warps * 32 * lpt * 16
+    assert n >= 16 * B * W
+    if W == 264400:
+        assert route[1] == (16, 16, 33) and n == B * 4325376
+
+
+def test_chip_smoke_fill_helpers():
+    """chip_smoke.py's K1 helpers: every route kind K1 has (FILL_ROUTES,
+    its counts FILL_COUNTS) names its kernel's source, the smem route's two
+    tiers one file; the global tier it forces (_fill_global) is
+    fill_route's past the shared tier, and its label names the tier."""
+    import pathlib
+
+    import chip_smoke
+
+    repo = pathlib.Path(chip_smoke.__file__).resolve().parent
+    assert chip_smoke.FILL_ROUTES == ("warp", "cluster", "smem", "global")
+    assert chip_smoke.FILL_COUNTS == ("launches",) + tuple(
+        f"{r}_launches" for r in chip_smoke.FILL_ROUTES)
+    for r in chip_smoke.FILL_ROUTES:
+        assert getattr(fill_v2.band_fill, f"{r}_launches") >= 0
+        assert (repo / chip_smoke._fill_source(r)).is_file()
+    assert (chip_smoke._fill_source("smem")
+            == chip_smoke._fill_source("global"))
+    for W in (513, 22882, 221185, 264400):
+        route = chip_smoke._fill_global(W)
+        assert fill_v2._fill_route_ok(W, route)
+        if W > fill_v2.FILL_SMEM_MAX_LANES:
+            assert route == fill_v2.fill_route(W)
+    assert chip_smoke._fill_global(264400) == ("global", (16, 16, 33))
+    assert chip_smoke._route_label(("global", (16, 16, 33))) == (
+        "smem route's global tier, 16 x 16 x 33")
+    assert chip_smoke._route_label(("smem", (16, 16, 17))) == (
+        "smem route, 16 x 16 x 17")
 
 
 @pytest.mark.parametrize("mode", ["viterbi", "forward"])

@@ -2,7 +2,9 @@
 card, on identical inputs: K1 (quaff_tpu_torch/csrc/band_fill.cu, its warp
 route at every lanes-a-thread instantiation, its cluster and smem routes
 at every tiling their route tables choose and at forced ones, the smem
-route's seams against the block route, and its block route),
+route's seams against one warp a pair, its shared and global tiers against
+each other, and its global tier past the shared tier, on global
+long-deletion bands up to 262144 lanes),
 K2 and K3 (csrc/estep.cu, csrc/estep_cluster.cu, csrc/estep_smem.cu:
 their warp routes at every lanes-a-thread instantiation, their cluster
 routes at the tilings their route tables choose up to 2048 lanes and at
@@ -72,17 +74,15 @@ def _pairs(rng, n, with_qual=True, repeat=True):
 
 def _batch(case, rng, tt):
     if case == "wide":
-        # a full envelope wider than K1's block route keeps in shared
-        # memory: its row state lives in global scratch (K2's and K3's
-        # bands of this width take their smem routes)
-        from quaff_tpu_torch import kernels
-
-        limit = kernels.max_smem_lanes(torch.cuda.current_device())
-        xs = "".join("ACGT"[t] for t in rng.integers(0, 4, limit + 500))
+        # a full envelope of 10370 lanes, past the train path's widest
+        # band: K1's cluster route, K2's and K3's smem and two-level
+        # cluster routes (the width at which the former block route first
+        # kept its row in global scratch)
+        xs = "".join("ACGT"[t] for t in rng.integers(0, 4, 10169))
         x = FastSeq(name="x", seq=xs)
         y = FastSeq(name="y", seq=xs[1000:1200], qual="5" * 200)
         pb = PairBatch.build([(x, y, full_envelope(len(xs), 200))] * 2, tt)
-        assert pb.member.shape[1] > limit
+        assert pb.member.shape[1] > estep.ESTEP_WIDE_LANES
         return pb
     if case == "window":
         return PairBatch.build(_pairs(rng, 6, repeat=False), tt)
@@ -246,7 +246,7 @@ def _variant_inputs(variant, W, seed):
 
 
 FILL_COUNTS = ("launches", "warp_launches", "cluster_launches",
-               "smem_launches", "block_launches")
+               "smem_launches", "global_launches")
 
 
 def _fill_checked(inp, v2, mode, local, route=None):
@@ -261,11 +261,17 @@ def _fill_checked(inp, v2, mode, local, route=None):
     moved = [getattr(fill_v2.band_fill, k) - n
              for k, n in zip(FILL_COUNTS, before)]
     assert moved == [1] + [int(kind == k) for k in ("warp", "cluster",
-                                                    "smem", "block")]
+                                                    "smem", "global")]
     ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode,
                                       local=local)
     _assert_scores_close(got, ref, inp["doff"].shape[0])
     return got
+
+
+def _fill_global(W):
+    """K1's smem route's global tier at its own tiling for a band of W
+    lanes (global_tiling): a route K1 has at any width."""
+    return "global", fill_v2.global_tiling(W, fill_v2.FILL_GLOBAL_WARPS)
 
 
 @pytest.mark.cuda
@@ -275,12 +281,12 @@ def test_fill_routes_match_plain(W, variant):
     """K1 through the wrapper on random bands of W lanes: the warp route at
     its smallest lanes-a-thread (W = 1 and 31: 1, 33: 2, 100: 4, 203: 8,
     512: 16), the cluster route at 513, each against band_fill_reference;
-    at 513 the block route forced on the same inputs too."""
+    at 513 the smem route's global tier forced on the same inputs too."""
     _need_card()
     inp, v2, mode, local = _variant_inputs(variant, W, 41 + W)
     _fill_checked(inp, v2, mode, local)
     if W > 32 * fill_v2.WARP_LPTS[-1]:
-        _fill_checked(inp, v2, mode, local, ("block", 0))
+        _fill_checked(inp, v2, mode, local, _fill_global(W))
 
 
 @pytest.mark.cuda
@@ -509,7 +515,7 @@ ESTEP_WIDTHS = sorted({3, 32, 33, 168, 256, 1536, 2048}.union(
 def _global(W):
     """The smem routes' global tier at its own tiling for a band of W
     lanes: a route of both kernels at any width."""
-    return "global", estep.global_tiling(W)
+    return "global", fill_v2.global_tiling(W, estep.ESTEP_GLOBAL_WARPS)
 
 
 def _kernel_routes(W, kernel):
@@ -954,7 +960,8 @@ def test_fill_cluster_forced_tilings(tiling, variant):
     lanes-a-thread, on bands it fills exactly: local variants with strips
     seamed on tile and CTA boundaries (the last ending on a member lane at
     the last CTA's last lane), global ones over long reads whose tiles are
-    dead in most rows; the block route forced on the same inputs."""
+    dead in most rows; the smem route's global tier forced on the same
+    inputs."""
     _need_card()
     nct, warps, lpt = tiling
     W = nct * warps * 32 * lpt
@@ -968,7 +975,7 @@ def test_fill_cluster_forced_tilings(tiling, variant):
         inp, v2 = random_fill_inputs(rng, tt, W, B=3, Lx=W // 2 + 64,
                                      Ly=W // 4, local=False, qual=qual)
     _fill_checked(inp, v2, mode, local, ("cluster", tiling))
-    _fill_checked(inp, v2, mode, local, ("block", 0))
+    _fill_checked(inp, v2, mode, local, _fill_global(W))
 
 
 def _stored_rows_check(inp, v2, local, rows, offs):
@@ -1184,8 +1191,8 @@ def test_estep_two_level_fold_matches_plain(W, variant):
 # 1), phase 4b's 34 kb width, 65536 lanes, the global tier at 131072 and
 # 262144 lanes (B=2 there: a [3, B, 1024, W] float32 store is 3.2 GB a
 # pair)
-LONG_DELETION_WIDTHS = (8192, 16384, 22136, 24576, 32768, 32769, 35506,
-                        65536, 131072, 262144)
+LONG_DELETION_WIDTHS = (8192, 16384, 22136, 24576, 24577, 28672, 32768, 32769,
+                        35506, 65536, 131072, 262144)
 
 
 @pytest.mark.cuda
@@ -1921,8 +1928,8 @@ def test_fill_smem_forced_tilings(tiling, variant):
     lanes a thread, on bands it fills exactly: local variants with strips
     seamed on tile and CTA boundaries (the last ending on a member lane at
     the last CTA's last lane), global ones over reads a quarter of the band
-    long, whose tiles are dead in most rows; the block route forced on the
-    same inputs."""
+    long, whose tiles are dead in most rows; the global tier at the same
+    tiling on the same inputs, bit for bit the shared tier."""
     _need_card()
     nct, warps, lpt = tiling
     W = nct * warps * 32 * lpt
@@ -1936,8 +1943,9 @@ def test_fill_smem_forced_tilings(tiling, variant):
         inp, v2 = random_fill_inputs(rng, tt, W, B=3, Lx=W // 2 + 64,
                                      Ly=max(W // 4, 8), local=False,
                                      qual=qual)
-    _fill_checked(inp, v2, mode, local, ("smem", tiling))
-    _fill_checked(inp, v2, mode, local, ("block", 0))
+    got = _fill_checked(inp, v2, mode, local, ("smem", tiling))
+    assert torch.equal(
+        _fill_checked(inp, v2, mode, local, ("global", tiling)), got)
 
 
 @pytest.mark.cuda
@@ -1999,15 +2007,15 @@ def _indel_seam_pairs(rng, bounds, W, ylen=80, k=4):
 def test_fill_smem_seams_match_the_block_route(W, tiling, local, mode):
     """K1's smem route on paths that cross a tile boundary and each CTA
     boundary (_indel_seam_pairs: a deletion and an insertion across each),
-    against the plain version and, local, against the block route (one
-    block a pair: no tile, CTA or run seams) on the same inputs, at K1's
-    rtol 1e-5 / atol 1e-3: a lost delete chain or insert cell at a seam
-    moves the local path's score by nats.  The global paths (the whole
-    ref: up to ~49000 deletions, every seam crossed) are held against the
-    plain version alone: there the smem and block routes each came within
-    the tolerance of the plain version but 0.32 nats (1.2e-5 of -27240)
-    apart at 49500 lanes, the order of float32 sums over the deletion
-    chains (measured on the card)."""
+    against the plain version and, local, against one warp a pair on the
+    global tier (_one_tile: no tile or CTA seams) on the same inputs,
+    at K1's rtol 1e-5 / atol 1e-3: a lost delete chain or insert cell at a
+    seam moves the local path's score by nats.  The global paths (the
+    whole ref: up to ~49000 deletions, every seam crossed) are held against
+    the plain version alone: there two routes each came within the
+    tolerance of the plain version but 0.32 nats (1.2e-5 of -27240) apart
+    at 49500 lanes, the order of float32 sums over the deletion chains
+    (measured on the card)."""
     _need_card()
     assert fill_v2._fill_route_ok(W, ("smem", tiling))
     nct, warps, lpt = tiling
@@ -2018,18 +2026,20 @@ def test_fill_smem_seams_match_the_block_route(W, tiling, local, mode):
     v2 = fill_v2.V2Tables.from_tables(_tables("packed"), "cuda")
     got = _fill_checked(inp, v2, mode, local, ("smem", tiling))
     if local:
-        blk = _fill_checked(inp, v2, mode, local, ("block", 0))
-        _assert_scores_close(got, blk, len(bounds))
+        one = _fill_checked(inp, v2, mode, local, _one_tile(W))
+        _assert_scores_close(got, one, len(bounds))
 
 
 @pytest.mark.cuda
 def test_fill_smem_refused_launch_raises():
     """K1's smem route at 17 CTAs or 17 warps a CTA is refused by the
-    entry, and at 64 lanes a thread of 16 warps (512 KB, past a CTA's 227
-    KB) by the card: the entry returns an error, which the wrapper's
-    launch check raises.  The wrapper itself takes no such tiling, nor one
-    that cannot cover the band or whose CTA does not fit the card's shared
-    memory (_fill_route_ok): it raises before any launch."""
+    entry, at 64 lanes a thread of 16 warps (512 KB, past a CTA's 227 KB)
+    by the card, and its global tier with a slab a byte short of every
+    CTA's run (or of a negative size): the entry returns an error, which
+    the wrapper's launch check raises.  The wrapper itself takes no such
+    tiling, nor one that cannot cover the band or whose shared-tier CTA
+    does not fit the card's shared memory (_fill_route_ok): it raises
+    before any launch."""
     _need_card()
     from quaff_tpu_torch import kernels
 
@@ -2038,36 +2048,202 @@ def test_fill_smem_refused_launch_raises():
     B = inp["doff"].shape[0]
     before = fill_v2.band_fill.launches
     out = torch.empty(B + B * inp["seg_start"].shape[1], device="cuda")
+    args = fill_v2.launch_args(**inp, tables=v2, mode=mode, local=local)
+    stream = torch.cuda.current_stream().cuda_stream
     for nct, warps, lpt in ((17, 16, 2), (2, 17, 16), (1, 16, 64)):
         err = kernels.library().quaff_band_fill_smem(
-            *fill_v2.launch_args(**inp, tables=v2, mode=mode, local=local),
-            lpt, nct, warps, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            *args, lpt, nct, warps, 0, 0, out.data_ptr(), stream)
         assert err != 0
         with pytest.raises(RuntimeError, match="smem route"):
             kernels.check_launch(err, "band_fill", ("smem", (nct, warps, lpt)),
                                  "")
+    tiling = fill_v2.global_tiling(W, fill_v2.FILL_GLOBAL_WARPS)
+    need = fill_v2.fill_slab_bytes(B, tiling)
+    slab = torch.empty(need, dtype=torch.uint8, device="cuda")
+    nct, warps, lpt = tiling
+    for size in (need - 1, -1):
+        err = kernels.library().quaff_band_fill_smem(
+            *args, lpt, nct, warps, slab.data_ptr(), size, out.data_ptr(),
+            stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="global route"):
+            kernels.check_launch(err, "band_fill", ("global", tiling), "")
     for bad in ((17, 16, 2), (2, 17, 16), (1, 16, 64), (2, 16, 28),
                 (11, 16, 2), (1, 2, 4)):
         with pytest.raises(ValueError, match="no route"):
             fill_v2.band_fill(**inp, tables=v2, route=("smem", bad))
+    for bad in ((17, 16, 2), (2, 17, 16), (1, 2, 4)):
+        with pytest.raises(ValueError, match="no route"):
+            fill_v2.band_fill(**inp, tables=v2, route=("global", bad))
     assert fill_v2.band_fill.launches == before
-    # the card runs on: the table's route on the same inputs
+    # the card runs on: the table's route, and the global tier with a slab
+    # of exactly its size, on the same inputs
     _fill_checked(inp, v2, mode, local)
+    err = kernels.library().quaff_band_fill_smem(
+        *args, lpt, nct, warps, slab.data_ptr(), need, out.data_ptr(), stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _assert_scores_close(out, fill_v2.band_fill_reference(
+        **inp, tables=v2, mode=mode, local=local), B)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["viterbi", "forward"])
 def test_fill_block_route_past_the_smem_route(mode):
-    """One lane past FILL_SMEM_MAX_LANES K1 takes its block route (one
-    block a pair, the row state in global scratch), against the plain
-    version on local and global bands."""
+    """One lane past FILL_SMEM_MAX_LANES (221184: 27 lanes a thread, the
+    most a CTA's shared memory holds) K1 takes its smem route's global
+    tier at 16 CTAs of 16 warps and 28 lanes a thread, each thread's run
+    in a per-pair slab of global memory, against the plain version on
+    local and global bands; a rerun is bit-identical."""
     _need_card()
     W = fill_v2.FILL_SMEM_MAX_LANES + 1
-    assert fill_v2.fill_route(W) == ("block", 0)
+    assert fill_v2.fill_route(W) == ("global", (16, 16, 28))
     for variant in ((mode,) if mode == "forward" else (mode, "global")):
         inp, v2, m, local = _fill_wide_inputs(variant, W, 9, B=2, Ly=60)
-        _fill_checked(inp, v2, m, local)
+        got = _fill_checked(inp, v2, m, local)
+        assert torch.equal(
+            fill_v2.band_fill(**inp, tables=v2, mode=m, local=local), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["viterbi", "forward", "global",
+                                     "forward-global"])
+@pytest.mark.parametrize("W, tiling", [
+    (22882, (15, 8, 6)), (131073, (16, 16, 17)),
+    (fill_v2.FILL_SMEM_MAX_LANES, (16, 16, 27))], ids=str)
+def test_fill_smem_tiers_match(W, tiling, variant):
+    """K1's smem route's two tiers at one tiling (the table's at phase
+    4b's 22882 lanes, one lane past the former 131072, and at the shared
+    tier's widest band) on the same inputs: the same row loop and fold on
+    the same sums, each thread's run in shared or in global memory, so the
+    same bits, each launch counted on its tier; both against the plain
+    version."""
+    _need_card()
+    assert fill_v2.fill_route(W) == ("smem", tiling)
+    inp, v2, mode, local = _fill_wide_inputs(variant, W, 71 + W, B=2, Ly=60)
+    got = _fill_checked(inp, v2, mode, local, ("smem", tiling))
+    assert torch.equal(
+        _fill_checked(inp, v2, mode, local, ("global", tiling)), got)
+
+
+# K1's smem route on bands of up to 131072 lanes (at most 16 lanes a
+# thread at their table tilings), whose delete chain adds at the cells'
+# magnitude: the sha256 of each case's output bytes (_fill_digests) as the
+# smem kernel before its relative chain past 16 lanes a thread computed
+# them on the card (NVIDIA H100 80GB HBM3).  To make them with another
+# checkout's kernels, run _fill_digests with that checkout's package first
+# on sys.path (from its root: PYTHONPATH=<this repo>/tests python -c
+# "import test_torch_kernel_cuda as t; print(t._fill_digests())").
+FILL_DIGEST_WIDTHS = (16385, 22882, 49500, 131072)
+FILL_DIGESTS = {
+    "16385-forward":
+        "9a080f27c1953b1d62f44007cfe955776085c576526e2edb5ba8a59889232ab7",
+    "16385-forward-global":
+        "36e1433c2c4542c167fc58cb77e1cdac94929a8ad09f0023384d8397924e56db",
+    "16385-global":
+        "6cddcff280c5d0aa099ba9c27d253dd60a46dcdf60cb703d8f27b9923964eb36",
+    "16385-viterbi":
+        "3c62091cfd3606e8a8b6760a65bd7582527bb158e587a342b68375a3f1141b4e",
+    "22882-forward":
+        "187a389ac28f870e35f62b0d7a0aaa81e779bae88c348a5df221c9f2bdb094da",
+    "22882-forward-global":
+        "e9f217fed3a762721a60407e668a5edb596816a0c054686751e3795a071bd514",
+    "22882-global":
+        "23732c3bf44c459e6fae723b78441d7bd5da9f1f94ab0aa96dbbd61c2b1d150a",
+    "22882-viterbi":
+        "984595642a758d24c40c5f7cbfa9858673835da82b42c856aa1d24eab4b6630c",
+    "49500-forward":
+        "d8ed9386152eeeb6af3da34e6dd208e05aa140da60a5705b4a8ede9f715cac59",
+    "49500-forward-global":
+        "51e8c5268c8dbedbfaa2d5d9d47663f8ea18984f0e1943be43166b224a9617b0",
+    "49500-global":
+        "91b93bf7e7d51fa9535f1af41b2feb8fe21d89cdb98a1de7a5155e4c91305d92",
+    "49500-viterbi":
+        "eeb0cfc2233e164b4b391dc0db9cf4b495d8353fa0c335227c10cdbed5575ead",
+    "131072-forward":
+        "8fe57cce6726b6a1568723a4e3a95a3dbb5e9fe815c0dac72606d207c642c0a4",
+    "131072-forward-global":
+        "0b341244b7b244660be06976d7695ab0e2e6c60f0e674d4fda14a61cc3aecd1f",
+    "131072-global":
+        "fd6ae2216c4506c54d6d16764712428b687edd2316dbfe18e44b11abe0f87d02",
+    "131072-viterbi":
+        "72cfbbc51325f4a0ec50a8d046722f48e410ab7ba669c41e1169df106488fdc4",
+}
+
+
+def _fill_digests():
+    """{"W-variant": sha256 of K1's output on its table route} on random
+    bands (_fill_wide_inputs, B=2, 60 rows) of FILL_DIGEST_WIDTHS lanes,
+    local and global, Viterbi and Forward."""
+    import hashlib
+
+    out = {}
+    for W in FILL_DIGEST_WIDTHS:
+        for variant in ("viterbi", "forward", "global", "forward-global"):
+            inp, v2, mode, local = _fill_wide_inputs(variant, W, 97 + W, B=2,
+                                                     Ly=60)
+            got = fill_v2.band_fill(**inp, tables=v2, mode=mode, local=local)
+            out[f"{W}-{variant}"] = hashlib.sha256(
+                got.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+@pytest.mark.cuda
+def test_fill_smem_keeps_its_bits():
+    """Bands of up to 131072 lanes keep their bits: K1's smem route at its
+    table tilings there (16 lanes a thread at most, where the delete chain
+    adds at the cells' magnitude, r0 = 0) gives the output the kernel gave
+    before its relative chain past 16 lanes a thread (FILL_DIGESTS), local
+    and global, Viterbi and Forward."""
+    _need_card()
+    assert all(fill_v2.fill_route(W)[0] == "smem"
+               and fill_v2.fill_route(W)[1][2] <= 16
+               for W in FILL_DIGEST_WIDTHS)
+    assert _fill_digests() == FILL_DIGESTS
+
+
+def _long_deletion_band(W, seed, B=2, ylen=60):
+    """K1's inputs for B global pairs of a random read of ylen rows and a
+    random ref of W - ylen + 1 bases (the widest the band holds) in one
+    strip over every diagonal: every global path takes about W deletions,
+    the longest delete chains a band of W lanes has, each row's cells at
+    magnitudes up to ~W / 2 nats."""
+    inp, v2 = random_fill_inputs(np.random.default_rng(seed),
+                                 _tables("packed"), W, B=B, Lx=W, Ly=ylen,
+                                 local=False)
+    xlen = W - ylen + 1
+    meta = inp["meta"].clone()
+    meta[:, 0], meta[:, 1] = xlen, ylen
+    doff = torch.arange(-(ylen - 1), xlen, dtype=torch.int32,
+                        device="cuda").repeat(B, 1)
+    seg_width = torch.zeros_like(inp["seg_width"])
+    seg_width[:, 0] = W
+    return dict(inp, meta=meta, doff=doff.contiguous(),
+                seg_width=seg_width), v2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["viterbi", "forward"])
+@pytest.mark.parametrize("W", [fill_v2.FILL_SMEM_MAX_LANES + 1, 262144])
+def test_fill_global_tier_long_deletions(W, mode):
+    """K1's global tier on global paths through the whole ref (about W
+    deletions a pair: 28 and 32 lanes a thread, each thread composing its
+    delete-chain steps at the cells' magnitude) against the plain version
+    at K1's rtol 1e-5 / atol 1e-3; the gap and its share of the tolerance
+    are printed (-rP)."""
+    _need_card()
+    assert fill_v2.fill_route(W)[0] == "global"
+    inp, v2 = _long_deletion_band(W, 83 + W)
+    got = _fill_checked(inp, v2, mode, False)
+    ref = fill_v2.band_fill_reference(**inp, tables=v2, mode=mode,
+                                      local=False)
+    B = inp["doff"].shape[0]
+    g, r = got[:B].double().cpu(), ref[:B].double().cpu()
+    gap = (g - r).abs()
+    share = gap / (1e-3 + 1e-5 * r.abs())
+    print(f"K1 global tier {fill_v2.fill_route(W)[1]} W={W} {mode}: scores "
+          f"{r.tolist()}, gap to the plain version {gap.tolist()} nats, "
+          f"{float(share.max()):.3f} of K1's tolerance")
 
 
 @pytest.mark.cuda

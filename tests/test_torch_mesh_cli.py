@@ -83,7 +83,8 @@ def run_ranks(argvs, timeout=RANK_TIMEOUT):
 
 # A rank of the pair: joins the group, then runs each job's argv through
 # the CLI's main(), its stdout, stderr and exit code into <out>/<job>.<rank>.
-# A job's "force_block" sends every K1 call through the block route.
+# A job's "force_global" sends every K1 call through the smem route's global
+# tier (the route of bands past shared memory) at its tiling for the band.
 RANK_WORKER = r"""
 import contextlib, datetime, io, json, sys
 coord, rank, jobs_file, out_dir = sys.argv[1:5]
@@ -95,9 +96,10 @@ init_distributed(coord, 2, rank, timeout=datetime.timedelta(seconds=120))
 plain_band_fill = fill_v2.band_fill
 for name, argv, opts in json.load(open(jobs_file)):
     routes = []
-    if opts.get("force_block"):
+    if opts.get("force_global"):
         def band_fill(*a, **k):
-            k["route"] = ("block", 0)
+            k["route"] = ("global", fill_v2.global_tiling(
+                k["doff"].shape[1], fill_v2.FILL_GLOBAL_WARPS))
             routes.append(k["route"])
             return plain_band_fill(*a, **k)
         fill_v2.band_fill = band_fill
@@ -185,7 +187,7 @@ def rank_jobs(tmp):
     ckpt = str(tmp / "ckpt")
     return [
         ("align", _synth12_align() + ["-mesh"], {}),
-        ("align_wide", _synth12_align() + ["-mesh"], {"force_block": True}),
+        ("align_wide", _synth12_align() + ["-mesh"], {"force_global": True}),
         *((job, _golden_align(argv) + ["-mesh"], {})
           for job, argv, _ in ALIGN_GOLDENS),
         ("overlap", ["overlap", str(DATA / "synth12.fastq"), "-kmatchn",
@@ -269,14 +271,16 @@ def test_mesh_align_synth12_golden(ranks):
 
 def test_mesh_align_wide_band_on_k1_block_route(ranks):
     """The counterpart of test_mesh_align_wide_band_sp_fill: every chunk of
-    an align -mesh run on K1's block route, the route of bands too wide
-    for the others (its plain version on the CPU), and the text still the
-    golden.  The port shares no band over ranks (parallel/spfill.py is not
-    ported): a chunk of any width stays on one rank."""
+    an align -mesh run forced onto K1's smem route's global tier, the route
+    of bands too wide for shared memory (its plain version on the CPU), and
+    the text still the golden.  The port shares no band over ranks
+    (parallel/spfill.py is not ported): a chunk of any width stays on one
+    rank."""
     assert (_ok(ranks, "align_wide")
             == (DATA / "synth12-align.oracle.stk").read_text())
     routes = [r for rank in ranks["align_wide"] for r in rank["routes"]]
-    assert routes and all(r == ["block", 0] for r in routes)
+    assert routes and all(r[0] == "global" and len(r[1]) == 3
+                          for r in routes)
 
 
 @pytest.mark.parametrize("job,golden",

@@ -267,8 +267,9 @@ def test_chip_smoke_holds_traces_to_the_wrappers_counts():
 
     launches = {
         "band_fill": {"launches": 13, "warp_launches": 12,
-                      "cluster_launches": 1, "block_launches": 0},
-        "fwd_store": {"launches": 0, "warp_launches": 0, "block_launches": 0},
+                      "cluster_launches": 1, "global_launches": 0},
+        "fwd_store": {"launches": 0, "warp_launches": 0,
+                      "global_launches": 0},
         "estep_reduce": {"launches": 2},
     }
     assert chip_smoke._counted(launches) == {

@@ -223,8 +223,9 @@ def test_kernel_sass_parsers():
      "const*, int, int4 const*, int)", ("fwd_store", "global")),
     ("void (anonymous namespace)::bwd_counts_smem_kernel<true>(signed "
      "char const*, int)", ("bwd_counts", "global")),
-    ("void band_fill_kernel<true, false>", ("band_fill", "block")),
-    ("void band_fill_kernel<false, false, false>", ("band_fill", "block")),
+    ("void (anonymous namespace)::band_fill_smem_kernel<true, false>(signed "
+     "char const*, int)", ("band_fill", "global")),
+    ("void band_fill_smem_kernel<true, true>", ("band_fill", "global")),
     ("void band_fill_warp_kernel<false, 8>", ("band_fill", "warp")),
     ("void (anonymous namespace)::band_fill_cluster_kernel<true, 16>(signed "
      "char const*, int)", ("band_fill", "cluster")),
@@ -257,18 +258,18 @@ def test_kernel_sass_parsers():
      "const*, int)", ("ov_fill", "cluster")),
     ("void sol_chain_kernel<2>", ("sol_chain", None)),
     ("void at::native::vectorized_elementwise_kernel<4>", None),
-    ("void (anonymous namespace)::band_fill_smem_kernel<true>(signed char "
-     "const*, int)", ("band_fill", "smem")),
-    ("void band_fill_smem_kernel<false>", ("band_fill", "smem")),
+    ("void (anonymous namespace)::band_fill_smem_kernel<false, true>(signed "
+     "char const*, int)", ("band_fill", "smem")),
+    ("void band_fill_smem_kernel<false, false>", ("band_fill", "smem")),
 ])
 def test_kernel_of_names_each_kernel(name, owner):
     """kernel_of attributes a kernel's demangled name (as torch.profiler
     or c++filt prints it) to the wrapper that launches it and its route:
     K2's cluster route is K1's cluster fill with STORE set, its warp route
     and K3's have kernels of their own, as have K3's and K4's cluster
-    routes and K1's, K2's and K3's smem routes (K2's and K3's <true>
-    instantiations their global tier); K1's block route is
-    band_fill_kernel; a PyTorch kernel is none of the port's."""
+    routes and K1's, K2's and K3's smem routes (their instantiations with
+    GLOBAL true, the first argument, their global tier); a PyTorch kernel
+    is none of the port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner
@@ -363,8 +364,10 @@ def test_estep_sweep_tilings_take_the_table_row(W):
     the route estep_route picks that the kernel takes (K3's cluster route
     in two levels, K2's smem route; past 65536 lanes both smem tiers at 4,
     8 and 16 warps a CTA), one a count of warps a CTA at each lanes a
-    thread, the table's own route among them; its batch is phase 2b's wide
-    recipe (8 pairs whose bands span all W lanes)."""
+    thread, the table's own route among them, and beside K3's two-level
+    fold both smem tiers (its float64 cells against the fold's float32
+    ones); its batch is phase 2b's wide recipe (8 pairs whose bands span
+    all W lanes)."""
     from quaff_tpu_torch.dp import estep
     from quaff_tpu_torch.prof import estep_sweep
 
@@ -376,8 +379,10 @@ def test_estep_sweep_tilings_take_the_table_row(W):
         assert (kind, tiling) in ts
         assert len(set(ts)) == len(ts)
         if W <= 65536:
-            assert {r[0] for r in ts} == {kind}
-            assert len({r[1][1:] for r in ts}) == len(ts)
+            own = [r for r in ts if r[0] == kind]
+            assert len({r[1][1:] for r in own}) == len(own)
+            assert {r[0] for r in ts} - {kind} == (
+                {"smem", "global"} if kind == "cluster" else set())
         else:
             assert {r[0] for r in ts} <= {"smem", "global"}
             assert {r[1][1] for r in ts} == {4, 8, 16}
