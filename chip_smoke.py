@@ -51,11 +51,13 @@ failure exits non-zero before the final line is printed.
      pairs that the warp route takes, on the warp route and on the cluster
      route forced on the same inputs
   2d the speed-of-light probes (quaff_tpu_torch/prof/, the chain kernel
-     csrc/sol_probe.cu): each of its five ops against its plain version at
-     [2048, 256] over 128 steps (add_max and roll_add bitwise, the lse
-     chains within rtol 1e-6 / atol 1e-5); then roofline_probe (add+max
-     and roll+add chains at [256, 256] and [2048, 256], K1's fill rate at
-     B = 512-4096, K1's cost per row) and sol_transcendental (the lse
+     csrc/sol_probe.cu, each row at K1's layout for its width): each of
+     its five ops against its plain version at [2048, 256] and at the
+     route shapes (K1's warp, cluster, smem and global layouts) over 128
+     steps (add_max and roll_add bitwise, the lse chains within rtol 1e-6
+     / atol 1e-5); then roofline_probe (add+max and roll+add chains at
+     [256, 256] and [2048, 256], K1's fill rate at B = 512-4096, K1's cost
+     per row, the route shapes' floors) and sol_transcendental (the lse
      chains in add_max steps, the element check) as a user runs them
   3  the port's `align` CLI on cuda, byte for byte against four goldens,
      with K1 launched in each run
@@ -2373,7 +2375,8 @@ def phase2c_overlap_kernel(card):
 
 # ---------------------------------------------------------------- phase 2d
 
-# the probes' shape: K1's production batch, one thread a lane
+# the probes' shape: K1's production batch (the warp layout, 8 lanes a
+# thread)
 PROBE_B, PROBE_W = 2048, 256
 # the log-add-exp chains against their plain versions: expf and log1pf of
 # the card and PyTorch's kernels may differ by an ulp a step, over 128
@@ -2389,77 +2392,115 @@ SOL_ENTRIES = (
 
 def phase2d_sol_probes(card):
     """The probes' chain kernel against its plain version, each op at
-    [2048, 256] over GRID 2 x 64 steps; then both probes as a user runs them
-    (python -m quaff_tpu_torch.prof.roofline_probe, then
-    ...sol_transcendental), with the chain's launches counted; then the
-    plain chains at the probes' [2048, 256], GRID 512 x 64 steps, for the
-    kernels line."""
+    [2048, 256] and at the route shapes (roofline_probe.ROUTE_SHAPES: K1's
+    warp, cluster, smem and global layouts) over GRID 2 x 64 steps; then
+    both probes as a user runs them (python -m
+    quaff_tpu_torch.prof.roofline_probe, then ...sol_transcendental), with
+    the chain's launches counted by op and layout, which log each route
+    shape's floor; then the plain chains on each timed shape, for the
+    kernels line: an entry per probe and layout, at the layout's first
+    shape (the warp layout at [2048, 256], GRID 512 x 64 steps; the others
+    at their route shape, its GRID x 64 steps: cluster W=4038, smem phase
+    4b's chunk W=22882, global W=264401)."""
     import torch
 
     from quaff_tpu_torch.prof import chains, roofline_probe, sol_transcendental
 
     t0 = time.perf_counter()
     exact = ("add_max", "roll_add")
-    p1_in = roofline_probe.p1_inputs(PROBE_B, PROBE_W, "cuda")
-    p2_in = sol_transcendental.p2_inputs(PROBE_B, PROBE_W, "cuda")
-    err = {}
-    for op in chains.OPS:
-        a, b = p1_in if op in exact else p2_in
-        got = chains.chain(op, a, b, 2, 64)
-        ref = chains.chain_reference(op, a, b, 2, 64)
-        err[op] = float((got - ref).abs().max())
-        if op in exact:
-            check(torch.equal(got, ref),
-                  f"phase 2d: {op} chain is not bitwise equal to its plain "
-                  f"version (max abs err {err[op]:.3g})")
-        else:
-            check(bool(torch.allclose(got, ref, rtol=LSE_RTOL, atol=LSE_ATOL)),
-                  f"phase 2d: {op} chain outside rtol {LSE_RTOL} / atol "
-                  f"{LSE_ATOL} of its plain version: max abs err "
-                  f"{err[op]:.3g}")
-    log(f"phase 2d: chain kernel vs plain at [{PROBE_B},{PROBE_W}], GRID 2 x "
-        f"64 steps: add_max and roll_add bitwise equal; lse max abs err "
-        + ", ".join(f"{op} {err[op]:.3g}" for op in chains.OPS[2:])
-        + f" (rtol {LSE_RTOL} / atol {LSE_ATOL}) [{card}]")
+    shapes = ((PROBE_B, PROBE_W),) + tuple(
+        (B, W) for B, W, _ in roofline_probe.ROUTE_SHAPES)
+
+    def inputs(op, B, W):
+        make = (roofline_probe.p1_inputs if op in exact
+                else sol_transcendental.p2_inputs)
+        return make(B, W, "cuda")
+
+    err = {}  # (op, layout) -> the largest error over its shapes
+    for B, W in shapes:
+        kind = chains.chain_route(W)[0]
+        for op in chains.OPS:
+            a, b = inputs(op, B, W)
+            got = chains.chain(op, a, b, 2, 64)
+            ref = chains.chain_reference(op, a, b, 2, 64)
+            e = float((got - ref).abs().max())
+            err[(op, kind)] = max(err.get((op, kind), 0.0), e)
+            if op in exact:
+                check(torch.equal(got, ref),
+                      f"phase 2d: {op} chain at [{B},{W}] ({kind}) is not "
+                      f"bitwise equal to its plain version (max abs err "
+                      f"{e:.3g})")
+            else:
+                check(bool(torch.allclose(got, ref, rtol=LSE_RTOL,
+                                          atol=LSE_ATOL)),
+                      f"phase 2d: {op} chain at [{B},{W}] ({kind}) outside "
+                      f"rtol {LSE_RTOL} / atol {LSE_ATOL} of its plain "
+                      f"version: max abs err {e:.3g}")
+        log(f"phase 2d: chain kernel vs plain at [{B},{W}] "
+            f"({roofline_probe.route_name(chains.chain_route(W))}), GRID 2 "
+            f"x 64 steps: add_max and roll_add bitwise equal; lse max abs "
+            f"err " + ", ".join(f"{op} {err[(op, kind)]:.3g}"
+                                for op in chains.OPS[2:])
+            + f" (rtol {LSE_RTOL} / atol {LSE_ATOL}) [{card}]")
 
     def out(line):
         log(f"phase 2d: {line}")
 
     chains.chain.launches.clear()
+    chains.chain.layout_launches.clear()
     p1 = roofline_probe.run(card, out)
-    add_max = {(r["B"], r["W"]): r["step_s"] for r in p1["chains"]
-               if r["op"] == "add_max"}
+    add_max = {(r["B"], r["W"]): r["step_s"]
+               for r in p1["chains"] + p1["floors"] if r["op"] == "add_max"}
     p2 = sol_transcendental.run(card, out, add_max_step=add_max)
     launches = dict(chains.chain.launches)
+    layouts = dict(chains.chain.layout_launches)
     check(all(launches.get(op, 0) > 0 for op in chains.OPS),
           f"phase 2d: the probes did not launch every op: {launches}")
-    log(f"phase 2d: chain launches in the probes' run: {launches}")
+    log(f"phase 2d: chain launches in the probes' run: {launches}; by "
+        f"layout {sorted(layouts.items())}")
+    floors = {(r["op"], r["B"], r["W"]): r for r in p1["floors"]}
+    log("phase 2d: route floors (roll_add / add_max ns a step): " + "; ".join(
+        f"[{B},{W}] {roofline_probe.route_name(chains.chain_route(W))} "
+        f"{floors[('roll_add', B, W)]['step_s'] * 1e9:.3f} / "
+        f"{floors[('add_max', B, W)]['step_s'] * 1e9:.3f}"
+        for B, W, _ in roofline_probe.ROUTE_SHAPES) + f" [{card}]")
 
-    # the kernels line: the kernel's time at [2048, 256], GRID 512 x 64
-    # steps from the probes' run, the plain version once on the same inputs
-    timed = {r["op"]: r for r in p1["chains"] + p2["costs"]
-             if (r["B"], r["W"]) == (PROBE_B, PROBE_W)}
+    # the kernels line: each probe's time at each layout's shape from the
+    # probes' run (its iters-64 run), the plain version once on the same
+    # inputs and steps
+    timed = {(r["op"], r["B"], r["W"]): r
+             for r in p1["chains"] + p1["floors"] + p2["costs"]}
+    at = {}  # each layout's first shape
+    for B, W in shapes:
+        at.setdefault(chains.chain_route(W)[0], (B, W))
+    check(set(at) == {"warp", "cluster", "smem", "global"},
+          f"phase 2d: the shapes miss a layout: {at}")
     entries = []
-    for name, ops, replaces in SOL_ENTRIES:
-        op = ops[0]
-        r = timed[op]
-        a, b = p1_in if op in exact else p2_in
-        steps = r["grid"] * r["iters"][0]
-        _, t_plain = _timed(lambda v: chains.chain_reference(
-            op, v, b, r["grid"], r["iters"][0]), a)
-        elems = PROBE_B * PROBE_W
-        bound_ms, bound_by = _bound(3 * 4 * elems,
-                                    chains.OPS_PER_ELEM[op] * elems * steps)
-        e = dict(name=name, route="cuda",
-                 source="quaff_tpu_torch/csrc/sol_probe.cu",
-                 replaces=replaces, launches=sum(launches[o] for o in ops),
-                 max_abs_err=max(err[o] for o in ops), ms=r["t_lo"] * 1e3,
-                 plain_ms=t_plain * 1e3, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=None)
-        entries.append(e)
-        log(f"phase 2d: {name} ({op}) at [{PROBE_B},{PROBE_W}], {steps} "
-            f"steps: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms "
-            f"(once), bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    for kind, (B, W) in at.items():
+        for name, ops, replaces in SOL_ENTRIES:
+            op = ops[0]
+            r = timed[(op, B, W)]
+            a, b = inputs(op, B, W)
+            steps = r["grid"] * r["iters"][0]
+            _, t_plain = _timed(lambda v: chains.chain_reference(
+                op, v, b, r["grid"], r["iters"][0]), a)
+            n = sum(layouts.get((o, kind), 0) for o in ops)
+            check(n > 0, f"phase 2d: {name} ran no time on the {kind} layout")
+            elems = B * W
+            bound_ms, bound_by = _bound(
+                3 * 4 * elems, chains.OPS_PER_ELEM[op] * elems * steps)
+            e = dict(name=name if kind == "warp" else f"{name}_{kind}",
+                     route="cuda", source="quaff_tpu_torch/csrc/sol_probe.cu",
+                     replaces=replaces, launches=n,
+                     max_abs_err=max(err[(o, kind)] for o in ops),
+                     ms=r["t_lo"] * 1e3, plain_ms=t_plain * 1e3,
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            entries.append(e)
+            log(f"phase 2d: {e['name']} ({op}) at [{B},{W}] "
+                f"{roofline_probe.route_name(r['route'])}, {steps} steps: "
+                f"kernel {e['ms']:.3f} ms ({r['step_s'] * 1e9:.3f} ns a "
+                f"step), plain {e['plain_ms']:.3f} ms (once), bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {n} launches [{card}]")
     log(f"phase 2d: {time.perf_counter() - t0:.1f} s")
     return entries
 

@@ -149,9 +149,19 @@ def library() -> ctypes.CDLL:
             i, i, i,  # lpt, nct, warps
             p, p,  # out, stream
         ]
-        lib.quaff_sol_chain.argtypes = [
+        sol_args = [
             i, p, p, p, p,  # op, x0, a, b, out
-            i, i, i, i, p,  # B, W, grid, iters, stream
+            i, i, i, i,  # B, W, grid, iters
+        ]
+        lib.quaff_sol_chain_warp.argtypes = sol_args + [i, p]  # lpt, stream
+        lib.quaff_sol_chain_cluster.argtypes = sol_args + [
+            i, i, i,  # lpt, nct, warps
+            p,  # stream
+        ]
+        lib.quaff_sol_chain_smem.argtypes = sol_args + [
+            i, i, i,  # lpt, nct, warps
+            p, ll,  # slab (null: the shared tier), its bytes
+            p,  # stream
         ]
         for fn in ("quaff_band_fill_warp",
                    "quaff_band_fill_cluster", "quaff_band_fill_smem",
@@ -160,7 +170,8 @@ def library() -> ctypes.CDLL:
                    "quaff_fwd_store_smem", "quaff_bwd_counts_smem",
                    "quaff_estep_reduce", "quaff_ov_fill_warp",
                    "quaff_ov_fill_cluster",
-                   "quaff_sol_chain"):
+                   "quaff_sol_chain_warp", "quaff_sol_chain_cluster",
+                   "quaff_sol_chain_smem"):
             getattr(lib, fn).restype = i
         lib.quaff_cuda_error_string.argtypes = [i]
         lib.quaff_cuda_error_string.restype = ctypes.c_char_p

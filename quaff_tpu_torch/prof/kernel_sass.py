@@ -46,7 +46,9 @@ PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # K1 and K2 share band_fill_cluster_kernel: its STORE instantiations
 # (<false, true, ...>, each mode) are K2's cluster route; the smem
 # kernels' instantiations with GLOBAL (their first argument) true are the
-# smem routes' global tier.
+# smem routes' global tier.  The probes' chain kernel has one kernel a
+# layout of K1's (prof/chains.chain_route), sol_smem_kernel<true, OP> its
+# global tier.
 KERNEL_NAMES = (
     ("band_fill_cluster_kernel<false, true,", ("fwd_store", "cluster")),
     ("band_fill_warp_kernel<", ("band_fill", "warp")),
@@ -63,7 +65,10 @@ KERNEL_NAMES = (
     ("estep_reduce_kernel", ("estep_reduce", None)),
     ("ov_fill_warp_kernel<", ("ov_fill", "warp")),
     ("ov_fill_cluster_kernel<", ("ov_fill", "cluster")),
-    ("sol_chain_kernel<", ("sol_chain", None)),
+    ("sol_warp_kernel<", ("sol_chain", "warp")),
+    ("sol_cluster_kernel<", ("sol_chain", "cluster")),
+    ("sol_smem_kernel<true,", ("sol_chain", "global")),
+    ("sol_smem_kernel<", ("sol_chain", "smem")),
 )
 
 

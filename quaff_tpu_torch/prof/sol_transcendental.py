@@ -5,10 +5,12 @@ tools/prof/sol_transcendental.py (P2).
 
 - The three lse chains of csrc/sol_probe.cu (lse_guarded, the log-add-exp
   K1-K4 run; raw_lse; raw_lse_log) at iters 64 and 256, GRID 512, at
-  [256, 256] and [2048, 256], with P2's inputs (a * 0.1 and -|b| from
-  default_rng(7)): ns per [B, W] step and the cost as a multiple of one
-  add_max step measured by P1 at the same shape (the TPU tool divided by
-  a constant taken on the TPU).
+  [256, 256] and [2048, 256] (the warp layout, 8 lanes a thread), and
+  lse_guarded at P1's route shapes (roofline_probe.ROUTE_SHAPES, each on
+  K1's layout at its width, at its GRID), with P2's inputs (a * 0.1 and -|b|
+  from default_rng(7)): ns per [B, W] step and the cost as a multiple of
+  one add_max step measured by P1 at the same shape and GRID (the TPU
+  tool divided by a constant taken on the TPU).
 - P2's element check: on 8192 seeded values with float32-minimum sentinels
   at every 7th and 11th element, the kernel's guarded lse against
   torch.logaddexp and against the kernel's raw forms: bitwise equal or
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from .chains import OPS_PER_ELEM, card_label, chain
-from .roofline_probe import SHAPES, chain_rates, p1_inputs
+from .roofline_probe import (GRID, ROUTE_SHAPES, SHAPES, chain_rates,
+                             p1_inputs, route_name)
 
 LSE_OPS = ("lse_guarded", "raw_lse", "raw_lse_log")
 NEG = float(np.finfo(np.float32).min)
@@ -40,18 +43,21 @@ def p2_inputs(B: int, W: int, device, seed: int = 7):
 
 
 def lse_costs(add_max_step=None) -> list:
-    """Each lse chain's marginal step at each shape, and its cost in add_max
-    steps; add_max_step maps (B, W) to P1's measured step (measured here
-    where it is missing)."""
+    """Each lse chain's marginal step at P1's shapes and lse_guarded's at
+    its route shapes, and its cost in add_max steps; add_max_step maps (B,
+    W) to P1's measured step at that shape's GRID (measured here where it
+    is missing)."""
     add_max_step = dict(add_max_step or {})
     out = []
-    for B, W in SHAPES:
+    cases = ([(B, W, GRID, LSE_OPS) for B, W in SHAPES]
+             + [(B, W, grid, ("lse_guarded",)) for B, W, grid in ROUTE_SHAPES])
+    for B, W, grid, ops in cases:
         if (B, W) not in add_max_step:
             add_max_step[(B, W)] = chain_rates(
-                "add_max", *p1_inputs(B, W, "cuda"))["step_s"]
+                "add_max", *p1_inputs(B, W, "cuda"), grid)["step_s"]
         a, b = p2_inputs(B, W, "cuda")
-        for op in LSE_OPS:
-            r = chain_rates(op, a, b)
+        for op in ops:
+            r = chain_rates(op, a, b, grid)
             r["add_max_steps"] = r["step_s"] / add_max_step[(B, W)]
             out.append(r)
     return out
@@ -92,7 +98,8 @@ def run(card: str, out=print, add_max_step=None) -> dict:
     printed with the card's label."""
     costs = lse_costs(add_max_step=add_max_step)
     for r in costs:
-        out(f"[{r['op']}] [{r['B']},{r['W']}] {r['step_s'] * 1e9:.3f} ns per "
+        out(f"[{r['op']}] [{r['B']},{r['W']}] {route_name(r['route'])}: "
+            f"{r['step_s'] * 1e9:.3f} ns per "
             f"step = {r['add_max_steps']:.2f} add_max steps "
             f"({r['ops_per_s'] / 1e12:.3f} Tops/s at {OPS_PER_ELEM[r['op']]} "
             f"ops; GRID {r['grid']}: {r['iters'][0]}it "

@@ -2246,30 +2246,63 @@ def test_fill_global_tier_long_deletions(W, mode):
           f"{float(share.max()):.3f} of K1's tolerance")
 
 
+# the probes' chain at every layout: P1's [64, 256], the widths at each of
+# K1's route edges (warp 1-512, cluster 513-16384, smem's shared tier
+# 16385-221184, its global tier past it) and the five route shapes of
+# roofline_probe.ROUTE_SHAPES, each at its own batch
+SOL_SHAPES = [(64, 256), (3, 1), (3, 32), (3, 33), (3, 512), (3, 513),
+              (3, 16384), (3, 16385), (3, 221184), (3, 221185), (2, 135),
+              (71, 4038), (8, 22882), (2, 132396), (2, 264401)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("B, W", SOL_SHAPES)
 @pytest.mark.parametrize("op", ["add_max", "roll_add", "lse_guarded",
                                 "raw_lse", "raw_lse_log"])
-def test_sol_chain_matches_plain(op):
-    """The probes' chain kernel (csrc/sol_probe.cu) against chain_reference
-    at 128 steps: add_max and roll_add bitwise (exact operations in the same
-    order), the log-add-exp chains within rtol 1e-6 / atol 1e-5 (expf and
-    log1pf of the card and PyTorch's kernels may differ by an ulp a step;
-    the chain grows only like log(steps))."""
+def test_sol_chain_matches_plain(op, B, W):
+    """The probes' chain kernel (csrc/sol_probe.cu) at K1's layout for W
+    lanes against chain_reference at GRID 2 x 64 steps: add_max and
+    roll_add bitwise (exact operations in the same order; roll_add's lane 0
+    takes lane W-1 across the row's last tile), the log-add-exp chains
+    within rtol 1e-6 / atol 1e-5 (expf and log1pf of the card and
+    PyTorch's kernels may differ by an ulp a step; the chain grows only
+    like log(steps))."""
     _need_card()
     from quaff_tpu_torch.prof import chains, roofline_probe, sol_transcendental
 
     make = (roofline_probe.p1_inputs if op in ("add_max", "roll_add")
             else sol_transcendental.p2_inputs)
-    a, b = make(64, 256, "cuda")
+    a, b = make(B, W, "cuda")
+    kind = chains.chain_route(W)[0]
     before = chains.chain.launches[op]
+    before_layout = chains.chain.layout_launches[(op, kind)]
     got = chains.chain(op, a, b, 2, 64)
     torch.cuda.synchronize()
     assert chains.chain.launches[op] == before + 1
+    assert chains.chain.layout_launches[(op, kind)] == before_layout + 1
     ref = chains.chain_reference(op, a, b, 2, 64)
     if op in ("add_max", "roll_add"):
         assert torch.equal(got, ref)
     else:
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo, hi", [(1, 512), (513, 1100), (2040, 2060),
+                                    (16370, 16400)])
+def test_sol_roll_add_every_width(lo, hi):
+    """roll_add bitwise equal to the plain version at every width of a
+    range: each warp-layout width (its lane W-1 at every index of a
+    thread's run, one instantiation each) and cluster and smem widths
+    across a tiling's change, 16 steps from a, B=2."""
+    _need_card()
+    from quaff_tpu_torch.prof import chains, roofline_probe
+
+    for W in range(lo, hi + 1):
+        a, b = roofline_probe.p1_inputs(2, W, "cuda")
+        got = chains.chain("roll_add", a, b, 1, 16)
+        ref = chains.chain_reference("roll_add", a, b, 1, 16)
+        assert torch.equal(got, ref), (W, chains.chain_route(W))
 
 
 @pytest.mark.cuda

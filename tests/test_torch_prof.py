@@ -3,7 +3,9 @@
 The plain chains are held against the TPU probes' own kernel bodies, taken
 from tools/prof/roofline_probe.py (chain_kernel, nested in main) and
 tools/prof/sol_transcendental.py (raw_lse, raw_lse_log, chain_kernel) by
-their syntax tree and run with interpret=True at B=8, W=128, GRID=3.
+their syntax tree and run with interpret=True at B=8, W=128, GRID=3, and at
+W=600, a width past a warp that no lane tiling divides, so that the cyclic
+roll over a ragged band is pinned.
 Tolerances: add_max and roll_add bitwise (add, max and a lane move are
 exact and run in the same order); the log-add-exp chains atol 1e-6, a
 margin for libm differences between XLA's CPU kernels and PyTorch's.
@@ -43,14 +45,14 @@ def _functions(path, names, inside=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _tpu_probes():
-    """The TPU probes' chain_kernel factories, executed with a pallas shim
-    that runs pallas_call in interpret mode."""
+def _tpu_probes(width=W):
+    """The TPU probes' chain_kernel factories for [B, width] blocks,
+    executed with a pallas shim that runs pallas_call in interpret mode."""
     shim = types.SimpleNamespace(
         pallas_call=functools.partial(pl.pallas_call, interpret=True),
         BlockSpec=pl.BlockSpec, when=pl.when, program_id=pl.program_id)
     env = {"jax": jax, "jnp": jnp, "pl": shim, "pltpu": pltpu, "B": B,
-           "W": W, "GRID": GRID}
+           "W": width, "GRID": GRID}
     p1 = dict(env)
     exec(_functions(REPO / "tools/prof/roofline_probe.py", ["chain_kernel"],
                     inside="main"), p1)
@@ -61,7 +63,7 @@ def _tpu_probes():
 
 
 def _tpu_chain(op, a, b):
-    p1, p2 = _tpu_probes()
+    p1, p2 = _tpu_probes(a.shape[1])
     if op in ("add_max", "roll_add"):
         run = p1["chain_kernel"](ITERS, op == "roll_add")
     else:
@@ -71,12 +73,12 @@ def _tpu_chain(op, a, b):
     return np.asarray(run((jnp.asarray(a), jnp.asarray(b))))
 
 
-@pytest.mark.parametrize("op", chains.OPS)
-def test_plain_chain_matches_tpu_probe(op):
+def _check_plain_chain(op, width):
     if op in ("add_max", "roll_add"):
-        a, b = (t.numpy() for t in roofline_probe.p1_inputs(B, W, "cpu"))
+        a, b = (t.numpy() for t in roofline_probe.p1_inputs(B, width, "cpu"))
     else:
-        a, b = (t.numpy() for t in sol_transcendental.p2_inputs(B, W, "cpu"))
+        a, b = (t.numpy()
+                for t in sol_transcendental.p2_inputs(B, width, "cpu"))
     want = _tpu_chain(op, a, b)
     got = chains.chain_reference(op, torch.from_numpy(a), torch.from_numpy(b),
                                  GRID, ITERS).numpy()
@@ -84,6 +86,62 @@ def test_plain_chain_matches_tpu_probe(op):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("op", chains.OPS)
+def test_plain_chain_matches_tpu_probe(op):
+    _check_plain_chain(op, W)
+
+
+@pytest.mark.parametrize("op", chains.OPS)
+def test_plain_chain_matches_tpu_probe_ragged_band(op):
+    """W=600: the cluster layout's 1 x 5 x 4 leaves 40 lanes of its last
+    tile past the band, and roll_add's lane 0 takes lane 599."""
+    assert chains.chain_route(600) == ("cluster", (1, 5, 4))
+    _check_plain_chain(op, 600)
+
+
+@pytest.mark.parametrize("W_, kind", [
+    (1, "warp"), (32, "warp"), (33, "warp"), (512, "warp"),
+    (513, "cluster"), (16384, "cluster"), (16385, "smem"), (221184, "smem"),
+    (221185, "global")])
+def test_chain_layout_is_k1s_route(W_, kind):
+    """The chain's layout at each route edge is K1's route and tiling for a
+    band of that width (fill_v2.fill_route), so a probe step there runs at
+    K1's tiling; the global tier's slab holds every CTA's run of every row,
+    12 bytes (x, a and b) a lane."""
+    route = chains.chain_route(W_)
+    assert route == fill_v2.fill_route(W_)
+    assert route[0] == kind
+    if kind == "warp":
+        assert W_ <= 32 * route[1] and (route[1] == 1 or W_ > 16 * route[1])
+    else:
+        nct, warps, lpt = route[1]
+        assert W_ <= nct * warps * 32 * lpt
+        assert chains.slab_bytes(3, route[1]) == 3 * nct * warps * 32 * lpt * 12
+
+
+def test_chain_refuses_what_the_kernel_does_not_take():
+    """The wrapper's checks run on every device, the CPU's too: a row of no
+    lane, a wrong dtype, mismatched shapes, a tensor that is not [B, W],
+    negative steps."""
+    a, b = roofline_probe.p1_inputs(2, 40, "cpu")
+    with pytest.raises(ValueError, match="W >= 1"):
+        chains.chain("roll_add", a[:, :0], b[:, :0], 1, 1)
+    with pytest.raises(ValueError, match="float32"):
+        chains.chain("add_max", a.double(), b, 1, 1)
+    with pytest.raises(ValueError, match="float32"):
+        chains.chain("add_max", a, b, 1, 1, x0=a.half())
+    with pytest.raises(ValueError, match="shape"):
+        chains.chain("add_max", a, b[:, :39].contiguous(), 1, 1)
+    with pytest.raises(ValueError, match="shape"):
+        chains.chain("raw_lse", a, b, 1, 1, x0=a[:1].contiguous())
+    with pytest.raises(ValueError, match=r"\[B, W\]"):
+        chains.chain("add_max", a[0], b[0], 1, 1)
+    with pytest.raises(ValueError, match=">= 0"):
+        chains.chain("add_max", a, b, -1, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        chains.chain("add_max", a.t().contiguous().t(), b, 1, 1)
 
 
 def test_chain_routes_cpu_tensors_to_plain_version():
@@ -256,7 +314,12 @@ def test_kernel_sass_parsers():
     ("void ov_fill_warp_kernel<true, 4>", ("ov_fill", "warp")),
     ("void (anonymous namespace)::ov_fill_cluster_kernel<false, 8>(float "
      "const*, int)", ("ov_fill", "cluster")),
-    ("void sol_chain_kernel<2>", ("sol_chain", None)),
+    ("void (anonymous namespace)::sol_warp_kernel<1, 8, 6>(float const*, "
+     "float const*)", ("sol_chain", "warp")),
+    ("void sol_cluster_kernel<0, 8>", ("sol_chain", "cluster")),
+    ("void (anonymous namespace)::sol_smem_kernel<false, 1>(float const*, "
+     "int)", ("sol_chain", "smem")),
+    ("void sol_smem_kernel<true, 2>", ("sol_chain", "global")),
     ("void at::native::vectorized_elementwise_kernel<4>", None),
     ("void (anonymous namespace)::band_fill_smem_kernel<false, true>(signed "
      "char const*, int)", ("band_fill", "smem")),
@@ -268,8 +331,9 @@ def test_kernel_of_names_each_kernel(name, owner):
     K2's cluster route is K1's cluster fill with STORE set, its warp route
     and K3's have kernels of their own, as have K3's and K4's cluster
     routes and K1's, K2's and K3's smem routes (their instantiations with
-    GLOBAL true, the first argument, their global tier); a PyTorch kernel
-    is none of the port's."""
+    GLOBAL true, the first argument, their global tier); the probes' chain
+    kernel has one a layout of K1's; a PyTorch kernel is none of the
+    port's."""
     from quaff_tpu_torch.prof import kernel_sass
 
     assert kernel_sass.kernel_of(name) == owner
